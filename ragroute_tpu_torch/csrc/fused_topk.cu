@@ -8,8 +8,13 @@
 //
 // ordered by (gain descending, doc index ascending): among equal gains the
 // lower doc index wins, as in a FAISS flat index. The [B, N] gain matrix
-// never reaches device memory. q is f32 for f32 docs and bf16 for bf16 and
-// int8 docs; products accumulate in f32. scale and bias may be null.
+// never reaches device memory. q is f32 for f32 docs and bf16 for bf16,
+// int8 and int4 docs; products accumulate in f32. scale and bias may be
+// null. int4 docs are [N, D/2] bytes, two codes each: byte j holds dim j in
+// its low nibble and dim j + D/2 in its high nibble. Their scale is per doc
+// ([N], applied to the gain like int8's) or per (doc, group) ([N, G]): then
+// each D/G slice of the unpacked row is multiplied by its scale, both
+// rounded to bf16, before the product, and no scale touches the gain.
 //
 // Design (simple first, fast later):
 //   * partial_topk_kernel: grid (query tiles of 64) x (doc splits). A block
@@ -21,8 +26,16 @@
 //     one ballot against the row's k-th best finds the few candidates that
 //     can enter, and each is inserted after equal gains, so ties keep the
 //     lower doc index. Splits let B = 8 fill the 132 SMs as well as B = 512.
-//   * merge_splits_kernel: one block per query row merges the per-split
-//     sorted lists into [B, k] under the same (gain, index) order.
+//     k goes up to 160 with the query tile kept at 64 rows: the lists then
+//     take 64 * 160 * 8 B = 80 KB of dynamic shared memory beside the
+//     tiles, which the launch asks for with
+//     cudaFuncAttributeMaxDynamicSharedMemorySize. During an insert a lane
+//     holds 2 list entries (k <= 64, the serving depths) or 5 (deeper): a
+//     template argument, so the shallow code pays nothing for the deep one.
+//     Every split fills its own lists by serial inserts, which dominates at
+//     deep k: the wrapper then asks for fewer, longer splits.
+//   * merge_splits_kernel (topk_merge.cuh): one block per query row merges
+//     the per-split sorted lists into [B, k] under the same order.
 //
 // What bounds it on an H100 SXM (data-sheet peaks at its 700 W limit): at
 // B = 512, D = 768, bf16, one batch reads ~1.1 GB of docs for ~0.58 TFLOP,
@@ -39,25 +52,31 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "topk_merge.cuh"
+
 namespace {
 
 using namespace nvcuda;
+using topk::FULL;
+using topk::neg_inf;
 
 constexpr int TQ = 64;        // query rows per block
 constexpr int TD = 64;        // docs per tile
 constexpr int BK = 64;        // contraction chunk (elements)
 constexpr int THREADS = 128;  // four warps
 constexpr int WARPS = THREADS / 32;
-constexpr int KMAX = 64;
 constexpr int LDB = BK + 8;   // bf16 tile row stride: 16-byte aligned rows
 constexpr int LDF = BK + 1;   // f32 tile row stride: odd, conflict-free
 constexpr int LDG = TD + 4;   // gain tile row stride (floats)
-constexpr int MERGE_THREADS = 256;
-constexpr unsigned FULL = 0xffffffffu;
 
-enum DocType { kF32 = 0, kBF16 = 1, kI8 = 2 };
+// kI4: packed nibbles, scale (if any) per doc; kI4G: packed nibbles with
+// per-(doc, group) scales folded in before the product
+enum DocType { kF32 = 0, kBF16 = 1, kI8 = 2, kI4 = 3, kI4G = 4 };
 
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
 
 __host__ __device__ constexpr int tile_region_bytes(int doc_type) {
   // operand tiles (q chunk + doc chunk) share one region with the gain
@@ -72,8 +91,8 @@ __host__ __device__ constexpr int tile_region_bytes(int doc_type) {
 template <int DT>
 __device__ __forceinline__ void load_tiles_bf16(
     const __nv_bfloat16* __restrict__ q, const void* __restrict__ docs,
-    __nv_bfloat16* sq, __nv_bfloat16* sd, int B, int N, int D, int q0, int j0,
-    int k0, int tid) {
+    const float* __restrict__ gscale, int G, __nv_bfloat16* sq,
+    __nv_bfloat16* sd, int B, int N, int D, int q0, int j0, int k0, int tid) {
   constexpr int VPR = BK / 8;  // 8-element vectors per tile row
   for (int v = tid; v < TQ * VPR; v += THREADS) {
     const int r = v / VPR, c = (v % VPR) * 8;
@@ -91,19 +110,41 @@ __device__ __forceinline__ void load_tiles_bf16(
       if constexpr (DT == kBF16) {
         val = *reinterpret_cast<const uint4*>(
             static_cast<const __nv_bfloat16*>(docs) + (size_t)row * D + col);
-      } else {
+      } else if constexpr (DT == kI8) {
         // int8 codes in [-127, 127] are exact in bf16
         const uint2 raw = *reinterpret_cast<const uint2*>(
             static_cast<const int8_t*>(docs) + (size_t)row * D + col);
         const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
         uint32_t w[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn((float)b[2 * e]));
-          const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn((float)b[2 * e + 1]));
-          w[e] = lo | (hi << 16);
-        }
+        for (int e = 0; e < 4; ++e)
+          w[e] = pack_bf16((float)b[2 * e], (float)b[2 * e + 1]);
         val = make_uint4(w[0], w[1], w[2], w[3]);
+      } else {
+        // packed nibbles: D/2 is a multiple of 8, so the 8 dims of this
+        // vector sit in one half of the row: the low nibbles of bytes
+        // col.. (col < D/2) or the high nibbles of bytes col - D/2..
+        const int h = D >> 1;
+        const bool high = col >= h;
+        const uint2 raw = *reinterpret_cast<const uint2*>(
+            static_cast<const int8_t*>(docs) + (size_t)row * h +
+            (high ? col - h : col));
+        const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+        float sc = 1.0f;
+        if constexpr (DT == kI4G) {
+          // the group's scale, rounded to bf16 as the product's operand
+          sc = __bfloat162float(__float2bfloat16_rn(
+              gscale[(size_t)row * G + col / (D / G)]));
+        }
+        float c[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int x = b[e];
+          // arithmetic shifts sign-extend either nibble
+          c[e] = (float)(high ? (x >> 4) : ((int)((unsigned)x << 28) >> 28)) * sc;
+        }
+        val = make_uint4(pack_bf16(c[0], c[1]), pack_bf16(c[2], c[3]),
+                         pack_bf16(c[4], c[5]), pack_bf16(c[6], c[7]));
       }
     }
     *reinterpret_cast<uint4*>(sd + r * LDB + c) = val;
@@ -113,8 +154,8 @@ __device__ __forceinline__ void load_tiles_bf16(
 template <int DT>
 __device__ __forceinline__ void gain_tile_wmma(
     const void* __restrict__ q, const void* __restrict__ docs,
-    unsigned char* smem, float* sg, int B, int N, int D, int q0, int j0,
-    int tid, int warp) {
+    const float* __restrict__ gscale, int G, unsigned char* smem, float* sg,
+    int B, int N, int D, int q0, int j0, int tid, int warp) {
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sd = sq + TQ * LDB;
   const int wr = warp >> 1, wc = warp & 1;  // warp tile: 32 rows x 32 docs
@@ -124,8 +165,8 @@ __device__ __forceinline__ void gain_tile_wmma(
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
   for (int k0 = 0; k0 < D; k0 += BK) {
-    load_tiles_bf16<DT>(static_cast<const __nv_bfloat16*>(q), docs, sq, sd,
-                        B, N, D, q0, j0, k0, tid);
+    load_tiles_bf16<DT>(static_cast<const __nv_bfloat16*>(q), docs, gscale, G,
+                        sq, sd, B, N, D, q0, j0, k0, tid);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
@@ -206,30 +247,12 @@ __device__ __forceinline__ void gain_tile_f32(
 
 // ---- running top-k ----------------------------------------------------------
 
-// Insert (x, id) into a row's sorted list (rg, ri) of length K, after every
-// entry whose gain is >= x. Called by a whole warp; x beats rg[K-1].
-__device__ __forceinline__ void warp_insert(float* rg, int* ri, int K, float x,
-                                            int id, int lane) {
-  const bool has0 = lane < K, has1 = lane + 32 < K;
-  const float e0 = has0 ? rg[lane] : neg_inf();
-  const float e1 = has1 ? rg[lane + 32] : neg_inf();
-  const int i0 = has0 ? ri[lane] : 0;
-  const int i1 = has1 ? ri[lane + 32] : 0;
-  const int pos = __popc(__ballot_sync(FULL, has0 && e0 >= x)) +
-                  __popc(__ballot_sync(FULL, has1 && e1 >= x));
-  __syncwarp();
-  if (lane >= pos && lane + 1 < K) { rg[lane + 1] = e0; ri[lane + 1] = i0; }
-  if (lane + 32 >= pos && lane + 33 < K) { rg[lane + 33] = e1; ri[lane + 33] = i1; }
-  if (lane == 0) { rg[pos] = x; ri[pos] = id; }
-  __syncwarp();
-}
-
-template <int DT>
+template <int DT, int SLOTS>
 __global__ void __launch_bounds__(THREADS) partial_topk_kernel(
     const void* __restrict__ q, const void* __restrict__ docs,
     const float* __restrict__ bias, const float* __restrict__ scale,
     float* __restrict__ part_g, int* __restrict__ part_i, int B, int N, int D,
-    int K, int splits, int tiles_per_split) {
+    int K, int G, int splits, int tiles_per_split) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * TQ;
@@ -253,7 +276,7 @@ __global__ void __launch_bounds__(THREADS) partial_topk_kernel(
       gain_tile_f32(static_cast<const float*>(q), static_cast<const float*>(docs),
                     smem, sg, B, N, D, q0, j0, tid);
     else
-      gain_tile_wmma<DT>(q, docs, smem, sg, B, N, D, q0, j0, tid, warp);
+      gain_tile_wmma<DT>(q, docs, scale, G, smem, sg, B, N, D, q0, j0, tid, warp);
 
     for (int r = warp; r < TQ; r += WARPS) {
       if (q0 + r >= B) break;  // warp-uniform; later rows are out too
@@ -267,7 +290,7 @@ __global__ void __launch_bounds__(THREADS) partial_topk_kernel(
         if (j < N) {
           x = sg[r * LDG + c];
           // separate roundings, as the plain version computes them
-          if (scale) x = __fmul_rn(x, scale[j]);
+          if (DT != kI4G && scale) x = __fmul_rn(x, scale[j]);
           if (bias) x = __fadd_rn(x, bias[j]);
         }
         v[h] = x;
@@ -275,18 +298,8 @@ __global__ void __launch_bounds__(THREADS) partial_topk_kernel(
       float thr = rg[K - 1];
       // candidates in ascending doc order: lanes of half 0, then half 1
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        unsigned m = __ballot_sync(FULL, v[h] > thr);
-        while (m) {
-          const int src = __ffs(m) - 1;
-          m &= m - 1;
-          const float x = __shfl_sync(FULL, v[h], src);
-          if (x > thr) {
-            warp_insert(rg, ri, K, x, j0 + 32 * h + src, lane);
-            thr = rg[K - 1];
-          }
-        }
-      }
+      for (int h = 0; h < 2; ++h)
+        topk::warp_fold<SLOTS>(rg, ri, K, v[h], j0 + 32 * h, lane, thr);
     }
     __syncthreads();  // the next tile's loads overwrite the gain tile
   }
@@ -303,91 +316,57 @@ __global__ void __launch_bounds__(THREADS) partial_topk_kernel(
   }
 }
 
-// ---- merge of the per-split lists --------------------------------------------
+// ---- launch ------------------------------------------------------------------
 
-// (g, i, s) beats (bg, bi, bs): higher gain, then lower doc index, then lower
-// split; s < 0 marks "no candidate".
-__device__ __forceinline__ bool beats(float g, int i, int s, float bg, int bi, int bs) {
-  if (s < 0) return false;
-  if (bs < 0) return true;
-  if (g != bg) return g > bg;
-  if (i != bi) return i < bi;
-  return s < bs;
-}
-
-__global__ void __launch_bounds__(MERGE_THREADS) merge_splits_kernel(
-    const float* __restrict__ part_g, const int* __restrict__ part_i,
-    float* __restrict__ out_g, long long* __restrict__ out_i, int splits, int K) {
-  extern __shared__ int heads[];  // next unread entry of each split's list
-  __shared__ float red_g[MERGE_THREADS / 32];
-  __shared__ int red_i[MERGE_THREADS / 32];
-  __shared__ int red_s[MERGE_THREADS / 32];
-  const int row = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* pg = part_g + (size_t)row * splits * K;
-  const int* pi = part_i + (size_t)row * splits * K;
-  for (int s = tid; s < splits; s += MERGE_THREADS) heads[s] = 0;
-  __syncthreads();
-  for (int out = 0; out < K; ++out) {
-    float bg = 0.0f;
-    int bi = 0, bs = -1;
-    for (int s = tid; s < splits; s += MERGE_THREADS) {
-      const int h = heads[s];
-      if (h < K) {
-        const float g = pg[s * K + h];
-        const int i = pi[s * K + h];
-        if (beats(g, i, s, bg, bi, bs)) { bg = g; bi = i; bs = s; }
-      }
-    }
-#pragma unroll
-    for (int off = 16; off; off >>= 1) {
-      const float og = __shfl_down_sync(FULL, bg, off);
-      const int oi = __shfl_down_sync(FULL, bi, off);
-      const int os = __shfl_down_sync(FULL, bs, off);
-      if (beats(og, oi, os, bg, bi, bs)) { bg = og; bi = oi; bs = os; }
-    }
-    if (lane == 0) { red_g[warp] = bg; red_i[warp] = bi; red_s[warp] = bs; }
-    __syncthreads();
-    if (tid == 0) {
-      for (int w = 1; w < MERGE_THREADS / 32; ++w)
-        if (beats(red_g[w], red_i[w], red_s[w], bg, bi, bs)) {
-          bg = red_g[w]; bi = red_i[w]; bs = red_s[w];
-        }
-      out_g[(size_t)row * K + out] = bs >= 0 ? bg : neg_inf();
-      out_i[(size_t)row * K + out] = bs >= 0 ? bi : 0;
-      if (bs >= 0) heads[bs] += 1;
-    }
-    __syncthreads();
-  }
+template <int DT, int SLOTS>
+cudaError_t launch_slots(const void* q, const void* docs, const float* bias,
+                         const float* scale, float* part_g, int* part_i, int B,
+                         int N, int D, int K, int G, int splits,
+                         int tiles_per_split, cudaStream_t stream) {
+  const int smem = tile_region_bytes(DT) + TQ * K * 8;
+  cudaError_t err = cudaFuncSetAttribute(
+      partial_topk_kernel<DT, SLOTS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + TQ - 1) / TQ, splits);
+  partial_topk_kernel<DT, SLOTS><<<grid, THREADS, smem, stream>>>(
+      q, docs, bias, scale, part_g, part_i, B, N, D, K, G, splits,
+      tiles_per_split);
+  return cudaGetLastError();
 }
 
 template <int DT>
 cudaError_t launch_partial(const void* q, const void* docs, const float* bias,
                            const float* scale, float* part_g, int* part_i, int B,
-                           int N, int D, int K, int splits, int tiles_per_split,
-                           cudaStream_t stream) {
-  const int smem = tile_region_bytes(DT) + TQ * K * 8;
-  cudaError_t err = cudaFuncSetAttribute(
-      partial_topk_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((B + TQ - 1) / TQ, splits);
-  partial_topk_kernel<DT><<<grid, THREADS, smem, stream>>>(
-      q, docs, bias, scale, part_g, part_i, B, N, D, K, splits, tiles_per_split);
-  return cudaGetLastError();
+                           int N, int D, int K, int G, int splits,
+                           int tiles_per_split, cudaStream_t stream) {
+  if (K <= topk::KSHALLOW)
+    return launch_slots<DT, topk::SLOTS_SHALLOW>(
+        q, docs, bias, scale, part_g, part_i, B, N, D, K, G, splits,
+        tiles_per_split, stream);
+  return launch_slots<DT, topk::SLOTS_DEEP>(
+      q, docs, bias, scale, part_g, part_i, B, N, D, K, G, splits,
+      tiles_per_split, stream);
 }
 
 }  // namespace
 
 // Launch both kernels on `stream`. part_g / part_i are [B, splits, K] f32 /
-// i32 scratch, out_g / out_i are [B, K] f32 / i64. bias and scale are [N] f32
-// or null. Returns the CUDA error code of the launches (0 on success).
+// i32 scratch, out_g / out_i are [B, K] f32 / i64. bias is [N] f32 or null;
+// scale is [N] f32, or [N, G] f32 for doc_type kI4G, or null. docs is
+// [N, D] (f32 / bf16 / int8) or [N, D/2] bytes (kI4, kI4G). Returns the CUDA
+// error code of the launches (0 on success).
 extern "C" int fused_topk_launch(const void* q, const void* docs,
                                  const void* bias, const void* scale,
                                  void* part_g, void* part_i, void* out_g,
                                  void* out_i, int B, int N, int D, int K,
-                                 int splits, int tiles_per_split, int doc_type,
-                                 void* stream) {
-  if (B < 1 || N < 1 || D < 16 || D % 16 != 0 || K < 1 || K > KMAX ||
+                                 int G, int splits, int tiles_per_split,
+                                 int doc_type, void* stream) {
+  if (B < 1 || N < 1 || D < 16 || D % 16 != 0 || K < 1 || K > topk::KMAX ||
       splits < 1 || splits > 65535 || tiles_per_split < 1)
+    return (int)cudaErrorInvalidValue;
+  if (doc_type == kI4G && (scale == nullptr || G < 1 || D % G != 0 ||
+                           (D / G) % 8 != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
@@ -395,24 +374,22 @@ extern "C" int fused_topk_launch(const void* q, const void* docs,
   float* pg = static_cast<float*>(part_g);
   int* pi = static_cast<int*>(part_i);
   cudaError_t err;
+#define RAGROUTE_LAUNCH(DT)                                                  \
+  err = launch_partial<DT>(q, docs, b, s, pg, pi, B, N, D, K, G, splits,     \
+                           tiles_per_split, st)
   switch (doc_type) {
-    case kF32:
-      err = launch_partial<kF32>(q, docs, b, s, pg, pi, B, N, D, K, splits,
-                                 tiles_per_split, st);
-      break;
-    case kBF16:
-      err = launch_partial<kBF16>(q, docs, b, s, pg, pi, B, N, D, K, splits,
-                                  tiles_per_split, st);
-      break;
-    case kI8:
-      err = launch_partial<kI8>(q, docs, b, s, pg, pi, B, N, D, K, splits,
-                                tiles_per_split, st);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case kF32: RAGROUTE_LAUNCH(kF32); break;
+    case kBF16: RAGROUTE_LAUNCH(kBF16); break;
+    case kI8: RAGROUTE_LAUNCH(kI8); break;
+    case kI4: RAGROUTE_LAUNCH(kI4); break;
+    case kI4G: RAGROUTE_LAUNCH(kI4G); break;
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef RAGROUTE_LAUNCH
   if (err != cudaSuccess) return (int)err;
-  merge_splits_kernel<<<B, MERGE_THREADS, splits * (int)sizeof(int), st>>>(
-      pg, pi, static_cast<float*>(out_g), static_cast<long long*>(out_i), splits, K);
+  topk::merge_splits_kernel<long long>
+      <<<B, topk::MERGE_THREADS, splits * (int)sizeof(int), st>>>(
+          pg, pi, static_cast<float*>(out_g), static_cast<long long*>(out_i),
+          splits, K);
   return (int)cudaGetLastError();
 }

@@ -16,7 +16,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ragroute_tpu.config import BATCH_BUCKETS, BATCH_WINDOW_MS, MAX_QUEUE_SIZE
+from ragroute_tpu_torch.config import BATCH_BUCKETS, BATCH_WINDOW_MS, MAX_QUEUE_SIZE
 from ragroute_tpu_torch.engine.engine import (FederatedSearchEngine,
                                               SearchOutput)
 

@@ -6,8 +6,10 @@ the engine
 1. builds router features and runs the gating MLP (batched),
 2. turns the routing strategy into a boolean mask ``[B, N_sources]``,
 3. scores every shard with an exact top-k (the fused CUDA kernel for large
-   shards on the card), skipping a shard no query routes to and
-   compacting the batch to B/4 or B/2 when few do,
+   shards on the card) or, by ``impl``, the cluster-probed IVF search, the
+   per-shard hybrid of the two, or the low-rank two-stage search, skipping
+   a shard no query routes to and compacting the batch to B/4 or B/2 when
+   few do,
 4. gates the per-shard lists by the mask and merges them into the global
    top-k.
 
@@ -22,6 +24,7 @@ per batch, and the branches launch only the kernels they need. Only
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -29,8 +32,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ragroute_tpu.config import COMPACTION_MIN_ROWS, WorldConfig
+from ragroute_tpu_torch.config import (COMPACTION_MIN_ROWS,
+                                       IVF_HYBRID_MAX_BATCH,
+                                       IVF_HYBRID_MIN_DOCS,
+                                       IVF_HYBRID_NPROBE_DIVISOR,
+                                       IVF_NPROBE_DIVISOR,
+                                       LOWRANK_REFINE_MULT, WorldConfig)
 from ragroute_tpu_torch.index.shard import ShardSet
+from ragroute_tpu_torch.ops.ivf_topk import ivf_topk
+from ragroute_tpu_torch.ops.lowrank_topk import lowrank_topk
 from ragroute_tpu_torch.ops.topk import NEG_INF, shard_topk, topk_stable
 from ragroute_tpu_torch.router.features import RouterBank, build_features
 from ragroute_tpu_torch.router.mlp import CorpusRouter
@@ -38,7 +48,10 @@ from ragroute_tpu_torch.router.strategies import routing_mask
 
 Tensor = torch.Tensor
 
-IMPLS = ("auto", "exact", "chunked", "pallas")
+logger = logging.getLogger("engine")
+
+IMPLS = ("auto", "exact", "chunked", "pallas", "ivf", "hybrid", "lowrank")
+APPROX_IMPLS = ("ivf", "hybrid", "lowrank")
 
 
 @dataclasses.dataclass
@@ -185,7 +198,9 @@ def payload_base(ptables, shard_ids: Tensor) -> Tensor:
 
 def _score_fn(world: WorldConfig, k: int, impl: str, n_docs: Sequence[int],
               shard_arrays, query_embs: Dict[str, Tensor], mask: Tensor,
-              compaction: bool, packed: Sequence[bool]):
+              compaction: bool, packed: Sequence[bool], ivf_arrays=None,
+              nprobe: Optional[int] = None, lr_arrays=None,
+              k_refine: Optional[int] = None):
     """Score all shards and merge, with routing-aware batch compaction.
 
     * a shard no query of the batch routes to is skipped;
@@ -193,6 +208,14 @@ def _score_fn(world: WorldConfig, k: int, impl: str, n_docs: Sequence[int],
       queries (routed first, stable order) are scored as a B/4 (B/2)
       batch and scattered back; the other rows get worst-score
       placeholders, which the mask gating drops.
+
+    ``impl="ivf"`` swaps the exact scan for the cluster-probed search on
+    shards that carry a balanced-IVF layout; ``impl="hybrid"`` does so only
+    for small batches on large shards (``config.IVF_HYBRID_*``, decided on
+    the host from the batch size and the shard's doc count);
+    ``impl="lowrank"`` swaps it for the two-stage coarse scan + refine on
+    shards that carry a coarse index. Skip and compaction stand in front
+    of all of them unchanged.
 
     The per-shard routed counts come to the host in one copy."""
     bsz = mask.shape[0]
@@ -205,10 +228,34 @@ def _score_fn(world: WorldConfig, k: int, impl: str, n_docs: Sequence[int],
         q = query_embs[src.encoder]
         cnt = counts[i]
 
+        ivf = ivf_nprobe = lr = None
+        if ivf_arrays and ivf_arrays[i] is not None:
+            if impl == "ivf":
+                ivf = ivf_arrays[i]
+                ivf_nprobe = nprobe or max(
+                    1, ivf.n_clusters // IVF_NPROBE_DIVISOR)
+            elif (impl == "hybrid" and bsz <= IVF_HYBRID_MAX_BATCH
+                  and n_docs[i] >= IVF_HYBRID_MIN_DOCS):
+                ivf = ivf_arrays[i]
+                ivf_nprobe = nprobe or max(
+                    1, ivf.n_clusters // IVF_HYBRID_NPROBE_DIVISOR)
+        if impl == "lowrank" and lr_arrays and lr_arrays[i] is not None:
+            lr = lr_arrays[i]
+
         def score(qq):
+            if ivf is not None:
+                return ivf_topk(qq, ivf, k, mode=src.score_mode,
+                                center=center, nprobe=ivf_nprobe)
+            if lr is not None:
+                return lowrank_topk(qq, lr, docs, k, mode=src.score_mode,
+                                    valid_docs=n_docs[i], bias=bias,
+                                    scale=scale, center=center,
+                                    packed4=packed[i], k_refine=k_refine)
             return shard_topk(qq, docs, k, mode=src.score_mode,
                               valid_docs=n_docs[i], bias=bias, scale=scale,
-                              center=center, impl=impl, packed4=packed[i])
+                              center=center,
+                              impl="auto" if impl in APPROX_IMPLS else impl,
+                              packed4=packed[i])
 
         cb = None
         if compaction and quarter >= COMPACTION_MIN_ROWS and cnt <= quarter:
@@ -284,18 +331,43 @@ class FederatedSearchEngine(QueryTableMixin):
       bank: router feature bank.
       impl: top-k implementation, "auto" | "exact" | "chunked" | "pallas"
         ("auto": the fused CUDA kernel for shards above 4096 docs on the
-        card; "pallas" names that kernel).
+        card; "pallas" names that kernel), or an approximate mode: "ivf"
+        (needs shards built with ``ivf_clusters``), "hybrid" (IVF for
+        small batches on large shards, else exact), "lowrank" (needs
+        shards built with ``lowrank=``).
       seed: seeds the engine's ``torch.Generator`` (``random`` routing).
+      nprobe: clusters probed per query in the IVF modes (default C/8 per
+        shard for "ivf", C/32 for "hybrid").
+      k_refine: candidate depth of the low-rank coarse stage (default
+        ``LOWRANK_REFINE_MULT * k``).
     """
 
     def __init__(self, shard_set: ShardSet, router: Optional[CorpusRouter],
                  bank: Optional[RouterBank], *, impl: str = "auto",
                  seed: int = 0, threshold: Optional[float] = None,
-                 compaction: bool = True):
+                 compaction: bool = True, nprobe: Optional[int] = None,
+                 k_refine: Optional[int] = None):
         if impl not in IMPLS:
             raise ValueError(
-                f"impl {impl!r} is not ported yet (ROADMAP queue 1, items "
-                f"10-11); the port serves {IMPLS}")
+                f"impl {impl!r} is not ported yet (ROADMAP queue 1, item "
+                f"11); the port serves {IMPLS}")
+        if impl == "ivf":
+            missing = [s.name for s in shard_set.shards if s.ivf is None]
+            if missing:
+                raise ValueError(
+                    f"impl='ivf' needs shards built with ivf_clusters; "
+                    f"missing balanced-IVF layout for {missing}")
+        if impl == "lowrank":
+            if not shard_set.lowrank_built:
+                raise ValueError(
+                    "impl='lowrank' needs shards built with lowrank= "
+                    "(e.g. lowrank=-1 for automatic rank selection)")
+            refused = [s.name for s in shard_set.shards if s.lr is None]
+            if refused:
+                logger.warning(
+                    "lowrank: shards %s have no coarse index (flat "
+                    "spectrum at build); they fall back to the exact "
+                    "exhaustive scan", refused)
         self.world: WorldConfig = shard_set.world
         self.shard_set = shard_set
         self.device = shard_set.device
@@ -304,6 +376,11 @@ class FederatedSearchEngine(QueryTableMixin):
         self.impl = impl
         self.threshold = threshold
         self.compaction = compaction
+        self.nprobe = nprobe
+        self.k_refine = k_refine or LOWRANK_REFINE_MULT * self.world.k
+        self._ivf = (shard_set.ivf_arrays()
+                     if impl in ("ivf", "hybrid") else None)
+        self._lr = shard_set.lr_arrays() if impl == "lowrank" else None
         self._n_docs = tuple(s.scan_docs for s in shard_set.shards)
         self._packed = tuple(s.packed4 for s in shard_set.shards)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -348,7 +425,8 @@ class FederatedSearchEngine(QueryTableMixin):
     def _score(self, embs, mask):
         scored = _score_fn(self.world, self.world.k, self.impl,
                            self._n_docs, self.shard_set.arrays(), embs,
-                           mask, self.compaction, self._packed)
+                           mask, self.compaction, self._packed, self._ivf,
+                           self.nprobe, self._lr, self.k_refine)
         msg = (payload_base(self._ptables, scored[1])
                if self._ptables is not None else None)
         return scored + (msg,)

@@ -30,17 +30,16 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ragroute_tpu.config import (HTTP_HOST, HTTP_PORT, LLM_DELAY,
+from ragroute_tpu_torch.config import (HTTP_HOST, HTTP_PORT, LLM_DELAY,
                                  QUERY_TIMEOUT_S, WorldConfig)
-from ragroute_tpu_torch._reference import load as _load_reference
+from ragroute_tpu_torch.engine import llm as _llm
+from ragroute_tpu_torch.engine import metrics as _metrics
+from ragroute_tpu_torch.engine import prompts as _prompts
+from ragroute_tpu_torch.engine import rerank as _rerank
 from ragroute_tpu_torch.engine.batcher import (QueryBatcher, QueryResult,
                                                fetch_candidates_policy)
 from ragroute_tpu_torch.engine.engine import FederatedSearchEngine
 
-_llm = _load_reference("engine/llm.py")
-_prompts = _load_reference("engine/prompts.py")
-_metrics = _load_reference("engine/metrics.py")
-_rerank = _load_reference("engine/rerank.py")
 LLMClient = _llm.LLMClient
 
 logger = logging.getLogger("server")

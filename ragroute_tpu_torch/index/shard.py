@@ -10,12 +10,15 @@ dtypes of dot/l2 shards, the mean the stored rows were centred on.
 
 Every host-side step (normalization, centring, quantization, packing,
 padding, the bf16 cast) runs on the host and is bit-identical to the
-reference's: the quantizers below are numpy copies of the reference's,
-because ``ragroute_tpu.index.shard`` cannot be imported without jax. Only
-the final bytes cross to the device.
+reference's: the quantizers below are numpy copies of the reference's
+(the port imports nothing of the JAX package). Only the final bytes cross
+to the device.
 
-Live add/delete, snapshot, IVF and low-rank layouts are not ported yet
-(ROADMAP queue 1, items 9 and 10).
+A shard may also carry a balanced-IVF layout (``ivf``,
+:mod:`ragroute_tpu_torch.index.ivf`) and a low-rank coarse index (``lr``,
+:mod:`ragroute_tpu_torch.index.lowrank`) for the approximate search modes;
+the flat layout is always kept. Live add/delete, snapshot and mesh builds
+are not ported yet (ROADMAP queue 1, items 9 and 14).
 
 On-disk layout (shared with the reference):
 
@@ -27,18 +30,39 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
+import time
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ragroute_tpu.config import INT4_GROUP_DIMS, SHARD_PAD_MULTIPLE, WorldConfig
+from ragroute_tpu_torch.config import (INT4_GROUP_DIMS, LOWRANK_ENERGY,
+                                       SHARD_PAD_MULTIPLE, WorldConfig)
+from ragroute_tpu_torch.index.ivf import (IVFData, build_ivf,
+                                          ivf_fingerprint, load_ivf,
+                                          save_ivf)
+from ragroute_tpu_torch.index.lowrank import (LowRankData, build_lowrank,
+                                              load_lowrank, save_lowrank)
+
+logger = logging.getLogger("shard")
 
 StorageDType = Union[torch.dtype, str]   # a torch dtype, or "int4"
 
 STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                   "int8": torch.int8, "int4": "int4"}
+
+
+def parse_storage_dtype(dtype) -> bool:
+    """True when ``dtype`` is the packed-int4 marker string ``"int4"``
+    (storage is int8 bytes holding two codes); rejects any other string.
+    Shared by :meth:`ShardSet.build` and :func:`index.ivf.build_ivf`."""
+    packed4 = isinstance(dtype, str) and dtype == "int4"
+    if isinstance(dtype, str) and not packed4:
+        raise ValueError(f"unknown dtype string {dtype!r} "
+                         f"(only 'int4' is a string dtype)")
+    return packed4
 
 
 def _quantize_sym(emb: np.ndarray, levels: int,
@@ -127,6 +151,8 @@ class DeviceShard:
     name: str
     score_mode: str
     packed4: bool = False
+    ivf: Optional[IVFData] = None      # balanced-IVF layout (approx mode)
+    lr: Optional[LowRankData] = None   # low-rank coarse index, or refused
 
     @property
     def scan_docs(self) -> int:
@@ -142,21 +168,42 @@ class ShardSet:
     world: WorldConfig
     shards: List[DeviceShard]
     doc_ids: Dict[str, Optional[list]]
+    # True when build() was asked for low-rank coarse indexes (a shard may
+    # still have lr=None where the build refused a flat spectrum: it falls
+    # back to the exact scan at search time)
+    lowrank_built: bool = False
 
     @classmethod
     def build(cls, world: WorldConfig, embeddings: Mapping[str, np.ndarray],
               *, doc_ids: Optional[Mapping[str, Sequence]] = None,
               dtype: StorageDType = torch.bfloat16,
-              normalize_cos: bool = True, device="cpu") -> "ShardSet":
+              normalize_cos: bool = True, device="cpu",
+              ivf_clusters: Optional[int] = None, ivf_seed: int = 0,
+              ivf_cache_dirs: Optional[Mapping[str, str]] = None,
+              lowrank: Optional[int] = None,
+              lowrank_energy: Optional[float] = None) -> "ShardSet":
         """Build every source's shard from ``[n_docs, d]`` float arrays
         (native dims) and place it on ``device``.
 
         ``dtype``: torch.float32 | torch.bfloat16 | torch.int8 | "int4".
+
+        ``ivf_clusters``: also build a balanced-IVF layout per shard for
+        ``impl="ivf"`` / ``"hybrid"``. ``0`` / ``None`` skips it; ``-1``
+        uses the per-shard default cluster count (~4*sqrt(n)); a positive
+        value is the cluster count C. ``ivf_seed`` seeds k-means.
+
+        ``lowrank``: also build a rank-``r`` coarse projection per shard
+        for ``impl="lowrank"``. ``0`` / ``None`` skips it; ``-1`` picks the
+        rank by spectral energy (``lowrank_energy``, default
+        ``config.LOWRANK_ENERGY``); a positive value is the rank. A shard
+        whose spectrum is too flat gets ``lr=None``.
+
+        ``ivf_cache_dirs``: source name -> directory of ``.npz`` layout
+        caches (both kinds). The file name carries every build parameter
+        and the file a fingerprint of the source embeddings; the format is
+        the JAX package's, so either package reads the other's caches.
         """
-        packed4 = dtype == "int4"
-        if isinstance(dtype, str) and not packed4:
-            raise ValueError(f"unknown dtype string {dtype!r} "
-                             f"(only 'int4' is a string dtype)")
+        packed4 = parse_storage_dtype(dtype)
         shards: List[DeviceShard] = []
         ids: Dict[str, Optional[list]] = {}
         for src in world.sources:
@@ -181,8 +228,67 @@ class ShardSet:
                 mu = emb.mean(axis=0, dtype=np.float64).astype(np.float32)
                 emb = emb - mu
                 center = _to_device(mu, device)
+            packed_rows = row_scales = None
+            if packed4 and ivf_clusters:
+                # quantize once: build_ivf's slot rows are these same
+                # vectors rearranged, so the flat codes are handed over.
+                # Shards built with an IVF layout keep per-doc scales (the
+                # grouped GEMM and the flat scan score identical bytes)
+                codes, row_scales = _quantize_sym(emb, 7, mse_opt=True)
+                packed_rows = _pack_int4(codes)
+                del codes
+            cache_dir = (ivf_cache_dirs or {}).get(src.name)
+            fp = (ivf_fingerprint(emb)
+                  if cache_dir and (ivf_clusters or lowrank) else None)
+            ivf = None
+            if ivf_clusters:
+                cache = None
+                if cache_dir:
+                    tag = "auto" if ivf_clusters < 0 else str(ivf_clusters)
+                    dname = ("int4" if packed4
+                             else str(dtype).replace("torch.", ""))
+                    cache = os.path.join(
+                        cache_dir, f"ivf_{tag}_{dname}_s{ivf_seed}.npz")
+                if cache and os.path.exists(cache):
+                    ivf = load_ivf(cache, expect_fingerprint=fp,
+                                   device=device)
+                if ivf is None:
+                    t0 = time.perf_counter()
+                    ivf = build_ivf(
+                        emb, src.score_mode, dtype=dtype,
+                        n_clusters=(None if ivf_clusters < 0
+                                    else ivf_clusters),
+                        seed=ivf_seed, device=device,
+                        packed_rows=packed_rows, row_scales=row_scales)
+                    logger.info("%s: ivf layout built in %.1f s", src.name,
+                                time.perf_counter() - t0)
+                    if cache:
+                        os.makedirs(cache_dir, exist_ok=True)
+                        save_ivf(ivf, cache, fingerprint=fp)
             n = emb.shape[0]
             n_pad = _round_up(max(n, SHARD_PAD_MULTIPLE), SHARD_PAD_MULTIPLE)
+            lr = None
+            if lowrank:
+                energy = (LOWRANK_ENERGY if lowrank_energy is None
+                          else lowrank_energy)
+                cache = None
+                if cache_dir:
+                    tag = f"auto{energy:g}" if lowrank < 0 else str(lowrank)
+                    cache = os.path.join(cache_dir, f"lr_{tag}.npz")
+                if cache and os.path.exists(cache):
+                    lr = load_lowrank(cache, expect_fingerprint=fp,
+                                      device=device)
+                if lr is None:
+                    t0 = time.perf_counter()
+                    lr = build_lowrank(
+                        emb, n_pad=n_pad,
+                        rank=(None if lowrank < 0 else lowrank),
+                        energy=energy, device=device)
+                    logger.info("%s: low-rank coarse index built in %.1f s",
+                                src.name, time.perf_counter() - t0)
+                    if cache and lr is not None:
+                        os.makedirs(cache_dir, exist_ok=True)
+                        save_lowrank(lr, cache, fingerprint=fp)
             if n_pad != n:
                 emb = np.pad(emb, ((0, n_pad - n), (0, 0)))
             if src.score_mode == "l2":
@@ -192,7 +298,17 @@ class ShardSet:
                 b_np = np.zeros(n_pad, np.float32)
             b_np[n:] = -np.inf
             scale = None
-            if packed4:
+            if packed_rows is not None:
+                # quantized above (shared with build_ivf); pad rows carry
+                # code 0 / scale 1e-12, bit-identical to quantizing the
+                # zero pad rows
+                pad = n_pad - n
+                docs = _to_device(np.pad(packed_rows, ((0, pad), (0, 0))),
+                                  device)
+                scale = _to_device(
+                    np.pad(row_scales, (0, pad),
+                           constant_values=np.float32(1e-12)), device)
+            elif packed4:
                 if src.embed_dim % INT4_GROUP_DIMS == 0:
                     codes, s_row = _quantize_sym_grouped(emb, 7,
                                                          INT4_GROUP_DIMS)
@@ -209,10 +325,12 @@ class ShardSet:
             shards.append(DeviceShard(
                 docs=docs, bias=_to_device(b_np, device), scale=scale,
                 center=center, n_docs=n, name=src.name,
-                score_mode=src.score_mode, packed4=packed4))
+                score_mode=src.score_mode, packed4=packed4, ivf=ivf,
+                lr=lr))
             ids[src.name] = (list(doc_ids[src.name])
                              if doc_ids and src.name in doc_ids else None)
-        return cls(world=world, shards=shards, doc_ids=ids)
+        return cls(world=world, shards=shards, doc_ids=ids,
+                   lowrank_built=bool(lowrank))
 
     @property
     def device(self) -> torch.device:
@@ -227,9 +345,26 @@ class ShardSet:
         return sum(s.docs.numel() * s.docs.element_size()
                    + s.bias.numel() * 4 for s in self.shards)
 
+    @property
+    def aux_bytes(self) -> int:
+        """Bytes of the extra layouts (IVF slabs, low-rank coarse slabs)
+        beside the flat index that :attr:`index_bytes` counts."""
+        return sum((s.ivf.nbytes if s.ivf is not None else 0)
+                   + (s.lr.nbytes if s.lr is not None else 0)
+                   for s in self.shards)
+
     def arrays(self):
         """Per shard ``(docs, bias, scale, center)``."""
         return [(s.docs, s.bias, s.scale, s.center) for s in self.shards]
+
+    def ivf_arrays(self):
+        """Per-shard balanced-IVF layouts (None where not built)."""
+        return [s.ivf for s in self.shards]
+
+    def lr_arrays(self):
+        """Per-shard low-rank coarse indexes (None where not built or
+        where the build refused a flat-spectrum corpus)."""
+        return [s.lr for s in self.shards]
 
     # -- persistence --------------------------------------------------------
 
@@ -252,9 +387,11 @@ class ShardSet:
     @classmethod
     def load(cls, root: str, world: WorldConfig, *,
              dtype: StorageDType = torch.bfloat16, **kw) -> "ShardSet":
-        """Load every source of a world from ``<root>/<world>/<source>/``."""
+        """Load every source of a world from ``<root>/<world>/<source>/``
+        (IVF / low-rank layouts are cached there as ``.npz``)."""
         embeddings = {}
         doc_ids = {}
+        cache_dirs = {}
         for src in world.sources:
             d = cls.source_dir(root, world.name, src.name)
             emb_path = os.path.join(d, "embeddings.npy")
@@ -264,9 +401,11 @@ class ShardSet:
                     f"(expected {emb_path}); generate a synthetic world with "
                     f"ragroute_tpu_torch.index.synthetic or import corpora")
             embeddings[src.name] = np.load(emb_path, mmap_mode="r")
+            cache_dirs[src.name] = d
             ids_path = os.path.join(d, "doc_ids.json")
             if os.path.exists(ids_path):
                 with open(ids_path) as f:
                     doc_ids[src.name] = json.load(f)
+        kw.setdefault("ivf_cache_dirs", cache_dirs)
         return cls.build(world, embeddings, doc_ids=doc_ids, dtype=dtype,
                          **kw)

@@ -1,14 +1,18 @@
 """CLI entry point: serve the federated search system with PyTorch.
 
 The same flags as the JAX package's ``main.py``, plus ``--device``. Values
-outside the ported slice (meshes, IVF / low-rank / host-RAM tiers, live
-updates, live encoders, the JAX LLM stack, the native front-end, workers,
-int4) fail at start-up naming their ROADMAP item.
+outside the ported slices (meshes, host-RAM tiers, the dtype policy, live
+updates, live encoders, the JAX LLM stack, the native front-end, workers)
+fail at start-up naming their ROADMAP item.
 
-Example (on a CUDA card)::
+Examples (on a CUDA card)::
 
     python -m ragroute_tpu_torch.main --dataset medrag --routing ragroute \
         --disable-llm
+    python -m ragroute_tpu_torch.main --dataset medrag --routing ragroute \
+        --disable-llm --impl ivf --nprobe 512
+    python -m ragroute_tpu_torch.main --dataset medrag --routing ragroute \
+        --disable-llm --impl lowrank --dtype int4
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import argparse
 import asyncio
 import logging
 
-from ragroute_tpu.config import ROUTING_STRATEGIES, SUPPORTED_MODELS, WORLDS
+from ragroute_tpu_torch.config import ROUTING_STRATEGIES, SUPPORTED_MODELS, WORLDS
 
 logger = logging.getLogger("main")
 
@@ -71,24 +75,32 @@ def parse_args(argv=None):
     p.add_argument("--dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32", "int8", "int4", "policy"],
                    help="On-device index dtype (int8: per-doc symmetric "
-                        "quantization; int4 and policy are not ported)")
+                        "quantization; int4: two 4-bit codes per byte; "
+                        "policy is not ported)")
     p.add_argument("--impl", type=str, default="auto",
                    choices=["auto", "pallas", "chunked", "exact", "ivf",
                             "hybrid", "lowrank", "stream", "hostrefine"],
                    help="Top-k implementation: auto = the fused CUDA kernel "
                         "for shards above 4096 docs on the card ('pallas' "
-                        "names it), exact for small shards; ivf, hybrid, "
-                        "lowrank, stream and hostrefine are not ported")
+                        "names it), exact for small shards; ivf = "
+                        "cluster-probed approximate search; hybrid = ivf "
+                        "for small batches on large shards; lowrank = "
+                        "low-rank coarse scan + exact refine; stream and "
+                        "hostrefine are not ported")
     p.add_argument("--hbm-budget-gb", type=float, default=None,
                    help="(--impl stream/hostrefine; not ported)")
     p.add_argument("--nprobe", type=int, default=None,
-                   help="(--impl ivf; not ported)")
+                   help="Clusters probed per query (--impl ivf/hybrid; "
+                        "default C/8 resp. C/32 per shard)")
     p.add_argument("--ivf-clusters", type=int, default=-1,
-                   help="(--impl ivf; not ported)")
+                   help="Clusters per shard for --impl ivf/hybrid "
+                        "(-1 = ~4*sqrt(n) per shard)")
     p.add_argument("--rank", type=int, default=-1,
-                   help="(--impl lowrank; not ported)")
+                   help="--impl lowrank: rank of the coarse projection "
+                        "(-1 = by spectral energy)")
     p.add_argument("--refine-mult", type=int, default=None,
-                   help="(--impl lowrank; not ported)")
+                   help="--impl lowrank: candidates per query = "
+                        "refine_mult * k (default 4)")
     p.add_argument("--buckets", type=int, nargs="+", default=None,
                    help="Batch bucket sizes (each is warmed at start-up; "
                         "default 1 8 32 128 512)")

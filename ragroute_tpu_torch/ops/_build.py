@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface and loaded with
 :mod:`ctypes` (no PyTorch headers, so the build stays short). The library
 lands in ``csrc/build/`` under a file name that carries a hash of the
-source and the flags, so a changed source is never served stale; the build
+source, the shared headers (``csrc/*.cuh``) and the flags, so a changed
+source is never served stale; :func:`build_all` starts one ``nvcc`` per
+source at the same time; the build
 writes a per-process temporary file and renames it into place, so
 concurrent builds never load a half-written library.
 
@@ -13,15 +15,17 @@ Nothing here runs at import time: the CPU test machine has no ``nvcc``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
@@ -56,9 +60,11 @@ def build(name: str) -> BuildInfo:
     """Compile ``csrc/<name>.cu`` unless a build of this exact source and
     flag set exists; return where the library is."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     if os.path.exists(out):
         return BuildInfo(out, 0.0, "")
@@ -86,3 +92,15 @@ def load(name: str) -> Tuple[ctypes.CDLL, BuildInfo]:
             hit = (ctypes.CDLL(info.path), info)
             _loaded[name] = hit
         return hit
+
+
+def build_all(names: Sequence[str]) -> Dict[str, BuildInfo]:
+    """Compile several sources at once (one ``nvcc`` process each, all
+    started together) and load them; returns each one's build report."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        infos = dict(zip(names, pool.map(build, names)))
+    with _lock:
+        for name, info in infos.items():
+            if name not in _loaded:
+                _loaded[name] = (ctypes.CDLL(info.path), info)
+    return {name: _loaded[name][1] for name in names}

@@ -36,10 +36,16 @@ Tensor = torch.Tensor
 
 TILE_Q = 64          # query rows per block (csrc/fused_topk.cu TQ)
 TILE_D = 64          # docs per tile (TD)
-MAX_K = 64           # KMAX
+MAX_K = 160          # topk_merge.cuh KMAX
 MAX_SPLITS = 512
 BLOCKS_PER_SM = 4    # split target: enough blocks to fill every SM
+# deep lists (k > 64): every split fills its own k-deep lists by serial
+# inserts, about k * (1 + ln(docs per split / k)) of them per query row, so
+# fewer and longer splits cost less than they lose in parallelism
+DEEP_BLOCKS_PER_SM = 2
+SHALLOW_K = 64       # topk_merge.cuh KSHALLOW
 _DOC_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_INT4_PER_DOC, _INT4_PER_GROUP = 3, 4    # csrc DocType kI4, kI4G
 
 
 def gain_form(queries: Tensor, docs: Tensor, *, mode: str,
@@ -101,29 +107,32 @@ def _lib():
     lib, _ = _build.load("fused_topk")
     if not getattr(lib, "_argtypes_set", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fused_topk_launch.argtypes = [vp] * 8 + [ci] * 7 + [vp]
+        lib.fused_topk_launch.argtypes = [vp] * 8 + [ci] * 8 + [vp]
         lib.fused_topk_launch.restype = ci
         lib._argtypes_set = True
     return lib
 
 
-def _splits(bsz: int, n_rows: int, device: torch.device) -> Tuple[int, int]:
+def _splits(bsz: int, n_rows: int, k: int,
+            device: torch.device) -> Tuple[int, int]:
     """(doc splits, tiles per split): enough blocks to fill the card at
     small and large batch alike."""
     n_qtiles = -(-bsz // TILE_Q)
     n_tiles = -(-n_rows // TILE_D)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_sm = BLOCKS_PER_SM if k <= SHALLOW_K else DEEP_BLOCKS_PER_SM
     splits = max(1, min(n_tiles, MAX_SPLITS,
-                        math.ceil(BLOCKS_PER_SM * sms / n_qtiles)))
+                        math.ceil(per_sm * sms / n_qtiles)))
     per = -(-n_tiles // splits)
     return -(-n_tiles // per), per
 
 
 def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
-            bias: Optional[Tensor], scale: Optional[Tensor]
-            ) -> Tuple[Tensor, Tensor]:
+            bias: Optional[Tensor], scale: Optional[Tensor],
+            packed4: bool = False) -> Tuple[Tensor, Tensor]:
     bsz, d = q.shape
     dev = docs.device
+    grouped = scale is not None and scale.dim() == 2
     for name, t in (("q", q), ("bias", bias), ("scale", scale)):
         if t is not None and t.device != dev:
             raise ValueError(f"fused_topk: {name} on {t.device}, docs on {dev}")
@@ -135,21 +144,31 @@ def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
     if not 1 <= k <= MAX_K:
         raise ValueError(f"fused_topk: kernel supports 1 <= k <= {MAX_K}, "
                          f"got k={k}")
-    if d % 16 or docs.shape[1] != d:
-        raise ValueError(f"fused_topk: kernel needs docs [N, d] with "
-                         f"d % 16 == 0 matching queries; got docs "
-                         f"{tuple(docs.shape)}, queries {tuple(q.shape)}")
+    if packed4 and docs.dtype != torch.int8:
+        raise TypeError("fused_topk: packed4 docs must be int8 bytes")
+    if grouped and not packed4:
+        raise ValueError("per-group scales are an int4 (packed4) format")
+    if d % 16 or docs.shape[1] != (d // 2 if packed4 else d):
+        raise ValueError(f"fused_topk: kernel needs docs [N, d] (or "
+                         f"[N, d/2] packed) with d % 16 == 0 matching "
+                         f"queries; got docs {tuple(docs.shape)}, queries "
+                         f"{tuple(q.shape)}")
+    n_groups = scale.shape[1] if grouped else 0
+    if grouped and (d % n_groups or (d // n_groups) % 8):
+        raise ValueError(f"fused_topk: {n_groups} scale groups do not cut "
+                         f"d={d} into slices of a multiple of 8 dims")
     if not docs.is_contiguous() or docs.data_ptr() % 16:
         raise ValueError("fused_topk: docs must be contiguous and 16-byte "
                          "aligned")
-    for name, t in (("bias", bias), ("scale", scale)):
-        if t is not None and (t.dtype != torch.float32 or t.dim() != 1
+    for name, t, dims in (("bias", bias, 1),
+                          ("scale", scale, 2 if grouped else 1)):
+        if t is not None and (t.dtype != torch.float32 or t.dim() != dims
                               or t.shape[0] < n_rows
                               or not t.is_contiguous()):
             raise ValueError(f"fused_topk: {name} must be a contiguous "
-                             f"[N] float32 tensor")
+                             f"float32 tensor over the shard's rows")
     q = q.contiguous()
-    splits, per = _splits(bsz, n_rows, dev)
+    splits, per = _splits(bsz, n_rows, k, dev)
     part_g = torch.empty((bsz, splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((bsz, splits, k), dtype=torch.int32, device=dev)
     out_g = torch.empty((bsz, k), dtype=torch.float32, device=dev)
@@ -160,8 +179,9 @@ def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
         None if bias is None else bias.data_ptr(),
         None if scale is None else scale.data_ptr(),
         part_g.data_ptr(), part_i.data_ptr(), out_g.data_ptr(),
-        out_i.data_ptr(), bsz, n_rows, d, k, splits, per,
-        _DOC_TYPES[docs.dtype], stream)
+        out_i.data_ptr(), bsz, n_rows, d, k, n_groups, splits, per,
+        (_INT4_PER_GROUP if grouped else _INT4_PER_DOC) if packed4
+        else _DOC_TYPES[docs.dtype], stream)
     if err != 0:
         raise RuntimeError(f"fused_topk kernel launch failed: CUDA error {err}")
     fused_topk.launches += 1
@@ -182,17 +202,14 @@ def fused_topk(queries: Tensor, docs: Tensor, k: int, *, mode: str = "dot",
     dequantization factor; ``valid_docs`` the number of real rows.
 
     Returns ``(scores [B, k], indices [B, k])`` in natural score form, best
-    first. A CUDA tensor runs the kernel (which does not yet take int4 or
-    k > 64: those raise); a CPU tensor runs :func:`fused_topk_reference`.
+    first. A CUDA tensor runs the kernel (k up to 160; deeper raises); a
+    CPU tensor runs :func:`fused_topk_reference`.
     """
     bsz = queries.shape[0]
     n = docs.shape[0]
     valid = n if valid_docs is None else int(valid_docs)
     q, b = gain_form(queries, docs, mode=mode, bias=bias, packed4=packed4)
     if docs.is_cuda:
-        if packed4 or (scale is not None and scale.dim() != 1):
-            raise ValueError("fused_topk: the CUDA kernel does not take "
-                             "int4-packed shards yet (ROADMAP queue 2, K1)")
         if bsz == 0:
             gains = torch.empty((0, k), dtype=torch.float32,
                                 device=docs.device)
@@ -200,7 +217,8 @@ def fused_topk(queries: Tensor, docs: Tensor, k: int, *, mode: str = "dot",
         else:
             gains, idx = _launch(q, docs, k, min(valid, n), b,
                                  None if scale is None
-                                 else scale.to(torch.float32))
+                                 else scale.to(torch.float32),
+                                 packed4=packed4)
     else:
         gains, idx = fused_topk_reference(q, docs, k, valid_docs=valid,
                                           bias=b, scale=scale,

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ragroute_tpu.config import WorldConfig
+from ragroute_tpu_torch.config import WorldConfig
 
 
 @dataclasses.dataclass

@@ -11,7 +11,7 @@ from typing import Optional
 
 import torch
 
-from ragroute_tpu.config import ROUTING_STRATEGIES, WorldConfig
+from ragroute_tpu_torch.config import ROUTING_STRATEGIES, WorldConfig
 
 
 def routing_mask(world: WorldConfig, strategy: str, probs: torch.Tensor,

@@ -1,10 +1,12 @@
 """System orchestration: build, serve, watch, shut down.
 
-PyTorch port of :mod:`ragroute_tpu.system` for the single-device exact
-path: load the world's artifacts (shards, centroids, router checkpoint,
-query table, doc payloads) from the data root onto the chosen device,
-construct engine + batcher + HTTP server, restart the batcher worker if it
-ever dies, and stop cleanly on SIGINT/SIGTERM.
+PyTorch port of :mod:`ragroute_tpu.system` for the single-device paths
+(exact search and the approximate device-resident modes ``--impl ivf |
+hybrid | lowrank``, ``--dtype int4``): load the world's artifacts (shards
+with their extra layouts, centroids, router checkpoint, query table, doc
+payloads) from the data root onto the chosen device, construct engine +
+batcher + HTTP server, restart the batcher worker if it ever dies, and stop
+cleanly on SIGINT/SIGTERM.
 
 Every CLI value outside the ported slice fails at start-up with an error
 naming its ROADMAP item (:func:`check_ported`); none is silently ignored.
@@ -22,13 +24,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ragroute_tpu import config as cfg
-from ragroute_tpu.config import SHARD_PAD_MULTIPLE, WorldConfig, get_world
-from ragroute_tpu_torch._reference import load as _load_reference
+from ragroute_tpu_torch import config as cfg
+from ragroute_tpu_torch.config import SHARD_PAD_MULTIPLE, WorldConfig, get_world
+from ragroute_tpu_torch.engine import embedding
 from ragroute_tpu_torch.engine.batcher import QueryBatcher
 from ragroute_tpu_torch.engine.engine import FederatedSearchEngine
+from ragroute_tpu_torch.engine.rerank import load_qrels
 from ragroute_tpu_torch.engine.server import FederationServer, LLMClient
+from ragroute_tpu_torch.index.native_store import make_doc_store
 from ragroute_tpu_torch.index.shard import STORAGE_DTYPES, ShardSet
+from ragroute_tpu_torch.index.store import MemoryDocStore
 from ragroute_tpu_torch.index.synthetic import make_synthetic_world
 from ragroute_tpu_torch.router.checkpoint import (load_router_npz,
                                                   params_from_jax)
@@ -52,14 +57,10 @@ _UNPORTED = (
      "queue 1, item 8 (live query encoders)"),
     ("frontend", ("aiohttp",), "queue 1, item 6 (native front-end)"),
     ("workers", (1,), "queue 1, item 6 (multi-process front-end)"),
-    ("dtype", ("float32", "bfloat16", "int8"),
-     "queue 2, K1 int4 / queue 1, item 10 (dtype policy)"),
-    ("impl", ("auto", "exact", "chunked", "pallas"),
-     "queue 1, items 10-11 (IVF, low-rank, host-RAM tiers)"),
-    ("nprobe", (None,), "queue 1, item 10 (IVF)"),
-    ("ivf_clusters", (-1,), "queue 1, item 10 (IVF)"),
-    ("rank", (-1,), "queue 1, item 10 (low-rank)"),
-    ("refine_mult", (None,), "queue 1, item 10 (low-rank)"),
+    ("dtype", ("float32", "bfloat16", "int8", "int4"),
+     "queue 1, item 10 (dtype policy)"),
+    ("impl", ("auto", "exact", "chunked", "pallas", "ivf", "hybrid",
+              "lowrank"), "queue 1, item 11 (host-RAM tiers)"),
     ("hbm_budget_gb", (None,), "queue 1, item 11 (host-RAM tiers)"),
     ("llm_backend", ("auto", "ollama", "openai", "echo"),
      "queue 1, item 13 (LLM stack)"),
@@ -86,24 +87,19 @@ def check_ported(args) -> None:
                 f"ported to ragroute_tpu_torch yet (ROADMAP {item})")
 
 
-def _doc_store(pay_dir: str):
-    """The C++ mmap store when it builds, else the Python jsonl store."""
-    native = _load_reference("index/native_store.py")
-    if native.native_available():
-        return native.NativeJsonlDocStore(pay_dir)
-    return _load_reference("index/store.py").JsonlDirDocStore(pay_dir)
-
-
 def load_world_artifacts(root: str, world: WorldConfig, *,
                          dtype=torch.bfloat16, embedder: str = "auto",
-                         device="cpu"):
+                         device="cpu", ivf_clusters=None, lowrank=None):
     """Load shards / router / bank / query provider / doc store from the
     data root (layout of :func:`ragroute_tpu_torch.index.synthetic.
     save_world`). No router checkpoint: fresh params from a seeded
-    generator (warning); no query table: hash embeddings."""
-    embedding = _load_reference("engine/embedding.py")
+    generator (warning); no query table: hash embeddings.
+    ``ivf_clusters`` / ``lowrank`` additionally build the layouts of the
+    approximate modes (cached as ``.npz`` beside each source's
+    embeddings, as :meth:`ShardSet.load` does)."""
     wroot = os.path.join(root, world.name)
-    shard_set = ShardSet.load(root, world, dtype=dtype, device=device)
+    shard_set = ShardSet.load(root, world, dtype=dtype, device=device,
+                              ivf_clusters=ivf_clusters, lowrank=lowrank)
 
     cent_path = os.path.join(wroot, "centroids.json")
     if os.path.exists(cent_path):
@@ -153,12 +149,13 @@ def load_world_artifacts(root: str, world: WorldConfig, *,
         provider = embedding.HashEmbeddings(world)
 
     pay_dir = os.path.join(wroot, "payloads")
-    doc_store = _doc_store(pay_dir) if os.path.isdir(pay_dir) else None
+    # the C++ mmap store when it builds, else the Python jsonl store
+    doc_store = make_doc_store(pay_dir) if os.path.isdir(pay_dir) else None
 
     relevance = {}
     qrels_path = os.path.join(wroot, "qrels.txt")
     if world.name == "feb4rag" and os.path.exists(qrels_path):
-        relevance = _load_reference("engine/rerank.py").load_qrels(qrels_path)
+        relevance = load_qrels(qrels_path)
     return shard_set, router, bank, provider, doc_store, relevance, threshold
 
 
@@ -178,6 +175,13 @@ class ServingSystem:
         self.port: int = cfg.HTTP_PORT if port is None else port
         self.dtype_name: str = getattr(args, "dtype", "bfloat16")
         self.impl: str = getattr(args, "impl", "auto")
+        self.nprobe = getattr(args, "nprobe", None)
+        self.ivf_clusters = getattr(args, "ivf_clusters", -1)
+        # --impl lowrank: rank of the coarse projection (-1: by spectral
+        # energy) and candidate depth k' = refine_mult * k
+        self.lowrank_rank = getattr(args, "rank", None) or -1
+        refine_mult = getattr(args, "refine_mult", None)
+        self.k_refine = (refine_mult * self.world.k) if refine_mult else None
         self.llm_backend: str = getattr(args, "llm_backend", None) or "auto"
         self.buckets = getattr(args, "buckets", None) or cfg.BATCH_BUCKETS
         self.embedder = getattr(args, "embedder", "auto") or "auto"
@@ -188,7 +192,9 @@ class ServingSystem:
 
     def build(self) -> FederationServer:
         dtype = STORAGE_DTYPES[self.dtype_name]
-        embedding = _load_reference("engine/embedding.py")
+        ivf_clusters = (self.ivf_clusters if self.impl in ("ivf", "hybrid")
+                        else None)
+        lowrank = self.lowrank_rank if self.impl == "lowrank" else None
         if self.simulate:
             # reference --simulate: tiny in-memory synthetic world, hash
             # embeddings, all sources, stage delays
@@ -197,22 +203,26 @@ class ServingSystem:
                 num_queries=4)
             shard_set = ShardSet.build(syn.world, syn.embeddings,
                                        doc_ids=syn.doc_ids, dtype=dtype,
-                                       device=self.device)
+                                       device=self.device,
+                                       ivf_clusters=ivf_clusters,
+                                       lowrank=lowrank)
             router = CorpusRouter.from_seed(self.world.router_input_dim, 0,
                                             self.device)
             bank = RouterBank.create(self.world, syn.centroids,
                                      device=self.device)
             provider = embedding.HashEmbeddings(self.world)
-            doc_store = _load_reference(
-                "index/store.py").MemoryDocStore.from_synthetic(syn)
+            doc_store = MemoryDocStore.from_synthetic(syn)
             relevance, threshold = {}, None
         else:
             (shard_set, router, bank, provider, doc_store, relevance,
              threshold) = load_world_artifacts(
                 self.data_root, self.world, dtype=dtype,
-                embedder=self.embedder, device=self.device)
+                embedder=self.embedder, device=self.device,
+                ivf_clusters=ivf_clusters, lowrank=lowrank)
         engine = FederatedSearchEngine(shard_set, router, bank,
-                                       impl=self.impl, threshold=threshold)
+                                       impl=self.impl, threshold=threshold,
+                                       nprobe=self.nprobe,
+                                       k_refine=self.k_refine)
         strategy = "all" if self.simulate else self.routing
         backend = self.llm_backend
         if backend == "auto":

@@ -43,23 +43,53 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
+def carry_layouts(jss, tss, tmp_path):
+    """Give the port's shards the JAX shards' IVF / low-rank layouts,
+    through the ``.npz`` files either package reads: k-means is not
+    bit-equal across packages, so a search is compared on one layout."""
+    from ragroute_tpu.index.ivf import save_ivf
+    from ragroute_tpu.index.lowrank import save_lowrank
+    from ragroute_tpu_torch.index.ivf import load_ivf
+    from ragroute_tpu_torch.index.lowrank import load_lowrank
+
+    for js, ts in zip(jss.shards, tss.shards):
+        if js.ivf is not None:
+            path = str(tmp_path / f"{js.name}_ivf.npz")
+            save_ivf(js.ivf, path)
+            ts.ivf = load_ivf(path)
+        if js.lr is not None:
+            path = str(tmp_path / f"{js.name}_lr.npz")
+            save_lowrank(js.lr, path)
+            ts.lr = load_lowrank(path)
+    tss.lowrank_built = jss.lowrank_built
+
+
 def _pair(world_name="medrag", *, dtype="float32", impl="exact",
-          docs=600, nq=32, seed=0, key=3):
+          docs=600, nq=32, seed=0, key=3, tmp_path=None, engine_kw=None,
+          **build_kw):
+    """The JAX engine and the port's on one world with the same router
+    parameters; ``build_kw`` (``ivf_clusters`` / ``lowrank``) builds the
+    approximate modes' layouts in the JAX package and carries them over."""
     syn = make_synthetic_world(world_name, docs_per_source=docs,
                                num_queries=nq, seed=seed)
     params = init_router_params(jax.random.key(key),
                                 syn.world.router_input_dim)
-    jeng = JEngine(JShardSet.build(syn.world, syn.embeddings,
-                                   doc_ids=syn.doc_ids,
-                                   dtype=getattr(jnp, dtype)),
-                   params, JBank.create(syn.world, syn.centroids), impl=impl)
+    jss = JShardSet.build(syn.world, syn.embeddings, doc_ids=syn.doc_ids,
+                          dtype=dtype if dtype == "int4"
+                          else getattr(jnp, dtype), **build_kw)
+    tss = ShardSet.build(syn.world, syn.embeddings, doc_ids=syn.doc_ids,
+                         dtype=dtype if dtype == "int4"
+                         else getattr(torch, dtype))
+    if build_kw:
+        carry_layouts(jss, tss, tmp_path)
+    engine_kw = engine_kw or {}
+    jeng = JEngine(jss, params, JBank.create(syn.world, syn.centroids),
+                   impl=impl, **engine_kw)
     router = CorpusRouter(syn.world.router_input_dim)
     router.load_state_dict(params_from_jax(params))
     teng = FederatedSearchEngine(
-        ShardSet.build(syn.world, syn.embeddings, doc_ids=syn.doc_ids,
-                       dtype=getattr(torch, dtype)),
-        router.eval(), RouterBank.create(syn.world, syn.centroids),
-        impl=impl)
+        tss, router.eval(), RouterBank.create(syn.world, syn.centroids),
+        impl=impl, **engine_kw)
     return syn, jeng, teng
 
 
@@ -175,12 +205,12 @@ def test_random_strategy_routes_exact_subset():
 
 
 def test_msg_base_equals_host_estimator():
-    from ragroute_tpu_torch._reference import load
     from ragroute_tpu_torch.engine.batcher import QueryResult
     from ragroute_tpu_torch.engine.server import FederationServer
+    from ragroute_tpu_torch.index.store import MemoryDocStore
 
     syn, _, teng = _pair("medrag", nq=8)
-    store = load("index/store.py").MemoryDocStore.from_synthetic(syn)
+    store = MemoryDocStore.from_synthetic(syn)
     server = FederationServer(teng, strategy="all", doc_store=store,
                               disable_llm=True, warmup=False, port=0)
     assert teng._ptables is None          # CPU engine: host estimator
@@ -222,4 +252,4 @@ def test_resolve_doc_ids_and_unported_impl_raises():
     assert teng.resolve_doc_ids(t, 0) == jeng.resolve_doc_ids(j, 0)
     with pytest.raises(ValueError, match="ROADMAP"):
         FederatedSearchEngine(teng.shard_set, teng.router, teng.bank,
-                              impl="ivf")
+                              impl="hostrefine")

@@ -14,24 +14,16 @@ import pytest
 import torch
 
 import aiohttp
-import jax
-import jax.numpy as jnp
-
-from ragroute_tpu.engine import FederatedSearchEngine as JEngine
 from ragroute_tpu.engine.batcher import QueryBatcher as JBatcher
 from ragroute_tpu.engine.embedding import PrecomputedEmbeddings
 from ragroute_tpu.engine.server import FederationServer as JServer
-from ragroute_tpu.index import ShardSet as JShardSet
 from ragroute_tpu.index.store import MemoryDocStore
-from ragroute_tpu.router import RouterBank as JBank
-from ragroute_tpu.router import init_router_params
-from ragroute_tpu_torch._reference import load as load_reference
-from ragroute_tpu_torch.engine import FederatedSearchEngine
 from ragroute_tpu_torch.engine.batcher import QueryBatcher
+from ragroute_tpu_torch.engine.embedding import \
+    PrecomputedEmbeddings as TPrecomputedEmbeddings
 from ragroute_tpu_torch.engine.server import FederationServer
-from ragroute_tpu_torch.index import ShardSet, make_synthetic_world
-from ragroute_tpu_torch.router import (CorpusRouter, RouterBank,
-                                       params_from_jax)
+from ragroute_tpu_torch.index.store import MemoryDocStore as TMemoryDocStore
+from test_torch_engine import _pair
 
 TIMING = ("embedding_time", "selection_time", "doc_select_time", "e2e_time")
 
@@ -41,23 +33,11 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def _servers(world_name, strategy="ragroute"):
-    syn = make_synthetic_world(world_name, docs_per_source=600,
-                               num_queries=8, seed=1)
-    params = init_router_params(jax.random.key(3), syn.world.router_input_dim)
-    jeng = JEngine(JShardSet.build(syn.world, syn.embeddings,
-                                   doc_ids=syn.doc_ids, dtype=jnp.float32),
-                   params, JBank.create(syn.world, syn.centroids),
-                   impl="exact")
-    router = CorpusRouter(syn.world.router_input_dim)
-    router.load_state_dict(params_from_jax(params))
-    teng = FederatedSearchEngine(
-        ShardSet.build(syn.world, syn.embeddings, doc_ids=syn.doc_ids,
-                       dtype=torch.float32),
-        router.eval(), RouterBank.create(syn.world, syn.centroids),
-        impl="exact")
-    tstore = load_reference("index/store.py").MemoryDocStore
-    tprov = load_reference("engine/embedding.py").PrecomputedEmbeddings
+def _servers(world_name, strategy="ragroute", **pair_kw):
+    """Both servers over one engine pair (``test_torch_engine._pair``:
+    ``impl``, ``tmp_path`` and layout arguments pass through)."""
+    pair_kw.setdefault("impl", "exact")
+    syn, jeng, teng = _pair(world_name, docs=600, nq=8, seed=1, **pair_kw)
     common = dict(strategy=strategy, disable_llm=True, port=0, warmup=False)
     jserver = JServer(
         jeng, embedding_provider=PrecomputedEmbeddings.from_synthetic(syn),
@@ -65,8 +45,8 @@ def _servers(world_name, strategy="ragroute"):
         batcher=JBatcher(jeng, strategy=strategy, window_ms=5.0,
                          buckets=(8,)), **common)
     tserver = FederationServer(
-        teng, embedding_provider=tprov.from_synthetic(syn),
-        doc_store=tstore.from_synthetic(syn),
+        teng, embedding_provider=TPrecomputedEmbeddings.from_synthetic(syn),
+        doc_store=TMemoryDocStore.from_synthetic(syn),
         batcher=QueryBatcher(teng, strategy=strategy, window_ms=5.0,
                              buckets=(8,)), **common)
     return syn, jserver, tserver
@@ -131,9 +111,7 @@ def _requests(syn):
     return reqs
 
 
-@pytest.mark.parametrize("world_name", ["medrag", "wikipedia"])
-def test_server_responses_match_jax_server(world_name):
-    syn, jserver, tserver = _servers(world_name)
+def _assert_same_responses(syn, jserver, tserver):
     reqs = _requests(syn)
     jout = asyncio.run(_run(jserver, reqs))
     tout = asyncio.run(_run(tserver, reqs))
@@ -147,6 +125,24 @@ def test_server_responses_match_jax_server(world_name):
         assert _normalize(tb) == _normalize(jb), req
         n_docs += len(jb.get("metadata", {}).get("top_docs", []))
     assert n_docs >= 6 * syn.world.k // 2    # the queries did retrieve
+
+
+@pytest.mark.parametrize("world_name", ["medrag", "wikipedia"])
+def test_server_responses_match_jax_server(world_name):
+    _assert_same_responses(*_servers(world_name))
+
+
+@pytest.mark.parametrize("impl,build_kw,engine_kw", [
+    ("ivf", {"ivf_clusters": 16}, {"nprobe": 8}),
+    ("lowrank", {"lowrank": -1}, {}),
+])
+def test_approximate_mode_server_matches_jax_server(tmp_path, impl, build_kw,
+                                                    engine_kw):
+    """``--impl ivf`` / ``--impl lowrank`` over HTTP: the same bytes from
+    both servers (apart from ids and timings) on layouts carried across."""
+    _assert_same_responses(*_servers(
+        "medrag", impl=impl, tmp_path=tmp_path, engine_kw=engine_kw,
+        **build_kw))
 
 
 def test_stats_and_unported_stream():

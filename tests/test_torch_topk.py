@@ -151,6 +151,33 @@ def test_fused_wrapper_matches_pallas_interpret_f32_random():
     np.testing.assert_allclose(s.numpy(), _np(js), **TOL)
 
 
+@pytest.mark.parametrize("scales,k", [("doc", 10), ("group", 32),
+                                      ("doc", 128), ("group", 160)])
+def test_fused_wrapper_int4_and_deep_k_match_pallas_interpret(scales, k):
+    """Packed-int4 shards (per-doc ``[N]`` and per-group ``[N, G]`` scales)
+    and lists deeper than 64 against the TPU kernel in interpret mode.
+    Integer queries, 4-bit codes and power-of-two scales are exact in bf16
+    and in any summation order: indices and scores equal, ties included."""
+    rng = np.random.default_rng(k)
+    n, d, groups = 700, 64, 2
+    q = rng.integers(-4, 5, (6, d)).astype(np.float32)
+    packed = rng.integers(-128, 128, (n, d // 2)).astype(np.int8)
+    packed[300:330] = packed[7]             # ties across the doc tiles
+    shape = (n, groups) if scales == "group" else (n,)
+    scale = (2.0 ** rng.integers(-2, 2, shape)).astype(np.float32)
+    scale[300:330] = scale[7]
+    bias = rng.integers(-3, 4, n).astype(np.float32)
+    bias[300:330] = bias[7]
+    js, ji = pallas_topk(jnp.asarray(q), jnp.asarray(packed), k, mode="l2",
+                         valid_docs=n - 9, bias=jnp.asarray(bias),
+                         scale=jnp.asarray(scale), packed4=True)
+    s, i = fused_topk(_t(q), _t(packed), k, mode="l2", valid_docs=n - 9,
+                      bias=_t(bias), scale=_t(scale), packed4=True)
+    np.testing.assert_array_equal(i.numpy(), _np(ji))
+    np.testing.assert_array_equal(s.numpy(), _np(js))
+    assert int(i.max()) < n - 9
+
+
 @pytest.mark.parametrize("mode", ["dot", "l2"])
 @pytest.mark.parametrize("impl", ["exact", "chunked"])
 def test_shard_topk_center_restores_scores_like_jax(mode, impl):
