@@ -5,11 +5,12 @@
 
 Phases, each of which fails the run when it fails:
 
-1. Environment: the card's name and power limit, torch and CUDA versions;
-   builds the three hand-written kernels (``csrc/fused_topk.cu``,
-   ``csrc/stream_topk.cu``, ``csrc/grouped_gains.cu``; one nvcc each, all
-   started together, sm_90a) and prints the build times and nvcc's
-   ``-Xptxas -v`` report.
+1. Environment: the card's name and power limit, torch and CUDA versions,
+   the host's cores and RAM and its page-locked host->device copy rate;
+   builds the four hand-written kernels (``csrc/fused_topk.cu``,
+   ``csrc/stream_topk.cu``, ``csrc/grouped_gains.cu``,
+   ``csrc/grouped_pair_topk.cu``; one nvcc each, all started together,
+   sm_90a) and prints the build times and nvcc's ``-Xptxas -v`` report.
 2. Every kernel against its plain PyTorch version on the card: exact
    integer cases (indices and scores equal), then the serving paths'
    shapes within a stated tolerance, with CUDA-event times of the kernel,
@@ -19,10 +20,19 @@ Phases, each of which fails the run when it fails:
    * fused top-k: B=512 over one 734,003 x 768 centred bf16 dot shard,
      k=32 (1e-3 x max|score|, winner-set recall >= 0.999); the same shard
      int4-packed with per-doc and with per-group scales; the low-rank
-     coarse scan (734,003 x 128 bf16, k=128);
-   * streaming top-k: [512, 131,072] stored gains, k=32 (equal);
+     coarse scan (734,003 x 128 bf16, k=128); the host tiers' launches:
+     one int8 slab of the stream tier (346,112 x 768, per-doc scale,
+     k=32) and hostrefine's flat coarse scan (5,872,128 x 128 int8,
+     per-doc scale, -inf bias on the padding rows, k'=128);
+   * streaming top-k: [512, 131,072] stored gains, k=32, and the probed
+     coarse scan's collect, [512, 4,096] with -inf entries, k'=128 (equal);
    * grouped gains: 512 queries x 512 probes over 4,096 bf16 slabs of
-     768 x 256 (1e-3 x max|gain|).
+     768 x 256 (1e-3 x max|gain|);
+   * grouped pair top-k: 512 queries x 512 probes over 4,096 int8 coarse
+     slabs of 128 x 1,584, kappa 8 (gains 1e-4 relative, slots equal
+     where the gains are clearly ordered, up to a millionth of near-ties
+     at a tile's rank cut; every slot that differs from the plain
+     version's must carry, recomputed, the gain written for it).
 3. The main paths at real size: the synthetic medrag world of 1,048,575
    docs x 768 is written to a temporary data root and served by the port's
    ``ServingSystem`` exactly as ``python -m ragroute_tpu_torch.main
@@ -48,8 +58,35 @@ Phases, each of which fails the run when it fails:
    a low-rank index of rank 20, off the kernel's 16-column grid, is served
    through the kernel (recall reported).
 
+5. The host-RAM capacity tiers. On a reduced topical int8 world (4 x
+   32,768 docs): ``tier="stream"`` with three slabs a source returns the flat
+   int8 engine's merged ids, built from arrays and loaded from a saved
+   world's ``embeddings.npy`` alike; hostrefine's flat coarse scan reaches recall
+   >= 0.95 of the flat engine; the probed coarse scan at ``nprobe == C``,
+   ``kappa >= k'`` truly misses nothing of the flat coarse scan. Then at
+   size: the synthetic medrag world at eight times the earlier size
+   (8,388,600 docs x 768, 64 topics per source, int8), its rows made block
+   by block from the seed and never held whole, under ``--hbm-budget-gb
+   3.0``, which keeps the three small sources resident and exact and sends
+   pubmed (5,872,024 docs) to the host tier. Served over HTTP three times
+   as ``python -m ragroute_tpu_torch.main --impl stream | hostrefine``
+   builds it (``--impl hostrefine`` once with the flat coarse slab, once
+   with the clustered one, reached through
+   ``RAGROUTE_HOSTREFINE_CLUSTER_MIN_DOCS``): every ``/query`` answers
+   200, the path's kernels launch (the grouped pair top-k only on the
+   probed path), ``last_phases`` is printed, and ``engine.search`` on 64
+   queries is held against the exact f32 oracle over the generated rows
+   (stream >= 0.95, the int8 gate, and >= 0.995 of the exact winners of its
+   own stored bytes, beside the recall of a plain f32 scan of those bytes
+   against the oracle, which is the quantisation's loss; hostrefine flat
+   >= 0.95, probed >= 0.9). A burst of
+   1,024 concurrent requests goes through the batcher's pipelined worker
+   (two batches in flight) and again through its sequential worker, with
+   both wall times.
+
 ``python3 chip_smoke.py kernels`` stops after phase 2: a short first run
-after a kernel change.
+after a kernel change. ``python3 chip_smoke.py tiers`` runs phases 1 and 5
+only.
 
 The second-to-last line is one JSON object with every kernel's launches on
 the main paths, its error against the plain version, its times and its
@@ -63,6 +100,7 @@ import asyncio
 import gc
 import json
 import logging
+import os
 import shutil
 import subprocess
 import sys
@@ -72,10 +110,12 @@ import time
 import numpy as np
 import torch
 
+from ragroute_tpu_torch.measure import TIER_BUDGET_GB, TIER_DOCS
 from ragroute_tpu_torch.ops import _build
 from ragroute_tpu_torch.ops import kernel_checks as kc
 from ragroute_tpu_torch.ops.fused_topk import fused_topk
 from ragroute_tpu_torch.ops.grouped_gains import grouped_gains
+from ragroute_tpu_torch.ops.grouped_topk import grouped_pair_topk
 from ragroute_tpu_torch.ops.stream_topk import stream_topk
 from ragroute_tpu_torch.utils.precision import resolve_device
 
@@ -88,11 +128,18 @@ KERNELS = {
     "grouped_gains": (grouped_gains,
                       "ragroute_tpu_torch/csrc/grouped_gains.cu",
                       "ragroute_tpu/ops/ivf_topk.py:101"),
+    "grouped_pair_topk": (grouped_pair_topk,
+                          "ragroute_tpu_torch/csrc/grouped_pair_topk.cu",
+                          "ragroute_tpu/ops/grouped_topk.py:191"),
 }
 # the kernels each served path must launch
 PATH_KERNELS = {"exact": ("fused_topk",),
                 "ivf": ("stream_topk", "grouped_gains"),
-                "lowrank": ("fused_topk",)}
+                "lowrank": ("fused_topk",),
+                "stream": ("fused_topk",),
+                "hostrefine": ("fused_topk",),
+                "hostrefine_probed": ("fused_topk", "stream_topk",
+                                      "grouped_pair_topk")}
 
 # the medrag world at the benchmark's size (bench.py, BENCH_r05.json)
 MEDRAG_DOCS = {"pubmed": 734_003, "statpearls": 104_857,
@@ -102,6 +149,14 @@ BURST = 128          # concurrent GET /query after 16 sequential ones
 N_CHECK = 64         # queries of engine.search held against exact_oracle
 IVF_TOPICS = 64      # topics per source of the world --impl ivf serves
 REDUCED_DOCS = 32_768    # docs per source of phase 4's world
+# rows of one uploaded slab of the stream tier over that world (256 MB at
+# 776 B an int8 row, on the 512-row grid)
+TIER_SLAB_ROWS = 346_112
+TIER_BURST = 1024        # concurrent requests of the pipelined burst
+# recall@32 against the exact f32 oracle; the stream tier (int8 rows, the
+# int8 gate) is also held to 0.995 of the exact winners of its stored bytes
+TIER_GATES = {"stream": 0.95, "hostrefine": 0.95, "hostrefine_probed": 0.9}
+STREAM_STORED_GATE = 0.995
 
 
 def log(msg: str) -> None:
@@ -115,6 +170,18 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: k[0].launches for name, k in KERNELS.items()}
+
+
+def h2d_rate_gbs(nbytes: int = 256 << 20) -> float:
+    """GB/s of a page-locked host->device copy of one slab-sized buffer,
+    from registered pages as the stream tier's host rows are."""
+    from ragroute_tpu_torch.index.streamed import _host_alloc
+
+    host, _ = _host_alloc((nbytes,), torch.int8, 0, True)
+    dev = torch.empty(nbytes, dtype=torch.int8, device="cuda")
+    ms = kc.cuda_time_ms(lambda: dev.copy_(host, non_blocking=True),
+                         warmup=2, reps=5)
+    return nbytes / ms / 1e6
 
 
 def phase_environment() -> str:
@@ -133,6 +200,11 @@ def phase_environment() -> str:
         log(f"aiohttp {aiohttp.__version__}")
     except ImportError:
         log("aiohttp: absent")
+    with open("/proc/meminfo") as f:
+        mem_kb = int(f.readline().split()[1])
+    log(f"[host] {os.cpu_count()} cores, {mem_kb / 2 ** 20:.1f} GiB RAM")
+    log(f"[host] page-locked host->device copy: {h2d_rate_gbs():.2f} GB/s "
+        f"(256 MB slabs, median of 5)")
     t0 = time.perf_counter()
     infos = _build.build_all(list(KERNELS))
     log(f"[build] {len(infos)} kernels built together in "
@@ -147,8 +219,9 @@ def phase_environment() -> str:
 
 # ---- phase 2: kernels against their plain versions ---------------------------
 
-def _check_fused_path(case, label: str, reps: int = 10) -> dict:
-    kernel, plain = kc.run_pair(case)
+def _check_fused_path(case, label: str, reps: int = 10,
+                      q_chunk=None) -> dict:
+    kernel, plain = kc.run_pair(case, q_chunk)
     res = kc.compare_tolerant(kernel, plain)
     log(f"[kernel] fused_topk {label}: recall {res['recall']:.6f} "
         f"max_abs_err {res['max_abs_err']:.3e} tol {res['tol']:.3e} "
@@ -158,7 +231,7 @@ def _check_fused_path(case, label: str, reps: int = 10) -> dict:
                              f"on {label}: {res}")
     del kernel, plain
     ms = kc.cuda_time_ms(lambda: kc.run_kernel(case), reps=reps)
-    plain_ms = kc.cuda_time_ms(lambda: kc.run_plain(case), warmup=1,
+    plain_ms = kc.cuda_time_ms(lambda: kc.run_plain(case, q_chunk), warmup=1,
                                reps=max(3, reps // 2))
     bound = kc.k1_bound(case)
     log(f"[kernel] fused_topk {label}: kernel {ms:.3f} ms, plain "
@@ -193,6 +266,23 @@ def phase_fused(dev) -> dict:
     modes["coarse_k128"] = _check_fused_path(
         coarse, "low-rank coarse scan B=512 N=734003 r=128 bf16 k=128",
         reps=5)
+    del coarse
+    # the host tiers' launches: one uploaded slab of the stream tier, and
+    # hostrefine's flat coarse scan over the padded rank-128 slab of the
+    # large source (the plain version 64 query rows at a time)
+    slab = kc.int8_path_case(dev, n=TIER_SLAB_ROWS, d=768, k=32, seed=6)
+    modes["int8_slab_k32"] = _check_fused_path(
+        slab, f"stream slab B=512 N={TIER_SLAB_ROWS} d=768 int8 per-doc "
+        f"scale k=32", reps=5)
+    del slab
+    n_pad = -(-TIER_DOCS["pubmed"] // 512) * 512
+    flat = kc.int8_path_case(dev, n=n_pad, d=128, k=128,
+                             pad_tail=n_pad - TIER_DOCS["pubmed"], seed=7)
+    modes["int8_coarse_k128"] = _check_fused_path(
+        flat, f"hostrefine flat coarse scan B=512 N={n_pad} r=128 int8 "
+        f"per-doc scale, -inf bias on {n_pad - TIER_DOCS['pubmed']} padding "
+        f"rows, k'=128", reps=5, q_chunk=64)
+    del flat
     res["modes"] = modes
     return res
 
@@ -230,6 +320,33 @@ def phase_stream(dev) -> dict:
         f"({bound['bound_by']})")
     del gains
     torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": library_ms,
+            "modes": {"probed_collect_k128": _check_stream_collect(dev)}}
+
+
+def _check_stream_collect(dev) -> dict:
+    """The collect of the probed coarse scan: 512 probes of kw = 8 kept
+    gains a query, a tenth of them unfilled (``-inf``), k' = 128."""
+    gains = kc.stream_path_case(dev, m=512 * 8, pad_share=0.1, seed=8)
+    k = 128
+    kg, ki = stream_topk(gains, k)
+    pg, pi = kc.stream_topk_reference(gains, k)
+    torch.cuda.synchronize()
+    err = float((kg - pg).abs().max())
+    if not torch.equal(ki, pi) or err != 0.0:
+        raise AssertionError(f"stream_topk disagrees with its plain version "
+                             f"on the probed collect (max err {err})")
+    ms = kc.cuda_time_ms(lambda: stream_topk(gains, k))
+    plain_ms = kc.cuda_time_ms(lambda: kc.stream_topk_reference(gains, k),
+                               warmup=1, reps=5)
+    library_ms = kc.cuda_time_ms(lambda: torch.topk(gains, k, dim=1))
+    bound = kc.k2_bound(gains, k)
+    log(f"[kernel] stream_topk probed collect B=512 M=4096 k=128 (10% "
+        f"-inf): equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"torch.topk {library_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
+        f"({bound['bound_by']})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
             "library_ms": library_ms}
@@ -291,9 +408,82 @@ def phase_grouped(dev) -> dict:
             "bmm_note_ms": bmm_ms}
 
 
+def phase_pair(dev) -> dict:
+    n = 0
+    for case in kc.pair_exact_cases(dev):
+        out = kc.run_pair_kernel(case)
+        real = case.real_rows
+        plain = kc.run_pair_plain(case, real // kc.PAIR_ROWS)
+        torch.cuda.synchronize()
+        res = kc.compare_pair((out[0][:real], out[1][:real]), plain)
+        if not res["ok"] or res["max_abs_err"] != 0.0:
+            raise AssertionError(
+                f"grouped_pair_topk != plain on exact case {case.name}: {res}")
+        n += 1
+    log(f"[kernel] grouped_pair_topk {n} exact cases (S 72 / 1024 / 1096 / "
+        f"2056, an empty cluster, a block of padding rows, equal gains "
+        f"across the tile boundary, negative biases, ranks 1..64, row table, "
+        f"real-block count): gains equal, slots equal where finite")
+    case = kc.pair_path_case(dev)
+    real = case.real_rows
+    blocks = real // kc.PAIR_ROWS
+    out = kc.run_pair_kernel(case)
+    plain = kc.run_pair_plain(case, blocks)
+    torch.cuda.synchronize()
+    res = kc.compare_pair((out[0][:real], out[1][:real]), plain, rel=1e-4,
+                          case=case)
+    c, r, s = case.cc.docs.shape
+    log(f"[kernel] grouped_pair_topk path shape B=512 P=512 C={c} r={r} "
+        f"S={s} int8 kappa={case.kappa}: {blocks} real blocks of "
+        f"{case.blk_cluster.shape[0]}, max_abs_err {res['max_abs_err']:.3e} "
+        f"(gate 1e-4 relative: {res['close']}), -inf places equal "
+        f"{res['same_inf']}, {res['slots_differ']} of "
+        f"{res['slots_compared']} clearly ordered slots differ (gate: a "
+        f"millionth); {res['slots_swapped']} finite entries carry another "
+        f"slot than the plain version's, {res['swapped_wrong_gain']} of them "
+        f"a slot whose recomputed gain is not the one written (gate: 0)")
+    if not res["ok"]:
+        raise AssertionError(f"grouped_pair_topk disagrees with its plain "
+                             f"version on the path shape: {res}")
+    del out, plain
+    torch.cuda.empty_cache()
+    ms = kc.cuda_time_ms(lambda: kc.run_pair_kernel(case))
+    plain_ms = kc.cuda_time_ms(lambda: kc.run_pair_plain(case, blocks),
+                               warmup=1, reps=2)
+    bound = kc.k4_bound(case)
+    # no single PyTorch call computes this; for a note, torch.bmm over the
+    # gathered slabs as bf16 (64 blocks at a time) and torch.topk of kw per
+    # row over the whole slab: no scale, no bias, no tiles, no rank cap
+    cl = case.blk_cluster[:blocks].long()
+    qb = case.q[case.rows[:real].long()].reshape(blocks, kc.PAIR_ROWS, -1)
+    kw = kc.tiling(s, case.kappa)[3]
+
+    def bmm_topk_note():
+        for g0 in range(0, blocks, 64):
+            gains = torch.bmm(qb[g0:g0 + 64],
+                              case.cc.docs[cl[g0:g0 + 64]].to(torch.bfloat16))
+            torch.topk(gains, kw, dim=2)
+
+    note_ms = kc.cuda_time_ms(bmm_topk_note, warmup=1, reps=2)
+    log(f"[kernel] grouped_pair_topk path shape: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
+        f"({bound['bound_by']}; {bound['bytes'] / 1e6:.1f} MB, "
+        f"{bound['flops'] / 1e12:.4f} TFLOP over the {case.n_pairs} real "
+        f"pairs, {bound['padded_flops'] / 1e12:.4f} over the blocks' rows); "
+        f"note: torch.bmm + torch.topk over gathered bf16 slabs "
+        f"{note_ms:.3f} ms")
+    del case, qb, cl
+    torch.cuda.empty_cache()
+    return {"max_abs_err": res["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "library_ms": None,
+            "bmm_topk_note_ms": note_ms}
+
+
 def phase_kernels(dev) -> dict:
     return {"fused_topk": phase_fused(dev), "stream_topk": phase_stream(dev),
-            "grouped_gains": phase_grouped(dev)}
+            "grouped_gains": phase_grouped(dev),
+            "grouped_pair_topk": phase_pair(dev)}
 
 
 # ---- phase 3: the served paths at real size -----------------------------------
@@ -310,8 +500,9 @@ async def _get_query(session, port: int, qid: str, question: str):
                           else await r.text())
 
 
-async def _drive(system, syn, k: int, label: str) -> dict:
-    """Sequential then concurrent GET /query through the running server."""
+async def _drive(system, syn, k: int, label: str, stop: bool = True) -> dict:
+    """Sequential then concurrent GET /query through the running server
+    (left running with ``stop=False``)."""
     import aiohttp
 
     await system.start()   # builds the engine and warms every bucket
@@ -335,8 +526,12 @@ async def _drive(system, syn, k: int, label: str) -> dict:
             async with s.get(f"http://127.0.0.1:{port}/stats") as r:
                 stats = await r.json()
         launches = read_counts()
+    except BaseException:
+        stop = True
+        raise
     finally:
-        await system.stop()
+        if stop:
+            await system.stop()
     # a query the router sends to no source gets no docs (the reference's
     # semantics); every routed query must get exactly k
     full = unrouted = 0
@@ -567,6 +762,428 @@ def phase_reduced(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- phase 5: the host-RAM capacity tiers -----------------------------------
+
+def phase_reduced_tiers(dev) -> None:
+    """The tiers on a reduced topical int8 world, against the flat engine
+    and the flat coarse scan on the card."""
+    from ragroute_tpu_torch.engine import FederatedSearchEngine
+    from ragroute_tpu_torch.engine.streamed import StreamedSearchEngine
+    from ragroute_tpu_torch.index import ShardSet, make_synthetic_world
+    from ragroute_tpu_torch.index.streamed import StreamedShardSet
+    from ragroute_tpu_torch.oracle import engine_recall
+    from ragroute_tpu_torch.ops.grouped_topk import (cluster_coarse_slab,
+                                                     coarse_probe_topk)
+    from ragroute_tpu_torch.ops.topk import shard_topk
+    from ragroute_tpu_torch.router import CorpusRouter, RouterBank
+
+    syn = make_synthetic_world("medrag", docs_per_source=REDUCED_DOCS,
+                               num_queries=N_CHECK, seed=5,
+                               with_payloads=False, subclusters=64)
+    q = dict(syn.query_embs)
+    router = CorpusRouter.from_seed(syn.world.router_input_dim, 0, dev)
+    bank = RouterBank.create(syn.world, syn.centroids, device=dev)
+    flat = FederatedSearchEngine(
+        ShardSet.build(syn.world, syn.embeddings, dtype=torch.int8,
+                       device=dev), router, bank)
+    row_b = 768 + 8
+    sset = StreamedShardSet.build(
+        syn.world, syn.embeddings, dtype=torch.int8, tier="stream",
+        hbm_budget_bytes=4 * 8192 * row_b, slab_bytes=8192 * row_b,
+        device=dev)
+    slabs = [s.n_slabs for s in sset.sources]
+    reset_counts()
+    for strategy in ("all", "ragroute"):
+        a = flat.search(q, strategy=strategy)
+        b = StreamedSearchEngine(sset, router, bank).search(
+            q, strategy=strategy)
+        ok = a.merged_shard >= 0
+        if not (np.array_equal(a.mask, b.mask)
+                and np.array_equal(a.merged_shard, b.merged_shard)
+                and np.array_equal(np.where(ok, a.merged_local, -1),
+                                   np.where(ok, b.merged_local, -1))
+                and np.allclose(np.where(ok, a.merged_score, 0.0),
+                                np.where(ok, b.merged_score, 0.0),
+                                rtol=2e-4, atol=2e-4)):
+            raise AssertionError(
+                f"stream tier != flat int8 engine (routing {strategy})")
+    log(f"[reduced] stream tier, int8, 4 x {REDUCED_DOCS} docs, resident "
+        f"prefix 8192 rows + {slabs} slabs of 8192 rows: merged ids and "
+        f"order equal the flat int8 engine's, scores within 2e-4 (routing "
+        f"all and ragroute); fused_topk launches {fused_topk.launches}")
+    if fused_topk.launches < 2 * (4 + sum(slabs)):
+        raise AssertionError("the slab scans did not run the kernel")
+
+    # the same tier through StreamedShardSet.load, as ``python -m
+    # ragroute_tpu_torch.main --impl stream`` builds it: from the
+    # embeddings.npy mmaps of a saved world
+    root = tempfile.mkdtemp(prefix="ragroute_smoke_")
+    try:
+        for src in syn.world.sources:
+            ShardSet.save_source(root, syn.world.name, src.name,
+                                 syn.embeddings[src.name])
+        lset = StreamedShardSet.load(
+            root, syn.world, dtype=torch.int8, tier="stream",
+            hbm_budget_bytes=4 * 8192 * row_b, slab_bytes=8192 * row_b,
+            device=dev)
+        c = StreamedSearchEngine(lset, router, bank).search(
+            q, strategy="ragroute")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not (np.array_equal(b.merged_shard, c.merged_shard)
+            and np.array_equal(b.merged_local, c.merged_local)
+            and np.array_equal(b.merged_score, c.merged_score)):
+        raise AssertionError("the stream tier loaded from embeddings.npy "
+                             "differs from the one built from the arrays")
+    log(f"[reduced] stream tier loaded from the saved world's embeddings.npy "
+        f"mmaps ({[s.n_slabs for s in lset.sources]} slabs): ids and scores "
+        f"equal the built tier's")
+    del lset
+
+    hset = StreamedShardSet.build(
+        syn.world, syn.embeddings, dtype=torch.int8, tier="hostrefine",
+        hbm_budget_bytes=0, device=dev)
+    want = _winner_sets(flat.search(q, strategy="all"))
+    out = StreamedSearchEngine(hset, router, bank).search(
+        q, strategy="all", fetch_candidates=False)
+    r = engine_recall(syn.world, out, want)
+    log(f"[reduced] hostrefine, flat coarse scan at rank "
+        f"{hset.sources[0].rank}, k' = 128: recall@{syn.world.k} {r:.6f} of "
+        f"the flat int8 engine (gate 0.95)")
+    if r < 0.95:
+        raise AssertionError(f"hostrefine flat: recall {r} < 0.95")
+
+    # the probed scan at nprobe == C, kappa >= k' against the flat coarse
+    # scan: a true miss is a flat-scan candidate clearly better than the
+    # worst kept key (beyond the summation noise of the two layouts)
+    st = hset.sources[0]
+    n, kp = st.n_docs, 128
+    cc = cluster_coarse_slab(st.coarse_docs[:n].cpu().numpy(),
+                             st.coarse_scale[:n].cpu().numpy(),
+                             st.coarse_bias[:n].cpu().numpy(), 0,
+                             n_clusters=64, device=dev)
+    qt = torch.from_numpy(q[syn.world.sources[0].encoder]).to(dev) @ st.basis
+    reset_counts()
+    keys, gid = coarse_probe_topk(qt, cc, kp, nprobe=cc.n_clusters, kappa=kp)
+    rs, ri = shard_topk(qt, st.coarse_docs, kp, mode="dot",
+                        bias=st.coarse_bias, scale=st.coarse_scale)
+    launches = read_counts()
+    keys, gid, rs, ri = (t.cpu().numpy() for t in (keys, gid, rs, ri))
+    missed = swaps = 0
+    for row in range(qt.shape[0]):
+        tol = 1e-3 * max(1.0, abs(float(keys[row][-1])))
+        got = set(gid[row][gid[row] >= 0].tolist())
+        for j, doc in enumerate(ri[row].tolist()):
+            if doc not in got:
+                swaps += 1
+                missed += rs[row][j] > keys[row][-1] + tol
+    log(f"[reduced] coarse_probe_topk at nprobe == C == {cc.n_clusters} "
+        f"(S={cc.capacity}), kappa = k' = {kp} against the flat coarse scan "
+        f"over {n} rows: {missed} true misses, {swaps} boundary near-ties "
+        f"swapped; launches {launches}")
+    if missed or launches["grouped_pair_topk"] != 1 \
+            or launches["stream_topk"] != 1 or launches["fused_topk"] != 1:
+        raise AssertionError("the full probe disagrees with the flat scan")
+    del flat, sset, hset, cc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _running_topk(qd, blocks, k: int):
+    """Exact top-k of ``gains(rows)`` over ``(offset, gains_fn)`` blocks: a
+    stable running list, ties to the lower doc."""
+    from ragroute_tpu_torch.ops.topk import merge_topk, topk_stable
+
+    run_s = torch.full((qd.shape[0], k), float("-inf"), device=qd.device)
+    run_i = torch.zeros((qd.shape[0], k), dtype=torch.int64, device=qd.device)
+    for offset, gains in blocks:
+        s, i = topk_stable(gains, k)
+        run_s, run_i = merge_topk(run_s, run_i, s, i + offset, k)
+    return run_s.cpu().numpy(), run_i.cpu().numpy()
+
+
+def _merge_sources(per, mask: np.ndarray, k: int) -> list:
+    """The oracle's merge: the top-k of the routed sources' k-lists."""
+    out = []
+    for row in range(mask.shape[0]):
+        cands = []
+        for si, (s, i) in enumerate(per):
+            if mask[row, si]:
+                cands.extend((float(s[row, j]), si, int(i[row, j]))
+                             for j in range(k))
+        cands.sort(key=lambda t: -t[0])
+        out.append({(si, li) for _, si, li in cands[:k]})
+    return out
+
+
+def streamed_oracle(syn, q: dict, k: int, mask: np.ndarray, dev) -> list:
+    """``exact_oracle`` over rows that are never held whole: every source's
+    generated f32 rows are scored block by block on the card in full f32,
+    then the per-source lists merge as the oracle's do. A few blocks are
+    generated ahead in threads. Returns the winner set per query."""
+    import collections
+    import concurrent.futures
+
+    block, ahead = 1 << 18, 4
+    per = []
+    with concurrent.futures.ThreadPoolExecutor(ahead) as pool:
+        for src in syn.world.sources:
+            rs = syn.row_sources[src.name]
+            qd = torch.from_numpy(q[src.encoder]).to(dev)
+            spans = [(a, min(a + block, rs.n_docs))
+                     for a in range(0, rs.n_docs, block)]
+
+            def blocks():
+                queue = collections.deque()
+                for span in spans + [None] * ahead:
+                    if span is not None:
+                        queue.append((span[0], pool.submit(rs.get, *span)))
+                    if len(queue) == ahead or (span is None and queue):
+                        a, fut = queue.popleft()
+                        rows = torch.from_numpy(fut.result()).to(dev)
+                        yield a, qd @ rows.T
+
+            per.append(_running_topk(qd, blocks(), k))
+    return _merge_sources(per, mask, k)
+
+
+def stored_oracle(sset, q: dict, k: int, mask: np.ndarray, dev,
+                  round_queries: bool = False) -> list:
+    """The exact winners of the STORED bytes of a stream-tier shard set
+    (dot sources): every resident and host row dequantized and scored in
+    f32 on the card, the centring constant restored per source.
+    ``round_queries`` rounds the queries to bf16 first, as the card's scan
+    of an int8 shard does."""
+    block = 1 << 18
+    per = []
+    for st in sset.sources:
+        assert st.score_mode == "dot"
+        qd = torch.from_numpy(q[st.encoder]).to(dev)
+        if round_queries:
+            qd = qd.to(torch.bfloat16).to(torch.float32)
+        parts = [(0, st.res_docs[:st.n_res], st.res_scale[:st.n_res],
+                  st.res_bias[:st.n_res])]
+        if st.host is not None:
+            codes, bias, scale = st.host.tensors
+            n_host = st.n_docs - st.host_row0
+            parts.append((st.host_row0, codes[:n_host], scale[:n_host],
+                          bias[:n_host]))
+
+        def blocks():
+            for row0, codes, scale, bias in parts:
+                for a in range(0, codes.shape[0], block):
+                    rows = codes[a:a + block].to(dev).to(torch.float32)
+                    yield row0 + a, ((qd @ rows.T)
+                                     * scale[a:a + block].to(dev)[None, :]
+                                     + bias[a:a + block].to(dev)[None, :])
+
+        s, i = _running_topk(qd, blocks(), k)
+        if st.center is not None:
+            s = s + (q[st.encoder] @ st.center)[:, None]
+        per.append((s, i))
+    return _merge_sources(per, mask, k)
+
+
+async def _burst(port: int, qs, n: int) -> float:
+    """Wall seconds of ``n`` concurrent GET /query (all must answer 200)."""
+    import aiohttp
+
+    conn = aiohttp.TCPConnector(limit=0)
+    async with aiohttp.ClientSession(connector=conn) as s:
+        t0 = time.perf_counter()
+        answers = await asyncio.gather(*[
+            _get_query(s, port, qs[i % len(qs)]["qid"],
+                       qs[i % len(qs)]["question"]) for i in range(n)])
+        wall = time.perf_counter() - t0
+    bad = [a for a in answers if a[0] != 200]
+    if bad:
+        raise AssertionError(f"bad /query answers in the burst: {bad[:3]}")
+    return wall
+
+
+async def _drive_tier(system, syn, k: int, label: str) -> dict:
+    """The served path of a host tier: the sequential and concurrent
+    requests of every path, then (hostrefine) the pipelined burst."""
+    launches = await _drive(system, syn, k, label, stop=False)
+    server = system.server
+    try:
+        engine = server.engine
+        log(f"[serve:{label}] last_phases {engine.last_phases}")
+        if engine.supports_pipelined_dispatch:
+            port, qs = server.bound_port, syn.questions
+            batcher = server.batcher
+            await _burst(port, qs, TIER_BURST)          # warm the connections
+            piped = await _burst(port, qs, TIER_BURST)
+            await batcher.stop()
+            engine.supports_pipelined_dispatch = False  # the plain worker
+            await batcher.start()
+            seq = await _burst(port, qs, TIER_BURST)
+            await batcher.stop()
+            engine.supports_pipelined_dispatch = True
+            await batcher.start()
+            log(f"[serve:{label}] burst of {TIER_BURST} concurrent GET "
+                f"/query (buckets up to {batcher.buckets[-1]}, so at least "
+                f"two batches): pipelined worker {piped:.3f} s, sequential "
+                f"worker {seq:.3f} s")
+    finally:
+        await system.stop()
+    return launches
+
+
+def serve_tier(root: str, dev, syn, label: str, impl: str,
+               cluster_min_docs: int, oracle: dict) -> dict:
+    """Build one host tier's ServingSystem from the CLI's flags (the rows
+    come from the world's block generator), drive it over HTTP and hold
+    ``engine.search`` against the exact f32 oracle."""
+    from ragroute_tpu_torch import config as cfg
+    from ragroute_tpu_torch.main import parse_args
+    from ragroute_tpu_torch.oracle import engine_recall
+    from ragroute_tpu_torch.system import ServingSystem
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # the value RAGROUTE_HOSTREFINE_CLUSTER_MIN_DOCS sets at start-up
+    cfg.HOSTREFINE_CLUSTER_MIN_DOCS = cluster_min_docs
+    try:
+        system = ServingSystem(parse_args([
+            "--dataset", "medrag", "--routing", "ragroute", "--disable-llm",
+            "--port", "0", "--data-root", root, "--device", str(dev),
+            "--dtype", "int8", "--impl", impl, "--hbm-budget-gb",
+            str(TIER_BUDGET_GB)]), row_sources=syn.row_sources)
+        system.build()
+    finally:
+        cfg.HOSTREFINE_CLUSTER_MIN_DOCS = 0
+    engine = system.server.engine
+    ss = engine.shard_set
+    log(f"[world:{label}] built in {time.perf_counter() - t0:.1f} s: "
+        f"{ss.index_bytes / 1e9:.3f} GB on the card, {ss.host_bytes / 1e9:.3f}"
+        f" GB of host rows")
+    for s in ss.sources:
+        what = (f"coarse rank {s.rank} clustered C={s.coarse_cl.n_clusters} "
+                f"S={s.coarse_cl.capacity}" if s.coarse_cl is not None
+                else f"coarse rank {s.rank} flat" if s.rank
+                else f"{s.n_slabs} slabs of {s.slab_rows} rows" if s.n_slabs
+                else "resident")
+        log(f"[world:{label}] {s.name}: {s.n_docs} docs, {s.n_res} resident "
+            f"rows, {what}")
+    # the shapes phase 2 held the fused kernel to are the ones this path
+    # gives it
+    big = ss.sources[0]
+    if label == "stream" and big.slab_rows != TIER_SLAB_ROWS:
+        raise AssertionError(f"slabs of {big.slab_rows} rows, the kernel "
+                             f"check assumed {TIER_SLAB_ROWS}")
+    if label == "hostrefine" and tuple(big.coarse_docs.shape) != (
+            -(-TIER_DOCS["pubmed"] // 512) * 512, 128):
+        raise AssertionError(f"coarse slab {tuple(big.coarse_docs.shape)} "
+                             f"differs from the kernel check's shape")
+    launches = asyncio.run(_drive_tier(system, syn, syn.world.k, label))
+    log(f"[serve:{label}] kernel launches on the served path: {launches}")
+    for name in PATH_KERNELS[label]:
+        if launches[name] <= 0:
+            raise AssertionError(
+                f"the {label} path never launched the {name} kernel")
+    if label != "hostrefine_probed" and launches["grouped_pair_topk"]:
+        raise AssertionError(f"the {label} path ran the probed scan")
+
+    q = {enc: e[:N_CHECK] for enc, e in syn.query_embs.items()}
+    out = engine.search(q, strategy="ragroute", fetch_candidates=False)
+    if not oracle:       # once: the three paths route alike
+        t0 = time.perf_counter()
+        oracle.update(mask=out.mask, winners=streamed_oracle(
+            syn, q, syn.world.k, out.mask, dev))
+        log(f"[oracle] exact f32 winners of {N_CHECK} queries over the "
+            f"generated rows in {time.perf_counter() - t0:.1f} s")
+    if not np.array_equal(oracle["mask"], out.mask):
+        raise AssertionError(f"{label}: the routing mask changed")
+    recall = engine_recall(syn.world, out, oracle["winners"])
+    gate = TIER_GATES[label]
+    log(f"[oracle:{label}] engine.search on {N_CHECK} queries: routed per "
+        f"source {out.mask.sum(axis=0).tolist()}, recall@{syn.world.k} vs the "
+        f"exact f32 oracle {recall:.6f} (gate {gate}); last_phases "
+        f"{engine.last_phases}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    valid = out.merged_shard >= 0
+    n_docs = np.array([s.n_docs for s in ss.sources])
+    if (out.merged_local[valid] < 0).any() or (
+            out.merged_local[valid] >= n_docs[out.merged_shard[valid]]).any():
+        raise AssertionError(f"{label}: doc ids out of range")
+    if recall < gate:
+        raise AssertionError(
+            f"{label}: recall {recall} < {gate} vs the exact f32 oracle")
+    if label == "stream":
+        # where the loss against the f32 oracle comes from: the exact
+        # winners of the stored int8 rows, a plain f32 scan of the
+        # dequantized bytes, with f32 queries and with queries rounded to
+        # bf16 as the card's scan rounds them, each held against the f32
+        # oracle; the tier must return the winners of its own bytes
+        t0 = time.perf_counter()
+        kk = syn.world.k
+        stored_w = stored_oracle(ss, q, kk, out.mask, dev)
+        rounded_w = stored_oracle(ss, q, kk, out.mask, dev,
+                                  round_queries=True)
+
+        def share(got, want):
+            return float(np.mean([len(g & w) / len(w) if w else 1.0
+                                  for g, w in zip(got, want)]))
+
+        stored = engine_recall(syn.world, out, stored_w)
+        rounded = engine_recall(syn.world, out, rounded_w)
+        log(f"[oracle:stream] flat f32 scan of the stored int8 rows vs the "
+            f"exact f32 oracle: recall@{kk} "
+            f"{share(stored_w, oracle['winners']):.6f} with f32 queries, "
+            f"{share(rounded_w, oracle['winners']):.6f} with bf16-rounded "
+            f"queries (the quantisation's loss, no tier involved)")
+        log(f"[oracle:stream] the tier vs the exact winners of its stored "
+            f"bytes: recall@{kk} {stored:.6f} with f32 queries (gate "
+            f"{STREAM_STORED_GATE}), {rounded:.6f} with bf16-rounded queries "
+            f"(gate {STREAM_STORED_GATE}), in {time.perf_counter() - t0:.1f} s")
+        if min(stored, rounded) < STREAM_STORED_GATE:
+            raise AssertionError(
+                f"stream: recall {stored} / {rounded} vs its own bytes")
+    del system, engine, ss, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "recall": recall}
+
+
+def phase_tiers(dev) -> dict:
+    """Serve the 8.4 M-doc world through the three host-tier paths."""
+    from ragroute_tpu_torch.index.synthetic import make_streamed_world
+
+    n_docs = sum(TIER_DOCS.values())
+    syn = make_streamed_world("medrag", docs_per_source_map=TIER_DOCS,
+                              num_queries=NUM_QUERIES, seed=0,
+                              subclusters=IVF_TOPICS)
+    root = tempfile.mkdtemp(prefix="ragroute_smoke_")
+    out, oracle = {}, {}
+    try:
+        # what the system reads beside the rows: centroids and the query
+        # table (no router checkpoint: seed 0, as on the other paths)
+        wroot = os.path.join(root, "medrag")
+        os.makedirs(os.path.join(wroot, "queries"))
+        with open(os.path.join(wroot, "centroids.json"), "w") as f:
+            json.dump({n: v.tolist() for n, v in syn.centroids.items()}, f)
+        encoders = list(syn.world.encoders)
+        with open(os.path.join(wroot, "queries", "encoders.json"), "w") as f:
+            json.dump(encoders, f)
+        with open(os.path.join(wroot, "queries", "qids.json"), "w") as f:
+            json.dump([qq["qid"] for qq in syn.questions], f)
+        for i, enc in enumerate(encoders):
+            np.save(os.path.join(wroot, "queries", f"enc_{i}.npy"),
+                    syn.query_embs[enc])
+        log(f"[world] medrag {n_docs} docs x 768, {IVF_TOPICS} topics per "
+            f"source, rows made block by block from the seed; int8, "
+            f"--hbm-budget-gb {TIER_BUDGET_GB}")
+        for label, impl, cluster_min in (
+                ("stream", "stream", 0), ("hostrefine", "hostrefine", 0),
+                ("hostrefine_probed", "hostrefine", 1_000_000)):
+            out[label] = serve_tier(root, dev, syn, label, impl,
+                                    cluster_min, oracle)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -574,19 +1191,27 @@ def main() -> int:
         return 2
     only = sys.argv[1] if len(sys.argv) > 1 else "all"
     logging.basicConfig(level=logging.WARNING, stream=sys.stdout)
-    for name in ("ivf", "lowrank", "shard"):
+    for name in ("ivf", "lowrank", "shard", "streamed"):
         logging.getLogger(name).setLevel(logging.INFO)
     t_start = time.perf_counter()
     dev = resolve_device("cuda")
     smi = phase_environment()
+    if only == "tiers":        # the host tiers alone
+        phase_reduced_tiers(dev)
+        phase_tiers(dev)
+        log(f"[time] host tiers done at {time.perf_counter() - t_start:.0f} s")
+        return 0
     kres = phase_kernels(dev)
     log(f"[time] kernels checked at {time.perf_counter() - t_start:.0f} s")
     if only == "kernels":      # a short first run after a kernel change
         return 0
     phase_reduced(dev)
-    log(f"[time] reduced world done at {time.perf_counter() - t_start:.0f} s")
+    phase_reduced_tiers(dev)
+    log(f"[time] reduced worlds done at {time.perf_counter() - t_start:.0f} s")
     paths = phase_main_paths(dev)
     log(f"[time] served paths done at {time.perf_counter() - t_start:.0f} s")
+    paths.update(phase_tiers(dev))
+    log(f"[time] host tiers done at {time.perf_counter() - t_start:.0f} s")
     log(smi)
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():

@@ -119,7 +119,7 @@ LOWRANK_MOMENT_SAMPLE_ROWS = 131072
 INT4_GROUP_DIMS = int(os.environ.get("RAGROUTE_INT4_GROUP_DIMS", "128")
                       ) or (1 << 30)
 
-# Host-RAM capacity tiers (--impl stream / hostrefine, not ported yet):
+# Host-RAM capacity tiers (--impl stream / hostrefine):
 # STREAM_HBM_BUDGET_GB bounds the device-resident bytes; the overflow
 # lives in host RAM and is scanned in uploaded slabs (STREAM_SLAB_MB each,
 # STREAM_PREFETCH in flight) or exact-rescored from host rows

@@ -3,7 +3,9 @@
 PyTorch port of :mod:`ragroute_tpu.engine.batcher`. The dispatcher collects
 concurrent queries for at most ``window_ms`` (or until the largest batch
 bucket fills), pads the batch to a bucket size, runs ONE engine step in an
-executor thread and resolves the per-query futures.
+executor thread and resolves the per-query futures. For an engine with a
+dispatch/complete split (the hostrefine capacity tier) the worker is
+pipelined: batch t's host rescore runs while batch t+1's device step runs.
 """
 
 from __future__ import annotations
@@ -102,13 +104,16 @@ class QueryBatcher:
 
     async def stop(self) -> None:
         self._running = False
-        if self._task:
-            self._task.cancel()
+        # the task is forgotten before it is awaited: a watchdog that polls
+        # ``_task.done()`` must not take a worker stopped on purpose for a
+        # dead one and start a second
+        task, self._task = self._task, None
+        if task:
+            task.cancel()
             try:
-                await self._task
+                await task
             except asyncio.CancelledError:
                 pass
-            self._task = None
         # fail anything still queued so its handler sees a clean error
         while True:
             try:
@@ -186,6 +191,9 @@ class QueryBatcher:
                           else out.msg_base[i])))
 
     async def _worker(self) -> None:
+        if getattr(self.engine, "supports_pipelined_dispatch", False):
+            await self._worker_pipelined()
+            return
         loop = asyncio.get_running_loop()
         batch: List[Tuple[dict, asyncio.Future]] = []
         try:
@@ -203,6 +211,63 @@ class QueryBatcher:
                             fut.set_exception(e)
                 batch = []
         finally:
+            for _, fut in batch:
+                if not fut.done():
+                    fut.set_exception(RuntimeError("batcher stopped"))
+
+    # -- pipelined worker (hostrefine capacity tier) ---------------------
+
+    def _dispatch_batch(self, batch):
+        rows = [qe.get("__row__") for qe, _ in batch]
+        denses = [None if "__row__" in qe else qe for qe, _ in batch]
+        embs = pack_query_embs(self.engine, rows, denses,
+                               self._bucket(len(batch)))
+        return self.engine.dispatch_hostrefine(
+            embs, strategy=self.strategy,
+            fetch_candidates=fetch_candidates_policy(self.engine.world))
+
+    async def _worker_pipelined(self) -> None:
+        """Two-phase serving loop for engines with a dispatch/complete
+        split: batch t's host-side exact rescore runs while batch t+1's
+        device step executes, so the steady-state rate is bounded by
+        max(device, host) instead of their sum. At most one completion is
+        in flight; light load degenerates to the sequential loop
+        (dispatch, then complete at once)."""
+        loop = asyncio.get_running_loop()
+        batch: List[Tuple[dict, asyncio.Future]] = []
+        prev: Optional[asyncio.Task] = None
+
+        async def complete(handle, cbatch, n):
+            try:
+                out = await loop.run_in_executor(
+                    None, self.engine.complete_hostrefine, handle)
+                self._demux(out, cbatch, n)
+            except Exception as e:
+                for _, fut in cbatch:
+                    if not fut.done():
+                        fut.set_exception(e)
+
+        try:
+            while self._running:
+                batch = []
+                await self._collect(batch)
+                try:
+                    handle = await loop.run_in_executor(
+                        None, self._dispatch_batch, batch)
+                except Exception as e:
+                    for _, fut in batch:
+                        if not fut.done():
+                            fut.set_exception(e)
+                    batch = []
+                    continue
+                if prev is not None:
+                    await prev
+                prev = loop.create_task(
+                    complete(handle, batch, len(batch)))
+                batch = []
+        finally:
+            if prev is not None:
+                await prev
             for _, fut in batch:
                 if not fut.done():
                     fut.set_exception(RuntimeError("batcher stopped"))

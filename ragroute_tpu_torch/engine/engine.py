@@ -71,20 +71,32 @@ class SearchOutput:
     doc_select_time: float = 0.0         # scoring + merge stage (s)
 
 
+def _pack(tensors: Sequence[Tensor]):
+    """The bytes of several tensors in one device buffer, and what it takes
+    to view them back: ``(flat uint8 tensor, [(dtype, shape), ...])``."""
+    parts = [t.contiguous() for t in tensors]
+    flat = torch.cat([p.reshape(-1).view(torch.uint8) for p in parts])
+    return flat, [(p.dtype, tuple(p.shape)) for p in parts]
+
+
+def _unpack(host: np.ndarray, meta) -> List[np.ndarray]:
+    """The arrays of a packed buffer that has reached the host."""
+    out, off = [], 0
+    for dtype, shape in meta:
+        item = torch.empty(0, dtype=dtype)
+        nbytes = int(np.prod(shape, dtype=np.int64)) * item.element_size()
+        arr = host[off:off + nbytes].copy().view(   # copy: aligned
+            item.numpy().dtype)
+        out.append(arr.reshape(shape))
+        off += nbytes
+    return out
+
+
 def _to_host(tensors: Sequence[Tensor]) -> List[np.ndarray]:
     """One coalesced device->host copy of several tensors: their bytes are
     packed into one device buffer, copied once, and viewed back."""
-    parts = [t.contiguous() for t in tensors]
-    flat = torch.cat([p.reshape(-1).view(torch.uint8) for p in parts])
-    host = flat.cpu().numpy()
-    out, off = [], 0
-    for p in parts:
-        nbytes = p.numel() * p.element_size()
-        arr = host[off:off + nbytes].copy().view(   # copy: aligned
-            torch.empty(0, dtype=p.dtype).numpy().dtype)
-        out.append(arr.reshape(tuple(p.shape)))
-        off += nbytes
-    return out
+    flat, meta = _pack(tensors)
+    return _unpack(flat.cpu().numpy(), meta)
 
 
 class PendingSearch:
@@ -320,8 +332,106 @@ class QueryTableMixin:
                 np.asarray(query_embs[enc], np.float32)).to(self.device)
         return out
 
+    def _host_embs(self, query_embs: Dict[str, np.ndarray]
+                   ) -> Dict[str, np.ndarray]:
+        """Host-side f32 per-encoder embeddings for the same batch (the
+        hostrefine tier's rescore needs the raw queries on the host)."""
+        rows = query_embs.get("__rows__")
+        if rows is not None:
+            idx = np.clip(np.asarray(rows, np.int64), 0,
+                          max(next(iter(self._qtable_host.values()))
+                              .shape[0] - 1, 0))
+            return {enc: t[idx] for enc, t in self._qtable_host.items()}
+        return {enc: np.asarray(query_embs[enc], np.float32)
+                for enc in self.world.encoders}
 
-class FederatedSearchEngine(QueryTableMixin):
+
+class EngineBase(QueryTableMixin):
+    """What every search engine of the port shares: the router step, the
+    response-size tables, the coalesced result copy and doc id lookup.
+    A subclass sets ``world``, ``shard_set``, ``device``, ``router``,
+    ``bank``, ``threshold``, ``_gen`` and ``_ptables``."""
+
+    def set_payload_tables(self, per_source, names) -> None:
+        """Enable device-side response sizes (``msg_base``); ``None``
+        disables them (the host estimator reads fetched shard_ids)."""
+        self._ptables = (None if per_source is None else
+                         build_payload_tables(per_source, names,
+                                              self.world.k, self.device))
+
+    def _router_inputs(self, strategy: str):
+        if self.router is not None and self.bank is not None:
+            return self.router, self.bank
+        if strategy == "ragroute":
+            raise ValueError(
+                "routing strategy 'ragroute' needs a router + bank")
+        # all/random/none never read the probabilities; a fresh router
+        # over a zero bank gives them the reference's shape
+        if not hasattr(self, "_zero_router"):
+            self._zero_router = CorpusRouter.from_seed(
+                self.world.router_input_dim, 0, self.device)
+            self._zero_bank = RouterBank.create(
+                self.world, {s.name: np.zeros(s.embed_dim, np.float32)
+                             for s in self.world.sources},
+                device=self.device)
+        return self._zero_router, self._zero_bank
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.no_grad()
+    def _route(self, embs, strategy):
+        router, bank = self._router_inputs(strategy)
+        return _route_fn(self.world, strategy, router, bank, embs,
+                         self._gen, self.threshold)
+
+    def _fetch_output(self, probs, mask, scored, *, fetch_candidates: bool,
+                      sel_t: float, doc_t, t0: float) -> SearchOutput:
+        (shard_scores, shard_ids, merged_score, merged_shard, merged_local,
+         merged_valid, msg) = scored
+        names = ["probs", "mask", "merged_score", "merged_shard",
+                 "merged_local", "merged_valid"]
+        tensors = [probs, mask, merged_score, merged_shard, merged_local,
+                   merged_valid]
+        if fetch_candidates:
+            names += ["shard_scores", "shard_ids"]
+            tensors += [shard_scores, shard_ids]
+        elif msg is not None:
+            names.append("msg_base")
+            tensors.append(msg)
+        else:
+            names.append("shard_ids")
+            tensors.append(shard_ids)
+        host = dict(zip(names, _to_host(tensors)))
+        if doc_t is None:
+            doc_t = time.perf_counter() - t0
+        return SearchOutput(
+            probs=host["probs"], mask=host["mask"],
+            shard_scores=host.get("shard_scores"),
+            shard_ids=host.get("shard_ids"),
+            merged_score=host["merged_score"],
+            merged_shard=host["merged_shard"],
+            merged_local=host["merged_local"],
+            merged_valid=host["merged_valid"], msg_base=host.get("msg_base"),
+            selection_time=sel_t, doc_select_time=doc_t)
+
+    def resolve_doc_ids(self, out: SearchOutput, row: int
+                        ) -> List[Tuple[str, object]]:
+        """One query's merged (shard, local) pairs as host doc ids."""
+        res = []
+        for j in range(out.merged_shard.shape[1]):
+            si = int(out.merged_shard[row, j])
+            if si < 0:
+                continue
+            src = self.world.sources[si]
+            ids = self.shard_set.doc_ids.get(src.name)
+            local = int(out.merged_local[row, j])
+            res.append((src.name, ids[local] if ids else local))
+        return res
+
+
+class FederatedSearchEngine(EngineBase):
     """Holds the device state (shards, router) and runs search steps.
 
     Args:
@@ -349,8 +459,9 @@ class FederatedSearchEngine(QueryTableMixin):
                  k_refine: Optional[int] = None):
         if impl not in IMPLS:
             raise ValueError(
-                f"impl {impl!r} is not ported yet (ROADMAP queue 1, item "
-                f"11); the port serves {IMPLS}")
+                f"impl {impl!r} is not one of {IMPLS} (the host-RAM tiers "
+                f"'stream' and 'hostrefine' are served by "
+                f"engine.streamed.StreamedSearchEngine)")
         if impl == "ivf":
             missing = [s.name for s in shard_set.shards if s.ivf is None]
             if missing:
@@ -386,40 +497,6 @@ class FederatedSearchEngine(QueryTableMixin):
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._ptables = None
         self._step_lock = threading.Lock()
-
-    def set_payload_tables(self, per_source, names) -> None:
-        """Enable device-side response sizes (``msg_base``); ``None``
-        disables them (the host estimator reads fetched shard_ids)."""
-        self._ptables = (None if per_source is None else
-                         build_payload_tables(per_source, names,
-                                              self.world.k, self.device))
-
-    def _router_inputs(self, strategy: str):
-        if self.router is not None and self.bank is not None:
-            return self.router, self.bank
-        if strategy == "ragroute":
-            raise ValueError(
-                "routing strategy 'ragroute' needs a router + bank")
-        # all/random/none never read the probabilities; a fresh router
-        # over a zero bank gives them the reference's shape
-        if not hasattr(self, "_zero_router"):
-            self._zero_router = CorpusRouter.from_seed(
-                self.world.router_input_dim, 0, self.device)
-            self._zero_bank = RouterBank.create(
-                self.world, {s.name: np.zeros(s.embed_dim, np.float32)
-                             for s in self.world.sources},
-                device=self.device)
-        return self._zero_router, self._zero_bank
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    @torch.no_grad()
-    def _route(self, embs, strategy):
-        router, bank = self._router_inputs(strategy)
-        return _route_fn(self.world, strategy, router, bank, embs,
-                         self._gen, self.threshold)
 
     @torch.no_grad()
     def _score(self, embs, mask):
@@ -480,47 +557,3 @@ class FederatedSearchEngine(QueryTableMixin):
                 event.record()
         return PendingSearch(self, probs, mask, scored, event, t0=t0,
                              fetch_candidates=fetch_candidates)
-
-    def _fetch_output(self, probs, mask, scored, *, fetch_candidates: bool,
-                      sel_t: float, doc_t, t0: float) -> SearchOutput:
-        (shard_scores, shard_ids, merged_score, merged_shard, merged_local,
-         merged_valid, msg) = scored
-        names = ["probs", "mask", "merged_score", "merged_shard",
-                 "merged_local", "merged_valid"]
-        tensors = [probs, mask, merged_score, merged_shard, merged_local,
-                   merged_valid]
-        if fetch_candidates:
-            names += ["shard_scores", "shard_ids"]
-            tensors += [shard_scores, shard_ids]
-        elif msg is not None:
-            names.append("msg_base")
-            tensors.append(msg)
-        else:
-            names.append("shard_ids")
-            tensors.append(shard_ids)
-        host = dict(zip(names, _to_host(tensors)))
-        if doc_t is None:
-            doc_t = time.perf_counter() - t0
-        return SearchOutput(
-            probs=host["probs"], mask=host["mask"],
-            shard_scores=host.get("shard_scores"),
-            shard_ids=host.get("shard_ids"),
-            merged_score=host["merged_score"],
-            merged_shard=host["merged_shard"],
-            merged_local=host["merged_local"],
-            merged_valid=host["merged_valid"], msg_base=host.get("msg_base"),
-            selection_time=sel_t, doc_select_time=doc_t)
-
-    def resolve_doc_ids(self, out: SearchOutput, row: int
-                        ) -> List[Tuple[str, object]]:
-        """One query's merged (shard, local) pairs as host doc ids."""
-        res = []
-        for j in range(out.merged_shard.shape[1]):
-            si = int(out.merged_shard[row, j])
-            if si < 0:
-                continue
-            src = self.world.sources[si]
-            ids = self.shard_set.doc_ids.get(src.name)
-            local = int(out.merged_local[row, j])
-            res.append((src.name, ids[local] if ids else local))
-        return res

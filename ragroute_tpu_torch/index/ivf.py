@@ -135,18 +135,27 @@ def _kmeans_device(xc: torch.Tensor, wc: torch.Tensor, emb: np.ndarray,
     return cent.cpu().numpy().astype(np.float32)
 
 
+def _chunk_top_r(xb: torch.Tensor, c: torch.Tensor, cb: torch.Tensor,
+                 r: int) -> torch.Tensor:
+    """``[chunk, r]`` int32 nearest clusters of one chunk, nearest first,
+    ties to the lower cluster. The slice is copied out: a view would keep
+    the chunk's whole ``[chunk, C]`` sort index alive (``C / r`` times the
+    bytes), and the caller holds one result per chunk of the corpus."""
+    from ragroute_tpu_torch.ops.topk import topk_stable
+
+    return topk_stable(_chunk_scores(xb, c) + cb[None, :], r)[1].to(
+        torch.int32)
+
+
 @torch.no_grad()
 def _top_r_choices(xc: torch.Tensor, n: int, cent: np.ndarray,
                    r: int) -> np.ndarray:
     """``[n, r]`` cluster-preference ranking per doc (nearest first, ties
     to the lower cluster), on the device of ``xc``."""
-    from ragroute_tpu_torch.ops.topk import topk_stable
-
     c = torch.from_numpy(np.asarray(cent, np.float32)).to(xc.device)
     cb = -0.5 * (c * c).sum(dim=1)
-    tops = [topk_stable(_chunk_scores(xb, c) + cb[None, :], r)[1]
-            for xb in xc]
-    return torch.cat(tops).to(torch.int32).cpu().numpy()[:n]
+    tops = [_chunk_top_r(xb, c, cb, r) for xb in xc]
+    return torch.cat(tops).cpu().numpy()[:n]
 
 
 def _balanced_assign(choices: np.ndarray, n_clusters: int,

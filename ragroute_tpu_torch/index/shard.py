@@ -12,7 +12,8 @@ Every host-side step (normalization, centring, quantization, packing,
 padding, the bf16 cast) runs on the host and is bit-identical to the
 reference's: the quantizers below are numpy copies of the reference's
 (the port imports nothing of the JAX package). Only the final bytes cross
-to the device.
+to the device. :func:`encode_rows` is that treatment as one function, shared
+with the host-RAM tiers (:mod:`ragroute_tpu_torch.index.streamed`).
 
 A shard may also carry a balanced-IVF layout (``ivf``,
 :mod:`ragroute_tpu_torch.index.ivf`) and a low-rank coarse index (``lr``,
@@ -40,9 +41,9 @@ import torch
 
 from ragroute_tpu_torch.config import (INT4_GROUP_DIMS, LOWRANK_ENERGY,
                                        SHARD_PAD_MULTIPLE, WorldConfig)
-from ragroute_tpu_torch.index.ivf import (IVFData, build_ivf,
-                                          ivf_fingerprint, load_ivf,
-                                          save_ivf)
+from ragroute_tpu_torch.index.ivf import (IVFData, _bf16_from_bits, _np,
+                                          build_ivf, ivf_fingerprint,
+                                          load_ivf, save_ivf)
 from ragroute_tpu_torch.index.lowrank import (LowRankData, build_lowrank,
                                               load_lowrank, save_lowrank)
 
@@ -129,14 +130,56 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _to_device(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
+def _gain_bias(emb: np.ndarray, score_mode: str) -> np.ndarray:
+    """Gain-form bias of stored-form f32 rows: ``-|d|^2`` for l2, else 0."""
+    if score_mode == "l2":
+        return -np.einsum("nd,nd->n", emb, emb, dtype=np.float32,
+                          optimize=True)
+    return np.zeros(emb.shape[0], np.float32)
+
+
+def encode_rows(emb: np.ndarray, score_mode: str, *, dtype: StorageDType,
+                packed4: bool, center: Optional[np.ndarray] = None,
+                norm_cos: bool = True
+                ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """Raw f32 rows into stored form: cos normalization, mean-centring, the
+    l2 gain bias and the dtype's quantization, all on the host. Returns
+    ``(stored, bias, scale)`` as numpy arrays; bfloat16 rows come back as
+    their uint16 bit pattern (numpy has no bfloat16).
+
+    One function for :meth:`ShardSet.build` and the host-RAM tiers
+    (:mod:`ragroute_tpu_torch.index.streamed`), so host rows and device
+    rows are the same bytes."""
+    emb = np.asarray(emb, dtype=np.float32)
+    if score_mode == "cos" and norm_cos:
+        emb = emb / np.maximum(
+            np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
+    if center is not None:
+        emb = emb - np.asarray(center, np.float32)
+    bias = _gain_bias(emb, score_mode)
+    scale = None
+    if packed4:
+        if emb.shape[1] % INT4_GROUP_DIMS == 0:
+            codes, scale = _quantize_sym_grouped(emb, 7, INT4_GROUP_DIMS)
+        else:
+            codes, scale = _quantize_sym(emb, 7, mse_opt=True)
+        stored = _pack_int4(codes)
+    elif dtype == torch.int8:
+        stored, scale = _quantize_sym(emb, 127)
+    elif dtype == torch.bfloat16:
+        # the cast goes through torch (round to nearest even)
+        stored = _np(torch.from_numpy(np.ascontiguousarray(emb))
+                     .to(torch.bfloat16))
+    else:
+        stored = emb
+    return stored, bias.astype(np.float32), scale
+
+
+def _to_device(arr: np.ndarray, device) -> torch.Tensor:
     arr = np.ascontiguousarray(arr)
     if not arr.flags.writeable:      # a read-only mmap of embeddings.npy
         arr = arr.copy()
-    t = torch.from_numpy(arr)
-    if dtype is not None:
-        t = t.to(dtype)        # host-side cast: only final bytes cross
-    return t.to(device)
+    return torch.from_numpy(arr).to(device)   # only final bytes cross
 
 
 @dataclasses.dataclass
@@ -291,37 +334,29 @@ class ShardSet:
                         save_lowrank(lr, cache, fingerprint=fp)
             if n_pad != n:
                 emb = np.pad(emb, ((0, n_pad - n), (0, 0)))
-            if src.score_mode == "l2":
-                b_np = -np.einsum("nd,nd->n", emb, emb,
-                                  dtype=np.float32, optimize=True)
-            else:
-                b_np = np.zeros(n_pad, np.float32)
-            b_np[n:] = -np.inf
             scale = None
             if packed_rows is not None:
                 # quantized above (shared with build_ivf); pad rows carry
                 # code 0 / scale 1e-12, bit-identical to quantizing the
                 # zero pad rows
                 pad = n_pad - n
+                b_np = _gain_bias(emb, src.score_mode)
                 docs = _to_device(np.pad(packed_rows, ((0, pad), (0, 0))),
                                   device)
                 scale = _to_device(
                     np.pad(row_scales, (0, pad),
                            constant_values=np.float32(1e-12)), device)
-            elif packed4:
-                if src.embed_dim % INT4_GROUP_DIMS == 0:
-                    codes, s_row = _quantize_sym_grouped(emb, 7,
-                                                         INT4_GROUP_DIMS)
-                else:
-                    codes, s_row = _quantize_sym(emb, 7, mse_opt=True)
-                docs = _to_device(_pack_int4(codes), device)
-                scale = _to_device(s_row, device)
-            elif dtype == torch.int8:
-                codes, s_row = _quantize_sym(emb, 127)
-                docs = _to_device(codes, device)
-                scale = _to_device(s_row, device)
             else:
-                docs = _to_device(emb, device, dtype)
+                # emb is already normalized, centred and padded
+                stored, b_np, s_row = encode_rows(
+                    emb, src.score_mode, dtype=dtype, packed4=packed4,
+                    norm_cos=False)
+                docs = (_bf16_from_bits(stored).to(device)
+                        if dtype == torch.bfloat16
+                        else _to_device(stored, device))
+                if s_row is not None:
+                    scale = _to_device(s_row, device)
+            b_np[n:] = -np.inf
             shards.append(DeviceShard(
                 docs=docs, bias=_to_device(b_np, device), scale=scale,
                 center=center, n_docs=n, name=src.name,

@@ -2,8 +2,8 @@
 
 The port's own copy of the JAX package's ``index/synthetic.py`` (numpy
 only): the same seed gives the same bytes in both packages, which
-``tests/test_torch_vendored.py`` holds. The block-streamed generator of the
-host-RAM tiers is not ported yet (ROADMAP queue 1, item 11).
+``tests/test_torch_vendored.py`` holds, the blocks of the streamed
+generator of the host-RAM tiers included.
 
 The reference snapshot's real corpora/checkpoints live on an unavailable NFS
 volume (``config.py:16-24``, ``.MISSING_LARGE_BLOBS``), and its own test
@@ -192,6 +192,127 @@ def make_synthetic_world(
         relevant=relevant,
         questions=questions,
     )
+
+
+GEN_BLOCK = 1 << 16  # row granularity of the streamed generator
+
+
+@dataclasses.dataclass
+class StreamedSyntheticWorld:
+    """Block-generated synthetic world for capacity-scale corpora.
+
+    Same latent construction as :func:`make_synthetic_world` (per-source
+    latent cluster centers, per-encoder projections, queries mixing 1..3
+    centers) but documents are produced ON DEMAND in deterministic
+    ``GEN_BLOCK``-row blocks, so a corpus of tens of millions of docs never
+    exists as one f32 array; the streamed build (index/streamed.py) pulls
+    blocks through its encoder and keeps only the quantized bytes. Centroids
+    are the analytic expectation ``center @ proj`` (the empirical mean's
+    sampling error at millions of rows is negligible for routing)."""
+
+    world: WorldConfig
+    row_sources: Dict[str, object]           # source -> RowSource
+    centroids: Dict[str, np.ndarray]
+    query_embs: Dict[str, np.ndarray]
+    relevant: np.ndarray
+    questions: List[dict]
+
+
+def make_streamed_world(
+    world_name: str,
+    *,
+    docs_per_source_map: Dict[str, int],
+    num_queries: int = 2048,
+    seed: int = 0,
+    noise: float = 0.35,
+    subclusters: int = 1,
+) -> StreamedSyntheticWorld:
+    """``subclusters > 1`` adds the same within-source topical structure
+    as :func:`make_synthetic_world` (shared topic offsets across sources,
+    one topic per query, source-level variance preserved) — the corpus
+    regime for cluster-probed rows (IVF, the hostrefine probed coarse
+    scan); the default single blob is their worst case and stays the
+    exhaustive-scan benchmark world."""
+    from ragroute_tpu_torch.index.streamed import RowSource
+
+    world = get_world(world_name)
+    rng = np.random.default_rng(seed)
+    n_src = world.num_sources
+
+    proj: Dict[str, np.ndarray] = {}
+    enc_dim = {s.encoder: s.embed_dim for s in world.sources}
+    for enc in world.encoders:
+        p = rng.standard_normal((LATENT_DIM, enc_dim[enc])).astype(np.float32)
+        proj[enc] = p / np.sqrt(LATENT_DIM)
+    centers = rng.standard_normal((n_src, LATENT_DIM)).astype(np.float32)
+    centers *= 2.0
+    topic_offsets = None
+    if subclusters > 1:
+        topic_offsets = (0.9 * noise) * np.random.default_rng(
+            [seed, 77]).standard_normal(
+            (subclusters, LATENT_DIM)).astype(np.float32)
+
+    def make_get(si: int, enc: str):
+        center = centers[si]
+        p = proj[enc]
+
+        def get(start: int, stop: int) -> np.ndarray:
+            out = np.empty((stop - start, enc_dim[enc]), np.float32)
+            pos = start
+            while pos < stop:
+                blk = pos // GEN_BLOCK
+                b0 = blk * GEN_BLOCK
+                b1 = b0 + GEN_BLOCK
+                lo, hi = max(pos, b0), min(stop, b1)
+                brng = np.random.default_rng([seed, 71, si, blk])
+                if subclusters > 1:
+                    which = brng.integers(0, subclusters, GEN_BLOCK)
+                    z = (center + topic_offsets[which]
+                         + (0.436 * noise) * brng.standard_normal(
+                             (GEN_BLOCK, LATENT_DIM)).astype(np.float32))
+                else:
+                    z = center + noise * brng.standard_normal(
+                        (GEN_BLOCK, LATENT_DIM)).astype(np.float32)
+                # the product lands in place (the same BLAS call without
+                # a block-sized temporary)
+                np.matmul(z[lo - b0:hi - b0], p,
+                          out=out[lo - start:hi - start])
+                pos = hi
+            return out
+
+        return get
+
+    row_sources = {}
+    centroids = {}
+    for si, src in enumerate(world.sources):
+        n = docs_per_source_map[src.name]
+        row_sources[src.name] = RowSource(
+            n_docs=n, dim=src.embed_dim, get=make_get(si, src.encoder))
+        centroids[src.name] = (centers[si] @ proj[src.encoder]).astype(
+            np.float32)
+
+    qrng = np.random.default_rng([seed, 9973])
+    relevant = np.zeros((num_queries, n_src), dtype=bool)
+    latents = np.zeros((num_queries, LATENT_DIM), dtype=np.float32)
+    for qi in range(num_queries):
+        n_rel = int(qrng.integers(1, min(3, n_src) + 1))
+        chosen = qrng.choice(n_src, size=n_rel, replace=False)
+        relevant[qi, chosen] = True
+        mix = centers[chosen].mean(axis=0)
+        if subclusters > 1:
+            mix = mix + topic_offsets[qrng.integers(0, subclusters)]
+        latents[qi] = mix + 0.5 * noise * qrng.standard_normal(LATENT_DIM)
+    query_embs = {
+        enc: (latents @ proj[enc]).astype(np.float32)
+        for enc in world.encoders
+    }
+    questions = [{"qid": f"syn{qi}",
+                  "question": f"Synthetic streamed question {qi}?",
+                  "options": {"A": "a", "B": "b", "C": "c", "D": "d"},
+                  "answer": "A"} for qi in range(num_queries)]
+    return StreamedSyntheticWorld(
+        world=world, row_sources=row_sources, centroids=centroids,
+        query_embs=query_embs, relevant=relevant, questions=questions)
 
 
 def save_world(syn: SyntheticWorld, root: str) -> str:

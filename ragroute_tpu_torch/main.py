@@ -1,8 +1,7 @@
 """CLI entry point: serve the federated search system with PyTorch.
 
 The same flags as the JAX package's ``main.py``, plus ``--device``. Values
-outside the ported slices (meshes, host-RAM tiers, the dtype policy, live
-updates, live encoders, the JAX LLM stack, the native front-end, workers)
+outside the ported slices (meshes, the dtype policy, live updates, live encoders, the JAX LLM stack, the native front-end, workers)
 fail at start-up naming their ROADMAP item.
 
 Examples (on a CUDA card)::
@@ -13,6 +12,8 @@ Examples (on a CUDA card)::
         --disable-llm --impl ivf --nprobe 512
     python -m ragroute_tpu_torch.main --dataset medrag --routing ragroute \
         --disable-llm --impl lowrank --dtype int4
+    python -m ragroute_tpu_torch.main --dataset medrag --routing ragroute \
+        --disable-llm --impl hostrefine --dtype int8 --hbm-budget-gb 3.0
 """
 
 from __future__ import annotations
@@ -85,13 +86,18 @@ def parse_args(argv=None):
                         "names it), exact for small shards; ivf = "
                         "cluster-probed approximate search; hybrid = ivf "
                         "for small batches on large shards; lowrank = "
-                        "low-rank coarse scan + exact refine; stream and "
-                        "hostrefine are not ported")
+                        "low-rank coarse scan + exact refine; stream = "
+                        "resident prefix + host-RAM slabs uploaded per "
+                        "batch; hostrefine = device coarse scan + exact "
+                        "rescore from host-RAM rows")
     p.add_argument("--hbm-budget-gb", type=float, default=None,
-                   help="(--impl stream/hostrefine; not ported)")
+                   help="--impl stream/hostrefine: device-memory budget "
+                        "for exact rows in GB (default "
+                        "$RAGROUTE_HBM_BUDGET_GB or 6.0)")
     p.add_argument("--nprobe", type=int, default=None,
-                   help="Clusters probed per query (--impl ivf/hybrid; "
-                        "default C/8 resp. C/32 per shard)")
+                   help="Clusters probed per query (--impl ivf/hybrid: "
+                        "default C/8 resp. C/32 per shard; --impl "
+                        "hostrefine over a clustered coarse slab: C/8)")
     p.add_argument("--ivf-clusters", type=int, default=-1,
                    help="Clusters per shard for --impl ivf/hybrid "
                         "(-1 = ~4*sqrt(n) per shard)")
@@ -99,8 +105,8 @@ def parse_args(argv=None):
                    help="--impl lowrank: rank of the coarse projection "
                         "(-1 = by spectral energy)")
     p.add_argument("--refine-mult", type=int, default=None,
-                   help="--impl lowrank: candidates per query = "
-                        "refine_mult * k (default 4)")
+                   help="--impl lowrank/hostrefine: candidates per query "
+                        "= refine_mult * k (default 4)")
     p.add_argument("--buckets", type=int, nargs="+", default=None,
                    help="Batch bucket sizes (each is warmed at start-up; "
                         "default 1 8 32 128 512)")

@@ -1,6 +1,7 @@
 """Measurements of the port on one CUDA card, for PERF.md.
 
     python -m ragroute_tpu_torch.measure [--parent DIR]
+    python -m ragroute_tpu_torch.measure --tiers
 
 Needs a card (fails without one). It makes the synthetic medrag world at
 the benchmark's size (1,048,575 docs x 768, bf16 on the card) with the
@@ -20,6 +21,21 @@ prints:
    fused top-k kernel at the serving shape from that tree and from this one
    in turns (parent, this, this, parent), each in a process of its own.
 
+``--tiers`` measures the host-RAM capacity tiers instead: the synthetic
+medrag world at eight times that size (8,388,600 docs x 768, 64 topics per
+source, int8, rows made block by block from the seed) under a device budget
+of 3.0 GB, which keeps the three small sources resident and sends pubmed to
+the host tier. For ``stream``, ``hostrefine`` with the flat coarse slab and
+``hostrefine`` with the clustered one (the flat build's slab, clustered) it
+prints the build seconds, the device and host bytes, the engine step time
+at B = 512 and B = 2,048 (routing ``ragroute`` and ``all``; median of 5
+after a warm-up), ``last_phases`` of the last step, for hostrefine the
+queries per second of eight batches dispatched and completed in turn
+against the same batches with batch t + 1 dispatched before batch t
+completes, a ``torch.profiler`` window over 5 steps at B = 512 (device time
+by kernel, the host->device copies among them, and the busy share), the
+kernels' launches per step, and the peak device and host memory.
+
 Every line names the card and its power limit. The last line is one JSON
 object with everything printed.
 """
@@ -28,7 +44,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import gc
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -59,10 +77,12 @@ def _card() -> str:
 def _counts():
     from ragroute_tpu_torch.ops.fused_topk import fused_topk
     from ragroute_tpu_torch.ops.grouped_gains import grouped_gains
+    from ragroute_tpu_torch.ops.grouped_topk import grouped_pair_topk
     from ragroute_tpu_torch.ops.stream_topk import stream_topk
 
     return {"fused_topk": fused_topk, "stream_topk": stream_topk,
-            "grouped_gains": grouped_gains}
+            "grouped_gains": grouped_gains,
+            "grouped_pair_topk": grouped_pair_topk}
 
 
 def step_times(engines, syn, reps: int = 10):
@@ -84,7 +104,8 @@ def step_times(engines, syn, reps: int = 10):
 
 
 def profile_steps(eng, syn, bsz: int, steps: int = 10, top: int = 12):
-    """Device time by kernel over ``steps`` back-to-back steps."""
+    """Device time by kernel (and copy) over ``steps`` back-to-back
+    steps."""
     from torch.profiler import ProfilerActivity, profile
 
     q = {enc: e[:bsz] for enc, e in syn.query_embs.items()}
@@ -133,13 +154,155 @@ def parent_vs_change(parent: str, card: str):
     return out
 
 
+# the host tiers' world (also served by chip_smoke.py): the synthetic medrag
+# world at eight times the benchmark's size, under a device budget that the
+# three small sources fit and pubmed does not
+TIER_DOCS = {"pubmed": 5_872_024, "statpearls": 838_856,
+             "textbooks": 671_088, "wikipedia": 1_006_632}
+TIER_BUDGET_GB = 3.0
+TIER_BUDGET_BYTES = int(TIER_BUDGET_GB * 1e9)
+TIER_BATCHES = (512, 2048)
+
+
+def tier_step_times(eng, syn, reps: int = 5):
+    """Median host-clock ms of one engine step per (strategy, B), and the
+    phases of the last one."""
+    out = {}
+    for strategy in ("ragroute", "all"):
+        for bsz in TIER_BATCHES:
+            q = {enc: e[:bsz] for enc, e in syn.query_embs.items()}
+            times = []
+            for i in range(reps + 1):
+                t0 = time.perf_counter()
+                eng.search(q, strategy=strategy, fetch_candidates=False)
+                if i >= 1:
+                    times.append(1e3 * (time.perf_counter() - t0))
+            out[f"{strategy}/B{bsz}"] = {
+                "ms": float(np.median(times)),
+                "last_phases": dict(eng.last_phases)}
+    return out
+
+
+def pipelined_rate(eng, syn, bsz: int, batches: int = 8):
+    """Queries per second of ``batches`` hostrefine batches: dispatched
+    and completed in turn, and with batch t + 1 dispatched before batch t
+    completes (its device step runs under batch t's host rescore)."""
+    qs = [{enc: np.roll(e, 7 * i, axis=0)[:bsz]
+           for enc, e in syn.query_embs.items()} for i in range(batches)]
+    kw = dict(strategy="ragroute", fetch_candidates=False)
+    eng.search(qs[0], **kw)
+    t0 = time.perf_counter()
+    for q in qs:
+        eng.complete_hostrefine(eng.dispatch_hostrefine(q, **kw))
+    seq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    handle = eng.dispatch_hostrefine(qs[0], **kw)
+    for q in qs[1:]:
+        nxt = eng.dispatch_hostrefine(q, **kw)
+        eng.complete_hostrefine(handle)
+        handle = nxt
+    eng.complete_hostrefine(handle)
+    pipe_s = time.perf_counter() - t0
+    n = bsz * batches
+    return {"sequential_qps": n / seq_s, "pipelined_qps": n / pipe_s}
+
+
+def measure_tiers(card: str, device="cuda"):
+    """The three host-tier engines over the 8.4 M-doc world."""
+    from ragroute_tpu_torch.engine.streamed import StreamedSearchEngine
+    from ragroute_tpu_torch.index.streamed import StreamedShardSet
+    from ragroute_tpu_torch.index.synthetic import make_streamed_world
+    from ragroute_tpu_torch.ops.grouped_topk import cluster_coarse_slab
+    from ragroute_tpu_torch.router import CorpusRouter, RouterBank
+
+    dev = torch.device(device)
+    syn = make_streamed_world("medrag", docs_per_source_map=TIER_DOCS,
+                              num_queries=max(TIER_BATCHES), seed=0,
+                              subclusters=64)
+    router = CorpusRouter.from_seed(syn.world.router_input_dim, 0, dev)
+    bank = RouterBank.create(syn.world, syn.centroids, device=dev)
+    result = {}
+
+    def build(tier):
+        t0 = time.perf_counter()
+        sset = StreamedShardSet.build(
+            syn.world, syn.row_sources, dtype=torch.int8, tier=tier,
+            hbm_budget_bytes=TIER_BUDGET_BYTES, device=dev)
+        return sset, time.perf_counter() - t0
+
+    def run(label, sset, build_s):
+        torch.cuda.reset_peak_memory_stats()
+        eng = StreamedSearchEngine(sset, router, bank)
+        r = {"build_s": build_s, "device_gb": sset.index_bytes / 1e9,
+             "host_gb": sset.host_bytes / 1e9}
+        print(f"[tier:{label}] {sum(TIER_DOCS.values())} docs built in "
+              f"{build_s:.1f} s: {r['device_gb']:.3f} GB on the card, "
+              f"{r['host_gb']:.3f} GB of host rows ({card})", flush=True)
+        r["step"] = tier_step_times(eng, syn)
+        for key, v in r["step"].items():
+            print(f"[tier:{label}] step {key}: {v['ms']:.3f} ms, last_phases "
+                  f"{v['last_phases']} ({card})", flush=True)
+        if eng.supports_pipelined_dispatch:
+            r["rate"] = {f"B{b}": pipelined_rate(eng, syn, b)
+                         for b in TIER_BATCHES}
+            for key, v in r["rate"].items():
+                print(f"[tier:{label}] {key} ragroute, 8 batches: sequential "
+                      f"{v['sequential_qps']:.1f} q/s, pipelined "
+                      f"{v['pipelined_qps']:.1f} q/s ({card})", flush=True)
+        p = profile_steps(eng, syn, 512, steps=5)
+        p["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        p["host_peak_rss_gb"] = resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+        r["profile"] = p
+        print(f"[tier:{label}] profile B=512 routing=all, 5 steps: wall "
+              f"{p['wall_ms']:.3f} ms, device {p['device_ms']:.3f} ms, busy "
+              f"share {p['busy_share']:.3f}, launches per step "
+              f"{p['launches_per_step']}, peak device memory "
+              f"{p['peak_memory_gb']:.3f} GB, peak host RSS "
+              f"{p['host_peak_rss_gb']:.2f} GiB ({card})", flush=True)
+        for k in p["kernels"]:
+            print(f"[tier:{label}]   {k['ms']:9.3f} ms {k['calls']:5d} calls  "
+                  f"{k['name']}", flush=True)
+        result[label] = r
+
+    sset, secs = build("stream")
+    run("stream", sset, secs)
+    del sset
+    gc.collect()
+    torch.cuda.empty_cache()
+    sset, secs = build("hostrefine")
+    run("hostrefine", sset, secs)
+    # the probed scan over the same coarse slab, clustered
+    t0 = time.perf_counter()
+    for st in sset.sources:
+        if st.coarse_docs is None:
+            continue
+        n = st.n_docs
+        st.coarse_cl = cluster_coarse_slab(
+            st.coarse_docs[:n].cpu().numpy(),
+            st.coarse_scale[:n].cpu().numpy(),
+            st.coarse_bias[:n].cpu().numpy(), 0, device=dev)
+        st.coarse_docs = st.coarse_scale = st.coarse_bias = None
+        print(f"[tier:hostrefine_probed] {st.name}: C="
+              f"{st.coarse_cl.n_clusters} S={st.coarse_cl.capacity}",
+              flush=True)
+    run("hostrefine_probed", sset, time.perf_counter() - t0)
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", default=None)
+    ap.add_argument("--tiers", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure: needs a CUDA card", file=sys.stderr)
         return 2
+    if args.tiers:
+        card = _card()
+        print(f"[card] {card}; torch {torch.__version__}", flush=True)
+        print(json.dumps({"card": card, "tiers": measure_tiers(card)}))
+        return 0
     from ragroute_tpu_torch.engine import FederatedSearchEngine
     from ragroute_tpu_torch.index import ShardSet, make_synthetic_world
     from ragroute_tpu_torch.router import CorpusRouter, RouterBank

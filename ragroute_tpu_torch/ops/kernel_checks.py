@@ -2,9 +2,9 @@
 
 Shared by the card-only tests (``tests/test_torch_kernel.py``) and
 ``chip_smoke.py``: both run the wrappers on CUDA tensors, which launches
-``csrc/fused_topk.cu``, ``csrc/stream_topk.cu`` and
-``csrc/grouped_gains.cu``, and hold each against its plain version on the
-same device and the same operands.
+``csrc/fused_topk.cu``, ``csrc/stream_topk.cu``, ``csrc/grouped_gains.cu``
+and ``csrc/grouped_pair_topk.cu``, and hold each against its plain version
+on the same device and the same operands.
 
 Fused top-k (:func:`fused_topk` against :func:`fused_topk_reference`):
 
@@ -27,13 +27,23 @@ Grouped gains (:func:`grouped_gains` against :func:`grouped_gains_reference`):
 multiple of 64, the row table and the real-block count) come out equal;
 :func:`grouped_path_case` is held within ``1e-3 * max|gain|``.
 
-:func:`k1_bound`, :func:`k2_bound` and :func:`k3_bound` give the least time
-an H100 SXM could take for a call, from the data-sheet peaks below.
+Grouped pair top-k (:func:`grouped_pair_topk` against
+:func:`grouped_pair_topk_reference`): :func:`pair_exact_cases` (integer
+data: one tile and two, ``S`` off the 128 grid, an empty cluster, a block of
+padding rows, equal gains across a tile boundary, an l2-style bias,
+``ranks`` 1 to 64) come out equal in gains, and in slots where the gain is
+finite; :func:`pair_path_case` is held within ``1e-4`` relative, with at
+most a millionth of its clearly ordered slots differing (near-ties at a
+tile's rank cut), each differing slot carrying the gain written for it.
+
+:func:`k1_bound` to :func:`k4_bound` give the least time an H100 SXM could
+take for a call, from the data-sheet peaks below.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -45,6 +55,10 @@ from ragroute_tpu_torch.ops.fused_topk import (TILE_D, fused_topk,
                                                gain_form)
 from ragroute_tpu_torch.ops.grouped_gains import (GROUP_ROWS, grouped_gains,
                                                   grouped_gains_reference)
+from ragroute_tpu_torch.ops.grouped_topk import (PAIR_ROWS, ClusteredCoarse,
+                                                 grouped_pair_topk,
+                                                 grouped_pair_topk_reference,
+                                                 probe_dispatch, tiling)
 from ragroute_tpu_torch.ops.stream_topk import (stream_topk,
                                                 stream_topk_reference)
 from ragroute_tpu_torch.ops.topk import NEG_INF, gain_to_natural
@@ -129,19 +143,26 @@ def run_kernel(case: Case) -> Tuple[Tensor, Tensor]:
                       scale=case.scale, packed4=case.packed4)
 
 
-def run_plain(case: Case) -> Tuple[Tensor, Tensor]:
-    """The plain version on the same device and operands."""
+def run_plain(case: Case, q_chunk: Optional[int] = None
+              ) -> Tuple[Tensor, Tensor]:
+    """The plain version on the same device and operands. ``q_chunk`` runs
+    it over that many query rows at a time (rows are independent; the
+    ``[B, N]`` gains and their sort of a 5.9 M-row slab do not fit at once)."""
     q, b = gain_form(case.queries, case.docs, mode=case.mode, bias=case.bias,
                      packed4=case.packed4)
-    g, i = fused_topk_reference(q, case.docs, case.k,
-                                valid_docs=case.valid_docs, bias=b,
-                                scale=case.scale, packed4=case.packed4)
+    parts = [fused_topk_reference(qc, case.docs, case.k,
+                                  valid_docs=case.valid_docs, bias=b,
+                                  scale=case.scale, packed4=case.packed4)
+             for qc in q.split(q_chunk or q.shape[0])]
+    g = torch.cat([p[0] for p in parts])
+    i = torch.cat([p[1] for p in parts])
     return gain_to_natural(g, case.queries, case.mode), i
 
 
-def run_pair(case: Case) -> Tuple[Tuple[Tensor, Tensor], Tuple[Tensor, Tensor]]:
+def run_pair(case: Case, q_chunk: Optional[int] = None
+             ) -> Tuple[Tuple[Tensor, Tensor], Tuple[Tensor, Tensor]]:
     """(kernel scores, indices), (plain scores, indices) for one case."""
-    return run_kernel(case), run_plain(case)
+    return run_kernel(case), run_plain(case, q_chunk)
 
 
 def compare_tolerant(kernel: Tuple[Tensor, Tensor],
@@ -214,6 +235,24 @@ def int4_path_case(device, *, grouped: bool, bsz: int = 512,
     bias = torch.zeros(n, dtype=torch.float32, device=device)
     return Case(f"path-int4-{'group' if grouped else 'doc'}", queries, docs,
                 k, "dot", bias=bias, scale=scale, packed4=True)
+
+
+def int8_path_case(device, *, n: int, d: int, k: int, bsz: int = 512,
+                   pad_tail: int = 0, seed: int = 6) -> Case:
+    """An int8 dot shard with per-doc scales as the host tiers scan it,
+    made on the card: random codes, f32 queries (the wrapper rounds them to
+    bf16), a zero bias with ``-inf`` on the last ``pad_tail`` rows (the
+    padding of a coarse slab)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    docs = torch.randint(-127, 128, (n, d), generator=g, device=device,
+                         dtype=torch.int16).to(torch.int8)
+    scale = 0.005 + 0.005 * torch.rand(n, generator=g, device=device)
+    queries = torch.randn((bsz, d), generator=g, device=device)
+    bias = torch.zeros(n, dtype=torch.float32, device=device)
+    if pad_tail:
+        bias[n - pad_tail:] = NEG_INF
+    return Case(f"path-int8-d{d}-k{k}", queries, docs, k, "dot", bias=bias,
+                scale=scale)
 
 
 def k1_bound(case: Case) -> Dict[str, float]:
@@ -415,3 +454,200 @@ def k3_bound(case: GroupedCase) -> Dict[str, float]:
               + blocks * 4 + (real * 4 if case.rows is not None else 0)
               + real * s * 4)
     return _bound(nbytes, 2.0 * real * d * s, PEAK_FLOPS[case.docs.dtype])
+
+
+# ---- grouped pair top-k ------------------------------------------------------
+
+@dataclasses.dataclass
+class PairCase:
+    name: str
+    q: Tensor                   # [B, r] bf16 (with rows) or [Ep, r]
+    cc: ClusteredCoarse
+    blk_cluster: Tensor
+    kappa: int
+    rows: Optional[Tensor] = None
+    n_real: Optional[Tensor] = None
+    n_pairs: Optional[int] = None   # (query, probe) pairs among the rows
+
+    @property
+    def real_rows(self) -> int:
+        """Pair rows the kernel writes (one host read)."""
+        g = self.blk_cluster.shape[0]
+        return PAIR_ROWS * (g if self.n_real is None
+                            else min(g, int(self.n_real)))
+
+
+def run_pair_kernel(case: PairCase) -> Tuple[Tensor, Tensor]:
+    return grouped_pair_topk(case.q, case.cc, case.blk_cluster, case.kappa,
+                             rows=case.rows, n_real=case.n_real)
+
+
+def run_pair_plain(case: PairCase, n_blocks: Optional[int] = None
+                   ) -> Tuple[Tensor, Tensor]:
+    """The plain version, over the first ``n_blocks`` blocks when given."""
+    g = case.blk_cluster.shape[0] if n_blocks is None else n_blocks
+    rows, q = case.rows, case.q
+    if rows is not None:
+        rows = rows[:g * PAIR_ROWS]
+    else:
+        q = q[:g * PAIR_ROWS]
+    return grouped_pair_topk_reference(q, case.cc, case.blk_cluster[:g],
+                                       case.kappa, rows)
+
+
+def _coarse(docs, bias, scale, device) -> ClusteredCoarse:
+    c, r, s = docs.shape
+    return ClusteredCoarse(
+        centroids=torch.zeros((c, r), device=device),
+        cbias=torch.zeros(c, device=device), docs=docs.to(device),
+        bias=bias.to(device), scale=scale.to(device),
+        perm=torch.arange(c * s, dtype=torch.int32,
+                          device=device).reshape(c, s),
+        n_clusters=c, capacity=s)
+
+
+def pair_exact_cases(device, *, c: int = 4, r: int = 32, bsz: int = 19,
+                     seed: int = 0) -> Iterator[PairCase]:
+    """Integer codes, rows and biases with power-of-two scales, so every
+    gain is exact in any summation order and many gains tie: ``S`` of 72
+    (one tile, off the 128 grid), 1,024 (one full tile), 1,096 (two tiles,
+    the second ragged) and 2,056 (three); cluster 2 is empty (all ``-inf``);
+    the slots either side of the 1,024 boundary carry the same codes;
+    the bias is an l2-style negative integer; the last block's rows all
+    name query 0 (padding); ``kappa`` from 1 to 128 (``ranks`` 1 to 64: up
+    to 16 the kernel's lists live in registers, deeper ones in local memory);
+    pair rows given directly, by the row table, and with a real-block
+    count below the grid's."""
+    rng = np.random.default_rng(seed)
+    blk = np.array([3, 0, 2, 1, 0, 3], np.int32)
+    g = blk.shape[0]
+    ep = g * PAIR_ROWS
+    q = torch.from_numpy(rng.integers(-4, 5, (bsz, r)).astype(np.float32))
+    q = q.to(torch.bfloat16).to(device)
+    rows_np = rng.integers(0, bsz, ep).astype(np.int32)
+    rows_np[-PAIR_ROWS:] = 0
+    rows = torch.from_numpy(rows_np).to(device)
+    blk_t = torch.from_numpy(blk).to(device)
+    for s, kappas in ((72, (1, 8, 40)), (1024, (3, 16)),
+                      (1096, (1, 2, 8, 11, 128)), (2056, (8, 48))):
+        docs = rng.integers(-4, 5, (c, r, s)).astype(np.int8)
+        if s > 1030:
+            docs[:, :, 1024:1030] = docs[:, :, 1018:1024]
+        bias = -rng.integers(0, 40, (c, s)).astype(np.float32)
+        bias[rng.random((c, s)) < 0.1] = -np.inf
+        bias[2] = -np.inf
+        scale = (2.0 ** rng.integers(-2, 2, (c, s))).astype(np.float32)
+        cc = _coarse(torch.from_numpy(docs), torch.from_numpy(bias),
+                     torch.from_numpy(scale), device)
+        for kappa in kappas:
+            common = dict(cc=cc, blk_cluster=blk_t, kappa=kappa)
+            yield PairCase(f"pair-S{s}-kappa{kappa}-direct",
+                           q[rows.long()].contiguous(), **common)
+            yield PairCase(f"pair-S{s}-kappa{kappa}-rows", q, rows=rows,
+                           **common)
+            yield PairCase(f"pair-S{s}-kappa{kappa}-rows-nreal", q, rows=rows,
+                           n_real=torch.tensor([g - 2], dtype=torch.int32,
+                                               device=device), **common)
+
+
+def pair_gains_of(case: PairCase, rows_e: Tensor, slots: Tensor) -> Tensor:
+    """Gains of given slots recomputed in plain f32 arithmetic: entry ``m``
+    is pair row ``rows_e[m]`` against slot ``slots[m]`` of its block's
+    cluster (product summed in f32, ``* scale`` and ``+ bias`` rounded
+    separately)."""
+    cl = case.blk_cluster[rows_e // PAIR_ROWS].long()
+    qrow = rows_e if case.rows is None else case.rows[rows_e].long()
+    sl = slots.long()
+    codes = case.cc.docs[cl, :, sl].to(torch.float32)           # [m, r]
+    dots = (case.q[qrow].to(torch.float32) * codes).sum(dim=1)
+    return dots * case.cc.scale[cl, sl] + case.cc.bias[cl, sl]
+
+
+def compare_pair(kernel: Tuple[Tensor, Tensor], plain: Tuple[Tensor, Tensor],
+                 *, rel: float = 0.0, slot_share: float = 1e-6,
+                 case: Optional[PairCase] = None) -> Dict[str, float]:
+    """``-inf`` in the same places; finite gains within ``rel`` relative
+    (equal at ``rel == 0``); slots equal where the gain is finite. At
+    ``rel > 0`` a slot is compared where the row's neighbouring gains are
+    further apart than the tolerance (two offers closer than the summation
+    noise may come out in either order), and at most ``slot_share`` of
+    those (rounded up: nine of 8.3 M) may still differ: a near-tie at a
+    tile's rank cut lets the two versions keep different slots whose gains
+    agree within the tolerance. With ``case``, every finite entry whose
+    slot differs from the plain version's, clearly ordered or not, is held
+    to its own claim: the gain of the kernel's slot, recomputed in plain
+    f32 arithmetic, must lie within the tolerance of the gain the kernel
+    wrote there, so only true near-ties are excused and a slot that does
+    not carry its gain fails."""
+    kg, ki = kernel
+    pg, pi = plain
+    fin = torch.isfinite(pg)
+    same_inf = bool(torch.equal(torch.isneginf(kg), torch.isneginf(pg)))
+    tol = rel * (1.0 + pg.abs())
+    err = (kg - pg).abs()
+    max_abs = float(err[fin].max()) if bool(fin.any()) else 0.0
+    close = bool((err[fin] <= tol[fin]).all())
+    clear = fin.clone()
+    if rel > 0:
+        gap = (pg[:, 1:] - pg[:, :-1]).abs() > 2 * tol[:, 1:]
+        clear[:, 1:] &= gap
+        clear[:, :-1] &= gap
+    compared = int(clear.sum())
+    differ = int((ki[clear] != pi[clear]).sum())
+    slots_ok = differ <= (math.ceil(slot_share * compared) if rel > 0 else 0)
+    res = {"max_abs_err": max_abs, "same_inf": same_inf, "close": close,
+           "slots_compared": compared, "slots_differ": differ}
+    if case is not None:
+        swapped = (fin & torch.isfinite(kg) & (ki != pi)).nonzero()
+        e, j = swapped[:, 0], swapped[:, 1]
+        own = pair_gains_of(case, e, ki[e, j])
+        wrong = int(((own - kg[e, j]).abs() > tol[e, j]).sum())
+        res.update(slots_swapped=int(e.numel()), swapped_wrong_gain=wrong)
+        slots_ok = slots_ok and wrong == 0
+    res["ok"] = same_inf and close and slots_ok
+    return res
+
+
+def pair_path_case(device, *, bsz: int = 512, c: int = 4096, r: int = 128,
+                   s: int = 1584, nprobe: int = 512, kappa: int = 8,
+                   seed: int = 5) -> PairCase:
+    """The probed coarse scan at the serving shape: 4,096 clusters of 1,584
+    int8 slots at rank 128 (about 5.9 M rows, a tenth of the slots empty as
+    the capacity slack leaves them), 512 queries probing 512 clusters each,
+    through the search's own dispatch of a random probe list."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    docs = torch.randint(-127, 128, (c, r, s), generator=g, device=device,
+                         dtype=torch.int16).to(torch.int8)
+    scale = 0.005 + 0.005 * torch.rand((c, s), generator=g, device=device)
+    bias = torch.zeros((c, s), dtype=torch.float32, device=device)
+    bias.masked_fill_(torch.rand((c, s), generator=g, device=device) < 0.1,
+                      NEG_INF)
+    q = torch.randn((bsz, r), generator=g, device=device).to(torch.bfloat16)
+    probe = torch.rand((bsz, c), generator=g, device=device).topk(
+        nprobe, dim=1)[1]
+    rows, blk_cluster, n_real, _ = probe_dispatch(probe, c)
+    return PairCase("path-pair-int8", q, _coarse(docs, bias, scale, device),
+                    blk_cluster, kappa, rows=rows, n_real=n_real,
+                    n_pairs=bsz * nprobe)
+
+
+def k4_bound(case: PairCase) -> Dict[str, float]:
+    """Least time for this call's data: the queries, the tables, the slab,
+    bias and scale rows of every distinct probed cluster once, the real
+    rows of both outputs once; ``2 * pairs * r * S`` operations at the bf16
+    rate (the int8 codes are multiplied as bf16) over the (query, probe)
+    pairs the function needs. The rows that pad each cluster's pairs to
+    whole blocks name query 0 and nothing collects them: their operations
+    are reported as ``padded_flops`` and do not enter the bound."""
+    real = case.real_rows
+    blocks = real // PAIR_ROWS
+    _, r, s = case.cc.docs.shape
+    kw = tiling(s, case.kappa)[3]
+    clusters = int(torch.unique(case.blk_cluster[:blocks]).numel())
+    q_rows = case.q.shape[0] if case.rows is not None else real
+    nbytes = (q_rows * r * 2 + clusters * (r * s + 8 * s) + blocks * 4
+              + (real * 4 if case.rows is not None else 0) + real * kw * 8)
+    pairs = real if case.n_pairs is None else case.n_pairs
+    out = _bound(nbytes, 2.0 * pairs * r * s, PEAK_FLOPS[torch.int8])
+    out["padded_flops"] = 2.0 * real * r * s
+    return out

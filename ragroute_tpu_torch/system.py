@@ -1,8 +1,9 @@
 """System orchestration: build, serve, watch, shut down.
 
 PyTorch port of :mod:`ragroute_tpu.system` for the single-device paths
-(exact search and the approximate device-resident modes ``--impl ivf |
-hybrid | lowrank``, ``--dtype int4``): load the world's artifacts (shards
+(exact search, the approximate device-resident modes ``--impl ivf | hybrid |
+lowrank``, ``--dtype int4``, and the host-RAM capacity tiers ``--impl stream
+| hostrefine`` with ``--hbm-budget-gb``): load the world's artifacts (shards
 with their extra layouts, centroids, router checkpoint, query table, doc
 payloads) from the data root onto the chosen device, construct engine +
 batcher + HTTP server, restart the batcher worker if it ever dies, and stop
@@ -31,9 +32,11 @@ from ragroute_tpu_torch.engine.batcher import QueryBatcher
 from ragroute_tpu_torch.engine.engine import FederatedSearchEngine
 from ragroute_tpu_torch.engine.rerank import load_qrels
 from ragroute_tpu_torch.engine.server import FederationServer, LLMClient
+from ragroute_tpu_torch.engine.streamed import StreamedSearchEngine
 from ragroute_tpu_torch.index.native_store import make_doc_store
 from ragroute_tpu_torch.index.shard import STORAGE_DTYPES, ShardSet
 from ragroute_tpu_torch.index.store import MemoryDocStore
+from ragroute_tpu_torch.index.streamed import StreamedShardSet
 from ragroute_tpu_torch.index.synthetic import make_synthetic_world
 from ragroute_tpu_torch.router.checkpoint import (load_router_npz,
                                                   params_from_jax)
@@ -44,6 +47,7 @@ from ragroute_tpu_torch.utils.precision import resolve_device
 logger = logging.getLogger("system")
 
 WATCHDOG_POLL_S = 1.0
+STREAMED_IMPLS = ("stream", "hostrefine")
 
 # (argument, values the slice serves, ROADMAP item that ports the rest)
 _UNPORTED = (
@@ -59,9 +63,6 @@ _UNPORTED = (
     ("workers", (1,), "queue 1, item 6 (multi-process front-end)"),
     ("dtype", ("float32", "bfloat16", "int8", "int4"),
      "queue 1, item 10 (dtype policy)"),
-    ("impl", ("auto", "exact", "chunked", "pallas", "ivf", "hybrid",
-              "lowrank"), "queue 1, item 11 (host-RAM tiers)"),
-    ("hbm_budget_gb", (None,), "queue 1, item 11 (host-RAM tiers)"),
     ("llm_backend", ("auto", "ollama", "openai", "echo"),
      "queue 1, item 13 (LLM stack)"),
     ("llm_checkpoint", (None,), "queue 1, item 13 (LLM stack)"),
@@ -89,17 +90,31 @@ def check_ported(args) -> None:
 
 def load_world_artifacts(root: str, world: WorldConfig, *,
                          dtype=torch.bfloat16, embedder: str = "auto",
-                         device="cpu", ivf_clusters=None, lowrank=None):
+                         device="cpu", ivf_clusters=None, lowrank=None,
+                         streamed_tier: Optional[str] = None,
+                         hbm_budget_bytes: Optional[int] = None,
+                         row_sources=None):
     """Load shards / router / bank / query provider / doc store from the
     data root (layout of :func:`ragroute_tpu_torch.index.synthetic.
     save_world`). No router checkpoint: fresh params from a seeded
     generator (warning); no query table: hash embeddings.
     ``ivf_clusters`` / ``lowrank`` additionally build the layouts of the
     approximate modes (cached as ``.npz`` beside each source's
-    embeddings, as :meth:`ShardSet.load` does)."""
+    embeddings, as :meth:`ShardSet.load` does). ``streamed_tier``
+    ("stream" | "hostrefine") builds the host-RAM tiers instead, under
+    ``hbm_budget_bytes``: rows stream from the ``embeddings.npy`` mmaps
+    through the block encoder; ``row_sources`` (source name -> array or
+    :class:`~ragroute_tpu_torch.index.streamed.RowSource`) overrides the
+    file of each source it names, for a caller that makes rows on demand."""
     wroot = os.path.join(root, world.name)
-    shard_set = ShardSet.load(root, world, dtype=dtype, device=device,
-                              ivf_clusters=ivf_clusters, lowrank=lowrank)
+    if streamed_tier:
+        shard_set = StreamedShardSet.load(
+            root, world, dtype=dtype, tier=streamed_tier,
+            hbm_budget_bytes=hbm_budget_bytes, device=device,
+            row_sources=row_sources)
+    else:
+        shard_set = ShardSet.load(root, world, dtype=dtype, device=device,
+                                  ivf_clusters=ivf_clusters, lowrank=lowrank)
 
     cent_path = os.path.join(wroot, "centroids.json")
     if os.path.exists(cent_path):
@@ -162,8 +177,11 @@ def load_world_artifacts(root: str, world: WorldConfig, *,
 class ServingSystem:
     """One-stop construction + lifecycle for the serving stack."""
 
-    def __init__(self, args):
+    def __init__(self, args, *, row_sources=None):
         check_ported(args)
+        # rows of the host-RAM tiers made on demand (in place of the data
+        # root's embeddings.npy): a corpus that never exists whole in f32
+        self.row_sources = row_sources
         self.dataset: str = args.dataset
         self.world = get_world(self.dataset)
         self.routing: str = args.routing
@@ -182,6 +200,12 @@ class ServingSystem:
         self.lowrank_rank = getattr(args, "rank", None) or -1
         refine_mult = getattr(args, "refine_mult", None)
         self.k_refine = (refine_mult * self.world.k) if refine_mult else None
+        self.hbm_budget_gb = getattr(args, "hbm_budget_gb", None)
+        if self.impl in STREAMED_IMPLS and getattr(args, "mesh", None):
+            raise ValueError(
+                f"--impl {self.impl} with --mesh is not ported to "
+                "ragroute_tpu_torch yet (ROADMAP queue 1, item 14 "
+                "(multi-GPU))")
         self.llm_backend: str = getattr(args, "llm_backend", None) or "auto"
         self.buckets = getattr(args, "buckets", None) or cfg.BATCH_BUCKETS
         self.embedder = getattr(args, "embedder", "auto") or "auto"
@@ -195,17 +219,26 @@ class ServingSystem:
         ivf_clusters = (self.ivf_clusters if self.impl in ("ivf", "hybrid")
                         else None)
         lowrank = self.lowrank_rank if self.impl == "lowrank" else None
+        streamed = self.impl in STREAMED_IMPLS
+        hbm_budget = (int(self.hbm_budget_gb * 1e9)
+                      if self.hbm_budget_gb else None)
         if self.simulate:
             # reference --simulate: tiny in-memory synthetic world, hash
             # embeddings, all sources, stage delays
             syn = make_synthetic_world(
                 self.dataset, docs_per_source=SHARD_PAD_MULTIPLE,
                 num_queries=4)
-            shard_set = ShardSet.build(syn.world, syn.embeddings,
-                                       doc_ids=syn.doc_ids, dtype=dtype,
-                                       device=self.device,
-                                       ivf_clusters=ivf_clusters,
-                                       lowrank=lowrank)
+            if streamed:
+                shard_set = StreamedShardSet.build(
+                    syn.world, syn.embeddings, doc_ids=syn.doc_ids,
+                    dtype=dtype, tier=self.impl,
+                    hbm_budget_bytes=hbm_budget, device=self.device)
+            else:
+                shard_set = ShardSet.build(syn.world, syn.embeddings,
+                                           doc_ids=syn.doc_ids, dtype=dtype,
+                                           device=self.device,
+                                           ivf_clusters=ivf_clusters,
+                                           lowrank=lowrank)
             router = CorpusRouter.from_seed(self.world.router_input_dim, 0,
                                             self.device)
             bank = RouterBank.create(self.world, syn.centroids,
@@ -218,11 +251,18 @@ class ServingSystem:
              threshold) = load_world_artifacts(
                 self.data_root, self.world, dtype=dtype,
                 embedder=self.embedder, device=self.device,
-                ivf_clusters=ivf_clusters, lowrank=lowrank)
-        engine = FederatedSearchEngine(shard_set, router, bank,
-                                       impl=self.impl, threshold=threshold,
-                                       nprobe=self.nprobe,
-                                       k_refine=self.k_refine)
+                ivf_clusters=ivf_clusters, lowrank=lowrank,
+                streamed_tier=self.impl if streamed else None,
+                hbm_budget_bytes=hbm_budget, row_sources=self.row_sources)
+        if streamed:
+            engine = StreamedSearchEngine(shard_set, router, bank,
+                                          threshold=threshold,
+                                          k_refine=self.k_refine,
+                                          nprobe=self.nprobe)
+        else:
+            engine = FederatedSearchEngine(
+                shard_set, router, bank, impl=self.impl, threshold=threshold,
+                nprobe=self.nprobe, k_refine=self.k_refine)
         strategy = "all" if self.simulate else self.routing
         backend = self.llm_backend
         if backend == "auto":

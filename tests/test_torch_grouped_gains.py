@@ -14,6 +14,7 @@ in another order and agree within ``rtol=1e-5, atol=1e-5 * max|gain|``.
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax.numpy as jnp
 
@@ -29,7 +30,11 @@ JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
 @pytest.fixture(autouse=True)
 def _one_thread():
+    """One thread for torch and for numpy's BLAS: the suite's workers share
+    the cores, and oversubscribed ``eigh`` / matmul calls crawl."""
     torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
 
 
 def _operands(kind: str, *, integer: bool, seed: int = 0):

@@ -17,6 +17,7 @@ import sys
 
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from ragroute_tpu_torch.main import parse_args
 from ragroute_tpu_torch.system import ServingSystem, check_ported
@@ -26,7 +27,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(autouse=True)
 def _one_thread():
+    """One thread for torch and for numpy's BLAS: the suite's workers share
+    the cores, and oversubscribed ``eigh`` / matmul calls crawl."""
     torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
 
 
 def test_entry_points_import_no_jax():
@@ -34,6 +39,10 @@ def test_entry_points_import_no_jax():
         "import sys\n"
         "import ragroute_tpu_torch.main, ragroute_tpu_torch.system\n"
         "import ragroute_tpu_torch.ops.kernel_checks\n"
+        "import ragroute_tpu_torch.ops.grouped_topk\n"
+        "import ragroute_tpu_torch.index.streamed\n"
+        "import ragroute_tpu_torch.engine.streamed\n"
+        "import ragroute_tpu_torch.measure\n"
         "import ragroute_tpu_torch.index.synthetic\n"
         "import ragroute_tpu_torch.oracle, ragroute_tpu_torch.benchmark\n"
         "from ragroute_tpu_torch.engine.server import FederationServer\n"
@@ -79,13 +88,14 @@ def test_cli_keeps_every_reference_flag_and_default():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mesh", "2x4"], ["--impl", "stream"], ["--impl", "hostrefine"],
+    ["--mesh", "2x4"], ["--impl", "stream", "--mesh", "1x2"],
+    ["--impl", "hostrefine", "--mesh", "2x4"],
     ["--mutable"], ["--reserve-docs", "8"], ["--embedder", "zoo"],
     ["--llm-backend", "jax"], ["--llm-quant", "int4"],
     ["--llm-serving", "continuous"], ["--frontend", "native"],
     ["--workers", "2"], ["--dtype", "policy"],
     ["--coordinator", "10.0.0.1:1234"], ["--num-processes", "2"],
-    ["--hbm-budget-gb", "4"],
+    ["--hbm-budget-gb", "4", "--impl", "hostrefine", "--mesh", "1x4"],
 ])
 def test_unported_flag_values_fail_naming_roadmap(argv):
     args = parse_args(["--dataset", "medrag", "--device", "cpu", *argv])
@@ -130,6 +140,44 @@ def test_approximate_mode_flags_reach_the_engine(argv, impl, dtype, nprobe,
     embs = {e: server.provider.embed("what is a test?", "")[e][None]
             for e in world.encoders}
     out = engine.search(embs, strategy="all")
+    assert out.merged_valid[0] == world.k
+
+
+@pytest.mark.parametrize("argv,tier,dtype,k_refine,nprobe", [
+    (["--impl", "stream"], "stream", torch.int8, 128, None),
+    (["--impl", "hostrefine"], "hostrefine", torch.int8, 128, None),
+    (["--impl", "hostrefine", "--refine-mult", "2", "--nprobe", "3"],
+     "hostrefine", torch.int8, 64, 3),
+    (["--impl", "stream", "--dtype", "int4"], "stream", "int4", 128, None),
+])
+def test_host_tier_flags_reach_the_engine(argv, tier, dtype, k_refine, nprobe):
+    """``--impl stream | hostrefine`` with ``--hbm-budget-gb`` build the
+    host-RAM tiers: the engine carries the tier, the depth and the probe
+    count, and a search answers."""
+    from ragroute_tpu_torch.engine.streamed import StreamedSearchEngine
+
+    base = ["--dataset", "medrag", "--simulate", "--disable-llm", "--device",
+            "cpu", "--hbm-budget-gb", "1e-9"]
+    if "--dtype" not in argv:
+        base += ["--dtype", "int8"]
+    args = parse_args(base + argv)
+    check_ported(args)
+    server = ServingSystem(args).build()
+    engine = server.engine
+    assert isinstance(engine, StreamedSearchEngine)
+    assert engine.tier == engine.shard_set.tier == tier
+    assert engine.k_refine == k_refine and engine.nprobe == nprobe
+    assert engine.shard_set.packed4 == (dtype == "int4")
+    assert engine.supports_pipelined_dispatch == (tier == "hostrefine")
+    # --simulate makes 512 docs a source, the least resident prefix, so
+    # every source stays resident and exact whatever the budget
+    assert all(s.host is None and s.n_res == 512
+               for s in engine.shard_set.sources)
+    assert engine.shard_set.index_bytes > 0
+    world = engine.world
+    embs = {e: server.provider.embed("what is a test?", "")[e][None]
+            for e in world.encoders}
+    out = engine.search(embs, strategy="all", fetch_candidates=False)
     assert out.merged_valid[0] == world.k
 
 

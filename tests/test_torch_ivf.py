@@ -20,6 +20,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax.numpy as jnp
 
@@ -44,7 +45,11 @@ TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 @pytest.fixture(autouse=True)
 def _one_thread():
+    """One thread for torch and for numpy's BLAS: the suite's workers share
+    the cores, and oversubscribed ``eigh`` / matmul calls crawl."""
     torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
 
 
 def _clustered(n, d, n_blobs, seed=0, spread=0.25, integer=False):
@@ -270,6 +275,26 @@ def test_int4_codes_equal_the_flat_shard_and_the_precomputed_path():
                   row_scales=s_row)
     with pytest.raises(ValueError, match="int4"):
         build_ivf(emb, "dot", dtype="int5")
+
+
+def test_preference_lists_hold_no_view_of_the_sort_index():
+    """Each chunk's ``[chunk, r]`` preference list owns its bytes. As a view
+    of the chunk's ``[chunk, C]`` int64 sort index it would pin ``2 * C / r``
+    times its size per chunk, for every chunk of the corpus at once (at
+    5.9 M rows and C = 4,096 more than a card holds)."""
+    from ragroute_tpu_torch.index.ivf import _chunk_top_r, _top_r_choices
+
+    rng = np.random.default_rng(0)
+    xc = torch.from_numpy(rng.standard_normal((3, 64, 16)).astype(
+        np.float32)).to(torch.bfloat16)
+    cent = rng.standard_normal((32, 16)).astype(np.float32)
+    c = torch.from_numpy(cent)
+    top = _chunk_top_r(xc[0], c, -0.5 * (c * c).sum(dim=1), 4)
+    assert top.dtype == torch.int32 and top.shape == (64, 4)
+    assert top.untyped_storage().nbytes() == 64 * 4 * 4
+    choices = _top_r_choices(xc, 150, cent, 4)
+    assert choices.shape == (150, 4) and choices.dtype == np.int32
+    np.testing.assert_array_equal(choices[:64], top.numpy())
 
 
 def test_build_is_seeded():

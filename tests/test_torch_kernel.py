@@ -1,6 +1,7 @@
 """Card-only tests: the hand-written kernels (csrc/fused_topk.cu,
-csrc/stream_topk.cu, csrc/grouped_gains.cu) against their plain PyTorch
-versions, at test size.
+csrc/stream_topk.cu, csrc/grouped_gains.cu, csrc/grouped_pair_topk.cu)
+against their plain PyTorch versions, at test size, and the host-RAM tiers'
+engine on the card against the same engine on the CPU.
 
 A CUDA kernel has no CPU mode, so every test here needs a card; the
 ``cuda`` fixture decides that (never at import) and skips otherwise. On the
@@ -104,6 +105,21 @@ def test_kernel_deep_list_matches_plain_within_tolerance(cuda):
     kernel, plain = kc.run_pair(case)
     res = kc.compare_tolerant(kernel, plain)
     assert res["ok"] and res["recall"] >= 0.999, res
+
+
+@pytest.mark.parametrize("n,d,k,pad_tail", [(40_960, 128, 128, 104),
+                                             (30_208, 768, 32, 0)])
+def test_kernel_int8_tier_shapes_match_plain_within_tolerance(cuda, n, d, k,
+                                                              pad_tail):
+    """The host tiers' launches at a reduced height: the flat coarse scan
+    (rank 128, k' = 128, -inf bias on the padding rows) and a stream slab
+    (768 dims, k = 32), int8 with per-doc scales; the plain version run 16
+    query rows at a time gives the same lists."""
+    case = kc.int8_path_case(cuda, n=n, d=d, k=k, bsz=70, pad_tail=pad_tail)
+    kernel, plain = kc.run_pair(case, q_chunk=16)
+    res = kc.compare_tolerant(kernel, plain)
+    assert res["ok"] and res["recall"] >= 0.999, res
+    assert int(kernel[1].max()) < n - pad_tail
 
 
 def test_stream_kernel_equals_plain(cuda):
@@ -246,3 +262,106 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda):
                    & set(zip(cpu.merged_shard[r], cpu.merged_local[r])))
                for r in range(64) if valid[r].any())
     assert hits >= 0.99 * valid.sum()
+
+
+def test_pair_topk_exact_cases_equal_plain(cuda):
+    """Integer data: the grouped pair top-k kernel's gains equal the plain
+    version's, and its slots where the gain is finite (one tile and
+    several, an empty cluster, padding rows, ties across a tile boundary,
+    ranks 1 to 64, the row table and the real-block count)."""
+    from ragroute_tpu_torch.ops.grouped_topk import grouped_pair_topk
+
+    failed = []
+    before = grouped_pair_topk.launches
+    n = 0
+    for case in kc.pair_exact_cases(cuda):
+        out = kc.run_pair_kernel(case)
+        real = case.real_rows
+        plain = kc.run_pair_plain(case, real // kc.PAIR_ROWS)
+        torch.cuda.synchronize()
+        res = kc.compare_pair((out[0][:real], out[1][:real]), plain)
+        if not res["ok"] or res["max_abs_err"] != 0.0:
+            failed.append((case.name, res))
+        n += 1
+    assert not failed, failed
+    assert grouped_pair_topk.launches == before + n
+
+
+def test_pair_topk_matches_plain_within_tolerance_and_raises(cuda):
+    """Random int8 slabs at rank 128 through the search's own dispatch:
+    gains within 1e-4 relative, every slot that differs from the plain
+    version's carries the gain written for it; what the kernel does not
+    take raises."""
+    from ragroute_tpu_torch.ops.grouped_topk import grouped_pair_topk
+
+    case = kc.pair_path_case(cuda, bsz=64, c=64, s=1096, nprobe=16, seed=7)
+    out = kc.run_pair_kernel(case)
+    real = case.real_rows
+    plain = kc.run_pair_plain(case, real // kc.PAIR_ROWS)
+    torch.cuda.synchronize()
+    res = kc.compare_pair((out[0][:real], out[1][:real]), plain, rel=1e-4,
+                          case=case)
+    assert res["ok"], res
+    with pytest.raises(TypeError):                       # f32 rows
+        grouped_pair_topk(case.q.float(), case.cc, case.blk_cluster, 8,
+                          rows=case.rows)
+    with pytest.raises(ValueError):                      # ranks > 160
+        grouped_pair_topk(case.q, case.cc, case.blk_cluster, 400,
+                          rows=case.rows)
+    with pytest.raises(ValueError):                      # int64 row table
+        grouped_pair_topk(case.q, case.cc, case.blk_cluster, 8,
+                          rows=case.rows.long())
+
+
+@pytest.mark.parametrize("tier,kw", [
+    ("stream", {"slab_bytes": 5120 * 776}), ("hostrefine", {}),
+    ("hostrefine", {"cluster_coarse": True})])
+def test_streamed_engine_on_the_card_agrees_with_the_cpu_engine(cuda, tier,
+                                                                kw):
+    """Both tiers on the card (the fused kernel over page-locked slabs
+    copied on the side stream; the coarse scans) against the same engine
+    on the CPU. The card rounds the queries to bf16 for the int8 scans and
+    the CPU path does not, so the winner sets are held to a recall of 0.97
+    and the shared winners' scores to 1e-2 relative."""
+    from ragroute_tpu_torch.engine.streamed import StreamedSearchEngine
+    from ragroute_tpu_torch.index import make_synthetic_world
+    from ragroute_tpu_torch.index.streamed import StreamedShardSet
+    from ragroute_tpu_torch.ops.grouped_topk import grouped_pair_topk
+    from ragroute_tpu_torch.router import CorpusRouter, RouterBank
+
+    syn = make_synthetic_world("medrag", docs_per_source=12_000,
+                               num_queries=32, seed=5, with_payloads=False,
+                               subclusters=16)
+    embs = dict(syn.query_embs)
+    outs, cpu_set = [], None
+    for dev in ("cpu", cuda):
+        router = CorpusRouter.from_seed(syn.world.router_input_dim, 0, dev)
+        bank = RouterBank.create(syn.world, syn.centroids, device=dev)
+        sset = StreamedShardSet.build(
+            syn.world, syn.embeddings, dtype=torch.int8, tier=tier,
+            hbm_budget_bytes=4 * 5120 * 776, device=dev, **kw)
+        if cpu_set is None:
+            cpu_set = sset
+        elif kw.get("cluster_coarse"):
+            # one layout for both devices: k-means is not bit-equal
+            for s, c in zip(sset.sources, cpu_set.sources):
+                s.coarse_cl = c.coarse_cl.to(dev)
+        before = (fused_topk.launches, grouped_pair_topk.launches)
+        outs.append(StreamedSearchEngine(sset, router, bank).search(
+            embs, strategy="all", fetch_candidates=False))
+    # (the clustered world keeps no exact rows on the card)
+    assert (fused_topk.launches > before[0]) != bool(kw.get("cluster_coarse"))
+    assert (grouped_pair_topk.launches > before[1]) == bool(
+        kw.get("cluster_coarse"))
+    cpu, card = outs
+    assert (card.merged_valid == syn.world.k).all()
+    hits = 0
+    for q in range(cpu.merged_shard.shape[0]):
+        a = {(int(s), int(l)): float(v) for s, l, v in zip(
+            cpu.merged_shard[q], cpu.merged_local[q], cpu.merged_score[q])}
+        b = {(int(s), int(l)): float(v) for s, l, v in zip(
+            card.merged_shard[q], card.merged_local[q], card.merged_score[q])}
+        for key in a.keys() & b.keys():
+            hits += 1
+            assert abs(a[key] - b[key]) <= 1e-2 * (1.0 + abs(a[key]))
+    assert hits >= 0.97 * cpu.merged_shard.size

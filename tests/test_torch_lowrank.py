@@ -18,6 +18,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax.numpy as jnp
 
@@ -40,7 +41,11 @@ N, NPAD, D = 1500, 1536, 256
 
 @pytest.fixture(autouse=True)
 def _one_thread():
+    """One thread for torch and for numpy's BLAS: the suite's workers share
+    the cores, and oversubscribed ``eigh`` / matmul calls crawl."""
     torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
 
 
 def _planted(n, d, lat=64, seed=0, n_blobs=6, spread=0.35):

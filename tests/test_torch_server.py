@@ -12,6 +12,7 @@ import json
 
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import aiohttp
 from ragroute_tpu.engine.batcher import QueryBatcher as JBatcher
@@ -30,7 +31,11 @@ TIMING = ("embedding_time", "selection_time", "doc_select_time", "e2e_time")
 
 @pytest.fixture(autouse=True)
 def _one_thread():
+    """One thread for torch and for numpy's BLAS: the suite's workers share
+    the cores, and oversubscribed ``eigh`` / matmul calls crawl."""
     torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
 
 
 def _servers(world_name, strategy="ragroute", **pair_kw):
@@ -143,6 +148,48 @@ def test_approximate_mode_server_matches_jax_server(tmp_path, impl, build_kw,
     _assert_same_responses(*_servers(
         "medrag", impl=impl, tmp_path=tmp_path, engine_kw=engine_kw,
         **build_kw))
+
+
+def test_hostrefine_server_matches_jax_server():
+    """``--impl hostrefine`` over HTTP: both servers run their pipelined
+    batcher worker over a shard set built by the JAX package and carried
+    across, and answer with the same bytes (apart from ids and timings):
+    the refined docs in the same order, ``selection_time`` 0 and the
+    message sizes from the coarse-ordered ids."""
+    import jax.numpy as jnp
+
+    from ragroute_tpu.engine.streamed import StreamedSearchEngine as JEngine
+    from ragroute_tpu.index.streamed import StreamedShardSet as JSet
+    from ragroute_tpu.router import RouterBank as JBank
+    from ragroute_tpu_torch.engine.streamed import StreamedSearchEngine
+    from ragroute_tpu_torch.index import make_synthetic_world
+    from ragroute_tpu_torch.index.streamed import streamed_from_reference
+    from ragroute_tpu_torch.router import RouterBank
+    from test_torch_streamed import _carry, _router
+
+    syn = make_synthetic_world("medrag", docs_per_source=700, num_queries=8,
+                               seed=1)
+    params, router = _router(syn.world, key=3)
+    jss = JSet.build(syn.world, syn.embeddings, doc_ids=syn.doc_ids,
+                     dtype=jnp.int8, tier="hostrefine", hbm_budget_bytes=0)
+    jeng = JEngine(jss, params, JBank.create(syn.world, syn.centroids))
+    tss = streamed_from_reference(_carry(jss, "int8"))
+    tss.doc_ids = {name: list(ids) for name, ids in syn.doc_ids.items()}
+    teng = StreamedSearchEngine(
+        tss, router, RouterBank.create(syn.world, syn.centroids))
+    assert teng.supports_pipelined_dispatch and all(teng._has_coarse)
+    common = dict(strategy="ragroute", disable_llm=True, port=0, warmup=False)
+    jserver = JServer(
+        jeng, embedding_provider=PrecomputedEmbeddings.from_synthetic(syn),
+        doc_store=MemoryDocStore.from_synthetic(syn),
+        batcher=JBatcher(jeng, strategy="ragroute", window_ms=5.0,
+                         buckets=(8,)), **common)
+    tserver = FederationServer(
+        teng, embedding_provider=TPrecomputedEmbeddings.from_synthetic(syn),
+        doc_store=TMemoryDocStore.from_synthetic(syn),
+        batcher=QueryBatcher(teng, strategy="ragroute", window_ms=5.0,
+                             buckets=(8,)), **common)
+    _assert_same_responses(syn, jserver, tserver)
 
 
 def test_stats_and_unported_stream():

@@ -12,6 +12,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax.numpy as jnp
 
@@ -23,7 +24,11 @@ from ragroute_tpu_torch.index import ShardSet, make_synthetic_world, save_world
 
 @pytest.fixture(autouse=True)
 def _one_thread():
+    """One thread for torch and for numpy's BLAS: the suite's workers share
+    the cores, and oversubscribed ``eigh`` / matmul calls crawl."""
     torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
 
 
 def _bits(x) -> np.ndarray:

@@ -12,6 +12,7 @@ be equal, ties to the lower position; only the position of an unfilled
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax.numpy as jnp
 
@@ -24,7 +25,11 @@ NEG_INF = float("-inf")
 
 @pytest.fixture(autouse=True)
 def _one_thread():
+    """One thread for torch and for numpy's BLAS: the suite's workers share
+    the cores, and oversubscribed ``eigh`` / matmul calls crawl."""
     torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
 
 
 def _both(gains: np.ndarray, k: int):

@@ -12,6 +12,7 @@ orders), indices equal; integer-valued tie cases equal everywhere.
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax.numpy as jnp
 
@@ -25,7 +26,11 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 
 @pytest.fixture(autouse=True)
 def _one_thread():
+    """One thread for torch and for numpy's BLAS: the suite's workers share
+    the cores, and oversubscribed ``eigh`` / matmul calls crawl."""
     torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
 
 
 def _np(x):

@@ -21,10 +21,7 @@ COPIES = ["config", "oracle", "benchmark", "engine.rerank", "engine.prompts",
 
 # names of the original that the port leaves out on purpose, with the
 # ROADMAP item that brings them
-LEFT_OUT = {
-    "index.synthetic": {"GEN_BLOCK", "StreamedSyntheticWorld",
-                        "make_streamed_world"},     # queue 1, item 11
-}
+LEFT_OUT = {}
 
 
 def _pair(name):
