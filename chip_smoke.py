@@ -7,9 +7,10 @@ Phases, each of which fails the run when it fails:
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
    the host's cores and RAM and its page-locked host->device copy rate;
-   builds the four hand-written kernels (``csrc/fused_topk.cu``,
+   builds the six hand-written kernels (``csrc/fused_topk.cu``,
    ``csrc/stream_topk.cu``, ``csrc/grouped_gains.cu``,
-   ``csrc/grouped_pair_topk.cu``; one nvcc each, all started together,
+   ``csrc/grouped_pair_topk.cu``, ``csrc/int4_matmul.cu``,
+   ``csrc/decode_attention.cu``; one nvcc each, all started together,
    sm_90a) and prints the build times and nvcc's ``-Xptxas -v`` report.
 2. Every kernel against its plain PyTorch version on the card: exact
    integer cases (indices and scores equal), then the serving paths'
@@ -22,7 +23,7 @@ Phases, each of which fails the run when it fails:
      int4-packed with per-doc and with per-group scales; the low-rank
      coarse scan (734,003 x 128 bf16, k=128); the host tiers' launches:
      one int8 slab of the stream tier (346,112 x 768, per-doc scale,
-     k=32) and hostrefine's flat coarse scan (5,872,128 x 128 int8,
+     k=32) and hostrefine's flat coarse scan (2,936,320 x 128 int8,
      per-doc scale, -inf bias on the padding rows, k'=128);
    * streaming top-k: [512, 131,072] stored gains, k=32, and the probed
      coarse scan's collect, [512, 4,096] with -inf entries, k'=128 (equal);
@@ -32,7 +33,19 @@ Phases, each of which fails the run when it fails:
      slabs of 128 x 1,584, kappa 8 (gains 1e-4 relative, slots equal
      where the gains are clearly ordered, up to a millionth of near-ties
      at a tile's rank cut; every slot that differs from the plain
-     version's must carry, recomputed, the gain written for it).
+     version's must carry, recomputed, the gain written for it);
+   * int4 matmul (the decoder's K5): exact integer cases (outputs equal),
+     then Qwen3-8B's projections and untied head at decode (B=16), its
+     gate and down at prefill (16 x 512 rows) and Qwen3-0.6B's tied head,
+     bf16 activations (1e-4 x max|y|), with the device time from the
+     profiler beside the CUDA-event time and dequant-to-bf16 +
+     ``torch.matmul`` as a note;
+   * decode attention (K6, wired to no engine): small f32 / int8 cases
+     (1e-5, a row with one valid key and a row with none), then the
+     Qwen3-8B decode shape (B=16, S=2,080, 36 layers) with a bf16 and an
+     int8 cache and the JAX package's measured shape, each against the
+     plain version and the engines' ``_attend``, with SDPA (GQA) as the
+     library time for the bf16 cache.
 3. The main paths at real size: the synthetic medrag world of 1,048,575
    docs x 768 is written to a temporary data root and served by the port's
    ``ServingSystem`` exactly as ``python -m ragroute_tpu_torch.main
@@ -64,11 +77,12 @@ Phases, each of which fails the run when it fails:
    world's ``embeddings.npy`` alike; hostrefine's flat coarse scan reaches recall
    >= 0.95 of the flat engine; the probed coarse scan at ``nprobe == C``,
    ``kappa >= k'`` truly misses nothing of the flat coarse scan. Then at
-   size: the synthetic medrag world at eight times the earlier size
-   (8,388,600 docs x 768, 64 topics per source, int8), its rows made block
-   by block from the seed and never held whole, under ``--hbm-budget-gb
-   3.0``, which keeps the three small sources resident and exact and sends
-   pubmed (5,872,024 docs) to the host tier. Served over HTTP three times
+   size: the synthetic medrag world at four times the earlier size
+   (4,194,300 docs x 768, 64 topics per source, int8; half of what
+   ``measure.py --tiers`` serves), its rows made block by block from the
+   seed and never held whole, under ``--hbm-budget-gb 1.5``, which keeps
+   the three small sources resident and exact and sends pubmed (2,936,012
+   docs) to the host tier. Served over HTTP three times
    as ``python -m ragroute_tpu_torch.main --impl stream | hostrefine``
    builds it (``--impl hostrefine`` once with the flat coarse slab, once
    with the clustered one, reached through
@@ -83,10 +97,25 @@ Phases, each of which fails the run when it fails:
    1,024 concurrent requests goes through the batcher's pipelined worker
    (two batches in flight) and again through its sequential worker, with
    both wall times.
+6. Generation on the card, over a small medrag world (4 x 8,192 docs):
+   ``ServingSystem`` built as ``--llm-backend jax`` without a checkpoint
+   builds it (the demo decoder) answers 4 concurrent ``/query`` with
+   generation on; then Qwen3-8B at full width with random weights (bf16
+   masters drawn on the card, quantized to int4 there, the masters freed)
+   and an int8 KV cache, handed to the system with the byte tokenizer (the
+   card's machine has no ``transformers`` and no weights), serves 16
+   concurrent ``/query`` through ``--llm-serving batch`` and again through
+   ``--llm-serving continuous --llm-prefix-cache --llm-spec-window 4``
+   (``--llm-max-new 32``): every answer 200, K5 launched, tokens a second
+   printed. One decode step at B=16 over a 2,080-position cache is timed
+   and profiled against its bound. The 36-layer bf16 prefill logits through
+   K5 stay within 0.05 x max|logit| of the plain version's, and two layers
+   of Qwen3-8B at f32 give the plain path's greedy tokens for 16 steps
+   (near-ties of the plain path's top two logits counted).
 
 ``python3 chip_smoke.py kernels`` stops after phase 2: a short first run
 after a kernel change. ``python3 chip_smoke.py tiers`` runs phases 1 and 5
-only.
+only; ``python3 chip_smoke.py llm`` phases 1, K5 / K6 of 2, and 6.
 
 The second-to-last line is one JSON object with every kernel's launches on
 the main paths, its error against the plain version, its times and its
@@ -97,6 +126,8 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import asyncio
+import copy
+import dataclasses
 import gc
 import json
 import logging
@@ -110,27 +141,40 @@ import time
 import numpy as np
 import torch
 
+# the prompt builder asks transformers (where installed) for the served
+# model's tokenizer; this run uses none and must not reach for the network
+os.environ.setdefault("HF_HUB_OFFLINE", "1")
+os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
+
 from ragroute_tpu_torch.measure import TIER_BUDGET_GB, TIER_DOCS
 from ragroute_tpu_torch.ops import _build
+from ragroute_tpu_torch.ops import decoder_checks as dc
 from ragroute_tpu_torch.ops import kernel_checks as kc
+from ragroute_tpu_torch.ops.decode_attention import decode_attention
 from ragroute_tpu_torch.ops.fused_topk import fused_topk
 from ragroute_tpu_torch.ops.grouped_gains import grouped_gains
 from ragroute_tpu_torch.ops.grouped_topk import grouped_pair_topk
+from ragroute_tpu_torch.ops.int4_matmul import int4_matmul
 from ragroute_tpu_torch.ops.stream_topk import stream_topk
 from ragroute_tpu_torch.utils.precision import resolve_device
 
 # name -> (wrapper that counts launches, source, TPU kernel it replaces)
 KERNELS = {
     "fused_topk": (fused_topk, "ragroute_tpu_torch/csrc/fused_topk.cu",
-                   "ragroute_tpu/ops/pallas_topk.py:521"),
+                   "ragroute_tpu/ops/pallas_topk.py:627"),
     "stream_topk": (stream_topk, "ragroute_tpu_torch/csrc/stream_topk.cu",
-                    "ragroute_tpu/ops/pallas_topk.py:458"),
+                    "ragroute_tpu/ops/pallas_topk.py:488"),
     "grouped_gains": (grouped_gains,
                       "ragroute_tpu_torch/csrc/grouped_gains.cu",
-                      "ragroute_tpu/ops/ivf_topk.py:101"),
+                      "ragroute_tpu/ops/ivf_topk.py:129"),
     "grouped_pair_topk": (grouped_pair_topk,
                           "ragroute_tpu_torch/csrc/grouped_pair_topk.cu",
                           "ragroute_tpu/ops/grouped_topk.py:191"),
+    "int4_matmul": (int4_matmul, "ragroute_tpu_torch/csrc/int4_matmul.cu",
+                    "ragroute_tpu/ops/int4_matmul.py:170"),
+    "decode_attention": (decode_attention,
+                         "ragroute_tpu_torch/csrc/decode_attention.cu",
+                         "ragroute_tpu/ops/decode_attention.py:201"),
 }
 # the kernels each served path must launch
 PATH_KERNELS = {"exact": ("fused_topk",),
@@ -139,7 +183,11 @@ PATH_KERNELS = {"exact": ("fused_topk",),
                 "stream": ("fused_topk",),
                 "hostrefine": ("fused_topk",),
                 "hostrefine_probed": ("fused_topk", "stream_topk",
-                                      "grouped_pair_topk")}
+                                      "grouped_pair_topk"),
+                # on-card generation, Qwen3-8B int4 (decode attention is
+                # wired to no engine, as in the JAX package)
+                "llm_batch": ("int4_matmul",),
+                "llm_continuous": ("int4_matmul",)}
 
 # the medrag world at the benchmark's size (bench.py, BENCH_r05.json)
 MEDRAG_DOCS = {"pubmed": 734_003, "statpearls": 104_857,
@@ -153,6 +201,12 @@ REDUCED_DOCS = 32_768    # docs per source of phase 4's world
 # 776 B an int8 row, on the 512-row grid)
 TIER_SLAB_ROWS = 346_112
 TIER_BURST = 1024        # concurrent requests of the pipelined burst
+# the host tiers' world of this run: half of each source of the world
+# ``measure.py --tiers`` serves, under half its budget, which again keeps
+# the three small sources resident and sends pubmed to the host tier (the
+# depth cut that keeps the whole run, generation included, in its time)
+SMOKE_TIER_DOCS = {name: n // 2 for name, n in TIER_DOCS.items()}
+SMOKE_TIER_BUDGET_GB = TIER_BUDGET_GB / 2
 # recall@32 against the exact f32 oracle; the stream tier (int8 rows, the
 # int8 gate) is also held to 0.995 of the exact winners of its stored bytes
 TIER_GATES = {"stream": 0.95, "hostrefine": 0.95, "hostrefine_probed": 0.9}
@@ -275,12 +329,14 @@ def phase_fused(dev) -> dict:
         slab, f"stream slab B=512 N={TIER_SLAB_ROWS} d=768 int8 per-doc "
         f"scale k=32", reps=5)
     del slab
-    n_pad = -(-TIER_DOCS["pubmed"] // 512) * 512
+    n_pad = -(-SMOKE_TIER_DOCS["pubmed"] // 512) * 512
     flat = kc.int8_path_case(dev, n=n_pad, d=128, k=128,
-                             pad_tail=n_pad - TIER_DOCS["pubmed"], seed=7)
+                             pad_tail=n_pad - SMOKE_TIER_DOCS["pubmed"],
+                             seed=7)
     modes["int8_coarse_k128"] = _check_fused_path(
         flat, f"hostrefine flat coarse scan B=512 N={n_pad} r=128 int8 "
-        f"per-doc scale, -inf bias on {n_pad - TIER_DOCS['pubmed']} padding "
+        f"per-doc scale, -inf bias on {n_pad - SMOKE_TIER_DOCS['pubmed']} "
+        f"padding "
         f"rows, k'=128", reps=5, q_chunk=64)
     del flat
     res["modes"] = modes
@@ -480,11 +536,124 @@ def phase_pair(dev) -> dict:
             "bmm_topk_note_ms": note_ms}
 
 
+def phase_decoder_kernels(dev) -> dict:
+    return {"int4_matmul": phase_int4(dev),
+            "decode_attention": phase_decode_attention(dev)}
+
+
 def phase_kernels(dev) -> dict:
     return {"fused_topk": phase_fused(dev), "stream_topk": phase_stream(dev),
             "grouped_gains": phase_grouped(dev),
-            "grouped_pair_topk": phase_pair(dev)}
+            "grouped_pair_topk": phase_pair(dev),
+            **phase_decoder_kernels(dev)}
 
+
+# ---- the decoder's kernels: K5 (int4 matmul) and K6 (decode attention) -----
+
+def phase_int4(dev) -> dict:
+    n = 0
+    for case in dc.int4_exact_cases(dev):
+        got, want = dc.run_int4(case), dc.run_int4_plain(case)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"int4_matmul != plain on exact case {case.name}: max err "
+                f"{float((got - want).abs().max())}")
+        n += 1
+    log(f"[kernel] int4_matmul {n} exact cases (bf16 and f32 activations; "
+        f"OUT 260 / 300 / 40 off the 16-byte grid; groups 6 / 12 / 24; M 1 "
+        f"to 100; a split contraction): outputs equal")
+    modes = {}
+    for case in dc.int4_path_cases(dev):
+        got, want = dc.run_int4(case), dc.run_int4_plain(case)
+        res = dc.matmul_close(got, want)
+        del got, want
+        if not res["ok"]:
+            raise AssertionError(f"int4_matmul disagrees with its plain "
+                                 f"version on {case.name}: {res}")
+        prefill = case.x.shape[0] > 16
+        reps = 5 if prefill else 20
+        ms = kc.cuda_time_ms(lambda: dc.run_int4(case), reps=reps)
+        dev_ms = dc.device_ms(lambda: dc.run_int4(case), int4_matmul)
+        plain_ms = kc.cuda_time_ms(lambda: dc.run_int4_plain(case), warmup=1,
+                                   reps=3)
+        note_ms = kc.cuda_time_ms(lambda: dc.dequant_matmul_note(case),
+                                  warmup=1, reps=5)
+        bound = dc.k5_bound(case)
+        m, i = case.x.shape
+        o = case.w.shape[1]
+        log(f"[kernel] int4_matmul {case.name} [{m} x {i}] @ [{i} x {o}]: "
+            f"max_abs_err {res['max_abs_err']:.3e} (tol {res['tol']:.3e}); "
+            f"kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+            f"{plain_ms:.3f} ms, bound "
+            f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+            f"{bound['bytes'] / 1e6:.1f} MB, {bound['flops'] / 1e12:.4f} "
+            f"TFLOP); note: dequant to bf16 + torch.matmul {note_ms:.3f} ms")
+        modes[case.name] = {"max_abs_err": res["max_abs_err"], "ms": ms,
+                            "device_ms": dev_ms, "plain_ms": plain_ms,
+                            "bound_ms": bound["bound_ms"],
+                            "bound_by": bound["bound_by"],
+                            "library_ms": None,
+                            "dequant_matmul_note_ms": note_ms}
+        del case
+        torch.cuda.empty_cache()
+    head = modes.pop("qwen3-8b decode head")
+    return {**head, "shape": "qwen3-8b decode head [16 x 4096] @ "
+                             "[4096 x 151936]", "modes": modes}
+
+
+def phase_decode_attention(dev) -> dict:
+    n = 0
+    for case in dc.attn_small_cases(dev):
+        got = dc.run_attn(case)
+        for label, want in (("plain", dc.run_attn_plain(case)),
+                            ("_attend", dc.run_attend(case))):
+            res = dc.attn_close(got, want)
+            if not res["ok"]:
+                raise AssertionError(f"decode_attention != {label} on "
+                                     f"{case.name}: {res}")
+        n += 1
+    log(f"[kernel] decode_attention {n} small cases (f32 and int8 caches, "
+        f"MHA and GQA, a row with one valid key and a row with none, layer "
+        f"selection): within 1e-5 of the plain version and of _attend")
+    out = None
+    modes = {}
+    for case in dc.attn_path_cases(dev):
+        got, want = dc.run_attn(case), dc.run_attn_plain(case)
+        res = dc.attn_close(got, want)
+        res_att = dc.attn_close(got, dc.run_attend(case))
+        if not (res["ok"] and res_att["ok"]):
+            raise AssertionError(f"decode_attention disagrees on "
+                                 f"{case.name}: {res} {res_att}")
+        ms = kc.cuda_time_ms(lambda: dc.run_attn(case), reps=20)
+        dev_ms = dc.device_ms(lambda: dc.run_attn(case), decode_attention)
+        plain_ms = kc.cuda_time_ms(lambda: dc.run_attn_plain(case), reps=10)
+        attend_ms = kc.cuda_time_ms(lambda: dc.run_attend(case), reps=10)
+        library_ms = (None if case.ks is not None else
+                      kc.cuda_time_ms(lambda: dc.sdpa_note(case), reps=10))
+        bound = dc.k6_bound(case)
+        lib = ("none (int8 scales)" if library_ms is None
+               else f"{library_ms:.4f} ms")
+        log(f"[kernel] decode_attention {case.name}: max_abs_err "
+            f"{res['max_abs_err']:.3e} vs plain, {res_att['max_abs_err']:.3e}"
+            f" vs _attend (tol {res['tol']:.1e}); kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f}), plain "
+            f"{plain_ms:.4f} ms, _attend {attend_ms:.4f} ms, SDPA (GQA) "
+            f"{lib}, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+            f"{bound['bytes'] / 1e6:.1f} MB)")
+        row = {"max_abs_err": res["max_abs_err"], "ms": ms,
+               "device_ms": dev_ms, "plain_ms": plain_ms,
+               "bound_ms": bound["bound_ms"],
+               "bound_by": bound["bound_by"], "library_ms": library_ms,
+               "attend_ms": attend_ms}
+        if out is None:
+            out = dict(row, shape=case.name)
+        else:
+            modes[case.name] = row
+        del case, got, want
+        torch.cuda.empty_cache()
+    out["modes"] = modes
+    return out
 
 # ---- phase 3: the served paths at real size -----------------------------------
 
@@ -1049,7 +1218,7 @@ def serve_tier(root: str, dev, syn, label: str, impl: str,
             "--dataset", "medrag", "--routing", "ragroute", "--disable-llm",
             "--port", "0", "--data-root", root, "--device", str(dev),
             "--dtype", "int8", "--impl", impl, "--hbm-budget-gb",
-            str(TIER_BUDGET_GB)]), row_sources=syn.row_sources)
+            str(SMOKE_TIER_BUDGET_GB)]), row_sources=syn.row_sources)
         system.build()
     finally:
         cfg.HOSTREFINE_CLUSTER_MIN_DOCS = 0
@@ -1073,7 +1242,7 @@ def serve_tier(root: str, dev, syn, label: str, impl: str,
         raise AssertionError(f"slabs of {big.slab_rows} rows, the kernel "
                              f"check assumed {TIER_SLAB_ROWS}")
     if label == "hostrefine" and tuple(big.coarse_docs.shape) != (
-            -(-TIER_DOCS["pubmed"] // 512) * 512, 128):
+            -(-SMOKE_TIER_DOCS["pubmed"] // 512) * 512, 128):
         raise AssertionError(f"coarse slab {tuple(big.coarse_docs.shape)} "
                              f"differs from the kernel check's shape")
     launches = asyncio.run(_drive_tier(system, syn, syn.world.k, label))
@@ -1147,11 +1316,11 @@ def serve_tier(root: str, dev, syn, label: str, impl: str,
 
 
 def phase_tiers(dev) -> dict:
-    """Serve the 8.4 M-doc world through the three host-tier paths."""
+    """Serve the 4.2 M-doc world through the three host-tier paths."""
     from ragroute_tpu_torch.index.synthetic import make_streamed_world
 
-    n_docs = sum(TIER_DOCS.values())
-    syn = make_streamed_world("medrag", docs_per_source_map=TIER_DOCS,
+    n_docs = sum(SMOKE_TIER_DOCS.values())
+    syn = make_streamed_world("medrag", docs_per_source_map=SMOKE_TIER_DOCS,
                               num_queries=NUM_QUERIES, seed=0,
                               subclusters=IVF_TOPICS)
     root = tempfile.mkdtemp(prefix="ragroute_smoke_")
@@ -1173,7 +1342,7 @@ def phase_tiers(dev) -> dict:
                     syn.query_embs[enc])
         log(f"[world] medrag {n_docs} docs x 768, {IVF_TOPICS} topics per "
             f"source, rows made block by block from the seed; int8, "
-            f"--hbm-budget-gb {TIER_BUDGET_GB}")
+            f"--hbm-budget-gb {SMOKE_TIER_BUDGET_GB}")
         for label, impl, cluster_min in (
                 ("stream", "stream", 0), ("hostrefine", "hostrefine", 0),
                 ("hostrefine_probed", "hostrefine", 1_000_000)):
@@ -1181,6 +1350,242 @@ def phase_tiers(dev) -> dict:
                                     cluster_min, oracle)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ---- phase 6: on-card generation (--llm-backend jax) --------------------------
+
+GEN_DOCS = 8_192         # docs per source of the world generation serves over
+GEN_REQUESTS = 16        # concurrent GET /query per served Qwen3-8B service
+GEN_DEMO_REQUESTS = 4    # GET /query through the demo decoder
+GEN_MAX_NEW = 32         # --llm-max-new of every served generation run
+PARITY_STEPS = 16        # greedy steps of the two-layer f32 parity check
+NEAR_TIE = 1e-5          # plain top-two logits this close (relative) may swap
+# the 36-layer bf16 prefill's logits, kernel against plain version: bf16
+# activations are rounded after each of the 253 products, so one rounding
+# that lands the other way moves every later layer
+PREFILL_LOGIT_TOL = 0.05  # of max |logit|
+
+
+def cpu_copy(params):
+    """The decoder's weights copied to the host: on CPU tensors every int4
+    product runs K5's plain version (the parity checks' reference path)."""
+    return copy.deepcopy(params).cpu()
+
+
+async def _drive_generation(system, syn, n: int) -> dict:
+    """``n`` concurrent GET /query with generation on. Every answer must be
+    200 with a generated answer: the LLM client turns a failed or timed-out
+    generation into an answer that starts with "Error generat" and a
+    ``generate_time`` of -1 or the time to the failure, so both are held."""
+    import aiohttp
+
+    await system.start()
+    try:
+        port = system.server.bound_port
+        qs = syn.questions
+        async with aiohttp.ClientSession() as s:
+            async with s.get(f"http://127.0.0.1:{port}/stats") as r:
+                before = (await r.json())["llm"]["generated_tokens"]
+            reset_counts()          # count the served generation's launches
+            t0 = time.perf_counter()
+            answers = await asyncio.gather(*[
+                _get_query(s, port, qs[i]["qid"], qs[i]["question"])
+                for i in range(n)])
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            async with s.get(f"http://127.0.0.1:{port}/stats") as r:
+                stats = await r.json()
+    finally:
+        await system.stop()
+    bad = [a for a in answers if a[0] != 200
+           or not isinstance(a[1].get("answer"), str)
+           or a[1]["answer"].startswith("Error generat")
+           or not a[1]["metadata"]["generate_time"] > 0]
+    if bad:
+        raise AssertionError(f"{len(bad)} of {n} /query answers with "
+                             f"generation failed: {bad[:3]}")
+    return {"answers": [a[1]["answer"] for a in answers], "wall_s": wall,
+            "launches": launches, "llm": stats["llm"],
+            "tokens": stats["llm"]["generated_tokens"] - before}
+
+
+def serve_generation(root: str, dev, syn, label: str, flags, n: int,
+                     max_new: int, weights=None) -> dict:
+    """Build the ServingSystem as ``python -m ragroute_tpu_torch.main
+    --dataset medrag --llm-backend jax --llm-max-new <max_new> ...`` does
+    (``weights``: a decoder the caller holds on the card, served in place
+    of the demo one) and drive ``n`` concurrent requests through it. The
+    requests must generate at least half their budget on average (a random
+    decoder rarely draws its eos; every served run so far generated all of
+    it)."""
+    from ragroute_tpu_torch.main import parse_args
+    from ragroute_tpu_torch.system import ServingSystem
+
+    system = ServingSystem(parse_args([
+        "--dataset", "medrag", "--routing", "ragroute", "--llm-backend",
+        "jax", "--port", "0", "--data-root", root, "--device", str(dev),
+        "--llm-max-new", str(max_new), *flags]), llm_weights=weights)
+    res = asyncio.run(_drive_generation(system, syn, n))
+    tok_s = res["tokens"] / res["wall_s"]
+    log(f"[llm:{label}] {n} concurrent GET /query with generation answered "
+        f"200 in {res['wall_s']:.3f} s: {res['tokens']} tokens generated "
+        f"({tok_s:.1f} tokens/s), /stats llm {res['llm']}, "
+        f"{sum(1 for a in res['answers'] if a)} non-empty answers; "
+        f"launches {res['launches']}")
+    if res["tokens"] < n * max_new // 2:
+        raise AssertionError(f"{label}: {res['tokens']} tokens for {n} "
+                             f"requests of budget {max_new}")
+    res["tokens_per_s"] = tok_s
+    del system
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _greedy_parity(params, cfg, dev, *, bsz: int = 4, p: int = 64) -> dict:
+    """The kernel path on the card against the plain path on a host copy of
+    the weights, in lockstep over ``PARITY_STEPS`` greedy steps, each fed
+    the plain path's token: the argmax must agree except where the plain
+    path's top two logits are within ``NEAR_TIE`` of each other (counted)."""
+    from ragroute_tpu_torch.llm.model import decode_step, init_cache, prefill
+
+    host = torch.device("cpu")
+    plain = cpu_copy(params)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ids = torch.randint(0, cfg.vocab_size, (bsz, p), generator=gen,
+                        device=dev, dtype=torch.int32)
+    mask = torch.ones_like(ids)
+    mask[1, :p // 2] = 0                      # one left-padded row
+    lengths = mask.sum(dim=1, dtype=torch.int32)
+    same = near = 0
+    err = 0.0
+    with torch.no_grad():
+        lk, ck = prefill(params, cfg, ids, mask, init_cache(
+            cfg, bsz, p + PARITY_STEPS, torch.float32, dev))
+        lp, cp = prefill(plain, cfg, ids.cpu(), mask.cpu(), init_cache(
+            cfg, bsz, p + PARITY_STEPS, torch.float32, host))
+        for t in range(PARITY_STEPS):
+            lk = lk.cpu()
+            err = max(err, float((lk - lp).abs().max()))
+            tk, tp = torch.argmax(lk, -1), torch.argmax(lp, -1)
+            top2 = torch.topk(lp, 2, dim=-1).values
+            gap = (top2[:, 0] - top2[:, 1]) / top2[:, 0].abs().clamp_min(
+                1e-30)
+            for r in range(bsz):
+                if int(tk[r]) == int(tp[r]):
+                    same += 1
+                elif float(gap[r]) <= NEAR_TIE:
+                    near += 1
+                else:
+                    raise AssertionError(
+                        f"parity: step {t} row {r}: kernel token "
+                        f"{int(tk[r])} != plain {int(tp[r])} with a top-two "
+                        f"gap of {float(gap[r]):.3e}")
+            tok = tp.to(torch.int32)
+            lk, ck = decode_step(params, cfg, ck, tok.to(dev), lengths, p, t)
+            lp, cp = decode_step(plain, cfg, cp, tok, lengths.cpu(), p, t)
+    return {"same": same, "near_ties": near, "max_logit_err": err}
+
+
+def _prefill_logits(params, cfg, dev, *, bsz: int = 4, p: int = 128):
+    """Last-position prefill logits through the kernel on the card and
+    through the plain version on a host copy, on the same random prompts."""
+    from ragroute_tpu_torch.llm.model import init_cache, prefill
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ids = torch.randint(0, cfg.vocab_size, (bsz, p), generator=gen,
+                        device=dev, dtype=torch.int32)
+    mask = torch.ones_like(ids)
+    out = []
+    with torch.no_grad():
+        for w, d in ((params, dev), (cpu_copy(params), torch.device("cpu"))):
+            cache = init_cache(cfg, bsz, p, torch.bfloat16, d)
+            out.append(prefill(w, cfg, ids.to(d), mask.to(d), cache)[0].cpu())
+    return out
+
+
+def phase_generation(dev, smi: str) -> dict:
+    """Serve generation over a small medrag world: the demo decoder as the
+    CLI builds it, then Qwen3-8B at full width with random int4 weights and
+    an int8 KV cache through the lockstep and the continuous services; the
+    decode step's time and profile; the kernel path against the plain
+    version at full width."""
+    from ragroute_tpu_torch.index.synthetic import (make_synthetic_world,
+                                                    save_world)
+    from ragroute_tpu_torch.llm.service import ByteTokenizer
+    from ragroute_tpu_torch.llm.shapes import QWEN3_8B, quantized_from_masters
+    from ragroute_tpu_torch.measure import (decode_step_breakdown,
+                                            print_decode_breakdown)
+
+    out = {}
+    root = tempfile.mkdtemp(prefix="ragroute_smoke_llm_")
+    try:
+        t0 = time.perf_counter()
+        syn = make_synthetic_world("medrag", docs_per_source=GEN_DOCS,
+                                   num_queries=64, seed=0)
+        save_world(syn, root)
+        log(f"[world] medrag {4 * GEN_DOCS} docs x 768 for generation made "
+            f"and saved in {time.perf_counter() - t0:.1f} s")
+        demo = serve_generation(root, dev, syn, "demo", [],
+                                GEN_DEMO_REQUESTS, GEN_MAX_NEW)
+        if not any(demo["answers"]):
+            raise AssertionError("the demo decoder generated no text")
+
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        params = quantized_from_masters(QWEN3_8B, 4, dev)
+        torch.cuda.synchronize()
+        log(f"[llm] Qwen3-8B bf16 masters drawn on the card and quantized "
+            f"to int4 in {time.perf_counter() - t0:.1f} s (peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; int4 "
+            f"decoder {torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+        weights = (params, QWEN3_8B, ByteTokenizer())
+        common = ["--llm-kv-quant", "int8"]
+        for label, flags in (
+                ("llm_batch", ["--llm-serving", "batch"]),
+                ("llm_continuous", ["--llm-serving", "continuous",
+                                    "--llm-prefix-cache",
+                                    "--llm-spec-window", "4"])):
+            res = serve_generation(root, dev, syn, label, common + flags,
+                                   GEN_REQUESTS, GEN_MAX_NEW, weights)
+            if res["launches"]["int4_matmul"] <= 0:
+                raise AssertionError(f"{label} never launched int4_matmul")
+            out[label] = res
+        step = decode_step_breakdown(params, QWEN3_8B, dev)
+        print_decode_breakdown(step, smi)
+        out["decode_step"] = step
+
+        kern, plain = _prefill_logits(params, QWEN3_8B, dev)
+        scale = float(plain.abs().max())
+        rel = float((kern - plain).abs().max()) / scale
+        agree = int((kern.argmax(-1) == plain.argmax(-1)).sum())
+        log(f"[llm] Qwen3-8B 36-layer bf16 prefill (B=4, P=128) logits, K5 "
+            f"against its plain version: max |diff| {rel:.3e} of max |logit| "
+            f"{scale:.3f} (gate {PREFILL_LOGIT_TOL}); argmax equal on "
+            f"{agree} of 4 rows")
+        if not rel <= PREFILL_LOGIT_TOL:
+            raise AssertionError(f"36-layer prefill logits differ by {rel}")
+        out["prefill_rel_err"] = rel
+        del params, weights, kern, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cfg2 = dataclasses.replace(QWEN3_8B, num_layers=2)
+        p2 = quantized_from_masters(cfg2, 4, dev, seed=1,
+                                    dtype=torch.float32)
+        par = _greedy_parity(p2, cfg2, dev)
+        log(f"[llm] Qwen3-8B widths, 2 layers, f32, int4 weights: kernel "
+            f"against plain path over {PARITY_STEPS} greedy steps x 4 rows: "
+            f"{par['same']} tokens equal, {par['near_ties']} near-ties "
+            f"(top two within {NEAR_TIE} relative), max |logit diff| "
+            f"{par['max_logit_err']:.3e}")
+        out["parity"] = par
+        del p2
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1201,6 +1606,14 @@ def main() -> int:
         phase_tiers(dev)
         log(f"[time] host tiers done at {time.perf_counter() - t_start:.0f} s")
         return 0
+    if only == "llm":          # the decoder's kernels and generation
+        kres = phase_decoder_kernels(dev)
+        log(f"[time] decoder kernels checked at "
+            f"{time.perf_counter() - t_start:.0f} s")
+        paths = phase_generation(dev, smi)
+        log(f"[time] generation done at {time.perf_counter() - t_start:.0f} s")
+        report(smi, kres, paths)
+        return 0
     kres = phase_kernels(dev)
     log(f"[time] kernels checked at {time.perf_counter() - t_start:.0f} s")
     if only == "kernels":      # a short first run after a kernel change
@@ -1212,21 +1625,31 @@ def main() -> int:
     log(f"[time] served paths done at {time.perf_counter() - t_start:.0f} s")
     paths.update(phase_tiers(dev))
     log(f"[time] host tiers done at {time.perf_counter() - t_start:.0f} s")
+    paths.update(phase_generation(dev, smi))
+    log(f"[time] generation done at {time.perf_counter() - t_start:.0f} s")
+    report(smi, kres, paths)
+    return 0
+
+
+def report(smi: str, kres: dict, paths: dict) -> None:
+    """The card's line, the kernels' line and the contract's last line."""
     log(smi)
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
-        by_path = {p: r["launches"][name] for p, r in paths.items()}
+        if name not in kres:
+            continue
+        by_path = {p: r["launches"][name] for p, r in paths.items()
+                   if p in PATH_KERNELS}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(by_path[p] for p, ks in PATH_KERNELS.items()
-                            if name in ks),
+                            if name in ks and p in by_path),
             "launches_by_path": by_path, **kres[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -17,10 +17,13 @@ parity and pluggable backends:
 * ``echo``    — deterministic canned answers for simulation/testing
   (answers "A" in the reference answer formats, optional delay matching
   ``LLM_DELAY``).
-* ``jax``     — on-device generation through a ``service=`` object with
-  the JAX package's ``GenerationService`` interface. The port has no such
-  service yet (ROADMAP queue 1, item 13); its entry point refuses
-  ``--llm-backend jax`` at start-up.
+* ``jax``     — generation on the card next to retrieval (the value keeps
+  the JAX package's name): the registry models run as this package's
+  PyTorch decoder through the micro-batching
+  :class:`ragroute_tpu_torch.llm.GenerationService` or the continuous
+  :class:`ragroute_tpu_torch.llm.ContinuousGenerationService` (``service=``:
+  a local HF checkpoint via ``GenerationService.from_checkpoint``, or the
+  offline demo model).
 """
 
 from __future__ import annotations

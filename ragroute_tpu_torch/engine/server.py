@@ -9,8 +9,10 @@ disabled the merged docs' raw store lines are spliced into the response
 body verbatim; on a CUDA engine the per-source response sizes are computed
 on the device (``msg_base``), as the reference does on an accelerator.
 
-Not ported yet (ROADMAP queue 1, items 6, 9 and 13): ``/docs/*``,
+Not ported yet (ROADMAP queue 1, items 6 and 9): ``/docs/*``,
 ``/admin/snapshot``, ``/admin/profile``, SSE generation (``stream=1``).
+With ``--llm-backend jax`` ``/stats`` carries the generation service's
+counters, as the JAX package's server does.
 
 ``aiohttp`` is imported by the constructor and :meth:`start`, not at
 module import.
@@ -201,6 +203,16 @@ class FederationServer:
     async def handle_stats(self, request):
         snap = self.metrics.snapshot()
         snap["device_memory"] = _device_memory_stats(self.engine.device)
+        svc = getattr(self.llm, "service", None)
+        if svc is not None:  # jax backend: generation service counters
+            gen = {"generated_tokens": svc.generated_tokens,
+                   "batches": getattr(svc, "batches", None),
+                   "chunks": getattr(svc, "chunks", None),
+                   "admissions": getattr(svc, "admissions", None)}
+            steps = getattr(svc, "spec_steps", 0)
+            if steps:  # speculative decoding: mean tokens per verify step
+                gen["spec_mean_emit"] = round(svc.spec_emitted / steps, 3)
+            snap["llm"] = {k: v for k, v in gen.items() if v is not None}
         return self._web.json_response(snap)
 
     async def handle_query(self, request):
@@ -229,7 +241,7 @@ class FederationServer:
         if request.query.get("stream", "") in ("1", "true"):
             return web.Response(
                 text="stream=1 (SSE generation) is not ported yet "
-                     "(ROADMAP queue 1, item 13)", status=501)
+                     "(ROADMAP queue 1, item 6)", status=501)
         try:
             result = await asyncio.wait_for(
                 self._process(query, choices, question_id),

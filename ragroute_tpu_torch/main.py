@@ -1,8 +1,11 @@
 """CLI entry point: serve the federated search system with PyTorch.
 
 The same flags as the JAX package's ``main.py``, plus ``--device``. Values
-outside the ported slices (meshes, the dtype policy, live updates, live encoders, the JAX LLM stack, the native front-end, workers)
-fail at start-up naming their ROADMAP item.
+outside the ported slices (meshes, the dtype policy, live updates, live
+encoders, the native front-end, workers) fail at start-up naming their
+ROADMAP item. ``--llm-backend jax`` keeps the JAX package's value, so that one
+command line drives both packages; here it means generation on the card by
+this package's decoder (``ragroute_tpu_torch.llm``).
 
 Examples (on a CUDA card)::
 
@@ -14,6 +17,9 @@ Examples (on a CUDA card)::
         --disable-llm --impl lowrank --dtype int4
     python -m ragroute_tpu_torch.main --dataset medrag --routing ragroute \
         --disable-llm --impl hostrefine --dtype int8 --hbm-budget-gb 3.0
+    python -m ragroute_tpu_torch.main --dataset medrag --llm-backend jax \
+        --llm-checkpoint DIR --llm-quant int4 --llm-kv-quant int8 \
+        --llm-serving continuous --llm-prefix-cache --llm-spec-window 4
 """
 
 from __future__ import annotations
@@ -46,30 +52,59 @@ def parse_args(argv=None):
                    help="Serving device: cuda (or cuda:N); cpu for tests")
     p.add_argument("--llm-backend", type=str, default="auto",
                    choices=["auto", "ollama", "openai", "echo", "jax"],
-                   help="Generation backend (auto: ollama, echo when "
-                        "--disable-llm/--simulate); jax is not ported")
+                   help="Generation backend: auto = reference behavior "
+                        "(ollama daemon; echo when --disable-llm/--simulate);"
+                        " jax = generation on the card next to retrieval "
+                        "(the registry model as this package's PyTorch "
+                        "decoder, micro-batched, KV-cache decode; the value "
+                        "keeps the JAX package's name)")
     p.add_argument("--llm-checkpoint", type=str, default=None,
-                   help="(--llm-backend jax; not ported)")
+                   help="Local HF causal-LM checkpoint directory for "
+                        "--llm-backend jax (Llama/Qwen3 layouts; needs "
+                        "transformers). Without it the jax backend serves a "
+                        "tiny DEMO decoder (offline; answers are gibberish, "
+                        "the path is real)")
     p.add_argument("--llm-max-new", type=int, default=256,
-                   help="(--llm-backend jax; not ported)")
+                   help="Max generated tokens per answer with --llm-backend "
+                        "jax")
     p.add_argument("--llm-quant", type=str, default=None,
                    choices=["int8", "int4"],
-                   help="(--llm-backend jax; not ported)")
+                   help="Weight-only quantization of the checkpoint for "
+                        "--llm-backend jax: int8 per-channel halves the "
+                        "decode weight stream; int4 packs group-scaled "
+                        "nibbles through the int4 matmul kernel for another "
+                        "2x fewer bytes")
     p.add_argument("--llm-serving", type=str, default="batch",
                    choices=["batch", "continuous"],
-                   help="(--llm-backend jax; not ported)")
+                   help="Generation scheduling for --llm-backend jax: "
+                        "'batch' decodes each micro-batch to completion; "
+                        "'continuous' is slot-based continuous batching "
+                        "(requests join/leave the running decode at chunk "
+                        "boundaries)")
     p.add_argument("--llm-spec-window", type=int, default=0,
-                   help="(--llm-backend jax; not ported)")
+                   help="Prompt-lookup speculative decoding window for "
+                        "--llm-serving continuous (0 = off, >=2 = verify "
+                        "that many tokens per step; greedy-exact, drafts "
+                        "copied from each answer's own history)")
     p.add_argument("--llm-temperature", type=float, default=0.0,
-                   help="(--llm-backend jax; not ported)")
+                   help="Sampling temperature for --llm-backend jax (0 = "
+                        "greedy, the default)")
     p.add_argument("--llm-top-k", type=int, default=0,
-                   help="(--llm-backend jax; not ported)")
+                   help="Keep only the k highest-probability tokens when "
+                        "sampling (0 = off)")
     p.add_argument("--llm-top-p", type=float, default=1.0,
-                   help="(--llm-backend jax; not ported)")
+                   help="Nucleus sampling: keep the smallest token set whose "
+                        "probability mass reaches p (1.0 = off)")
     p.add_argument("--llm-prefix-cache", action="store_true",
-                   help="(--llm-backend jax; not ported)")
+                   help="Shared-prefix KV for --llm-serving continuous: the "
+                        "constant head every RAG prompt shares is prefilled "
+                        "once and attended as a broadcast segment; admission"
+                        " prefills only the per-request suffix")
     p.add_argument("--llm-kv-quant", type=str, default=None,
-                   choices=["int8"], help="(--llm-backend jax; not ported)")
+                   choices=["int8"],
+                   help="Quantize the KV cache (int8 codes + per-(position, "
+                        "head) scales): halves the cache bytes each decode "
+                        "step reads")
     p.add_argument("--data-root", type=str, default=None,
                    help="Data root (default: $RAGROUTE_DATA)")
     p.add_argument("--port", type=int, default=None)

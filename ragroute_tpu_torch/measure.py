@@ -36,6 +36,13 @@ completes, a ``torch.profiler`` window over 5 steps at B = 512 (device time
 by kernel, the host->device copies among them, and the busy share), the
 kernels' launches per step, and the peak device and host memory.
 
+:func:`decode_step_breakdown` times one decode step of the served decoder
+(``chip_smoke.py`` runs it on Qwen3-8B with random int4 weights at B = 16
+over a 2,080-position int8 KV cache): the step's host-clock time, its bound
+(the weights read once plus the valid K/V, over 3.35 TB/s) and a
+``torch.profiler`` window of five steps (device time by kernel, busy share,
+K5 launches a step).
+
 Every line names the card and its power limit. The last line is one JSON
 object with everything printed.
 """
@@ -288,6 +295,109 @@ def measure_tiers(card: str, device="cuda"):
               flush=True)
     run("hostrefine_probed", sset, time.perf_counter() - t0)
     return result
+
+
+# ---- on-card generation: one decode step of the served decoder ---------------
+
+LLM_BATCH, LLM_PROMPT, LLM_NEW = 16, 2048, 32
+
+
+def decoder_bytes(params) -> int:
+    """Bytes of every weight a decode step reads: each matrix (codes and
+    scales), the norms and the head; the embedding table counts only as
+    the head when it is tied (a lookup reads B columns)."""
+    total = 0
+    for module in [params, *params.layers]:
+        for name, w in module.items():
+            if name == "embed" and "lm_head" in dict(params.items()):
+                continue
+            for t in ((w.q, w.scale) if hasattr(w, "q") else (w,)):
+                total += t.numel() * t.element_size()
+    return total
+
+
+def decode_step_breakdown(params, cfg, device, *, bsz: int = LLM_BATCH,
+                          prompt: int = LLM_PROMPT, new: int = LLM_NEW,
+                          cache_dtype="int8", steps: int = 5,
+                          top: int = 12) -> dict:
+    """Decode steps of ``llm.model.decode_step`` at batch ``bsz`` over a
+    cache of ``prompt + new`` positions whose prompt slots are all valid:
+    the median host-clock ms of a step that ends in a synchronise, its
+    bound (the weights read once plus the valid K/V of every layer, over
+    the card's memory rate), and a ``torch.profiler`` window over
+    ``steps`` steps (device time by kernel, busy share, K5 launches a
+    step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ragroute_tpu_torch.llm.model import decode_step, init_cache
+    from ragroute_tpu_torch.ops.int4_matmul import int4_matmul
+    from ragroute_tpu_torch.ops.kernel_checks import HBM_BYTES_PER_S
+
+    cache = init_cache(cfg, bsz, prompt + new, cache_dtype, device=device)
+    lengths = torch.full((bsz,), prompt, dtype=torch.int32, device=device)
+    tok = torch.arange(bsz, dtype=torch.int32, device=device)
+    times, t = [], 0
+    with torch.no_grad():
+        for i in range(2 + steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = decode_step(params, cfg, cache, tok, lengths,
+                                        prompt, t)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append(1e3 * (time.perf_counter() - t0))
+            t += 1
+        int4_matmul.launches = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                logits, cache = decode_step(params, cfg, cache, tok, lengths,
+                                            prompt, t)
+                t += 1
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    # the valid K/V a step reads (codes and, for an int8 cache, scales),
+    # at the mean valid length of the timed steps
+    s_valid = prompt + 2 + (steps + 1) / 2
+    per_pos = 2 * cfg.num_layers * bsz * cfg.num_kv_heads * (
+        cfg.head_dim * cache["k"].element_size()
+        + (4 if "ks" in cache else 0))
+    wbytes = decoder_bytes(params)
+    kv_bytes = per_pos * s_valid
+    return {"step_ms": float(np.median(times)),
+            "bound_ms": 1e3 * (wbytes + kv_bytes) / HBM_BYTES_PER_S,
+            "weight_bytes": wbytes, "kv_bytes": kv_bytes,
+            "profile_wall_ms": wall_ms / steps,
+            "profile_device_ms": device_ms / steps,
+            "busy_share": device_ms / wall_ms if wall_ms else None,
+            "k5_launches_per_step": int4_matmul.launches / steps,
+            "kernels": [{"name": n[:90], "ms_per_step": ms / steps,
+                         "calls_per_step": c / steps}
+                        for n, ms, c in rows[:top]]}
+
+
+def print_decode_breakdown(out: dict, card: str, label: str = "qwen3-8b"
+                           ) -> None:
+    print(f"[decode:{label}] B={LLM_BATCH} S={LLM_PROMPT + LLM_NEW} int4 "
+          f"weights, int8 KV: step {out['step_ms']:.3f} ms (median of 5, "
+          f"host clock), bound {out['bound_ms']:.3f} ms ("
+          f"{out['weight_bytes'] / 1e9:.3f} GB weights + "
+          f"{out['kv_bytes'] / 1e9:.3f} GB K/V at 3.35 TB/s); profiler: "
+          f"wall {out['profile_wall_ms']:.3f} ms, device "
+          f"{out['profile_device_ms']:.3f} ms a step, busy share "
+          f"{out['busy_share']:.3f}, K5 launches a step "
+          f"{out['k5_launches_per_step']:.1f} ({card})", flush=True)
+    for k in out["kernels"]:
+        print(f"[decode:{label}]   {k['ms_per_step']:8.3f} ms "
+              f"{k['calls_per_step']:7.1f} calls a step  {k['name']}",
+              flush=True)
 
 
 def main(argv=None) -> int:

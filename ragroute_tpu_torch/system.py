@@ -2,12 +2,13 @@
 
 PyTorch port of :mod:`ragroute_tpu.system` for the single-device paths
 (exact search, the approximate device-resident modes ``--impl ivf | hybrid |
-lowrank``, ``--dtype int4``, and the host-RAM capacity tiers ``--impl stream
-| hostrefine`` with ``--hbm-budget-gb``): load the world's artifacts (shards
-with their extra layouts, centroids, router checkpoint, query table, doc
-payloads) from the data root onto the chosen device, construct engine +
-batcher + HTTP server, restart the batcher worker if it ever dies, and stop
-cleanly on SIGINT/SIGTERM.
+lowrank``, ``--dtype int4``, the host-RAM capacity tiers ``--impl stream |
+hostrefine`` with ``--hbm-budget-gb``, and on-card generation ``--llm-backend
+jax``): load the world's artifacts (shards with their extra layouts,
+centroids, router checkpoint, query table, doc payloads) from the data root
+onto the chosen device, construct engine + batcher + generation service +
+HTTP server, restart the batcher worker if it ever dies, and stop cleanly on
+SIGINT/SIGTERM.
 
 Every CLI value outside the ported slice fails at start-up with an error
 naming its ROADMAP item (:func:`check_ported`); none is silently ignored.
@@ -51,7 +52,8 @@ STREAMED_IMPLS = ("stream", "hostrefine")
 
 # (argument, values the slice serves, ROADMAP item that ports the rest)
 _UNPORTED = (
-    ("mesh", (None,), "queue 1, item 14 (multi-GPU)"),
+    ("mesh", (None,), "queue 1, item 14 (multi-GPU: sharded search, and "
+     "the tensor-parallel decoder of llm/sharding.py)"),
     ("coordinator", (None,), "queue 1, item 14 (multi-GPU)"),
     ("num_processes", (1,), "queue 1, item 14 (multi-GPU)"),
     ("process_id", (0,), "queue 1, item 14 (multi-GPU)"),
@@ -63,18 +65,6 @@ _UNPORTED = (
     ("workers", (1,), "queue 1, item 6 (multi-process front-end)"),
     ("dtype", ("float32", "bfloat16", "int8", "int4"),
      "queue 1, item 10 (dtype policy)"),
-    ("llm_backend", ("auto", "ollama", "openai", "echo"),
-     "queue 1, item 13 (LLM stack)"),
-    ("llm_checkpoint", (None,), "queue 1, item 13 (LLM stack)"),
-    ("llm_max_new", (256,), "queue 1, item 13 (LLM stack)"),
-    ("llm_quant", (None,), "queue 1, item 13 (LLM stack)"),
-    ("llm_serving", ("batch",), "queue 1, item 13 (LLM stack)"),
-    ("llm_spec_window", (0,), "queue 1, item 13 (LLM stack)"),
-    ("llm_temperature", (0.0,), "queue 1, item 13 (LLM stack)"),
-    ("llm_top_k", (0,), "queue 1, item 13 (LLM stack)"),
-    ("llm_top_p", (1.0,), "queue 1, item 13 (LLM stack)"),
-    ("llm_prefix_cache", (False,), "queue 1, item 13 (LLM stack)"),
-    ("llm_kv_quant", (None,), "queue 1, item 13 (LLM stack)"),
 )
 
 
@@ -177,11 +167,16 @@ def load_world_artifacts(root: str, world: WorldConfig, *,
 class ServingSystem:
     """One-stop construction + lifecycle for the serving stack."""
 
-    def __init__(self, args, *, row_sources=None):
+    def __init__(self, args, *, row_sources=None, llm_weights=None):
         check_ported(args)
         # rows of the host-RAM tiers made on demand (in place of the data
         # root's embeddings.npy): a corpus that never exists whole in f32
         self.row_sources = row_sources
+        # --llm-backend jax: (Decoder, DecoderConfig, tokenizer) the caller
+        # already holds on the device in its served form, in place of
+        # --llm-checkpoint's or the demo weights (--llm-quant does not apply;
+        # the other --llm-* flags do)
+        self.llm_weights = llm_weights
         self.dataset: str = args.dataset
         self.world = get_world(self.dataset)
         self.routing: str = args.routing
@@ -206,13 +201,106 @@ class ServingSystem:
                 f"--impl {self.impl} with --mesh is not ported to "
                 "ragroute_tpu_torch yet (ROADMAP queue 1, item 14 "
                 "(multi-GPU))")
+        # LLM backend: auto = reference behavior (echo when disabled or
+        # simulated, otherwise ollama); jax = generation on this device
         self.llm_backend: str = getattr(args, "llm_backend", None) or "auto"
+        self.llm_checkpoint = getattr(args, "llm_checkpoint", None)
+        self.llm_max_new: int = getattr(args, "llm_max_new", None) or 256
+        self.llm_quant = getattr(args, "llm_quant", None)
+        self.llm_kv_quant = getattr(args, "llm_kv_quant", None)
+        self.llm_prefix_cache = getattr(args, "llm_prefix_cache", False)
+
+        # no falsy coercion: `or` would turn an explicit --llm-top-p 0.0
+        # into "nucleus off" (the service rejects degenerate values)
+        def _num(name, default):
+            v = getattr(args, name, None)
+            return default if v is None else v
+
+        self.llm_temperature = _num("llm_temperature", 0.0)
+        self.llm_top_k = _num("llm_top_k", 0)
+        self.llm_top_p = _num("llm_top_p", 1.0)
+        self.llm_serving: str = getattr(args, "llm_serving", None) or "batch"
+        self.llm_spec_window: int = getattr(args, "llm_spec_window", 0) or 0
         self.buckets = getattr(args, "buckets", None) or cfg.BATCH_BUCKETS
         self.embedder = getattr(args, "embedder", "auto") or "auto"
         self.device = resolve_device(getattr(args, "device", None) or "cuda")
         self.server: Optional[FederationServer] = None
         self._watchdog: Optional[asyncio.Task] = None
         self._stopping = False
+
+    def _probe_llm_messages(self, q: str, with_doc: bool):
+        """One PROBE build of the serving prompt (the builder the query
+        path uses). Two of these, one with no doc and one with a doc, give
+        the shared token head for the prefix KV as their common prefix: it
+        stops at the template's constant head and never takes in content of
+        the variable regions, which real requests would then fail to
+        extend."""
+        from ragroute_tpu_torch.engine.prompts import (
+            generate_llm_message, generate_llm_message_wikipedia)
+
+        if self.dataset == "wikipedia":
+            docs = [("t" + q, "body " + q)] if with_doc else []
+            return generate_llm_message_wikipedia(
+                q, docs, [q, "b", "c", "d"], self.model)[0]
+        if with_doc:
+            ctx = ([{"title": "t" + q, "content": "body " + q}]
+                   if self.dataset == "medrag"
+                   else [{"title": "t" + q, "text": "body " + q}])
+        else:
+            ctx = []
+        return generate_llm_message(self.dataset, q, ctx,
+                                    {"A": q, "B": "bb"}, self.model)[0]
+
+    def _generation_service(self):
+        """``--llm-backend jax``: the lockstep service over the
+        checkpoint's weights (or the caller's, or the demo weights without
+        either), wrapped into the continuous service with ``--llm-serving
+        continuous``."""
+        from ragroute_tpu_torch.llm.service import (GenerationService,
+                                                    demo_service)
+
+        kw = {"cache_dtype": "int8"} if self.llm_kv_quant == "int8" else {}
+        kw.update(temperature=self.llm_temperature, top_k=self.llm_top_k,
+                  top_p=self.llm_top_p)
+        if self.llm_weights is not None:
+            params, dcfg, tok = self.llm_weights
+            service = GenerationService(params, dcfg, tok,
+                                        max_new_tokens=self.llm_max_new, **kw)
+        elif self.llm_checkpoint:
+            service = GenerationService.from_checkpoint(
+                self.llm_checkpoint, quantize=self.llm_quant,
+                device=self.device, max_new_tokens=self.llm_max_new, **kw)
+        else:
+            service = demo_service(device=self.device,
+                                   max_new_tokens=min(self.llm_max_new, 32),
+                                   **kw)
+        if self.llm_serving != "continuous":
+            return service
+        from ragroute_tpu_torch.llm.continuous import (
+            ContinuousGenerationService, shared_prefix_from_messages)
+
+        spec = self.llm_spec_window
+        # shared-prefix KV: every RAG prompt of a dataset opens with the
+        # same rendered head; derive it as the common prefix of two probe
+        # builds of the real message builder
+        prefix = None
+        if self.llm_prefix_cache:
+            prefix = shared_prefix_from_messages(
+                service.tokenizer,
+                self._probe_llm_messages("what is A?", False),
+                self._probe_llm_messages("zz 42 q", True))
+            logger.info("LLM shared-prefix KV: %d tokens", len(prefix))
+        # a slot holds prompt + generation + the decode window
+        cache_len = (service.prompt_buckets[-1] + service.max_new_tokens
+                     + max(spec, 1) + 8)
+        return ContinuousGenerationService(
+            service.params, service.cfg, service.tokenizer,
+            max_new_tokens=service.max_new_tokens,
+            prompt_buckets=service.prompt_buckets, cache_len=cache_len,
+            cache_dtype=service.cache_dtype,
+            temperature=service.temperature, top_k=service.top_k,
+            top_p=service.top_p, eos_id=service.eos_id,
+            pad_id=service.pad_id, spec_window=spec, prefix_ids=prefix)
 
     def build(self) -> FederationServer:
         dtype = STORAGE_DTYPES[self.dtype_name]
@@ -268,8 +356,11 @@ class ServingSystem:
         if backend == "auto":
             backend = ("echo" if (self.simulate or self.disable_llm)
                        else "ollama")
-        llm = LLMClient(backend,
-                        delay_s=cfg.LLM_DELAY if self.simulate else 0.0)
+        if backend == "jax":
+            llm = LLMClient("jax", service=self._generation_service())
+        else:
+            llm = LLMClient(backend,
+                            delay_s=cfg.LLM_DELAY if self.simulate else 0.0)
         self.server = FederationServer(
             engine, strategy=strategy, embedding_provider=provider,
             doc_store=doc_store, llm=llm, model=self.model,
@@ -319,4 +410,7 @@ class ServingSystem:
             self._watchdog.cancel()
         if self.server:
             await self.server.stop()
+            service = getattr(self.server.llm, "service", None)
+            if service is not None:
+                await service.stop()
         logger.info("Shutdown complete")

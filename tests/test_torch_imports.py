@@ -43,6 +43,9 @@ def test_entry_points_import_no_jax():
         "import ragroute_tpu_torch.index.streamed\n"
         "import ragroute_tpu_torch.engine.streamed\n"
         "import ragroute_tpu_torch.measure\n"
+        "import ragroute_tpu_torch.llm, ragroute_tpu_torch.llm.speculative\n"
+        "import ragroute_tpu_torch.llm.shapes\n"
+        "import ragroute_tpu_torch.ops.decoder_checks\n"
         "import ragroute_tpu_torch.index.synthetic\n"
         "import ragroute_tpu_torch.oracle, ragroute_tpu_torch.benchmark\n"
         "from ragroute_tpu_torch.engine.server import FederationServer\n"
@@ -91,8 +94,9 @@ def test_cli_keeps_every_reference_flag_and_default():
     ["--mesh", "2x4"], ["--impl", "stream", "--mesh", "1x2"],
     ["--impl", "hostrefine", "--mesh", "2x4"],
     ["--mutable"], ["--reserve-docs", "8"], ["--embedder", "zoo"],
-    ["--llm-backend", "jax"], ["--llm-quant", "int4"],
-    ["--llm-serving", "continuous"], ["--frontend", "native"],
+    ["--llm-backend", "jax", "--mesh", "2x4"],
+    ["--llm-quant", "int4", "--mesh", "1x2"],
+    ["--llm-serving", "continuous", "--workers", "2"], ["--frontend", "native"],
     ["--workers", "2"], ["--dtype", "policy"],
     ["--coordinator", "10.0.0.1:1234"], ["--num-processes", "2"],
     ["--hbm-budget-gb", "4", "--impl", "hostrefine", "--mesh", "1x4"],
@@ -205,3 +209,73 @@ def test_simulate_builds_and_searches_on_cpu():
     out = server.engine.search(embs, strategy=server.strategy)
     assert server.strategy == "all" and out.mask.all()
     assert out.merged_valid[0] == world.k
+
+
+@pytest.mark.parametrize("argv,want", [
+    ([], dict(cls="GenerationService", max_new_tokens=32,
+              cache_dtype=torch.float32, temperature=0.0, top_k=0,
+              top_p=1.0)),
+    (["--llm-kv-quant", "int8", "--llm-temperature", "0.7", "--llm-top-k",
+      "5", "--llm-top-p", "0.9", "--llm-max-new", "8"],
+     dict(cls="GenerationService", max_new_tokens=8, cache_dtype="int8",
+          temperature=0.7, top_k=5, top_p=0.9)),
+    (["--llm-checkpoint", "CKPT", "--llm-quant", "int4", "--llm-max-new",
+      "100"], dict(cls="GenerationService", max_new_tokens=100,
+                   quantize="int4")),
+    (["--llm-checkpoint", "CKPT", "--llm-quant", "int8"],
+     dict(cls="GenerationService", max_new_tokens=256, quantize="int8")),
+    (["--llm-serving", "continuous", "--llm-prefix-cache",
+      "--llm-spec-window", "4", "--llm-kv-quant", "int8"],
+     dict(cls="ContinuousGenerationService", max_new_tokens=32,
+          spec_window=4, cache_dtype="int8", cache_len=512 + 32 + 4 + 8)),
+    (["--llm-serving", "continuous"],
+     dict(cls="ContinuousGenerationService", spec_window=0,
+          prefix_ids=None, cache_len=512 + 32 + 1 + 8)),
+])
+def test_llm_flags_reach_the_generation_service(monkeypatch, argv, want):
+    """``--llm-backend jax`` builds the port's generation service and every
+    ``--llm-*`` flag reaches it (the checkpoint loader is recorded, not
+    run: its own test loads a tiny checkpoint)."""
+    from ragroute_tpu_torch.llm import service as ts
+
+    seen = {}
+
+    def from_checkpoint(path, quantize=None, device="cpu", **kw):
+        seen.update(path=path, quantize=quantize, device=device)
+        return ts.demo_service(device=device, **kw)
+
+    monkeypatch.setattr(ts.GenerationService, "from_checkpoint",
+                        staticmethod(from_checkpoint))
+    args = parse_args(["--dataset", "medrag", "--device", "cpu",
+                       "--llm-backend", "jax", *argv])
+    check_ported(args)
+    system = ServingSystem(args)
+    svc = system._generation_service()
+    want = dict(want)
+    assert type(svc).__name__ == want.pop("cls")
+    if "quantize" in want:
+        assert seen == {"path": "CKPT", "quantize": want.pop("quantize"),
+                        "device": torch.device("cpu")}
+    for name, value in want.items():
+        assert getattr(svc, name) == value, name
+    assert svc.device == torch.device("cpu")
+    if "--llm-prefix-cache" in argv:
+        # the rendered head every medrag prompt shares: a real prompt
+        # extends it
+        from ragroute_tpu_torch.llm.service import _render_prompt
+
+        n = len(svc.prefix_ids)
+        real = svc.tokenizer.encode(_render_prompt(
+            svc.tokenizer, system._probe_llm_messages("why so?", True)))
+        assert n > 100 and real[:n] == svc.prefix_ids
+
+
+def test_llm_refusals_name_their_roadmap_item():
+    args = parse_args(["--dataset", "medrag", "--device", "cpu",
+                       "--llm-backend", "jax", "--mesh", "2x4"])
+    with pytest.raises(ValueError, match="item 14.*tensor-parallel decoder"):
+        check_ported(args)
+    args = parse_args(["--dataset", "medrag", "--device", "cpu",
+                       "--llm-backend", "jax", "--llm-top-p", "0"])
+    with pytest.raises(ValueError, match="top_p"):
+        ServingSystem(args)._generation_service()

@@ -1,7 +1,9 @@
 """Card-only tests: the hand-written kernels (csrc/fused_topk.cu,
-csrc/stream_topk.cu, csrc/grouped_gains.cu, csrc/grouped_pair_topk.cu)
-against their plain PyTorch versions, at test size, and the host-RAM tiers'
-engine on the card against the same engine on the CPU.
+csrc/stream_topk.cu, csrc/grouped_gains.cu, csrc/grouped_pair_topk.cu,
+csrc/int4_matmul.cu, csrc/decode_attention.cu) against their plain PyTorch
+versions, at test size, the host-RAM tiers' engine on the card against the
+same engine on the CPU, and the int4 decoder's greedy tokens on the card
+against the CPU's.
 
 A CUDA kernel has no CPU mode, so every test here needs a card; the
 ``cuda`` fixture decides that (never at import) and skips otherwise. On the
@@ -365,3 +367,80 @@ def test_streamed_engine_on_the_card_agrees_with_the_cpu_engine(cuda, tier,
             hits += 1
             assert abs(a[key] - b[key]) <= 1e-2 * (1.0 + abs(a[key]))
     assert hits >= 0.97 * cpu.merged_shard.size
+
+
+# ---- the decoder's kernels: K5 (int4 matmul) and K6 (decode attention) -----
+
+def test_int4_matmul_exact_cases_equal_plain(cuda):
+    """Small integer activations, random nibbles and power-of-two scales:
+    every product and sum is exact, so the kernel equals the plain version
+    (bf16 and f32 activations; OUT off the 16-byte grid; groups of 6, 12,
+    24; one and several M tiles; a split contraction)."""
+    from ragroute_tpu_torch.ops import decoder_checks as dc
+
+    failed = []
+    for case in dc.int4_exact_cases(cuda):
+        got, want = dc.run_int4(case), dc.run_int4_plain(case)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            failed.append(case.name)
+    assert not failed, failed
+
+
+@pytest.mark.parametrize("m,in_dim,out,group", [(16, 4096, 1024, 128),
+                                                (300, 1024, 2048, 128),
+                                                (3, 256, 260, 64)])
+def test_int4_matmul_matches_plain_within_tolerance(cuda, m, in_dim, out,
+                                                    group):
+    from ragroute_tpu_torch.ops import decoder_checks as dc
+    from ragroute_tpu_torch.ops.int4_matmul import int4_matmul
+
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    case = dc._rand_case("t", cuda, m, in_dim, out, group, torch.bfloat16,
+                         gen, exact=False)
+    before = int4_matmul.launches
+    res = dc.matmul_close(dc.run_int4(case), dc.run_int4_plain(case))
+    assert int4_matmul.launches == before + 1
+    assert res["ok"], res
+    with pytest.raises(TypeError):
+        int4_matmul(case.x.to(torch.float16), case.w, case.scale,
+                    group=group)
+
+
+def test_decode_attention_matches_plain_and_attend(cuda):
+    from ragroute_tpu_torch.ops import decoder_checks as dc
+    from ragroute_tpu_torch.ops.decode_attention import decode_attention
+
+    before = decode_attention.launches
+    n = 0
+    for case in dc.attn_small_cases(cuda):
+        got = dc.run_attn(case)
+        for want in (dc.run_attn_plain(case), dc.run_attend(case)):
+            res = dc.attn_close(got, want)
+            assert res["ok"], (case.name, res)
+        n += 1
+    assert decode_attention.launches == before + n
+
+
+def test_int4_decoder_on_the_card_matches_the_cpu_decoder(cuda):
+    """The demo decoder's int4 weights: greedy tokens through K5 on the
+    card equal the plain version's on the CPU (f32 activations)."""
+    from ragroute_tpu_torch.llm import model as tm
+    from ragroute_tpu_torch.llm.service import DEMO_CFG
+    from ragroute_tpu_torch.ops.int4_matmul import int4_matmul
+
+    params = tm.quantize_decoder_params(tm.init_decoder_params(0, DEMO_CFG),
+                                        DEMO_CFG, bits=4)
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 256, (4, 24), generator=gen, dtype=torch.int32)
+    mask = torch.ones_like(ids)
+    mask[1, :10] = 0
+    outs = []
+    before = int4_matmul.launches
+    for dev in ("cpu", cuda):
+        with torch.no_grad():
+            toks, _ = tm.generate(params.to(dev), DEMO_CFG, ids.to(dev),
+                                  mask.to(dev), 8, eos_id=-1)
+        outs.append(toks.cpu())
+    assert int4_matmul.launches > before
+    assert torch.equal(outs[0], outs[1])

@@ -197,3 +197,149 @@ def test_small_host_modules_behave_the_same(tmp_path):
     qrels = tmp_path / "qrels.txt"
     qrels.write_text("q1\t0\tdocA\t2\nq1\t0\tdocB\t0\nq2\t0\tdocC\t1\n")
     assert ref.load_qrels(str(qrels)) == ours.load_qrels(str(qrels))
+
+
+# ---- the generation slice's own copies of host-side functions ---------------
+
+def _llm_pair(name):
+    """(original, the port's copy) of one host-side function or value of
+    the generation slice; ``shapes.*`` are ``scripts/bench_llm.py``'s."""
+    mod, attr = name.rsplit(".", 1)
+    ref_mod = ("scripts.bench_llm" if mod == "llm.shapes"
+               else f"ragroute_tpu.{mod}")
+    return (getattr(importlib.import_module(ref_mod), attr),
+            getattr(importlib.import_module(f"ragroute_tpu_torch.{mod}"),
+                    attr))
+
+
+def _same_int4(ref, ours):
+    import torch
+
+    rng = np.random.default_rng(4)
+    w = rng.normal(size=(96, 40)).astype(np.float32)
+    if ref.__name__ == "pack_int4_rows":
+        codes = rng.integers(-8, 8, (96, 40)).astype(np.int8)
+        np.testing.assert_array_equal(
+            ref(codes), ours(torch.from_numpy(codes)).numpy())
+        return
+    p, s = _llm_pair("ops.int4_matmul.quantize_int4")[0](w, group=24)
+    if ref.__name__ == "quantize_int4":
+        tp, ts = ours(torch.from_numpy(w), group=24)
+        np.testing.assert_array_equal(p, tp.numpy())
+        np.testing.assert_array_equal(s, ts.numpy())
+    else:
+        np.testing.assert_array_equal(
+            ref(p, s, 24),
+            ours(torch.from_numpy(p), torch.from_numpy(s), 24).numpy())
+
+
+def _same_service_helper(ref, ours):
+    name = ref.__name__
+    rtok = importlib.import_module("ragroute_tpu.llm.service").ByteTokenizer()
+    otok = importlib.import_module(
+        "ragroute_tpu_torch.llm.service").ByteTokenizer()
+    msgs = [{"role": "system", "content": "sys ✓"},
+            {"role": "user", "content": "x" * 40 + " end?"}]
+    if name == "_render_prompt":
+        class NoTemplate:
+            chat_template = None
+        for tok in (rtok, NoTemplate()):
+            assert ours(tok, msgs) == ref(tok, msgs)
+    elif name == "resolve_special_id":
+        class Hf:
+            eos_token_id, pad_token_id = 7, None
+        for args in ((Hf(), None, "eos_token_id", "eos_id"),
+                     (Hf(), 3, "eos_token_id", "eos_id"),
+                     (Hf(), None, "pad_token_id", "pad_id"),
+                     (rtok, None, "pad_token_id", "pad_id")):
+            assert ours(*args) == ref(*args)
+    elif name == "validate_sampling":
+        assert ours(3, 0.5) == ref(3, 0.5)
+        for bad in ((-1, 1.0), (0, 0.0), (0, 1.01)):
+            for fn in (ref, ours):
+                with pytest.raises(ValueError):
+                    fn(*bad)
+    elif name == "pick_bucket":
+        for n in (1, 4, 5, 16, 99):
+            assert ours((4, 16), n) == ref((4, 16), n)
+    elif name == "encode_prompt":
+        for cap in (8, 4096):
+            assert ours(otok, msgs, cap) == ref(rtok, msgs, cap)
+    elif name == "clamp_budget":
+        for v in (None, 0, 5, 99):
+            assert ours(v, 8) == ref(v, 8)
+    elif name in ("shared_prefix_from_messages",):
+        other = [{"role": "user", "content": "y"}]
+        assert ours(otok, msgs, other) == ref(rtok, msgs, other)
+    elif name == "shared_prefix_ids":
+        for system in (None, "You are a doctor."):
+            assert ours(otok, system) == ref(rtok, system)
+    else:
+        raise AssertionError(name)
+
+
+def _same_value(ref, ours):
+    if dataclasses.is_dataclass(ref):
+        assert _plain(ref) == _plain(ours)
+    elif isinstance(ref, dict):
+        assert list(ref) == list(ours)
+        for k in ref:
+            assert _plain(ref[k]) == _plain(ours[k]), k
+    else:                               # ByteTokenizer
+        r, o = ref(), ours()
+        for a in ("pad_id", "bos_id", "eos_id", "vocab_size", "is_fallback"):
+            assert getattr(r, a) == getattr(o, a)
+        for text in ("hello", "ünïcödé ✓", ""):
+            assert r.encode(text) == o.encode(text)
+            assert r.decode(r.encode(text) + [300, 256]) == o.decode(
+                o.encode(text) + [300, 256])
+        msgs = [{"role": "user", "content": "q"}]
+        assert r.apply_chat_template(msgs) == o.apply_chat_template(msgs)
+
+
+def _same_model_helper(ref, ours):
+    name = ref.__name__
+    if name == "_int4_group":
+        for n in (48, 128, 4096, 12288, 100, 6):
+            assert ours(n) == ref(n) and ours(n, 16) == ref(n, 16)
+    elif name == "_inv_freq":
+        rcls = importlib.import_module("ragroute_tpu.llm.model").DecoderConfig
+        ocls = importlib.import_module(
+            "ragroute_tpu_torch.llm.model").DecoderConfig
+        for scaling in (None, (8.0, 1.0, 4.0, 8192)):
+            kw = dict(vocab_size=8, hidden_size=256, num_layers=1,
+                      num_heads=2, num_kv_heads=1, head_dim=128,
+                      intermediate_size=8, rope_theta=5e5,
+                      rope_scaling=scaling)
+            np.testing.assert_array_equal(ours(ocls(**kw)), ref(rcls(**kw)))
+    else:
+        raise AssertionError(name)
+
+
+LLM_COPIES = {
+    "ops.int4_matmul.pack_int4_rows": _same_int4,
+    "ops.int4_matmul.quantize_int4": _same_int4,
+    "ops.int4_matmul.dequant_int4": _same_int4,
+    "llm.service.ByteTokenizer": _same_value,
+    "llm.service.DEMO_CFG": _same_value,
+    "llm.service._render_prompt": _same_service_helper,
+    "llm.service.resolve_special_id": _same_service_helper,
+    "llm.service.validate_sampling": _same_service_helper,
+    "llm.service.pick_bucket": _same_service_helper,
+    "llm.service.encode_prompt": _same_service_helper,
+    "llm.service.clamp_budget": _same_service_helper,
+    "llm.continuous.shared_prefix_from_messages": _same_service_helper,
+    "llm.continuous.shared_prefix_ids": _same_service_helper,
+    "llm.model._int4_group": _same_model_helper,
+    "llm.model._inv_freq": _same_model_helper,
+    "llm.shapes.QWEN3_06B": _same_value,
+    "llm.shapes.QWEN3_8B": _same_value,
+}
+
+
+@pytest.mark.parametrize("name", sorted(LLM_COPIES))
+def test_generation_slice_copy_behaves_as_the_original(name):
+    ref, ours = _llm_pair(name)
+    assert getattr(ours, "__module__", "ragroute_tpu_torch").startswith(
+        "ragroute_tpu_torch") or not callable(ours)
+    LLM_COPIES[name](ref, ours)
