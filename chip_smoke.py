@@ -25,8 +25,11 @@ Phases, each of which fails the run when it fails:
      one int8 slab of the stream tier (346,112 x 768, per-doc scale,
      k=32) and hostrefine's flat coarse scan (2,936,320 x 128 int8,
      per-doc scale, -inf bias on the padding rows, k'=128);
-   * streaming top-k: [512, 131,072] stored gains, k=32, and the probed
-     coarse scan's collect, [512, 4,096] with -inf entries, k'=128 (equal);
+   * streaming top-k: exact cases over both of its paths (the radix select
+     a block, the warp-streaming path, runs merged across splits), then
+     [512, 131,072] stored gains, k=32, and the probed coarse scan's
+     collect, [512, 4,096] with -inf entries, k'=128, random and as sorted
+     runs of 8 with ties (equal; CUDA-event and profiler device times);
    * grouped gains: 512 queries x 512 probes over 4,096 bf16 slabs of
      768 x 256 (1e-3 x max|gain|);
    * grouped pair top-k: 512 queries x 512 probes over 4,096 int8 coarse
@@ -40,8 +43,9 @@ Phases, each of which fails the run when it fails:
      bf16 activations (1e-4 x max|y|), with the device time from the
      profiler beside the CUDA-event time and dequant-to-bf16 +
      ``torch.matmul`` as a note;
-   * decode attention (K6, wired to no engine): small f32 / int8 cases
-     (1e-5, a row with one valid key and a row with none), then the
+   * decode attention (K6, wired to no engine): small f32 / bf16 / int8
+     cases (1e-5, a row with one valid key and a row with none, S under a
+     tile, G 1 to 8, Dh 20 to 256, many splits), then the
      Qwen3-8B decode shape (B=16, S=2,080, 36 layers) with a bf16 and an
      int8 cache and the JAX package's measured shape, each against the
      plain version and the engines' ``_attend``, with SDPA (GQA) as the
@@ -353,7 +357,9 @@ def phase_stream(dev) -> dict:
             raise AssertionError(f"stream_topk != plain on exact case {name}")
         n += 1
     log(f"[kernel] stream_topk {n} exact cases (ties across groups, splits "
-        f"and k; -inf entries and rows; k 1..160): positions and gains equal")
+        f"and k; -inf entries and rows; M < 2k and M % 4 != 0; sorted runs; "
+        f"both paths, runs merged across splits; k 1..160): positions and "
+        f"gains equal")
     gains = kc.stream_path_case(dev)
     k = 32
     kg, ki = stream_topk(gains, k)
@@ -364,48 +370,54 @@ def phase_stream(dev) -> dict:
         raise AssertionError(f"stream_topk disagrees with its plain version "
                              f"on the path shape (max err {err})")
     del kg, ki, pg, pi
-    ms = kc.cuda_time_ms(lambda: stream_topk(gains, k))
-    plain_ms = kc.cuda_time_ms(lambda: kc.stream_topk_reference(gains, k),
-                               warmup=1, reps=5)
-    # torch.topk computes the same lists but promises no order among ties
-    library_ms = kc.cuda_time_ms(lambda: torch.topk(gains, k, dim=1))
-    bound = kc.k2_bound(gains, k)
-    log(f"[kernel] stream_topk path shape B=512 M=131072 k=32 (20% -inf): "
-        f"equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.topk "
-        f"{library_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
-        f"({bound['bound_by']})")
+    row = _time_stream(gains, k, "path shape B=512 M=131072 k=32 (20% -inf)")
     del gains
     torch.cuda.empty_cache()
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    row["max_abs_err"] = err
+    modes = {}
+    for label, gains in (
+            ("probed_collect_k128", kc.stream_path_case(
+                dev, m=512 * 8, pad_share=0.1, seed=8)),
+            ("probed_collect_runs_k128", kc.stream_runs_case(dev))):
+        modes[label] = _check_stream_collect(gains, label)
+    return {**row, "modes": modes}
+
+
+def _time_stream(gains, k: int, label: str) -> dict:
+    """CUDA-event times of the kernel, its plain version and ``torch.topk``
+    (the same lists, no order promised among ties), the kernel's device time
+    from the profiler, and its bound."""
+    ms = kc.cuda_time_ms(lambda: stream_topk(gains, k), reps=20)
+    dev_ms = dc.device_ms(lambda: stream_topk(gains, k), stream_topk)
+    plain_ms = kc.cuda_time_ms(lambda: kc.stream_topk_reference(gains, k),
+                               warmup=1, reps=5)
+    library_ms = kc.cuda_time_ms(lambda: torch.topk(gains, k, dim=1),
+                                 reps=20)
+    bound = kc.k2_bound(gains, k)
+    log(f"[kernel] stream_topk {label}: equal; kernel {ms:.4f} ms (device "
+        f"{dev_ms:.4f}, {bound['bound_ms'] / dev_ms:.3f} of its bound), plain "
+        f"{plain_ms:.4f} ms, torch.topk {library_ms:.4f} ms, bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-            "library_ms": library_ms,
-            "modes": {"probed_collect_k128": _check_stream_collect(dev)}}
+            "bound_share": bound["bound_ms"] / dev_ms,
+            "library_ms": library_ms}
 
 
-def _check_stream_collect(dev) -> dict:
+def _check_stream_collect(gains, label: str) -> dict:
     """The collect of the probed coarse scan: 512 probes of kw = 8 kept
-    gains a query, a tenth of them unfilled (``-inf``), k' = 128."""
-    gains = kc.stream_path_case(dev, m=512 * 8, pad_share=0.1, seed=8)
+    gains a query, a tenth of them unfilled (``-inf``), k' = 128; random,
+    or sorted runs with ties as K4 leaves them."""
     k = 128
     kg, ki = stream_topk(gains, k)
     pg, pi = kc.stream_topk_reference(gains, k)
     torch.cuda.synchronize()
     err = float((kg - pg).abs().max())
-    if not torch.equal(ki, pi) or err != 0.0:
+    if not (torch.equal(ki, pi) and torch.equal(kg, pg)):
         raise AssertionError(f"stream_topk disagrees with its plain version "
-                             f"on the probed collect (max err {err})")
-    ms = kc.cuda_time_ms(lambda: stream_topk(gains, k))
-    plain_ms = kc.cuda_time_ms(lambda: kc.stream_topk_reference(gains, k),
-                               warmup=1, reps=5)
-    library_ms = kc.cuda_time_ms(lambda: torch.topk(gains, k, dim=1))
-    bound = kc.k2_bound(gains, k)
-    log(f"[kernel] stream_topk probed collect B=512 M=4096 k=128 (10% "
-        f"-inf): equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"torch.topk {library_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
-        f"({bound['bound_by']})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-            "library_ms": library_ms}
+                             f"on {label} (max err {err})")
+    row = _time_stream(gains, k, f"{label} B=512 M=4096 k=128 (10% -inf)")
+    return {**row, "max_abs_err": err}
 
 
 def phase_grouped(dev) -> dict:
@@ -613,9 +625,10 @@ def phase_decode_attention(dev) -> dict:
                 raise AssertionError(f"decode_attention != {label} on "
                                      f"{case.name}: {res}")
         n += 1
-    log(f"[kernel] decode_attention {n} small cases (f32 and int8 caches, "
-        f"MHA and GQA, a row with one valid key and a row with none, layer "
-        f"selection): within 1e-5 of the plain version and of _attend")
+    log(f"[kernel] decode_attention {n} small cases (f32, bf16 and int8 "
+        f"caches, G 1 to 8, Dh 20 to 256, S 5 to 3,000, a row with one valid "
+        f"key and a row with none, layer selection): within 1e-5 of the "
+        f"plain version and of _attend")
     out = None
     modes = {}
     for case in dc.attn_path_cases(dev):
@@ -637,15 +650,17 @@ def phase_decode_attention(dev) -> dict:
         log(f"[kernel] decode_attention {case.name}: max_abs_err "
             f"{res['max_abs_err']:.3e} vs plain, {res_att['max_abs_err']:.3e}"
             f" vs _attend (tol {res['tol']:.1e}); kernel {ms:.4f} ms (device "
-            f"{dev_ms:.4f}), plain "
+            f"{dev_ms:.4f}, {bound['bound_ms'] / dev_ms:.3f} of its bound), "
+            f"plain "
             f"{plain_ms:.4f} ms, _attend {attend_ms:.4f} ms, SDPA (GQA) "
             f"{lib}, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
             f"{bound['bytes'] / 1e6:.1f} MB)")
         row = {"max_abs_err": res["max_abs_err"], "ms": ms,
                "device_ms": dev_ms, "plain_ms": plain_ms,
                "bound_ms": bound["bound_ms"],
-               "bound_by": bound["bound_by"], "library_ms": library_ms,
-               "attend_ms": attend_ms}
+               "bound_by": bound["bound_by"],
+               "bound_share": bound["bound_ms"] / dev_ms,
+               "library_ms": library_ms, "attend_ms": attend_ms}
         if out is None:
             out = dict(row, shape=case.name)
         else:

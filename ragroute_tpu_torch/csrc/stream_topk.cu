@@ -1,29 +1,48 @@
-// Exact streaming top-k over a stored gain matrix, for Hopper (sm_90a).
+// Exact top-k over a stored gain matrix, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel ragroute_tpu/ops/pallas_topk.py::pallas_stream_topk
 // (body _stream_kernel, merge _merge_gains_tile). For gains [B, M] f32 it
 // returns, per row, the k best (gain, position) ordered by gain descending,
 // then position ascending; -inf (and NaN) entries never enter a list, and a
 // list slot nothing filled comes back as (-inf, 0). The cluster-probed search
-// uses it to collect each query's winners from its gathered [B, P * S] gains.
-//
-// Design (simple first, fast later):
-//   * stream_partial_kernel: a warp owns one (row, split) pair and streams
-//     its contiguous range of the row in ascending position, UNROLL
-//     coalesced 128-byte loads in flight. Each 32-wide group is held against
-//     the list's k-th best with one ballot; the few values that can enter
-//     are inserted after equal gains (topk_merge.cuh), so ties keep the lower
-//     position. The sorted list lives in shared memory, K * 8 bytes a warp.
-//     M is cut into splits so that B = 8 fills the card as B = 512 does.
-//   * merge_splits_kernel (topk_merge.cuh): one block per row merges the
-//     per-split lists under the same order.
+// uses it to collect each query's winners from its gathered [B, P * S] gains,
+// the probed coarse scan to collect k' = 128 from [B, 512 * 8] kept gains.
 //
 // What bounds it on an H100 SXM: bytes. The function reads B * M * 4 bytes
-// once and does no arithmetic to speak of: 268 MB at B = 512, M = 131,072
-// is 0.08 ms at 3.35 TB/s. The design streams each byte once with
-// coalesced loads and keeps the lists out of device memory; the insertion
-// path is serial per warp and is what a later version has to shorten when
-// many values beat the threshold (the first tiles of every split).
+// once and does one comparison an entry: 8.4 MB at the probed collect (B =
+// 512, M = 4,096; 2.7 us at 3.35 TB/s, under one launch), 268 MB at the ivf
+// collect (B = 512, M = 131,072; 80 us). What held the first design back was
+// not the bytes but a serial insert into a sorted list for every value that
+// beats the list's last entry: at k = 128 over 1,024-value splits that is
+// hundreds of inserts a warp, one at a time. Two paths now, chosen by the
+// wrapper from (B, M, k) (ops/stream_topk.py::plan):
+//
+//   * select_topk_kernel (short rows or deep lists): one block of 256 threads
+//     a (row, split) of at most 8,192 positions. It reads its run once with
+//     coalesced loads into shared memory as order-preserving uint32 keys
+//     (-inf and NaN map to 0, below every gain, and are never taken), finds
+//     the k-th largest key T by radix select (four 8-bit passes of a
+//     shared-memory histogram and a block-wide scan), takes every key > T
+//     and then the keys == T in ascending position (ballots and a scan over
+//     warps that own contiguous ranges, so ties go to the lower position),
+//     and ranks the <= k winners by counting: a winner's slot is the number
+//     of winners with a larger (key, -position). No serial insertion. A row
+//     that fits one run needs no merge: one launch.
+//   * stream_partial_kernel (long rows, k <= 64: the ivf collect): a warp
+//     owns one (row, split) and streams its range in ascending position,
+//     UNROLL coalesced 128-byte loads in flight; each 32-wide group is held
+//     against the list's k-th best with one ballot, and the few values that
+//     pass are inserted after equal gains (topk_merge.cuh). Past the first
+//     tiles almost nothing passes, so the loads bound it.
+//
+// Runs of a row that is cut into splits are merged by merge_splits_kernel
+// (topk_merge.cuh) under the same order.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py kernels,
+// torch.profiler device time): the probed collect 0.014 ms (the first
+// design's serial inserts took 0.27 to 0.31 ms by CUDA events), about 5x its
+// byte bound and under a few launch latencies; the ivf collect 0.16 ms on
+// the warp path (twice its bound; the ballot rejects almost every value).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,33 +92,198 @@ __global__ void __launch_bounds__(THREADS) stream_partial_kernel(
   for (int e = lane; e < K; e += 32) { part_g[o + e] = rg[e]; part_i[o + e] = ri[e]; }
 }
 
+// ---- the select path: radix select over one run held in shared memory ----
+
+constexpr int SEL_THREADS = 256;  // == RADIX: one histogram bin a thread
+constexpr int SEL_WARPS = SEL_THREADS / 32;
+constexpr int RADIX = 256;
+constexpr int SEL_CHUNK_MAX = 8192;  // keys of one run: 32 KB of shared memory
+
+// Order-preserving key: larger gain, larger key. -inf and NaN map to 0 (no
+// finite gain or +inf does: the smallest, -FLT_MAX, maps to 0x00800000);
+// -0 maps as +0, since the two compare equal and tie by position.
+__device__ __forceinline__ uint32_t order_key(float x) {
+  if (!(x > neg_inf())) return 0u;
+  const uint32_t u = x == 0.0f ? 0u : __float_as_uint(x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// Inclusive sum of v over the block's threads in thread order; `total` gets
+// the block's sum. Two barriers; `scratch` holds SEL_WARPS ints.
+__device__ __forceinline__ int block_inclusive_sum(int v, int* scratch,
+                                                   int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(FULL, v, off);
+    if (lane >= off) v += t;
+  }
+  if (lane == 31) scratch[warp] = v;
+  __syncthreads();
+  int base = 0, tot = 0;
+#pragma unroll
+  for (int w = 0; w < SEL_WARPS; ++w) {
+    const int s = scratch[w];
+    base += w < warp ? s : 0;
+    tot += s;
+  }
+  __syncthreads();  // scratch may be written again
+  total = tot;
+  return v + base;
+}
+
+// One block a (row, split): grid B * splits. Writes the run's sorted list of
+// K to out_g / out_i at ((row * splits + split) * K), padded with (-inf, 0).
+__global__ void __launch_bounds__(SEL_THREADS) select_topk_kernel(
+    const float* __restrict__ gains, float* __restrict__ out_g,
+    int* __restrict__ out_i, int M, int K, int splits, int chunk) {
+  extern __shared__ __align__(16) uint32_t keys[];  // [chunk]
+  __shared__ int hist[RADIX];
+  __shared__ int scratch[SEL_WARPS];
+  __shared__ int warp_gt[SEL_WARPS], warp_eq[SEL_WARPS];
+  __shared__ unsigned long long cand[topk::KMAX];
+  __shared__ uint32_t sel_digit;
+  __shared__ int sel_above;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = blockIdx.x / splits, split = blockIdx.x % splits;
+  const int begin = split * chunk;
+  const int n = min(chunk, M - begin);
+  const float* g = gains + (size_t)row * M + begin;
+
+  hist[tid] = 0;
+  __syncthreads();
+  for (int e = tid; e < n; e += SEL_THREADS) {
+    const uint32_t key = order_key(g[e]);
+    keys[e] = key;
+    atomicAdd(&hist[key >> 24], 1);
+  }
+  __syncthreads();
+
+  // radix select of the want-th largest key, 8 bits a pass from the top;
+  // `need` counts the keys still to take at or below the prefix found
+  const int want = min(K, n);
+  uint32_t prefix = 0u;
+  int need = want;
+#pragma unroll 1
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    if (pass > 0) {
+      const uint32_t hi = 0xffffffffu << (shift + 8);
+      for (int e = tid; e < n; e += SEL_THREADS) {
+        const uint32_t key = keys[e];
+        if ((key & hi) == prefix) atomicAdd(&hist[(key >> shift) & 0xff], 1);
+      }
+      __syncthreads();
+    }
+    // thread t holds bin 255 - t: the inclusive sum counts keys in bins >= it
+    const int c = hist[RADIX - 1 - tid];
+    int total;
+    const int at_or_above = block_inclusive_sum(c, scratch, total);
+    if (at_or_above >= need && at_or_above - c < need) {
+      sel_digit = (uint32_t)(RADIX - 1 - tid);
+      sel_above = at_or_above - c;
+    }
+    __syncthreads();
+    hist[tid] = 0;
+    prefix |= sel_digit << shift;
+    need -= sel_above;
+    __syncthreads();
+  }
+  const uint32_t T = prefix;             // the want-th largest key
+  const int take_eq = T ? need : 0;      // keys == T to take, lowest first
+
+  // warp w owns positions [w * seg, (w + 1) * seg): counts, then slots
+  const int seg = ((n + SEL_WARPS - 1) / SEL_WARPS + 31) & ~31;
+  const int w_lo = warp * seg, w_hi = min(n, w_lo + seg);
+  int n_gt = 0, n_eq = 0;
+  for (int p0 = w_lo; p0 < w_hi; p0 += 32) {
+    const int p = p0 + lane;
+    const uint32_t key = p < w_hi ? keys[p] : 0u;
+    n_gt += __popc(__ballot_sync(FULL, p < w_hi && key > T));
+    n_eq += __popc(__ballot_sync(FULL, p < w_hi && key == T));
+  }
+  if (lane == 0) { warp_gt[warp] = n_gt; warp_eq[warp] = n_eq; }
+  __syncthreads();
+  int at_gt = 0, at_eq = 0, all_gt = 0;
+#pragma unroll
+  for (int w = 0; w < SEL_WARPS; ++w) {
+    at_gt += w < warp ? warp_gt[w] : 0;
+    at_eq += w < warp ? warp_eq[w] : 0;
+    all_gt += warp_gt[w];
+  }
+  const unsigned lt = (1u << lane) - 1u;
+  for (int p0 = w_lo; p0 < w_hi; p0 += 32) {
+    const int p = p0 + lane;
+    const uint32_t key = p < w_hi ? keys[p] : 0u;
+    const bool gt = p < w_hi && key > T, eq = p < w_hi && key == T;
+    const unsigned bg = __ballot_sync(FULL, gt), be = __ballot_sync(FULL, eq);
+    const unsigned long long pk =
+        ((unsigned long long)key << 32) | (uint32_t)~(begin + p);
+    if (gt) cand[at_gt + __popc(bg & lt)] = pk;
+    if (eq) {
+      const int r = at_eq + __popc(be & lt);
+      if (r < take_eq) cand[all_gt + r] = pk;
+    }
+    at_gt += __popc(bg);
+    at_eq += __popc(be);
+  }
+  __syncthreads();
+
+  // a winner's slot is the number of winners ahead of it: (key, -position)
+  // pairs are distinct, so the slots are a permutation of [0, count)
+  const int count = all_gt + take_eq;
+  const size_t o = ((size_t)row * splits + split) * K;
+  if (tid < count) {
+    const unsigned long long mine = cand[tid];
+    int slot = 0;
+    for (int j = 0; j < count; ++j) slot += cand[j] > mine;
+    const int pos = (int)~(uint32_t)mine;
+    out_g[o + slot] = g[pos - begin];
+    out_i[o + slot] = pos;
+  } else if (tid < K) {
+    out_g[o + tid] = neg_inf();
+    out_i[o + tid] = 0;
+  }
+}
+
 }  // namespace
 
-// Launch both kernels on `stream`. gains is [B, M] f32 contiguous; part_g /
-// part_i are [B, splits, K] f32 / i32 scratch; out_g / out_i are [B, K]
-// f32 / i32. Split s covers positions [s * chunk, (s + 1) * chunk). Returns
-// the CUDA error code of the launches (0 on success).
+// Launch on `stream`. gains is [B, M] f32 contiguous; out_g / out_i are
+// [B, K] f32 / i32; part_g / part_i are [B, splits, K] f32 / i32 scratch,
+// used when splits > 1. Split s covers positions [s * chunk, (s + 1) *
+// chunk). path 0 is the warp-streaming kernel (any chunk), path 1 the
+// select kernel (chunk <= 8,192). Returns the CUDA error code of the
+// launches (0 on success).
 extern "C" int stream_topk_launch(const void* gains, void* part_g, void* part_i,
                                   void* out_g, void* out_i, int B, int M, int K,
-                                  int splits, int chunk, void* stream) {
+                                  int splits, int chunk, int path, void* stream) {
   if (B < 1 || M < 1 || K < 1 || K > topk::KMAX || splits < 1 ||
-      splits > 65535 || chunk < 1 || (long long)splits * chunk < M)
+      chunk < 1 || (long long)splits * chunk < M ||
+      (long long)(splits - 1) * chunk >= M || (path != 0 && path != 1) ||
+      (path == 0 && splits > 65535) ||
+      (path == 1 && (chunk > SEL_CHUNK_MAX || (long long)B * splits > INT32_MAX)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* pg = static_cast<float*>(part_g);
-  int* pi = static_cast<int*>(part_i);
-  const dim3 grid((B + WARPS - 1) / WARPS, splits);
   const float* g = static_cast<const float*>(gains);
-  if (K <= topk::KSHALLOW)
-    stream_partial_kernel<topk::SLOTS_SHALLOW>
-        <<<grid, THREADS, WARPS * K * 8, st>>>(g, pg, pi, B, M, K, splits, chunk);
-  else
-    stream_partial_kernel<topk::SLOTS_DEEP>
-        <<<grid, THREADS, WARPS * K * 8, st>>>(g, pg, pi, B, M, K, splits, chunk);
+  float* og = static_cast<float*>(splits > 1 ? part_g : out_g);
+  int* oi = static_cast<int*>(splits > 1 ? part_i : out_i);
+  if (path == 1) {
+    select_topk_kernel<<<B * splits, SEL_THREADS, chunk * sizeof(uint32_t), st>>>(
+        g, og, oi, M, K, splits, chunk);
+  } else {
+    const dim3 grid((B + WARPS - 1) / WARPS, splits);
+    if (K <= topk::KSHALLOW)
+      stream_partial_kernel<topk::SLOTS_SHALLOW>
+          <<<grid, THREADS, WARPS * K * 8, st>>>(g, og, oi, B, M, K, splits, chunk);
+    else
+      stream_partial_kernel<topk::SLOTS_DEEP>
+          <<<grid, THREADS, WARPS * K * 8, st>>>(g, og, oi, B, M, K, splits, chunk);
+  }
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || splits == 1) return (int)err;
   topk::merge_splits_kernel<int>
       <<<B, topk::MERGE_THREADS, splits * (int)sizeof(int), st>>>(
-          pg, pi, static_cast<float*>(out_g), static_cast<int*>(out_i), splits, K);
+          static_cast<const float*>(part_g), static_cast<const int*>(part_i),
+          static_cast<float*>(out_g), static_cast<int*>(out_i), splits, K);
   return (int)cudaGetLastError();
 }

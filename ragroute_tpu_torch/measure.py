@@ -2,6 +2,7 @@
 
     python -m ragroute_tpu_torch.measure [--parent DIR]
     python -m ragroute_tpu_torch.measure --tiers
+    python -m ragroute_tpu_torch.measure --kernels [--parent DIR]
 
 Needs a card (fails without one). It makes the synthetic medrag world at
 the benchmark's size (1,048,575 docs x 768, bf16 on the card) with the
@@ -20,6 +21,15 @@ prints:
 3. with ``--parent DIR`` (an unpacked earlier tree of this repository), the
    fused top-k kernel at the serving shape from that tree and from this one
    in turns (parent, this, this, parent), each in a process of its own.
+
+``--kernels`` times the streaming top-k (K2) and decode attention (K6) at
+the main path's shapes instead: K2 over [512, 131,072] (k = 32, the ivf
+collect) and [512, 4,096] (k' = 128, the probed collect) beside
+``torch.topk``, K6 at the three shapes of ``decoder_checks.attn_path_cases``
+beside SDPA for the bf16 cache; CUDA events (median of 50, which include
+the wrapper's host work) and the profiler's device time (50 calls). With
+``--parent DIR`` it runs the same timer from that tree and from this one in
+turns (parent, this, this, parent), each in a process of its own.
 
 ``--tiers`` measures the host-RAM capacity tiers instead: the synthetic
 medrag world at eight times that size (8,388,600 docs x 768, 64 topics per
@@ -57,6 +67,7 @@ import resource
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -71,6 +82,38 @@ from ragroute_tpu_torch.ops import kernel_checks as kc
 case = kc.path_case(torch.device("cuda"))
 kc.run_kernel(case)
 print(kc.cuda_time_ms(lambda: kc.run_kernel(case)))
+"""
+
+
+# K2 and K6 at the main path's shapes; uses only functions that every tree
+# since the decode-attention kernel's port has
+K2K6_TIMER = """
+import json, torch
+from ragroute_tpu_torch.ops import decoder_checks as dc, kernel_checks as kc
+from ragroute_tpu_torch.ops.decode_attention import decode_attention
+from ragroute_tpu_torch.ops.stream_topk import stream_topk
+dev, rows = torch.device("cuda"), []
+for name, m, k, pad, seed in (("k2 ivf collect [512, 131072] k=32", 131072,
+                               32, 0.2, 2),
+                              ("k2 probed collect [512, 4096] k=128", 4096,
+                               128, 0.1, 8)):
+    gains = kc.stream_path_case(dev, m=m, pad_share=pad, seed=seed)
+    f = lambda: stream_topk(gains, k)
+    rows.append({"name": name, "ms": kc.cuda_time_ms(f, reps=50),
+                 "device_ms": dc.device_ms(f, stream_topk, reps=50),
+                 "library_ms": kc.cuda_time_ms(
+                     lambda: torch.topk(gains, k, dim=1), reps=50)})
+    del gains
+for case in dc.attn_path_cases(dev):
+    f = lambda: dc.run_attn(case)
+    rows.append({"name": "k6 " + case.name,
+                 "ms": kc.cuda_time_ms(f, reps=50),
+                 "device_ms": dc.device_ms(f, decode_attention, reps=50),
+                 "library_ms": None if case.ks is not None else
+                 kc.cuda_time_ms(lambda: dc.sdpa_note(case), reps=50)})
+    del case
+    torch.cuda.empty_cache()
+print(json.dumps(rows))
 """
 
 
@@ -158,6 +201,27 @@ def parent_vs_change(parent: str, card: str):
         print(f"[k1] {label}: fused_topk B=512 N=734003 d=768 bf16 k=32 "
               f"{ms:.3f} ms ({card})", flush=True)
         out.append({"tree": label, "ms": ms})
+    return out
+
+
+def kernels_in_turns(parent: Optional[str], card: str):
+    """K2 and K6 timed from this tree, or from ``parent`` and this tree in
+    turns (parent, this, this, parent)."""
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    turns = ((("parent", parent), ("change", here), ("change", here),
+              ("parent", parent)) if parent else (("change", here),))
+    out = []
+    for label, tree in turns:
+        proc = subprocess.run([sys.executable, "-c", K2K6_TIMER], cwd=tree,
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{label} kernel timer failed:\n{proc.stderr}")
+        for row in json.loads(proc.stdout.strip().splitlines()[-1]):
+            lib = ("" if row["library_ms"] is None
+                   else f", library {row['library_ms']:.4f} ms")
+            print(f"[kernels] {label}: {row['name']}: {row['ms']:.4f} ms "
+                  f"(device {row['device_ms']:.4f}){lib} ({card})", flush=True)
+            out.append(dict(row, tree=label))
     return out
 
 
@@ -404,10 +468,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", default=None)
     ap.add_argument("--tiers", action="store_true")
+    ap.add_argument("--kernels", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure: needs a CUDA card", file=sys.stderr)
         return 2
+    if args.kernels:
+        card = _card()
+        print(f"[card] {card}; torch {torch.__version__}", flush=True)
+        print(json.dumps({"card": card, "kernels": kernels_in_turns(
+            args.parent, card)}))
+        return 0
     if args.tiers:
         card = _card()
         print(f"[card] {card}; torch {torch.__version__}", flush=True)

@@ -30,9 +30,14 @@ import torch
 Tensor = torch.Tensor
 
 GMAX = 8                 # csrc/decode_attention.cu: query heads a kv head
-THREADS = 256            # threads a block (so Dh <= 256)
+THREADS = 128            # threads a block
+DMAX = 256               # head dim at most
+TILE = 32                # positions a tile (one a lane in the score phase)
+STAGES = 3               # tiles in the shared-memory ring
 SMEM_LIMIT = 232_448     # bytes of shared memory a block may use (H100)
-BLOCKS_PER_SM = 4        # split target: blocks in flight an SM
+SM_SMEM = 233_472        # shared memory of an SM (H100)
+BLOCK_SMEM_RESERVED = 1024  # shared memory the card keeps for each block
+BLOCKS_PER_SM = 4        # split target: blocks in flight an SM, at most
 MIN_CHUNK = 64           # fewest positions a split
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -63,24 +68,36 @@ def decode_attention_reference(q: Tensor, k: Tensor, v: Tensor, ok: Tensor,
     return ctx.reshape(b, h, dh)
 
 
+def row_bytes(head_dim: int, itemsize: int) -> int:
+    """Bytes of one cached row's ``Dh`` slice in the kernel's shared memory:
+    whole 16-byte chunks and one more (bank spread)."""
+    return -(-head_dim * itemsize // 16) * 16 + 16
+
+
 def smem_bytes(num_heads: int, num_kv_heads: int, head_dim: int,
-               chunk: int) -> int:
-    """Shared memory of one split block over ``chunk`` positions."""
+               itemsize: int) -> int:
+    """Shared memory of one split block: the ring of K and V tiles (which
+    at the end holds the position stripes' context sums), one tile's
+    weights, the per-head softmax terms and the queries."""
     g = num_heads // num_kv_heads
-    return 4 * (g * head_dim + g * chunk + THREADS * GMAX)
+    ring = STAGES * 2 * TILE * row_bytes(head_dim, itemsize)
+    sums = 16 * THREADS * g    # the stripes' context sums, in the ring
+    return max(ring, sums) + 4 * (TILE * GMAX + 2 * GMAX + g * head_dim)
 
 
+@functools.lru_cache(maxsize=None)
 def split_plan(b: int, num_heads: int, num_kv_heads: int, head_dim: int,
-               s: int, sms: int) -> Tuple[int, int]:
+               s: int, sms: int, itemsize: int) -> Tuple[int, int]:
     """(splits, chunk): cut the ``s`` positions of every (row, kv head) into
-    runs of ``chunk`` (none empty) so that about ``BLOCKS_PER_SM`` blocks an
-    SM are in flight, at least ``MIN_CHUNK`` positions a run, and one run's
-    scores fit in shared memory."""
-    want = max(1, -(-BLOCKS_PER_SM * sms // (b * num_kv_heads)))
-    splits = max(1, min(want, s // MIN_CHUNK))
-    chunk = -(-s // splits)
-    while smem_bytes(num_heads, num_kv_heads, head_dim, chunk) > SMEM_LIMIT:
-        chunk = -(-chunk // 2)
+    runs of ``chunk`` (a multiple of ``TILE``, none empty) so that the blocks
+    fill the card in one wave (as many as fit an SM, at most
+    ``BLOCKS_PER_SM``), with at least ``MIN_CHUNK`` positions a run. Shared
+    memory does not depend on the run's length."""
+    smem = smem_bytes(num_heads, num_kv_heads, head_dim, itemsize)
+    per_sm = max(1, min(BLOCKS_PER_SM, SM_SMEM // (smem + BLOCK_SMEM_RESERVED)))
+    pairs = b * num_kv_heads
+    splits = max(1, min(per_sm * sms // pairs, -(-s // MIN_CHUNK)))
+    chunk = -(-(-(-s // splits)) // TILE) * TILE
     return -(-s // chunk), chunk
 
 
@@ -92,8 +109,8 @@ def fused_ok(num_heads: int, num_kv_heads: int, head_dim: int,
     (``xla``: never; ``fused``: also for a CPU plane, where the wrapper runs
     the plain version), the device (a CUDA plane), whole query groups, and
     what the kernel holds: at most 8 query heads a kv head, ``head_dim`` at
-    most 256, an f32 / bf16 / int8 cache. Any cache length fits: the
-    positions are split until a split's scores fit in shared memory.
+    most 256, an f32 / bf16 / int8 cache. Any cache length fits: a block
+    keeps a ring of position tiles in shared memory, not its split.
     ``kplane`` is the folded cache plane ``[L, B, S, Hkv*Dh]``."""
     mode = os.environ.get("RAGROUTE_DECODE_ATTN", "auto")
     if mode == "xla":
@@ -102,7 +119,7 @@ def fused_ok(num_heads: int, num_kv_heads: int, head_dim: int,
         return False
     if num_heads % num_kv_heads or num_heads // num_kv_heads > GMAX:
         return False
-    return head_dim <= THREADS and kplane.dtype in _KV_TYPES
+    return head_dim <= DMAX and kplane.dtype in _KV_TYPES
 
 
 @functools.lru_cache(maxsize=None)
@@ -134,11 +151,11 @@ def _launch(q, k, v, ok, li, hkv, dh, k_scale, v_scale) -> Tensor:
             k.dtype == torch.int8) != (k_scale is not None):
         raise ValueError("decode_attention: an int8 cache needs both scales, "
                          "a float cache none")
-    if h % hkv or h // hkv > GMAX or dh > THREADS:
+    if h % hkv or h // hkv > GMAX or dh > DMAX:
         raise ValueError(
             f"decode_attention: the kernel does not take H={h}, Hkv={hkv}, "
             f"Dh={dh} (at most {GMAX} query heads a kv head, Dh <= "
-            f"{THREADS})")
+            f"{DMAX})")
     for name, t in (("k", k), ("v", v), ("k_scale", k_scale),
                     ("v_scale", v_scale)):
         if t is not None and (t.device != dev or not t.is_contiguous()
@@ -149,21 +166,32 @@ def _launch(q, k, v, ok, li, hkv, dh, k_scale, v_scale) -> Tensor:
                                 or tuple(k_scale.shape) != (nl, b, s, hkv)
                                 or tuple(v_scale.shape) != (nl, b, s, hkv)):
         raise ValueError("decode_attention: scales must be f32 [L, B, S, Hkv]")
+    if tuple(ok.shape) != (b, s):
+        raise ValueError(f"decode_attention: ok must be [B, S] = {(b, s)}, "
+                         f"got {tuple(ok.shape)}")
+    # no copy of what is already f32 / one byte a key, contiguous, on the card
     qf = q.to(device=dev, dtype=torch.float32).contiguous()
-    okb = (ok > 0).to(device=dev, dtype=torch.uint8).contiguous()
-    splits, chunk = split_plan(b, h, hkv, dh, s, _sm_count(dev))
+    if ok.dtype not in (torch.bool, torch.uint8):
+        ok = ok > 0
+    okb = ok.to(device=dev).contiguous().view(torch.uint8)
+    item = k.element_size()
+    splits, chunk = split_plan(b, h, hkv, dh, s, _sm_count(dev), item)
     g = h // hkv
-    ws_o = torch.empty((b, hkv, splits, g, dh), dtype=torch.float32,
-                       device=dev)
-    ws_ml = torch.empty((b, hkv, splits, g, 2), dtype=torch.float32,
-                        device=dev)
-    out = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
+    # one allocation: the output, then the splits' scratch when there is any
+    n_out, n_o = b * h * dh, b * hkv * splits * g * dh
+    ws = torch.empty(n_out + (n_o + n_o // dh * 2 if splits > 1 else 0),
+                     dtype=torch.float32, device=dev)
+    out = ws[:n_out].view(b, h, dh)
+    ws_o = ws_ml = None
+    if splits > 1:
+        ws_o = ws.data_ptr() + 4 * n_out
+        ws_ml = ws_o + 4 * n_o
     err = _lib().decode_attention_launch(
         qf.data_ptr(), k.data_ptr(), v.data_ptr(), okb.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(),
-        None if v_scale is None else v_scale.data_ptr(), ws_o.data_ptr(),
-        ws_ml.data_ptr(), out.data_ptr(), b, h, hkv, dh, s, nl, li,
-        _KV_TYPES[k.dtype], splits, chunk, smem_bytes(h, hkv, dh, chunk),
+        None if v_scale is None else v_scale.data_ptr(), ws_o, ws_ml,
+        out.data_ptr(), b, h, hkv, dh, s, nl, li, _KV_TYPES[k.dtype], splits,
+        chunk, smem_bytes(h, hkv, dh, item),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "

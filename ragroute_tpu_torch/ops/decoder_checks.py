@@ -211,6 +211,20 @@ def attn_small_cases(device, seed: int = 0) -> Iterator[AttnCase]:
                     layers=2, li=1, kv=torch.float32, gen=gen, single_row=0)
     yield attn_case("bf16-dh64", device, b=2, s=33, h=6, hkv=2, dh=64,
                     layers=1, li=0, kv=torch.bfloat16, gen=gen)
+    # shorter than a tile and off its grid; G = 1 and 8; Dh = 64 and 256
+    for name, s, h, hkv, dh, kv in (
+            ("f32-S5-G8-dh64", 5, 8, 1, 64, torch.float32),
+            ("bf16-S45-G1-dh256", 45, 4, 4, 256, torch.bfloat16),
+            ("int8-S77-G8-dh256", 77, 16, 2, 256, "int8"),
+            ("int8-S100-G1-dh64", 100, 4, 4, 64, "int8"),
+            # rows that are not whole 16-byte chunks (plain loads)
+            ("int8-S70-G2-dh24", 70, 4, 2, 24, "int8"),
+            ("bf16-S40-G4-dh20", 40, 8, 2, 20, torch.bfloat16),
+            # many splits of one (row, head), merged
+            ("bf16-S3000-G4-dh128", 3000, 8, 2, 128, torch.bfloat16)):
+        yield attn_case(name, device, b=3, s=s, h=h, hkv=hkv, dh=dh,
+                        layers=2, li=1, kv=kv, gen=gen, single_row=1,
+                        empty_row=2)
 
 
 def attn_path_cases(device, seed: int = 2) -> Iterator[AttnCase]:

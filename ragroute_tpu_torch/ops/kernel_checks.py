@@ -19,7 +19,9 @@ Fused top-k (:func:`fused_topk` against :func:`fused_topk_reference`):
 
 Streaming top-k (:func:`stream_topk` against :func:`stream_topk_reference`):
 :func:`stream_exact_cases` (ties across group, split and k boundaries,
-``-inf`` entries and rows) and :func:`stream_path_case`; the kernel does no
+``-inf`` entries and rows, rows shorter than 2k or off the 16-byte grid,
+sorted runs, long rows cut into splits), :func:`stream_runs_case` (the
+probed collect's sorted runs) and :func:`stream_path_case`; the kernel does no
 arithmetic, so both must come out equal.
 
 Grouped gains (:func:`grouped_gains` against :func:`grouped_gains_reference`):
@@ -297,6 +299,32 @@ def stream_exact_cases(device, *, bsz: int = 37, m: int = 5000,
     for k in (1, 10, 32, 128, 160):
         yield f"stream-int-k{k}", gains, k
     yield "stream-one-row", gains[:1, :1031].contiguous(), 32
+    # fewer positions than 2k, and rows off the 16-byte grid (M % 4 != 0)
+    yield "stream-m200-k128", gains[:, :200].contiguous(), 128
+    yield "stream-m161-k160", gains[:, :161].contiguous(), 160
+    yield "stream-m4097-k128", gains[:, :4097].contiguous(), 128
+    yield "stream-runs-k128", stream_runs_case(device, bsz=bsz, runs=64,
+                                               seed=seed + 1), 128
+    # long rows cut into runs: selects merged across splits (deep list)
+    # and the warp-streaming path (shallow list), ties across the splits
+    wide = torch.from_numpy(np.ascontiguousarray(
+        np.tile(g, (1, 5))[:9, :20_003])).to(device)
+    yield "stream-split-select-k160", wide, 160
+    yield "stream-split-warp-k32", wide, 32
+
+
+def stream_runs_case(device, *, bsz: int = 512, runs: int = 512, kw: int = 8,
+                     pad_share: float = 0.1, seed: int = 9) -> Tensor:
+    """The probed coarse scan's kept gains as K4 leaves them: ``runs`` runs
+    of ``kw`` a row, each sorted descending with its unfilled slots
+    (``-inf``, a ``pad_share`` of them) at its tail; gains on a 1/8 grid, so
+    values tie within and across runs and across the k' boundary."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.round(torch.randn((bsz, runs, kw), generator=g, device=device)
+                    * 8) / 8
+    pads = torch.rand((bsz, runs, kw), generator=g, device=device) < pad_share
+    x = x.masked_fill_(pads, NEG_INF).sort(dim=-1, descending=True).values
+    return x.reshape(bsz, runs * kw).contiguous()
 
 
 def stream_path_case(device, *, bsz: int = 512, m: int = 131_072,

@@ -9,14 +9,18 @@ slot nothing filled comes back as ``(-inf, 0)``.
 
 On a CUDA tensor the wrapper launches ``csrc/stream_topk.cu`` or raises; on
 a CPU tensor it runs :func:`stream_topk_reference`, the plain PyTorch
-version (a stable descending sort, sliced).
+version (a stable descending sort, sliced). :func:`plan` picks the kernel's
+path and its split of the positions from the shape alone: a radix select a
+block for short rows and deep lists, warps that stream the row for long rows
+with a shallow list.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -25,9 +29,12 @@ from ragroute_tpu_torch.ops.topk import topk_stable
 Tensor = torch.Tensor
 
 MAX_K = 160              # topk_merge.cuh KMAX
-ROWS_PER_BLOCK = 4       # csrc/stream_topk.cu WARPS
-MIN_CHUNK = 1024         # positions per split at least (a multiple of 256)
-WARPS_PER_SM = 16        # split target: warps in flight on every SM
+SHALLOW_K = 64           # topk_merge.cuh KSHALLOW: deepest list a warp streams
+SELECT_CHUNK = 8192      # csrc/stream_topk.cu SEL_CHUNK_MAX: keys a select run
+SMEM_LIMIT = 232_448     # bytes of shared memory a block may use (H100)
+MIN_CHUNK = 1024         # warp path: positions per split at least (x 256)
+WARPS_PER_SM = 16        # warp path split target: warps in flight an SM
+WARP, SELECT = 0, 1      # the kernel's paths (stream_topk_launch's `path`)
 
 
 def stream_topk_reference(gains: Tensor, k: int) -> Tuple[Tensor, Tensor]:
@@ -43,20 +50,47 @@ def _lib():
     lib, _ = _build.load("stream_topk")
     if not getattr(lib, "_argtypes_set", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.stream_topk_launch.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+        lib.stream_topk_launch.argtypes = [vp] * 5 + [ci] * 6 + [vp]
         lib.stream_topk_launch.restype = ci
         lib._argtypes_set = True
     return lib
 
 
-def _splits(bsz: int, m: int, device: torch.device) -> Tuple[int, int]:
-    """(splits, positions per split): enough (row, split) warps to fill the
-    card at small batch, never splits shorter than ``MIN_CHUNK``."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+class Plan(NamedTuple):
+    path: int        # WARP or SELECT
+    splits: int      # runs a row is cut into (merged by a second kernel)
+    chunk: int       # positions a run; the last may be shorter, none empty
+
+
+def plan(bsz: int, m: int, k: int, sms: int) -> Plan:
+    """The kernel's path and split of ``[bsz, m]`` at depth ``k`` on a card
+    with ``sms`` SMs.
+
+    A list deeper than a warp streams well (``k > SHALLOW_K``), or a row
+    short enough for one select run (``m <= SELECT_CHUNK``), takes the
+    select path: runs of at most ``SELECT_CHUNK`` positions, one block
+    each. A long row with a shallow list takes the warp path: enough
+    (row, split) warps to fill the card at small batch, never splits
+    shorter than ``MIN_CHUNK``, split starts on the 256-position grid."""
+    if k > SHALLOW_K or m <= SELECT_CHUNK:
+        chunk = -(-m // -(-m // SELECT_CHUNK))
+        return Plan(SELECT, -(-m // chunk), chunk)
     want = max(1, math.ceil(WARPS_PER_SM * sms / bsz))
     splits = max(1, min(want, m // MIN_CHUNK))
     chunk = -(-(-(-m // splits)) // 256) * 256
-    return -(-m // chunk), chunk
+    return Plan(WARP, -(-m // chunk), chunk)
+
+
+def smem_bytes(p: Plan, k: int) -> int:
+    """Shared memory of one block of the plan's kernel."""
+    if p.path == SELECT:   # the run's keys; the histogram and winners static
+        return 4 * p.chunk + 4 * (256 + 2 * 8 + 10) + 8 * MAX_K
+    return 4 * k * 8       # four warps' lists of (gain, position)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_topk(gains: Tensor, k: int) -> Tuple[Tensor, Tensor]:
@@ -81,13 +115,18 @@ def stream_topk(gains: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     out_i = torch.empty((bsz, k), dtype=torch.int32, device=dev)
     if bsz == 0:
         return out_g, out_i
-    splits, chunk = _splits(bsz, m, dev)
-    part_g = torch.empty((bsz, splits, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((bsz, splits, k), dtype=torch.int32, device=dev)
+    p = plan(bsz, m, k, _sm_count(dev))
+    part_g = part_i = None
+    if p.splits > 1:
+        part_g = torch.empty((bsz, p.splits, k), dtype=torch.float32,
+                             device=dev)
+        part_i = torch.empty((bsz, p.splits, k), dtype=torch.int32,
+                             device=dev)
     err = _lib().stream_topk_launch(
-        g.data_ptr(), part_g.data_ptr(), part_i.data_ptr(),
-        out_g.data_ptr(), out_i.data_ptr(), bsz, m, k, splits, chunk,
-        torch.cuda.current_stream(dev).cuda_stream)
+        g.data_ptr(), None if part_g is None else part_g.data_ptr(),
+        None if part_i is None else part_i.data_ptr(),
+        out_g.data_ptr(), out_i.data_ptr(), bsz, m, k, p.splits, p.chunk,
+        p.path, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"stream_topk kernel launch failed: CUDA error "
                            f"{err}")

@@ -131,16 +131,43 @@ def test_fused_ok_gates_and_bad_arguments():
                             num_kv_heads=2, head_dim=128)
 
 
-@pytest.mark.parametrize("b,h,hkv,dh,s", [
-    (16, 32, 8, 128, 2080), (32, 16, 8, 128, 640), (1, 64, 8, 128, 65_536),
-    (3, 4, 2, 16, 5), (2, 8, 1, 256, 97)])
-def test_split_plan_covers_every_position_and_fits(b, h, hkv, dh, s):
-    splits, chunk = tx.split_plan(b, h, hkv, dh, s, sms=132)
+@pytest.mark.parametrize("b,h,hkv,dh,s,item", [
+    (16, 32, 8, 128, 2080, 2), (16, 32, 8, 128, 2080, 1),
+    (32, 16, 8, 128, 640, 1), (1, 64, 8, 128, 65_536, 2),
+    (3, 4, 2, 16, 5, 4), (2, 8, 1, 256, 97, 4)])
+def test_split_plan_covers_every_position_and_fits(b, h, hkv, dh, s, item):
+    splits, chunk = tx.split_plan(b, h, hkv, dh, s, 132, item)
     assert (splits - 1) * chunk < s <= splits * chunk      # none empty
-    assert tx.smem_bytes(h, hkv, dh, chunk) <= tx.SMEM_LIMIT
+    assert chunk % tx.TILE == 0
+    assert tx.smem_bytes(h, hkv, dh, item) <= tx.SMEM_LIMIT
     assert splits == 1 or chunk >= tx.MIN_CHUNK // 2
     if b * hkv < 132 and s >= 4 * tx.MIN_CHUNK:
         assert splits > 1                   # more blocks than (row, head)s
+
+
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_split_plan_over_lengths_groups_and_dtypes(dh):
+    """Every S from 1 to 40,960 on a coarse grid and around the tile and
+    split edges, G from 1 to 8, f32 / bf16 / int8: the runs cover S, none
+    is empty, each is whole tiles, the blocks fill at most one wave, and a
+    block's shared memory stays within the card's limit."""
+    lengths = sorted(set(range(1, 200)) | set(range(200, 40_961, 97))
+                     | {40_960, 4095, 4096, 4097, 2080, 640})
+    for item in (4, 2, 1):
+        for g in range(1, tx.GMAX + 1):
+            smem = tx.smem_bytes(8 * g, 8, dh, item)
+            assert smem <= tx.SMEM_LIMIT, (item, g, smem)
+            per_sm = tx.SM_SMEM // (smem + tx.BLOCK_SMEM_RESERVED)
+            assert per_sm >= 1
+            for b in (1, 16):
+                for s in lengths:
+                    splits, chunk = tx.split_plan(b, 8 * g, 8, dh, s, 132,
+                                                  item)
+                    assert chunk % tx.TILE == 0 and splits >= 1
+                    assert (splits - 1) * chunk < s <= splits * chunk
+                    blocks = b * 8 * splits
+                    assert splits == 1 or blocks <= min(
+                        per_sm, tx.BLOCKS_PER_SM) * 132
 
 
 def test_split_softmax_merge_equals_one_softmax():
@@ -156,7 +183,7 @@ def test_split_softmax_merge_equals_one_softmax():
     want = tx.decode_attention_reference(
         torch.from_numpy(q), _fold(tk), _fold(tv), torch.from_numpy(ok),
         li=0, num_kv_heads=2, head_dim=16, k_scale=tks, v_scale=tvs)
-    splits, chunk = tx.split_plan(3, 4, 2, 16, 200, sms=4)
+    splits, chunk = tx.split_plan(3, 4, 2, 16, 200, 4, 1)
     assert splits > 1
     neg = torch.finfo(torch.float32).min
     qg = torch.from_numpy(q).reshape(3, 2, 2, 16)

@@ -146,6 +146,26 @@ def test_stream_kernel_equals_plain(cuda):
     assert stream_topk.launches == before + 1
 
 
+def test_stream_kernel_probed_collect_equals_plain(cuda):
+    """The probed collect's rows (sorted runs of 8 with ties within, across
+    runs and across k' = 128, a tenth unfilled, -0.0 among them) and random
+    rows of the same width: one select launch a call, equal to the plain
+    version; both paths of the plan are exercised by the exact cases."""
+    from ragroute_tpu_torch.ops import stream_topk as st
+
+    assert st.plan(64, 4096, 128, 132).path == st.SELECT
+    for gains in (kc.stream_runs_case(cuda, bsz=64),
+                  kc.stream_path_case(cuda, bsz=64, m=4096, pad_share=0.1)):
+        before = stream_topk.launches
+        kg, ki = stream_topk(gains, 128)
+        assert stream_topk.launches == before + 1
+        pg, pi = stream_topk_reference(gains, 128)
+        assert torch.equal(ki, pi) and torch.equal(kg, pg)
+    paths = {st.plan(g.shape[0], g.shape[1], k, 132).path
+             for _, g, k in kc.stream_exact_cases(cuda)}
+    assert paths == {st.SELECT, st.WARP}
+
+
 def test_grouped_kernel_equals_plain(cuda):
     """Integer data over every slab type, S = 72, with and without the row
     table and the real-block count: equal; then bf16 slabs at a shape with
@@ -420,6 +440,27 @@ def test_decode_attention_matches_plain_and_attend(cuda):
             assert res["ok"], (case.name, res)
         n += 1
     assert decode_attention.launches == before + n
+
+
+def test_decode_attention_takes_its_mask_as_bool_or_bytes(cuda):
+    """The mask as bool, uint8 or float gives the same output; one launch a
+    call, and the output does not alias the inputs."""
+    from ragroute_tpu_torch.ops import decoder_checks as dc
+    from ragroute_tpu_torch.ops.decode_attention import decode_attention
+
+    case = next(c for c in dc.attn_small_cases(cuda)
+                if c.name == "int8-S77-G8-dh256")
+    k, v = case.planes()
+    outs = []
+    for ok in (case.ok, case.ok.to(torch.uint8), case.ok.float()):
+        before = decode_attention.launches
+        outs.append(decode_attention(case.q, k, v, ok, li=case.li,
+                                     num_kv_heads=case.hkv, head_dim=case.dh,
+                                     k_scale=case.ks, v_scale=case.vs))
+        assert decode_attention.launches == before + 1
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    res = dc.attn_close(outs[0], dc.run_attn_plain(case))
+    assert res["ok"], res
 
 
 def test_int4_decoder_on_the_card_matches_the_cpu_decoder(cuda):

@@ -83,3 +83,63 @@ def test_wrapper_is_the_plain_version_on_cpu_and_checks_its_arguments():
         stream_topk(g, 301)                 # k > M
     with pytest.raises(ValueError):
         stream_topk(g[0], 4)                # not [B, M]
+
+
+def _sorted_runs(b, runs, kw, seed, pad_share=0.1):
+    """Rows made as the probed coarse scan makes them: ``runs`` runs of
+    ``kw`` gains, each run sorted descending with its unfilled slots
+    (``-inf``) at its tail; gains on a 1/8 grid, so values tie within and
+    across runs and across the k boundary."""
+    rng = np.random.default_rng(seed)
+    g = np.round(rng.standard_normal((b, runs, kw)) * 8) / 8
+    g[rng.random((b, runs, kw)) < pad_share] = NEG_INF
+    g = -np.sort(-g, axis=-1)
+    return g.reshape(b, runs * kw).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [8, 64, 128])
+def test_stream_topk_sorted_runs_match_pallas(k):
+    gains = _sorted_runs(6, 64, 8, seed=k)
+    gains[3] = NEG_INF                      # a fully invalid row
+    jg, jp, tg, tp = _both(gains, k)
+    np.testing.assert_array_equal(tg, jg)
+    valid = jg > NEG_INF
+    np.testing.assert_array_equal(tp[valid], jp[valid])
+    assert (tp[~valid] == 0).all()
+    # ties straddle the k boundary: the last winner's gain continues past it
+    rest = -np.sort(-gains, axis=1)[:, k]
+    assert (rest[valid[:, -1]] == tg[valid[:, -1], -1]).any()
+
+
+@pytest.mark.parametrize("bsz,m,k", [
+    (512, 4096, 128), (512, 131_072, 32), (512, 131_072, 128), (8, 4096, 128),
+    (9, 70_001, 32), (1, 1, 1), (37, 5000, 160), (3, 8193, 10),
+    (2048, 8192, 64), (64, 2 ** 20, 160), (4, 65_537, 64)])
+def test_plan_splits_cover_the_row(bsz, m, k):
+    """The path and split plan is a function of (B, M, k, SMs): every
+    position lies in exactly one run, no run is empty, a select run fits the
+    select kernel, and a block's shared memory stays within the card's."""
+    from ragroute_tpu_torch.ops import stream_topk as st
+
+    p = st.plan(bsz, m, k, 132)
+    assert p == st.plan(bsz, m, k, 132)                 # pure
+    assert p.splits >= 1 and (p.splits - 1) * p.chunk < m <= p.splits * p.chunk
+    starts = np.arange(p.splits) * p.chunk
+    ends = np.minimum(starts + p.chunk, m)
+    assert (ends > starts).all() and ends[-1] == m
+    assert (starts[1:] == ends[:-1]).all()              # each position once
+    assert st.smem_bytes(p, k) <= st.SMEM_LIMIT
+    if k > st.SHALLOW_K or m <= st.SELECT_CHUNK:
+        assert p.path == st.SELECT and p.chunk <= st.SELECT_CHUNK
+    else:
+        assert p.path == st.WARP and p.chunk % 256 == 0
+        assert p.chunk >= st.MIN_CHUNK or p.splits == 1
+
+
+def test_plan_picks_the_select_path_for_the_probed_collect():
+    """The probed collect (k' = 128 over 512 runs of 8) is one select run a
+    row, one launch; the ivf collect keeps the warp-streaming path."""
+    from ragroute_tpu_torch.ops import stream_topk as st
+
+    assert st.plan(512, 4096, 128, 132) == st.Plan(st.SELECT, 1, 4096)
+    assert st.plan(512, 131_072, 32, 132).path == st.WARP
