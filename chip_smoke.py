@@ -18,25 +18,34 @@ Phases, each of which fails the run when it fails:
    of the plain version and, where one PyTorch call computes the same
    function, of that call:
 
-   * fused top-k: B=512 over one 734,003 x 768 centred bf16 dot shard,
-     k=32 (1e-3 x max|score|, winner-set recall >= 0.999); the same shard
-     int4-packed with per-doc and with per-group scales; the low-rank
-     coarse scan (734,003 x 128 bf16, k=128); the host tiers' launches:
-     one int8 slab of the stream tier (346,112 x 768, per-doc scale,
-     k=32) and hostrefine's flat coarse scan (2,936,320 x 128 int8,
-     per-doc scale, -inf bias on the padding rows, k'=128);
+   * fused top-k: exact cases of the shallow launch (k 10 to 160) and of
+     the deep one (k 161 to 1,100, chunks and row slices); B=512 over one
+     734,003 x 768 centred bf16 dot shard, k=32 (1e-3 x max|score|,
+     winner-set recall >= 0.999); the same shard int4-packed with per-doc
+     and with per-group scales; the low-rank coarse scan (734,003 x 128
+     bf16) at k'=128 and, through the deep launch, k'=256 (--refine-mult
+     8); the host tiers' launches: one int8 slab of the stream tier
+     (346,112 x 768, per-doc scale, k=32) and hostrefine's flat coarse scan
+     (2,936,320 x 128 int8, per-doc scale, -inf bias on the padding rows)
+     at k'=128 and 256; the deep rows with the profiler's device time and a
+     bound that counts the gains' round trip through device memory;
    * streaming top-k: exact cases over both of its paths (the radix select
-     a block, the warp-streaming path, runs merged across splits), then
-     [512, 131,072] stored gains, k=32, and the probed coarse scan's
-     collect, [512, 4,096] with -inf entries, k'=128, random and as sorted
-     runs of 8 with ties (equal; CUDA-event and profiler device times);
+     a block, the warp-streaming path, runs merged across splits) and the
+     deep launch (k 161 to M, one run and runs merged, rows in slices),
+     then [512, 131,072] stored gains, k=32, and the probed coarse scan's
+     collect, [512, 4,096] with -inf entries, k'=128 and 256, random and as
+     sorted runs of 8 with ties (equal; CUDA-event and profiler device
+     times);
    * grouped gains: 512 queries x 512 probes over 4,096 bf16 slabs of
      768 x 256 (1e-3 x max|gain|);
-   * grouped pair top-k: 512 queries x 512 probes over 4,096 int8 coarse
-     slabs of 128 x 1,584, kappa 8 (gains 1e-4 relative, slots equal
-     where the gains are clearly ordered, up to a millionth of near-ties
-     at a tile's rank cut; every slot that differs from the plain
-     version's must carry, recomputed, the gain written for it);
+   * grouped pair top-k: exact cases (ranks 1 to 64 and the deep launch's
+     200 and 256), then 256 ranks a tile at the reduced world's probed scan
+     under an open cap (64 queries x 64 clusters of 568 slots, kappa 256),
+     then 512 queries x 512 probes over 4,096 int8 coarse slabs of 128 x
+     1,584, kappa 8 (gains 1e-4 relative, slots equal where the gains are
+     clearly ordered, up to a millionth of near-ties at a tile's rank cut;
+     every slot that differs from the plain version's must carry,
+     recomputed, the gain written for it);
    * int4 matmul (the decoder's K5): exact integer cases (outputs equal),
      then Qwen3-8B's projections and untied head at decode (B=16), its
      gate and down at prefill (16 x 512 rows) and Qwen3-0.6B's tied head,
@@ -54,7 +63,9 @@ Phases, each of which fails the run when it fails:
    docs x 768 is written to a temporary data root and served by the port's
    ``ServingSystem`` exactly as ``python -m ragroute_tpu_torch.main
    --dataset medrag --routing ragroute --disable-llm --port 0`` builds it:
-   first the exact path, then ``--impl lowrank``, then ``--impl ivf``
+   first the exact path, then ``--impl lowrank``, then ``--impl lowrank
+   --refine-mult 8`` (k' = 256: the fused kernel's deep launch; recall at
+   least the default depth's), then ``--impl ivf``
    (bf16 each), the last over a world of the same size made with 64
    topics per source (cluster probing's serving regime; the world the
    other two serve is isotropic inside a source). In every run
@@ -80,24 +91,28 @@ Phases, each of which fails the run when it fails:
    int8 engine's merged ids, built from arrays and loaded from a saved
    world's ``embeddings.npy`` alike; hostrefine's flat coarse scan reaches recall
    >= 0.95 of the flat engine; the probed coarse scan at ``nprobe == C``,
-   ``kappa >= k'`` truly misses nothing of the flat coarse scan. Then at
+   ``kappa >= k' = 256`` (256 ranks a tile: the deep launches of the
+   grouped pair top-k and of the collect) truly misses nothing of the flat
+   coarse scan. Then at
    size: the synthetic medrag world at four times the earlier size
    (4,194,300 docs x 768, 64 topics per source, int8; half of what
    ``measure.py --tiers`` serves), its rows made block by block from the
    seed and never held whole, under ``--hbm-budget-gb 1.5``, which keeps
    the three small sources resident and exact and sends pubmed (2,936,012
-   docs) to the host tier. Served over HTTP three times
+   docs) to the host tier. Served over HTTP five times
    as ``python -m ragroute_tpu_torch.main --impl stream | hostrefine``
-   builds it (``--impl hostrefine`` once with the flat coarse slab, once
-   with the clustered one, reached through
-   ``RAGROUTE_HOSTREFINE_CLUSTER_MIN_DOCS``): every ``/query`` answers
+   builds it (``--impl hostrefine`` with the flat coarse slab and with the
+   clustered one, reached through
+   ``RAGROUTE_HOSTREFINE_CLUSTER_MIN_DOCS``, each at the default depth and
+   with ``--refine-mult 8``, whose recall must reach the default depth's
+   and whose K1 or K2 must take the deep launch): every ``/query`` answers
    200, the path's kernels launch (the grouped pair top-k only on the
    probed path), ``last_phases`` is printed, and ``engine.search`` on 64
    queries is held against the exact f32 oracle over the generated rows
    (stream >= 0.95, the int8 gate, and >= 0.995 of the exact winners of its
    own stored bytes, beside the recall of a plain f32 scan of those bytes
    against the oracle, which is the quantisation's loss; hostrefine flat
-   >= 0.95, probed >= 0.9). A burst of
+   >= 0.95, probed >= 0.9). At the default depth a burst of
    1,024 concurrent requests goes through the batcher's pipelined worker
    (two batches in flight) and again through its sequential worker, with
    both wall times.
@@ -122,8 +137,9 @@ after a kernel change. ``python3 chip_smoke.py tiers`` runs phases 1 and 5
 only; ``python3 chip_smoke.py llm`` phases 1, K5 / K6 of 2, and 6.
 
 The second-to-last line is one JSON object with every kernel's launches on
-the main paths, its error against the plain version, its times and its
-bound; the last line is ``{"ok": true, "device": {...}}``. Without CUDA the
+the main paths (and, for the three top-k kernels, the deep launches among
+them), its error against the plain version, its times and its bound; the
+last line is ``{"ok": true, "device": {...}}``. Without CUDA the
 script exits non-zero and prints no result.
 """
 
@@ -153,6 +169,7 @@ os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
 from ragroute_tpu_torch.measure import TIER_BUDGET_GB, TIER_DOCS
 from ragroute_tpu_torch.ops import _build
 from ragroute_tpu_torch.ops import decoder_checks as dc
+from ragroute_tpu_torch.ops import deep_topk
 from ragroute_tpu_torch.ops import kernel_checks as kc
 from ragroute_tpu_torch.ops.decode_attention import decode_attention
 from ragroute_tpu_torch.ops.fused_topk import fused_topk
@@ -184,14 +201,27 @@ KERNELS = {
 PATH_KERNELS = {"exact": ("fused_topk",),
                 "ivf": ("stream_topk", "grouped_gains"),
                 "lowrank": ("fused_topk",),
+                "lowrank_deep": ("fused_topk",),
                 "stream": ("fused_topk",),
                 "hostrefine": ("fused_topk",),
+                "hostrefine_deep": ("fused_topk",),
                 "hostrefine_probed": ("fused_topk", "stream_topk",
                                       "grouped_pair_topk"),
+                "hostrefine_probed_deep": ("fused_topk", "stream_topk",
+                                           "grouped_pair_topk"),
                 # on-card generation, Qwen3-8B int4 (decode attention is
                 # wired to no engine, as in the JAX package)
                 "llm_batch": ("int4_matmul",),
                 "llm_continuous": ("int4_matmul",)}
+
+# the paths served at --refine-mult 8 (k' = 256 at medrag's k = 32), the
+# kernels that must take their deep launch there, and the default-depth run
+# whose recall on the same queries each must reach
+REFINE_MULT = 8
+DEEP_PATHS = {"lowrank_deep": (("fused_topk",), "lowrank"),
+              "hostrefine_deep": (("fused_topk",), "hostrefine"),
+              "hostrefine_probed_deep": (("stream_topk",),
+                                         "hostrefine_probed")}
 
 # the medrag world at the benchmark's size (bench.py, BENCH_r05.json)
 MEDRAG_DOCS = {"pubmed": 734_003, "statpearls": 104_857,
@@ -213,7 +243,8 @@ SMOKE_TIER_DOCS = {name: n // 2 for name, n in TIER_DOCS.items()}
 SMOKE_TIER_BUDGET_GB = TIER_BUDGET_GB / 2
 # recall@32 against the exact f32 oracle; the stream tier (int8 rows, the
 # int8 gate) is also held to 0.995 of the exact winners of its stored bytes
-TIER_GATES = {"stream": 0.95, "hostrefine": 0.95, "hostrefine_probed": 0.9}
+TIER_GATES = {"stream": 0.95, "hostrefine": 0.95, "hostrefine_probed": 0.9,
+              "hostrefine_deep": 0.95, "hostrefine_probed_deep": 0.9}
 STREAM_STORED_GATE = 0.995
 
 
@@ -224,10 +255,34 @@ def log(msg: str) -> None:
 def reset_counts() -> None:
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
+        if hasattr(wrapper, "deep_launches"):
+            wrapper.deep_launches = 0
 
 
 def read_counts() -> dict:
-    return {name: k[0].launches for name, k in KERNELS.items()}
+    """Launches of every kernel; under ``deep``, those of the deep launch
+    (lists past 160) of the three top-k kernels."""
+    out = {name: k[0].launches for name, k in KERNELS.items()}
+    out["deep"] = {name: k[0].deep_launches for name, k in KERNELS.items()
+                   if hasattr(k[0], "deep_launches")}
+    return out
+
+
+def check_deep(label: str, launches: dict, recall: float, out: dict) -> None:
+    """A --refine-mult 8 run: its kernels took the deep launch, and its
+    recall is at least the default-depth run's on the same queries."""
+    kernels, default = DEEP_PATHS[label]
+    for name in kernels:
+        if launches["deep"][name] <= 0:
+            raise AssertionError(f"the {label} path never took the deep "
+                                 f"launch of {name}")
+    base = out[default]["recall"]
+    log(f"[serve:{label}] recall {recall:.6f} at k' = {REFINE_MULT} k "
+        f"against {base:.6f} at the default depth; deep launches "
+        f"{launches['deep']}")
+    if recall < base:
+        raise AssertionError(f"{label}: recall {recall} below the default "
+                             f"depth's {base}")
 
 
 def h2d_rate_gbs(nbytes: int = 256 << 20) -> float:
@@ -278,7 +333,7 @@ def phase_environment() -> str:
 # ---- phase 2: kernels against their plain versions ---------------------------
 
 def _check_fused_path(case, label: str, reps: int = 10,
-                      q_chunk=None) -> dict:
+                      q_chunk=None, device: bool = False) -> dict:
     kernel, plain = kc.run_pair(case, q_chunk)
     res = kc.compare_tolerant(kernel, plain)
     log(f"[kernel] fused_topk {label}: recall {res['recall']:.6f} "
@@ -292,13 +347,25 @@ def _check_fused_path(case, label: str, reps: int = 10,
     plain_ms = kc.cuda_time_ms(lambda: kc.run_plain(case, q_chunk), warmup=1,
                                reps=max(3, reps // 2))
     bound = kc.k1_bound(case)
-    log(f"[kernel] fused_topk {label}: kernel {ms:.3f} ms, plain "
+    row = {"max_abs_err": res["max_abs_err"], "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+           "bound_by": bound["bound_by"], "library_ms": None}
+    note = floor = ""
+    if device:   # every launch of the call (the deep launch makes many)
+        row["device_ms"] = dc.device_ms(lambda: kc.run_kernel(case),
+                                        fused_topk, warmup=1, reps=3)
+        note = f" (device {row['device_ms']:.3f})"
+    if "workspace_bytes" in bound:   # the deep launch's gains' round trip
+        row["workspace_bytes"] = bound["workspace_bytes"]
+        row["design_floor_ms"] = bound["design_floor_ms"]
+        floor = (f"; with the gains' round trip "
+                 f"({bound['workspace_bytes'] / 1e9:.3f} GB) "
+                 f"{bound['design_floor_ms']:.3f} ms")
+    log(f"[kernel] fused_topk {label}: kernel {ms:.3f} ms{note}, plain "
         f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
-        f"({bound['bound_by']})")
+        f"({bound['bound_by']}){floor}")
     torch.cuda.empty_cache()
-    return {"max_abs_err": res["max_abs_err"], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
-            "bound_by": bound["bound_by"], "library_ms": None}
+    return row
 
 
 def phase_fused(dev) -> dict:
@@ -311,6 +378,17 @@ def phase_fused(dev) -> dict:
         names.append(case.name)
     log(f"[kernel] fused_topk {len(names)} exact cases (f32 / bf16 / int8 / "
         f"int4 per-doc and per-group, k 10..160): indices and scores equal")
+    deep = []
+    for case in kc.deep_exact_cases(dev):
+        (ks, ki), (ps, pi) = kc.run_pair(case)
+        torch.cuda.synchronize()
+        if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+            raise AssertionError(f"kernel != plain on exact case {case.name}")
+        deep.append(case.name)
+    log(f"[kernel] fused_topk {len(deep)} deep exact cases (k 161..1100 over "
+        f"20,000 docs; f32 / bf16 / int8 / int4 per-group; k past the valid "
+        f"rows, a -inf tail, chunks and row slices): indices and scores "
+        f"equal")
     res = _check_fused_path(kc.path_case(dev),
                             "path shape B=512 N=734003 d=768 bf16 dot k=32")
     modes = {}
@@ -324,6 +402,12 @@ def phase_fused(dev) -> dict:
     modes["coarse_k128"] = _check_fused_path(
         coarse, "low-rank coarse scan B=512 N=734003 r=128 bf16 k=128",
         reps=5)
+    del coarse
+    # --refine-mult 8: k' = 256 past the shallow launch
+    coarse = kc.path_case(dev, d=128, k=256, seed=4)
+    modes["coarse_k256"] = _check_fused_path(
+        coarse, "low-rank coarse scan B=512 N=734003 r=128 bf16 k'=256 "
+        "(deep)", reps=5, device=True)
     del coarse
     # the host tiers' launches: one uploaded slab of the stream tier, and
     # hostrefine's flat coarse scan over the padded rank-128 slab of the
@@ -342,6 +426,11 @@ def phase_fused(dev) -> dict:
         f"per-doc scale, -inf bias on {n_pad - SMOKE_TIER_DOCS['pubmed']} "
         f"padding "
         f"rows, k'=128", reps=5, q_chunk=64)
+    flat.k = 256
+    modes["int8_coarse_k256"] = _check_fused_path(
+        flat, f"hostrefine flat coarse scan B=512 N={n_pad} r=128 int8 "
+        f"per-doc scale, -inf padding tail, k'=256 (deep)", reps=3,
+        q_chunk=64, device=True)
     del flat
     res["modes"] = modes
     return res
@@ -358,8 +447,18 @@ def phase_stream(dev) -> dict:
         n += 1
     log(f"[kernel] stream_topk {n} exact cases (ties across groups, splits "
         f"and k; -inf entries and rows; M < 2k and M % 4 != 0; sorted runs; "
-        f"both paths, runs merged across splits; k 1..160): positions and "
-        f"gains equal")
+        f"both paths, runs merged across splits; k 1..160; deep lists k 161 "
+        f"to M over one run and over runs merged): positions and gains "
+        f"equal")
+    # the deep launch in slices of 4 rows
+    gains = torch.cat([next(iter(kc.stream_exact_cases(dev)))[1]] * 5, dim=1)
+    one_row = deep_topk.stream_plan(1, gains.shape[1], 1100)
+    kg, ki = stream_topk(gains, 1100,
+                         workspace_cap=4 * one_row.workspace_bytes)
+    pg, pi = kc.stream_topk_reference(gains, 1100)
+    if not (torch.equal(ki, pi) and torch.equal(kg, pg)):
+        raise AssertionError("stream_topk != plain on the sliced deep case")
+    del gains, kg, ki, pg, pi
     gains = kc.stream_path_case(dev)
     k = 32
     kg, ki = stream_topk(gains, k)
@@ -375,11 +474,12 @@ def phase_stream(dev) -> dict:
     torch.cuda.empty_cache()
     row["max_abs_err"] = err
     modes = {}
-    for label, gains in (
-            ("probed_collect_k128", kc.stream_path_case(
-                dev, m=512 * 8, pad_share=0.1, seed=8)),
-            ("probed_collect_runs_k128", kc.stream_runs_case(dev))):
-        modes[label] = _check_stream_collect(gains, label)
+    for k in (128, 256):     # default depth, then --refine-mult 8 (deep)
+        for label, gains in (
+                (f"probed_collect_k{k}", kc.stream_path_case(
+                    dev, m=512 * 8, pad_share=0.1, seed=8)),
+                (f"probed_collect_runs_k{k}", kc.stream_runs_case(dev))):
+            modes[label] = _check_stream_collect(gains, label, k)
     return {**row, "modes": modes}
 
 
@@ -404,11 +504,10 @@ def _time_stream(gains, k: int, label: str) -> dict:
             "library_ms": library_ms}
 
 
-def _check_stream_collect(gains, label: str) -> dict:
+def _check_stream_collect(gains, label: str, k: int) -> dict:
     """The collect of the probed coarse scan: 512 probes of kw = 8 kept
-    gains a query, a tenth of them unfilled (``-inf``), k' = 128; random,
-    or sorted runs with ties as K4 leaves them."""
-    k = 128
+    gains a query, a tenth of them unfilled (``-inf``), at k' = 128 or 256;
+    random, or sorted runs with ties as K4 leaves them."""
     kg, ki = stream_topk(gains, k)
     pg, pi = kc.stream_topk_reference(gains, k)
     torch.cuda.synchronize()
@@ -416,7 +515,7 @@ def _check_stream_collect(gains, label: str) -> dict:
     if not (torch.equal(ki, pi) and torch.equal(kg, pg)):
         raise AssertionError(f"stream_topk disagrees with its plain version "
                              f"on {label} (max err {err})")
-    row = _time_stream(gains, k, f"{label} B=512 M=4096 k=128 (10% -inf)")
+    row = _time_stream(gains, k, f"{label} B=512 M=4096 k={k} (10% -inf)")
     return {**row, "max_abs_err": err}
 
 
@@ -490,8 +589,11 @@ def phase_pair(dev) -> dict:
         n += 1
     log(f"[kernel] grouped_pair_topk {n} exact cases (S 72 / 1024 / 1096 / "
         f"2056, an empty cluster, a block of padding rows, equal gains "
-        f"across the tile boundary, negative biases, ranks 1..64, row table, "
-        f"real-block count): gains equal, slots equal where finite")
+        f"across the tile boundary, negative biases, ranks 1..64 and deep "
+        f"ranks 200 / 256, row table, real-block count, chunks of blocks): "
+        f"gains equal, slots equal where finite")
+    deep = _check_pair_path(kc.pair_path_case(
+        dev, bsz=64, c=64, s=568, nprobe=64, kappa=256, seed=6), reps=5)
     case = kc.pair_path_case(dev)
     real = case.real_rows
     blocks = real // kc.PAIR_ROWS
@@ -545,7 +647,48 @@ def phase_pair(dev) -> dict:
     return {"max_abs_err": res["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
             "bound_by": bound["bound_by"], "library_ms": None,
-            "bmm_topk_note_ms": note_ms}
+            "bmm_topk_note_ms": note_ms, "modes": {"ranks256": deep}}
+
+
+def _check_pair_path(case, reps: int) -> dict:
+    """Deep ranks at the reduced world's probed scan under an open cap
+    (nprobe == C == 64 clusters of 568 slots, one 640-slot tile, kappa =
+    k' = 256 ranks): held as the path shape, with CUDA-event and device
+    times and the bound with the gains' round trip."""
+    real = case.real_rows
+    out = kc.run_pair_kernel(case)
+    plain = kc.run_pair_plain(case, real // kc.PAIR_ROWS)
+    torch.cuda.synchronize()
+    res = kc.compare_pair((out[0][:real], out[1][:real]), plain, rel=1e-4,
+                          case=case)
+    c, r, s = case.cc.docs.shape
+    label = (f"deep ranks B=64 P=64 C={c} r={r} S={s} int8 kappa="
+             f"{case.kappa} (ranks {kc.tiling(s, case.kappa)[2]})")
+    if not res["ok"]:
+        raise AssertionError(f"grouped_pair_topk disagrees with its plain "
+                             f"version on {label}: {res}")
+    del out, plain
+    ms = kc.cuda_time_ms(lambda: kc.run_pair_kernel(case), reps=reps)
+    dev_ms = dc.device_ms(lambda: kc.run_pair_kernel(case),
+                          grouped_pair_topk, warmup=1, reps=reps)
+    plain_ms = kc.cuda_time_ms(
+        lambda: kc.run_pair_plain(case, real // kc.PAIR_ROWS), warmup=1,
+        reps=2)
+    bound = kc.k4_bound(case)
+    log(f"[kernel] grouped_pair_topk {label}: max_abs_err "
+        f"{res['max_abs_err']:.3e}, {res['slots_differ']} of "
+        f"{res['slots_compared']} clearly ordered slots differ, "
+        f"{res['swapped_wrong_gain']} swapped slots with a wrong gain; "
+        f"kernel {ms:.3f} ms (device {dev_ms:.3f}), plain {plain_ms:.3f} ms, "
+        f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); with "
+        f"the gains' round trip ({bound['workspace_bytes'] / 1e6:.1f} MB) "
+        f"{bound['design_floor_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": res["max_abs_err"], "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "library_ms": None,
+            "workspace_bytes": bound["workspace_bytes"],
+            "design_floor_ms": bound["design_floor_ms"]}
 
 
 def phase_decoder_kernels(dev) -> dict:
@@ -840,7 +983,10 @@ def phase_main_paths(dev) -> dict:
     n_docs = sum(MEDRAG_DOCS.values())
     out = {}
     for topics, runs in ((1, (("exact", []),
-                              ("lowrank", ["--impl", "lowrank"]))),
+                              ("lowrank", ["--impl", "lowrank"]),
+                              ("lowrank_deep", ["--impl", "lowrank",
+                                                "--refine-mult",
+                                                str(REFINE_MULT)]))),
                          (IVF_TOPICS, (("ivf", ["--impl", "ivf"]),))):
         root = tempfile.mkdtemp(prefix="ragroute_smoke_")
         try:
@@ -856,6 +1002,9 @@ def phase_main_paths(dev) -> dict:
                 out[label] = serve_path(
                     root, dev, syn, label, flags,
                     recall_gate=0.9 if label == "ivf" else 0.99)
+                if label in DEEP_PATHS:
+                    check_deep(label, out[label]["launches"],
+                               out[label]["recall"], out)
         finally:
             shutil.rmtree(root, ignore_errors=True)
         del syn
@@ -1041,7 +1190,7 @@ def phase_reduced_tiers(dev) -> None:
     # scan: a true miss is a flat-scan candidate clearly better than the
     # worst kept key (beyond the summation noise of the two layouts)
     st = hset.sources[0]
-    n, kp = st.n_docs, 128
+    n, kp = st.n_docs, 256        # --refine-mult 8: K4's deep ranks
     cc = cluster_coarse_slab(st.coarse_docs[:n].cpu().numpy(),
                              st.coarse_scale[:n].cpu().numpy(),
                              st.coarse_bias[:n].cpu().numpy(), 0,
@@ -1066,7 +1215,9 @@ def phase_reduced_tiers(dev) -> None:
         f"over {n} rows: {missed} true misses, {swaps} boundary near-ties "
         f"swapped; launches {launches}")
     if missed or launches["grouped_pair_topk"] != 1 \
-            or launches["stream_topk"] != 1 or launches["fused_topk"] != 1:
+            or launches["stream_topk"] != 1 or launches["fused_topk"] != 1 \
+            or launches["deep"] != {"fused_topk": 1, "stream_topk": 1,
+                                    "grouped_pair_topk": 1}:
         raise AssertionError("the full probe disagrees with the flat scan")
     del flat, sset, hset, cc
     gc.collect()
@@ -1185,15 +1336,17 @@ async def _burst(port: int, qs, n: int) -> float:
     return wall
 
 
-async def _drive_tier(system, syn, k: int, label: str) -> dict:
+async def _drive_tier(system, syn, k: int, label: str,
+                      burst: bool = True) -> dict:
     """The served path of a host tier: the sequential and concurrent
-    requests of every path, then (hostrefine) the pipelined burst."""
+    requests of every path, then (hostrefine, with ``burst``) the pipelined
+    burst."""
     launches = await _drive(system, syn, k, label, stop=False)
     server = system.server
     try:
         engine = server.engine
         log(f"[serve:{label}] last_phases {engine.last_phases}")
-        if engine.supports_pipelined_dispatch:
+        if burst and engine.supports_pipelined_dispatch:
             port, qs = server.bound_port, syn.questions
             batcher = server.batcher
             await _burst(port, qs, TIER_BURST)          # warm the connections
@@ -1215,10 +1368,12 @@ async def _drive_tier(system, syn, k: int, label: str) -> dict:
 
 
 def serve_tier(root: str, dev, syn, label: str, impl: str,
-               cluster_min_docs: int, oracle: dict) -> dict:
+               cluster_min_docs: int, oracle: dict, flags=()) -> dict:
     """Build one host tier's ServingSystem from the CLI's flags (the rows
     come from the world's block generator), drive it over HTTP and hold
-    ``engine.search`` against the exact f32 oracle."""
+    ``engine.search`` against the exact f32 oracle. A deep run (``flags``
+    with --refine-mult) skips the pipelined burst, which its default-depth
+    run has measured."""
     from ragroute_tpu_torch import config as cfg
     from ragroute_tpu_torch.main import parse_args
     from ragroute_tpu_torch.oracle import engine_recall
@@ -1233,7 +1388,7 @@ def serve_tier(root: str, dev, syn, label: str, impl: str,
             "--dataset", "medrag", "--routing", "ragroute", "--disable-llm",
             "--port", "0", "--data-root", root, "--device", str(dev),
             "--dtype", "int8", "--impl", impl, "--hbm-budget-gb",
-            str(SMOKE_TIER_BUDGET_GB)]), row_sources=syn.row_sources)
+            str(SMOKE_TIER_BUDGET_GB), *flags]), row_sources=syn.row_sources)
         system.build()
     finally:
         cfg.HOSTREFINE_CLUSTER_MIN_DOCS = 0
@@ -1256,17 +1411,19 @@ def serve_tier(root: str, dev, syn, label: str, impl: str,
     if label == "stream" and big.slab_rows != TIER_SLAB_ROWS:
         raise AssertionError(f"slabs of {big.slab_rows} rows, the kernel "
                              f"check assumed {TIER_SLAB_ROWS}")
-    if label == "hostrefine" and tuple(big.coarse_docs.shape) != (
+    if label.startswith("hostrefine") and "probed" not in label and tuple(
+            big.coarse_docs.shape) != (
             -(-SMOKE_TIER_DOCS["pubmed"] // 512) * 512, 128):
         raise AssertionError(f"coarse slab {tuple(big.coarse_docs.shape)} "
                              f"differs from the kernel check's shape")
-    launches = asyncio.run(_drive_tier(system, syn, syn.world.k, label))
+    launches = asyncio.run(_drive_tier(system, syn, syn.world.k, label,
+                                       burst=not flags))
     log(f"[serve:{label}] kernel launches on the served path: {launches}")
     for name in PATH_KERNELS[label]:
         if launches[name] <= 0:
             raise AssertionError(
                 f"the {label} path never launched the {name} kernel")
-    if label != "hostrefine_probed" and launches["grouped_pair_topk"]:
+    if "probed" not in label and launches["grouped_pair_topk"]:
         raise AssertionError(f"the {label} path ran the probed scan")
 
     q = {enc: e[:N_CHECK] for enc, e in syn.query_embs.items()}
@@ -1358,11 +1515,18 @@ def phase_tiers(dev) -> dict:
         log(f"[world] medrag {n_docs} docs x 768, {IVF_TOPICS} topics per "
             f"source, rows made block by block from the seed; int8, "
             f"--hbm-budget-gb {SMOKE_TIER_BUDGET_GB}")
-        for label, impl, cluster_min in (
-                ("stream", "stream", 0), ("hostrefine", "hostrefine", 0),
-                ("hostrefine_probed", "hostrefine", 1_000_000)):
+        deep = ("--refine-mult", str(REFINE_MULT))
+        for label, impl, cluster_min, flags in (
+                ("stream", "stream", 0, ()),
+                ("hostrefine", "hostrefine", 0, ()),
+                ("hostrefine_deep", "hostrefine", 0, deep),
+                ("hostrefine_probed", "hostrefine", 1_000_000, ()),
+                ("hostrefine_probed_deep", "hostrefine", 1_000_000, deep)):
             out[label] = serve_tier(root, dev, syn, label, impl,
-                                    cluster_min, oracle)
+                                    cluster_min, oracle, flags)
+            if label in DEEP_PATHS:
+                check_deep(label, out[label]["launches"],
+                           out[label]["recall"], out)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -1655,12 +1819,17 @@ def report(smi: str, kres: dict, paths: dict) -> None:
             continue
         by_path = {p: r["launches"][name] for p, r in paths.items()
                    if p in PATH_KERNELS}
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(by_path[p] for p, ks in PATH_KERNELS.items()
                             if name in ks and p in by_path),
-            "launches_by_path": by_path, **kres[name]})
+            "launches_by_path": by_path, **kres[name]}
+        if hasattr(KERNELS[name][0], "deep_launches"):
+            row["deep_launches_by_path"] = {
+                p: r["launches"]["deep"][name] for p, r in paths.items()
+                if p in PATH_KERNELS}
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

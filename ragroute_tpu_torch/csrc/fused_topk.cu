@@ -36,6 +36,18 @@
 //     deep k: the wrapper then asks for fewer, longer splits.
 //   * merge_splits_kernel (topk_merge.cuh): one block per query row merges
 //     the per-split sorted lists into [B, k] under the same order.
+//   * Deeper lists (any k, as the TPU kernel takes; fused_topk_deep_launch):
+//     64 x k lists do not fit beside the tiles past k = 160, and the serial
+//     inserts already dominate at k = 128. So the product leaves the kernel:
+//     chunk_gains_kernel writes a chunk of docs' gain tiles, formed and
+//     rounded as above, to a workspace in device memory, and deep_topk.cuh
+//     cuts every run of 8,192 docs to its best k by radix select and a
+//     bitonic sort in shared memory, merges the runs' lists in pairs, and
+//     merges the chunk's list into the running list of k. The workspace is
+//     sized by ops/deep_topk.py from a stated cap, in chunks of docs and, at
+//     large batch and depth, slices of query rows. Its cost is the gains'
+//     round trip through device memory: 4 bytes a (query, doc) written and
+//     read once, which at B = 512 over 734,003 coarse rows is 1.5 GB.
 //
 // What bounds it on an H100 SXM (data-sheet peaks at its 700 W limit): at
 // B = 512, D = 768, bf16, one batch reads ~1.1 GB of docs for ~0.58 TFLOP,
@@ -52,6 +64,7 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "deep_topk.cuh"
 #include "topk_merge.cuh"
 
 namespace {
@@ -316,6 +329,48 @@ __global__ void __launch_bounds__(THREADS) partial_topk_kernel(
   }
 }
 
+// ---- deep lists (k > KMAX): a doc chunk's gains in device memory ------------
+
+// One block a (query tile, doc tile) of the chunk [c0, c_end): the [TQ x TD]
+// gain tile and its epilogue exactly as partial_topk_kernel forms them,
+// written to ws[row * ld + doc - c0] for the rows < B.
+template <int DT>
+__global__ void __launch_bounds__(THREADS) chunk_gains_kernel(
+    const void* __restrict__ q, const void* __restrict__ docs,
+    const float* __restrict__ bias, const float* __restrict__ scale,
+    float* __restrict__ ws, int B, int N, int D, int G, int c0, int c_end,
+    int ld) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int q0 = blockIdx.x * TQ;
+  const int j0 = c0 + blockIdx.y * TD;
+  float* sg = reinterpret_cast<float*>(smem);
+  if constexpr (DT == kF32)
+    gain_tile_f32(static_cast<const float*>(q), static_cast<const float*>(docs),
+                  smem, sg, B, N, D, q0, j0, tid);
+  else
+    gain_tile_wmma<DT>(q, docs, scale, G, smem, sg, B, N, D, q0, j0, tid, warp);
+  // consecutive threads on consecutive docs of a row: coalesced stores
+  for (int e = tid; e < TQ * TD; e += THREADS) {
+    const int r = e / TD, c = e - r * TD, j = j0 + c;
+    if (q0 + r >= B || j >= c_end) continue;
+    float x = sg[r * LDG + c];
+    if (DT != kI4G && scale) x = __fmul_rn(x, scale[j]);
+    if (bias) x = __fadd_rn(x, bias[j]);
+    ws[(size_t)(q0 + r) * ld + (j - c0)] = x;
+  }
+}
+
+template <int DT>
+cudaError_t launch_chunk(const void* q, const void* docs, const float* bias,
+                         const float* scale, float* ws, int B, int N, int D,
+                         int G, int c0, int c_end, int ld, cudaStream_t stream) {
+  const dim3 grid((B + TQ - 1) / TQ, (c_end - c0 + TD - 1) / TD);
+  chunk_gains_kernel<DT><<<grid, THREADS, tile_region_bytes(DT), stream>>>(
+      q, docs, bias, scale, ws, B, N, D, G, c0, c_end, ld);
+  return cudaGetLastError();
+}
+
 // ---- launch ------------------------------------------------------------------
 
 template <int DT, int SLOTS>
@@ -393,3 +448,84 @@ extern "C" int fused_topk_launch(const void* q, const void* docs,
           splits, K);
   return (int)cudaGetLastError();
 }
+
+// Deep lists: any K (the launch above stops at KMAX). Query rows go in slices
+// of slice_rows, docs in chunks of `chunk` (<= RUN_MAX, or a multiple of it).
+// Per chunk: chunk_gains_kernel writes the slice's gains to ws_g [slice_rows,
+// chunk]; deep::reduce_rows cuts every run of RUN_MAX docs to its best
+// min(K, RUN_MAX) and merges the runs to one list of <= K; that list merges
+// into the slice's running list of K, which ping-pongs between run0 and run1
+// ([slice_rows, 2K] words each: the running list, then the chunk's). Last,
+// the running list is written out with each gain decoded from its key. ws_a /
+// ws_b hold slice_rows x list_entries words (ops/deep_topk.py::fused_plan).
+// Arguments otherwise as fused_topk_launch. Returns 0, or deep::fail's code
+// of the step that failed.
+extern "C" int fused_topk_deep_launch(const void* q, const void* docs,
+                                      const void* bias, const void* scale,
+                                      void* ws_g, void* ws_a, void* ws_b,
+                                      void* run0, void* run1, void* out_g,
+                                      void* out_i, int B, int N, int D, int K,
+                                      int G, int doc_type, int slice_rows,
+                                      int chunk, void* stream) {
+  if (B < 1 || N < 1 || D < 16 || D % 16 != 0 || K < 1 || slice_rows < 1 ||
+      chunk < 1 || (chunk > deep::RUN_MAX && chunk % deep::RUN_MAX != 0) ||
+      (chunk + TD - 1) / TD > 65535 || ws_g == nullptr || run0 == nullptr ||
+      run1 == nullptr ||
+      (chunk > deep::RUN_MAX && (ws_a == nullptr || ws_b == nullptr)) ||
+      doc_type < kF32 || doc_type > kI4G ||
+      (doc_type == kI4G && (scale == nullptr || G < 1 || D % G != 0 ||
+                            (D / G) % 8 != 0)))
+    return deep::fail(deep::STEP_ARGS, cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* b = static_cast<const float*>(bias);
+  const float* s = static_cast<const float*>(scale);
+  float* wg = static_cast<float*>(ws_g);
+  auto* wa = static_cast<deep::u64*>(ws_a);
+  auto* wb = static_cast<deep::u64*>(ws_b);
+  const size_t q_row = (size_t)D * (doc_type == kF32 ? 4 : 2);
+  const int kr = min(K, deep::RUN_MAX);
+  const long long run_ld = 2LL * K;
+  for (int r0 = 0; r0 < B; r0 += slice_rows) {
+    const int rows = min(slice_rows, B - r0);
+    const void* qs = static_cast<const char*>(q) + (size_t)r0 * q_row;
+    auto* cur = static_cast<deep::u64*>(run0);
+    auto* other = static_cast<deep::u64*>(run1);
+    cudaError_t err = cudaMemsetAsync(cur, 0, (size_t)rows * run_ld * 8, st);
+    if (err != cudaSuccess) return deep::fail(deep::STEP_MEMSET, err);
+    for (int c0 = 0; c0 < N; c0 += chunk) {
+      const int c_end = min(N, c0 + chunk);
+#define RAGROUTE_CHUNK(DT) \
+  err = launch_chunk<DT>(qs, docs, b, s, wg, rows, N, D, G, c0, c_end, chunk, st)
+      switch (doc_type) {
+        case kF32: RAGROUTE_CHUNK(kF32); break;
+        case kBF16: RAGROUTE_CHUNK(kBF16); break;
+        case kI8: RAGROUTE_CHUNK(kI8); break;
+        case kI4: RAGROUTE_CHUNK(kI4); break;
+        default: RAGROUTE_CHUNK(kI4G); break;
+      }
+#undef RAGROUTE_CHUNK
+      if (err != cudaSuccess) return deep::fail(deep::STEP_GAINS, err);
+      // the first chunk's list is the running list (zero past its end)
+      int len = 0;
+      const int code = deep::reduce_rows(
+          wg, chunk, rows, c_end - c0, deep::RUN_MAX, kr, K, c0, wa, wb,
+          c0 == 0 ? cur : cur + K, run_ld, &len, nullptr, 0, 0, st);
+      if (code) return code;
+      if (c0 > 0) {
+        err = deep::merge(cur, run_ld, K, K, len, 2, other, run_ld, K, rows,
+                          nullptr, 0, 0, st);
+        if (err != cudaSuccess) return deep::fail(deep::STEP_RUNNING, err);
+        auto* t = cur;
+        cur = other;
+        other = t;
+      }
+    }
+    err = deep::emit<long long>(cur, run_ld, K, nullptr, 0,
+                                static_cast<float*>(out_g) + (size_t)r0 * K,
+                                static_cast<long long*>(out_i) + (size_t)r0 * K,
+                                K, rows, nullptr, 0, 0, st);
+    if (err != cudaSuccess) return deep::fail(deep::STEP_EMIT, err);
+  }
+  return 0;
+}
+

@@ -41,6 +41,15 @@
 // the depth fits one chunk of 128 (the serving rank); deeper slabs reload
 // them per sub-tile.
 //
+// A per-tile list deeper than RMAX = 160 (ranks = ceil(kappa / n_tiles) is
+// uncapped in the TPU kernel: an open cap, kappa >= k', asks for 256 and
+// more) does not fit a thread. For those, grouped_pair_topk_deep_launch
+// writes the sub-tiles' scaled and biased gains of a chunk of pair blocks to
+// device memory (pair_gains_kernel, the same products and roundings), and
+// deep_topk.cuh selects each (row, tile)'s `ranks` best by radix select and
+// a bitonic sort in shared memory and merges a row's tiles to kw, the plain
+// version's order (gain descending, slot ascending).
+//
 // What bounds it on an H100 SXM: at the serving shape (B = 512, 512 probes of
 // 4,096 clusters, R = 128, S = 1,584) every probed slab read once is about
 // 0.83 GB (0.25 ms at 3.35 TB/s); the product over the blocks' rows is 0.11
@@ -56,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "deep_topk.cuh"
 
 namespace {
 
@@ -115,6 +126,90 @@ __device__ __forceinline__ void tile_insert(float (&tg)[RT], int (&ti)[RT], floa
   }
 }
 
+// The [TE x TS] gain sub-tile of slots [s0, s0 + TS) of the block's slab
+// (before scale and bias) into sg column-major (sg[col * LDG + row]), and
+// the sub-tile's bias and scale into sbias / sscale. The query rows are
+// loaded at the first sub-tile and, when the depth takes more than one
+// chunk, again for every sub-tile. Ends with a barrier.
+__device__ __forceinline__ void gain_subtile(
+    const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ slab,
+    const float* __restrict__ brow, const float* __restrict__ srow,
+    const int* __restrict__ rows, int e0, int R, int S, int s0,
+    unsigned char* smem, int tid, int warp) {
+  __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sb = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_A);
+  float* sg = reinterpret_cast<float*>(smem + SMEM_A + SMEM_B);
+  float* sbias = sg + TS * LDG;
+  float* sscale = sbias + TS;
+  const int n_k = (R + BK - 1) / BK;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  for (int kc = 0; kc < n_k; ++kc) {
+    const int k0 = kc * BK;
+    const int kmax = min(BK, R - k0);  // a multiple of 16
+    if (n_k > 1 || s0 == 0) {
+      // query rows [TE, BK], 8 bf16 a vector
+      for (int v = tid; v < TE * (BK / 8); v += THREADS) {
+        const int r = v / (BK / 8), cc = (v % (BK / 8)) * 8;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (cc < kmax) {
+          const int row = rows ? rows[e0 + r] : e0 + r;
+          val = *reinterpret_cast<const uint4*>(q + (size_t)row * R + k0 + cc);
+        }
+        *reinterpret_cast<uint4*>(sa + r * LDA + cc) = val;
+      }
+    }
+    // slab rows [BK, TS] int8 -> bf16, 8 columns a vector; S % 8 == 0 keeps
+    // a vector inside the row and aligned
+    for (int v = tid; v < BK * (TS / 8); v += THREADS) {
+      const int kk = v / (TS / 8), cc = (v % (TS / 8)) * 8;
+      const int col = s0 + cc;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (kk < kmax && col < S) {
+        const uint2 raw =
+            *reinterpret_cast<const uint2*>(slab + (size_t)(k0 + kk) * S + col);
+        const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+        val = make_uint4(pack_bf16((float)b[0], (float)b[1]),
+                         pack_bf16((float)b[2], (float)b[3]),
+                         pack_bf16((float)b[4], (float)b[5]),
+                         pack_bf16((float)b[6], (float)b[7]));
+      }
+      *reinterpret_cast<uint4*>(sb + kk * LDB + cc) = val;
+    }
+    if (kc == 0 && tid < TS) {
+      const int col = s0 + tid;
+      sbias[tid] = col < S ? brow[col] : neg_inf();
+      sscale[tid] = col < S ? srow[col] : 0.0f;
+    }
+    __syncthreads();
+    for (int kk = 0; kk < kmax; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], sa + (warp * 32 + i * 16) * LDA + kk, LDA);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wmma::load_matrix_sync(b[j], sb + kk * LDB + j * 16, LDB);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();  // the next chunk (or sub-tile) overwrites sa / sb
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wmma::store_matrix_sync(sg + (j * 16) * LDG + warp * 32 + i * 16, acc[i][j],
+                              LDG, wmma::mem_col_major);
+  __syncthreads();
+}
+
 template <int RT>
 __global__ void __launch_bounds__(THREADS) grouped_pair_topk_kernel(
     const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ docs,
@@ -125,11 +220,9 @@ __global__ void __launch_bounds__(THREADS) grouped_pair_topk_kernel(
   extern __shared__ __align__(128) unsigned char smem[];
   const int blk = blockIdx.x;
   if (n_real && blk >= *n_real) return;  // block-uniform
-  __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sb = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_A);
-  float* sg = reinterpret_cast<float*>(smem + SMEM_A + SMEM_B);
-  float* sbias = sg + TS * LDG;
-  float* sscale = sbias + TS;
+  const float* sg = reinterpret_cast<const float*>(smem + SMEM_A + SMEM_B);
+  const float* sbias = sg + TS * LDG;
+  const float* sscale = sbias + TS;
   const int tid = threadIdx.x, warp = tid >> 5;
   const int e0 = blk * TE;
   const int c = min(max(blk_cluster[blk], 0), C - 1);
@@ -154,75 +247,8 @@ __global__ void __launch_bounds__(THREADS) grouped_pair_topk_kernel(
     ti[j] = 0;
   }
 
-  const int n_k = (R + BK - 1) / BK;
   for (int s0 = 0; s0 < S; s0 += TS) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-    for (int kc = 0; kc < n_k; ++kc) {
-      const int k0 = kc * BK;
-      const int kmax = min(BK, R - k0);  // a multiple of 16
-      if (n_k > 1 || s0 == 0) {
-        // query rows [TE, BK], 8 bf16 a vector
-        for (int v = tid; v < TE * (BK / 8); v += THREADS) {
-          const int r = v / (BK / 8), cc = (v % (BK / 8)) * 8;
-          uint4 val = make_uint4(0u, 0u, 0u, 0u);
-          if (cc < kmax) {
-            const int row = rows ? rows[e0 + r] : e0 + r;
-            val = *reinterpret_cast<const uint4*>(q + (size_t)row * R + k0 + cc);
-          }
-          *reinterpret_cast<uint4*>(sa + r * LDA + cc) = val;
-        }
-      }
-      // slab rows [BK, TS] int8 -> bf16, 8 columns a vector; S % 8 == 0 keeps
-      // a vector inside the row and aligned
-      for (int v = tid; v < BK * (TS / 8); v += THREADS) {
-        const int kk = v / (TS / 8), cc = (v % (TS / 8)) * 8;
-        const int col = s0 + cc;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (kk < kmax && col < S) {
-          const uint2 raw =
-              *reinterpret_cast<const uint2*>(slab + (size_t)(k0 + kk) * S + col);
-          const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-          val = make_uint4(pack_bf16((float)b[0], (float)b[1]),
-                           pack_bf16((float)b[2], (float)b[3]),
-                           pack_bf16((float)b[4], (float)b[5]),
-                           pack_bf16((float)b[6], (float)b[7]));
-        }
-        *reinterpret_cast<uint4*>(sb + kk * LDB + cc) = val;
-      }
-      if (kc == 0 && tid < TS) {
-        const int col = s0 + tid;
-        sbias[tid] = col < S ? brow[col] : neg_inf();
-        sscale[tid] = col < S ? srow[col] : 0.0f;
-      }
-      __syncthreads();
-      for (int kk = 0; kk < kmax; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], sa + (warp * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::load_matrix_sync(b[j], sb + kk * LDB + j * 16, LDB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();  // the next chunk (or sub-tile) overwrites sa / sb
-    }
-    // the sub-tile column-major: sg[col * LDG + row]
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(sg + (j * 16) * LDG + warp * 32 + i * 16, acc[i][j],
-                                LDG, wmma::mem_col_major);
-    __syncthreads();
+    gain_subtile(q, slab, brow, srow, rows, e0, R, S, s0, smem, tid, warp);
 
     // thread t scans row t in ascending slot order: scale, then bias, each
     // rounded on its own
@@ -255,6 +281,42 @@ __global__ void __launch_bounds__(THREADS) grouped_pair_topk_kernel(
         for (int j = 0; j < RT; ++j) offer(j);
       } else {
         for (int j = 0; j < len; ++j) offer(j);
+      }
+    }
+    __syncthreads();  // the next sub-tile overwrites sg / sbias / sscale
+  }
+}
+
+// Deep ranks (ranks > RMAX): one block a pair block of the chunk that starts
+// at block b0 writes its rows' scaled and biased gains, each rounded on its
+// own as above, to ws[(blockIdx.x * TE + row) * S + slot].
+__global__ void __launch_bounds__(THREADS) pair_gains_kernel(
+    const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ docs,
+    const float* __restrict__ bias, const float* __restrict__ scale,
+    const int* __restrict__ blk_cluster, const int* __restrict__ rows,
+    const int* __restrict__ n_real, float* __restrict__ ws, int C, int R,
+    int S, int b0) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int blk = b0 + blockIdx.x;
+  if (n_real && blk >= *n_real) return;  // block-uniform
+  const float* sg = reinterpret_cast<const float*>(smem + SMEM_A + SMEM_B);
+  const float* sbias = sg + TS * LDG;
+  const float* sscale = sbias + TS;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int c = min(max(blk_cluster[blk], 0), C - 1);
+  const int8_t* slab = docs + (size_t)c * R * S;
+  float* out = ws + (size_t)blockIdx.x * TE * S;
+  for (int s0 = 0; s0 < S; s0 += TS) {
+    gain_subtile(q, slab, bias + (size_t)c * S, scale + (size_t)c * S, rows,
+                 blk * TE, R, S, s0, smem, tid, warp);
+    // consecutive threads on consecutive slots of a row: coalesced stores
+    const int ncols = min(TS, S - s0);
+    for (int e = tid; e < TE * TS; e += THREADS) {
+      const int r = e / TS, cc = e - r * TS;
+      if (cc < ncols) {
+        float x = __fmul_rn(sg[cc * LDG + r], sscale[cc]);
+        x = __fadd_rn(x, sbias[cc]);
+        out[(size_t)r * S + s0 + cc] = x;
       }
     }
     __syncthreads();  // the next sub-tile overwrites sg / sbias / sscale
@@ -313,3 +375,58 @@ extern "C" int grouped_pair_topk_launch(const void* q, const void* docs,
   GPT_LAUNCH(RMAX);
 #undef GPT_LAUNCH
 }
+
+// Deep ranks: any ranks (the launch above stops at RMAX). Pair blocks go in
+// chunks of chunk_blocks: pair_gains_kernel writes a chunk's gains to ws_g
+// [chunk_blocks * 256, S]; deep::reduce_rows cuts every tile of tds slots to
+// its `ranks` best (ties to the lower slot) and merges the tiles' sorted
+// lists to kw; the list is written out with the stored gains, (-inf, 0) past
+// the offers. Rows of blocks at or past *n_real are skipped and left
+// unwritten. ws_a / ws_b hold chunk_blocks * 256 x list_entries words, dst
+// chunk_blocks * 256 x kw (ops/deep_topk.py::pair_plan). Arguments otherwise
+// as grouped_pair_topk_launch. Returns 0, or deep::fail's code of the step
+// that failed.
+extern "C" int grouped_pair_topk_deep_launch(
+    const void* q, const void* docs, const void* bias, const void* scale,
+    const void* blk_cluster, const void* rows, const void* n_real, void* ws_g,
+    void* ws_a, void* ws_b, void* dst, void* out_g, void* out_i, int G, int C,
+    int R, int S, int tds, int ranks, int kw, int chunk_blocks, void* stream) {
+  if (G < 1 || C < 1 || R < 16 || R % 16 != 0 || S < 8 || S % 8 != 0 ||
+      tds < TS || tds % TS != 0 || tds > deep::RUN_MAX || ranks < 1 ||
+      kw != ranks * ((S + tds - 1) / tds) || chunk_blocks < 1 || q == nullptr ||
+      docs == nullptr || bias == nullptr || scale == nullptr ||
+      blk_cluster == nullptr || ws_g == nullptr || dst == nullptr ||
+      (S > tds && (ws_a == nullptr || ws_b == nullptr)))
+    return deep::fail(deep::STEP_ARGS, cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      pair_gains_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return deep::fail(deep::STEP_GAINS, err);
+  const int* nr = static_cast<const int*>(n_real);
+  float* wg = static_cast<float*>(ws_g);
+  auto* d = static_cast<deep::u64*>(dst);
+  for (int b0 = 0; b0 < G; b0 += chunk_blocks) {
+    const int nb = min(chunk_blocks, G - b0);
+    const long long rows0 = (long long)b0 * TE, n_rows = (long long)nb * TE;
+    pair_gains_kernel<<<nb, THREADS, SMEM, st>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(docs),
+        static_cast<const float*>(bias), static_cast<const float*>(scale),
+        static_cast<const int*>(blk_cluster), static_cast<const int*>(rows), nr,
+        wg, C, R, S, b0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return deep::fail(deep::STEP_GAINS, err);
+    int len = 0;
+    const int code = deep::reduce_rows(wg, S, n_rows, S, tds, ranks, kw, 0,
+                                       static_cast<deep::u64*>(ws_a),
+                                       static_cast<deep::u64*>(ws_b), d, kw,
+                                       &len, nr, TE, rows0, st);
+    if (code) return code;
+    err = deep::emit<int>(d, kw, len, wg, S,
+                          static_cast<float*>(out_g) + rows0 * kw,
+                          static_cast<int*>(out_i) + rows0 * kw, kw, n_rows, nr,
+                          TE, rows0, st);
+    if (err != cudaSuccess) return deep::fail(deep::STEP_EMIT, err);
+  }
+  return 0;
+}
+

@@ -36,7 +36,11 @@
 //     tiles almost nothing passes, so the loads bound it.
 //
 // Runs of a row that is cut into splits are merged by merge_splits_kernel
-// (topk_merge.cuh) under the same order.
+// (topk_merge.cuh) under the same order. Both paths take k <= 160. A deeper
+// list (any k <= M, as the TPU kernel takes) goes through deep_topk.cuh:
+// runs of at most 8,192 positions selected and sorted in shared memory, one
+// launch for a row of one run (the probed collect at k' = 256), else the
+// runs' sorted lists merged in pairs and written out (stream_topk_deep_launch).
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py kernels,
 // torch.profiler device time): the probed collect 0.014 ms (the first
@@ -47,6 +51,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "deep_topk.cuh"
 #include "topk_merge.cuh"
 
 namespace {
@@ -94,144 +99,40 @@ __global__ void __launch_bounds__(THREADS) stream_partial_kernel(
 
 // ---- the select path: radix select over one run held in shared memory ----
 
-constexpr int SEL_THREADS = 256;  // == RADIX: one histogram bin a thread
-constexpr int SEL_WARPS = SEL_THREADS / 32;
-constexpr int RADIX = 256;
-constexpr int SEL_CHUNK_MAX = 8192;  // keys of one run: 32 KB of shared memory
-
-// Order-preserving key: larger gain, larger key. -inf and NaN map to 0 (no
-// finite gain or +inf does: the smallest, -FLT_MAX, maps to 0x00800000);
-// -0 maps as +0, since the two compare equal and tie by position.
-__device__ __forceinline__ uint32_t order_key(float x) {
-  if (!(x > neg_inf())) return 0u;
-  const uint32_t u = x == 0.0f ? 0u : __float_as_uint(x);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// Inclusive sum of v over the block's threads in thread order; `total` gets
-// the block's sum. Two barriers; `scratch` holds SEL_WARPS ints.
-__device__ __forceinline__ int block_inclusive_sum(int v, int* scratch,
-                                                   int& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int t = __shfl_up_sync(FULL, v, off);
-    if (lane >= off) v += t;
-  }
-  if (lane == 31) scratch[warp] = v;
-  __syncthreads();
-  int base = 0, tot = 0;
-#pragma unroll
-  for (int w = 0; w < SEL_WARPS; ++w) {
-    const int s = scratch[w];
-    base += w < warp ? s : 0;
-    tot += s;
-  }
-  __syncthreads();  // scratch may be written again
-  total = tot;
-  return v + base;
-}
+constexpr int SEL_THREADS = deep::THREADS;  // == RADIX: one histogram bin a thread
+constexpr int SEL_CHUNK_MAX = deep::RUN_MAX;  // keys of one run: 32 KB of shared memory
 
 // One block a (row, split): grid B * splits. Writes the run's sorted list of
-// K to out_g / out_i at ((row * splits + split) * K), padded with (-inf, 0).
+// K <= KMAX to out_g / out_i at ((row * splits + split) * K), padded with
+// (-inf, 0). The radix select and the collection are deep_topk.cuh's; the
+// <= KMAX winners are ranked by counting.
 __global__ void __launch_bounds__(SEL_THREADS) select_topk_kernel(
     const float* __restrict__ gains, float* __restrict__ out_g,
     int* __restrict__ out_i, int M, int K, int splits, int chunk) {
   extern __shared__ __align__(16) uint32_t keys[];  // [chunk]
-  __shared__ int hist[RADIX];
-  __shared__ int scratch[SEL_WARPS];
-  __shared__ int warp_gt[SEL_WARPS], warp_eq[SEL_WARPS];
+  __shared__ deep::SelectShared sh;
   __shared__ unsigned long long cand[topk::KMAX];
-  __shared__ uint32_t sel_digit;
-  __shared__ int sel_above;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int row = blockIdx.x / splits, split = blockIdx.x % splits;
   const int begin = split * chunk;
   const int n = min(chunk, M - begin);
   const float* g = gains + (size_t)row * M + begin;
 
-  hist[tid] = 0;
+  sh.hist[tid] = 0;
   __syncthreads();
   for (int e = tid; e < n; e += SEL_THREADS) {
-    const uint32_t key = order_key(g[e]);
+    const uint32_t key = deep::order_key(g[e]);
     keys[e] = key;
-    atomicAdd(&hist[key >> 24], 1);
+    atomicAdd(&sh.hist[key >> 24], 1);
   }
   __syncthreads();
-
-  // radix select of the want-th largest key, 8 bits a pass from the top;
-  // `need` counts the keys still to take at or below the prefix found
-  const int want = min(K, n);
-  uint32_t prefix = 0u;
-  int need = want;
-#pragma unroll 1
-  for (int pass = 0; pass < 4; ++pass) {
-    const int shift = 24 - 8 * pass;
-    if (pass > 0) {
-      const uint32_t hi = 0xffffffffu << (shift + 8);
-      for (int e = tid; e < n; e += SEL_THREADS) {
-        const uint32_t key = keys[e];
-        if ((key & hi) == prefix) atomicAdd(&hist[(key >> shift) & 0xff], 1);
-      }
-      __syncthreads();
-    }
-    // thread t holds bin 255 - t: the inclusive sum counts keys in bins >= it
-    const int c = hist[RADIX - 1 - tid];
-    int total;
-    const int at_or_above = block_inclusive_sum(c, scratch, total);
-    if (at_or_above >= need && at_or_above - c < need) {
-      sel_digit = (uint32_t)(RADIX - 1 - tid);
-      sel_above = at_or_above - c;
-    }
-    __syncthreads();
-    hist[tid] = 0;
-    prefix |= sel_digit << shift;
-    need -= sel_above;
-    __syncthreads();
-  }
-  const uint32_t T = prefix;             // the want-th largest key
-  const int take_eq = T ? need : 0;      // keys == T to take, lowest first
-
-  // warp w owns positions [w * seg, (w + 1) * seg): counts, then slots
-  const int seg = ((n + SEL_WARPS - 1) / SEL_WARPS + 31) & ~31;
-  const int w_lo = warp * seg, w_hi = min(n, w_lo + seg);
-  int n_gt = 0, n_eq = 0;
-  for (int p0 = w_lo; p0 < w_hi; p0 += 32) {
-    const int p = p0 + lane;
-    const uint32_t key = p < w_hi ? keys[p] : 0u;
-    n_gt += __popc(__ballot_sync(FULL, p < w_hi && key > T));
-    n_eq += __popc(__ballot_sync(FULL, p < w_hi && key == T));
-  }
-  if (lane == 0) { warp_gt[warp] = n_gt; warp_eq[warp] = n_eq; }
-  __syncthreads();
-  int at_gt = 0, at_eq = 0, all_gt = 0;
-#pragma unroll
-  for (int w = 0; w < SEL_WARPS; ++w) {
-    at_gt += w < warp ? warp_gt[w] : 0;
-    at_eq += w < warp ? warp_eq[w] : 0;
-    all_gt += warp_gt[w];
-  }
-  const unsigned lt = (1u << lane) - 1u;
-  for (int p0 = w_lo; p0 < w_hi; p0 += 32) {
-    const int p = p0 + lane;
-    const uint32_t key = p < w_hi ? keys[p] : 0u;
-    const bool gt = p < w_hi && key > T, eq = p < w_hi && key == T;
-    const unsigned bg = __ballot_sync(FULL, gt), be = __ballot_sync(FULL, eq);
-    const unsigned long long pk =
-        ((unsigned long long)key << 32) | (uint32_t)~(begin + p);
-    if (gt) cand[at_gt + __popc(bg & lt)] = pk;
-    if (eq) {
-      const int r = at_eq + __popc(be & lt);
-      if (r < take_eq) cand[all_gt + r] = pk;
-    }
-    at_gt += __popc(bg);
-    at_eq += __popc(be);
-  }
-  __syncthreads();
+  int need;
+  const uint32_t T = deep::radix_select(keys, n, min(K, n), sh, need);
+  // keys == T to take, lowest position first
+  const int count = deep::collect(keys, n, T, T ? need : 0, begin, cand, sh);
 
   // a winner's slot is the number of winners ahead of it: (key, -position)
   // pairs are distinct, so the slots are a permutation of [0, count)
-  const int count = all_gt + take_eq;
   const size_t o = ((size_t)row * splits + split) * K;
   if (tid < count) {
     const unsigned long long mine = cand[tid];
@@ -287,3 +188,51 @@ extern "C" int stream_topk_launch(const void* gains, void* part_g, void* part_i,
           static_cast<float*>(out_g), static_cast<int*>(out_i), splits, K);
   return (int)cudaGetLastError();
 }
+
+// Deep lists: any K <= M (the shallow launch above stops at KMAX). Rows go in
+// slices of slice_rows. A row of one run (M <= run) is one select launch that
+// writes the outputs; a longer row is cut into runs of `run` positions whose
+// sorted lists merge in pairs (deep_topk.cuh), and the last list is written
+// out with the stored gains. ws_a / ws_b hold slice_rows x list_entries words
+// and dst slice_rows x K (ops/deep_topk.py); all three are unused (null) for
+// one run. Returns 0, or deep::fail's code of the step that failed.
+extern "C" int stream_topk_deep_launch(const void* gains, void* ws_a, void* ws_b,
+                                       void* dst, void* out_g, void* out_i, int B,
+                                       int M, int K, int run, int slice_rows,
+                                       void* stream) {
+  const int splits = (M + run - 1) / run;
+  if (B < 1 || M < 1 || K < 1 || K > M || run < 1 || run > deep::RUN_MAX ||
+      slice_rows < 1 ||
+      (splits > 1 && (ws_a == nullptr || ws_b == nullptr || dst == nullptr)))
+    return deep::fail(deep::STEP_ARGS, cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int kr = min(K, run);
+  for (int r0 = 0; r0 < B; r0 += slice_rows) {
+    const int rows = min(slice_rows, B - r0);
+    const float* g = static_cast<const float*>(gains) + (size_t)r0 * M;
+    float* og = static_cast<float*>(out_g) + (size_t)r0 * K;
+    int* oi = static_cast<int*>(out_i) + (size_t)r0 * K;
+    if (splits == 1) {
+      const int smem = deep::select_smem(M, K);
+      cudaError_t err = deep::select_attr<true, int>(smem);
+      if (err != cudaSuccess) return deep::fail(deep::STEP_SELECT_ATTR, err);
+      deep::select_sort_kernel<true, int><<<rows, deep::THREADS, smem, st>>>(
+          g, M, M, M, 1, K, 0, nullptr, 0, og, oi, nullptr, 0, 0);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return deep::fail(deep::STEP_SELECT, err);
+      continue;
+    }
+    auto* d = static_cast<deep::u64*>(dst);
+    int len = 0;
+    const int code = deep::reduce_rows(g, M, rows, M, run, kr, K, 0,
+                                       static_cast<deep::u64*>(ws_a),
+                                       static_cast<deep::u64*>(ws_b), d, K, &len,
+                                       nullptr, 0, 0, st);
+    if (code) return code;
+    const cudaError_t err =
+        deep::emit<int>(d, K, len, g, M, og, oi, K, rows, nullptr, 0, 0, st);
+    if (err != cudaSuccess) return deep::fail(deep::STEP_EMIT, err);
+  }
+  return 0;
+}
+

@@ -28,8 +28,18 @@ collect) and [512, 4,096] (k' = 128, the probed collect) beside
 ``torch.topk``, K6 at the three shapes of ``decoder_checks.attn_path_cases``
 beside SDPA for the bf16 cache; CUDA events (median of 50, which include
 the wrapper's host work) and the profiler's device time (50 calls). With
-``--parent DIR`` it runs the same timer from that tree and from this one in
-turns (parent, this, this, parent), each in a process of its own.
+``--parent DIR`` it runs the same timer, and the fused top-k timer of item
+3, from that tree and from this one in turns (parent, this, this, parent),
+each in a process of its own. Then, from
+this tree only (earlier trees refuse these depths), the deep lists that
+``--refine-mult 8`` asks for (k' = 256 at medrag's k = 32) beside the
+default depth k' = 128: K1 over the low-rank coarse slab (734,003 x 128
+bf16) and over hostrefine's flat coarse slab (2,936,320 x 128 int8, as
+``chip_smoke.py`` serves it), K2 at the probed collect beside
+``torch.topk``, K4 with 256 ranks a tile at the reduced world's probed scan
+under an open cap (64 queries x 64 clusters of 568 slots); each with its
+bound (``kernel_checks``: a deep launch's gains cross device memory twice,
+which its bound counts).
 
 ``--tiers`` measures the host-RAM capacity tiers instead: the synthetic
 medrag world at eight times that size (8,388,600 docs x 768, 64 topics per
@@ -113,6 +123,50 @@ for case in dc.attn_path_cases(dev):
                  kc.cuda_time_ms(lambda: dc.sdpa_note(case), reps=50)})
     del case
     torch.cuda.empty_cache()
+print(json.dumps(rows))
+"""
+
+
+# the deep lists of --refine-mult 8 beside the default depth, this tree only
+DEEP_TIMER = """
+import json, torch
+from ragroute_tpu_torch.ops import decoder_checks as dc, kernel_checks as kc
+from ragroute_tpu_torch.ops.fused_topk import fused_topk
+from ragroute_tpu_torch.ops.grouped_topk import grouped_pair_topk
+from ragroute_tpu_torch.ops.stream_topk import stream_topk
+dev, rows = torch.device("cuda"), []
+def row(name, f, wrapper, bound, reps, library=None):
+    r = {"name": name, "ms": kc.cuda_time_ms(f, reps=reps),
+         "device_ms": dc.device_ms(f, wrapper, reps=reps),
+         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+         "design_floor_ms": bound.get("design_floor_ms"),
+         "library_ms": None if library is None
+         else kc.cuda_time_ms(library, reps=reps)}
+    rows.append(r)
+    torch.cuda.empty_cache()
+n_flat = 2_936_320
+for label, case in (
+        ("k1 low-rank coarse 734003 x 128 bf16", kc.path_case(dev, d=128,
+                                                            k=128, seed=4)),
+        ("k1 flat coarse 2936320 x 128 int8", kc.int8_path_case(
+            dev, n=n_flat, d=128, k=128, pad_tail=n_flat - 2_936_012,
+            seed=7))):
+    for k in (128, 256):
+        case.k = k
+        row(f"{label} k'={k}", lambda: kc.run_kernel(case), fused_topk,
+            kc.k1_bound(case), reps=5)
+    del case
+gains = kc.stream_path_case(dev, m=4096, pad_share=0.1, seed=8)
+for k in (128, 256):
+    row(f"k2 probed collect [512, 4096] k'={k}",
+        lambda: stream_topk(gains, k), stream_topk, kc.k2_bound(gains, k),
+        reps=50, library=lambda: torch.topk(gains, k, dim=1))
+del gains
+case = kc.pair_path_case(dev, bsz=64, c=64, s=568, nprobe=64, kappa=256,
+                         seed=6)
+row("k4 reduced world nprobe == C = 64, S = 568, kappa 256 (ranks 256)",
+    lambda: kc.run_pair_kernel(case), grouped_pair_topk, kc.k4_bound(case),
+    reps=20)
 print(json.dumps(rows))
 """
 
@@ -206,11 +260,15 @@ def parent_vs_change(parent: str, card: str):
 
 def kernels_in_turns(parent: Optional[str], card: str):
     """K2 and K6 timed from this tree, or from ``parent`` and this tree in
-    turns (parent, this, this, parent)."""
+    turns (parent, this, this, parent), K1 at the serving shape too; then
+    the deep lists from this tree."""
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = []
+    if parent:
+        out += [dict(r, name="k1 B=512 N=734003 d=768 bf16 k=32")
+                for r in parent_vs_change(parent, card)]
     turns = ((("parent", parent), ("change", here), ("change", here),
               ("parent", parent)) if parent else (("change", here),))
-    out = []
     for label, tree in turns:
         proc = subprocess.run([sys.executable, "-c", K2K6_TIMER], cwd=tree,
                               capture_output=True, text=True, timeout=900)
@@ -222,6 +280,20 @@ def kernels_in_turns(parent: Optional[str], card: str):
             print(f"[kernels] {label}: {row['name']}: {row['ms']:.4f} ms "
                   f"(device {row['device_ms']:.4f}){lib} ({card})", flush=True)
             out.append(dict(row, tree=label))
+    proc = subprocess.run([sys.executable, "-c", DEEP_TIMER], cwd=here,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"deep list timer failed:\n{proc.stderr}")
+    for row in json.loads(proc.stdout.strip().splitlines()[-1]):
+        lib = ("" if row["library_ms"] is None
+               else f", library {row['library_ms']:.4f} ms")
+        floor = ("" if row["design_floor_ms"] is None
+                 else f", with the gains' round trip "
+                      f"{row['design_floor_ms']:.4f} ms")
+        print(f"[deep] {row['name']}: {row['ms']:.4f} ms (device "
+              f"{row['device_ms']:.4f}), bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}){floor}{lib} ({card})", flush=True)
+        out.append(dict(row, tree="change"))
     return out
 
 

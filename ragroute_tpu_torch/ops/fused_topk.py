@@ -18,6 +18,16 @@ ragged query and doc edges itself, and is handed ``valid_docs`` as its row
 count, so rows at or past it are never read and cannot win: the same
 result without copying the shard. As in the TPU kernel, a list entry whose
 gain is ``-inf`` carries index 0.
+
+Depth: the kernel keeps 64 query rows' lists in shared memory up to
+:data:`MAX_SHALLOW_K`; a deeper list, any ``k`` as the TPU kernel takes,
+runs the deep launch instead: the same product and epilogue write a chunk
+of docs' gains to a workspace in device memory, every run of 8,192 docs is
+cut to its best ``k`` and the lists merge (``csrc/deep_topk.cuh``). The
+workspace (gains, lists, running lists) stays under
+``deep_topk.WORKSPACE_CAP`` = 256 MiB: docs go in chunks and, where even one
+run's chunk for every query row would not fit, query rows in slices
+(:func:`ragroute_tpu_torch.ops.deep_topk.fused_plan`).
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ragroute_tpu_torch.ops import deep_topk
 from ragroute_tpu_torch.ops.topk import (NEG_INF, _prepare_queries, _validate,
                                          doc_bias, gain_to_natural,
                                          topk_stable, unpack_int4)
@@ -36,7 +47,7 @@ Tensor = torch.Tensor
 
 TILE_Q = 64          # query rows per block (csrc/fused_topk.cu TQ)
 TILE_D = 64          # docs per tile (TD)
-MAX_K = 160          # topk_merge.cuh KMAX
+MAX_SHALLOW_K = deep_topk.SHALLOW_MAX   # deepest list of the shallow launch
 MAX_SPLITS = 512
 BLOCKS_PER_SM = 4    # split target: enough blocks to fill every SM
 # deep lists (k > 64): every split fills its own k-deep lists by serial
@@ -109,6 +120,8 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.fused_topk_launch.argtypes = [vp] * 8 + [ci] * 8 + [vp]
         lib.fused_topk_launch.restype = ci
+        lib.fused_topk_deep_launch.argtypes = [vp] * 11 + [ci] * 8 + [vp]
+        lib.fused_topk_deep_launch.restype = ci
         lib._argtypes_set = True
     return lib
 
@@ -129,7 +142,8 @@ def _splits(bsz: int, n_rows: int, k: int,
 
 def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
             bias: Optional[Tensor], scale: Optional[Tensor],
-            packed4: bool = False) -> Tuple[Tensor, Tensor]:
+            packed4: bool = False,
+            workspace_cap: Optional[int] = None) -> Tuple[Tensor, Tensor]:
     bsz, d = q.shape
     dev = docs.device
     grouped = scale is not None and scale.dim() == 2
@@ -141,9 +155,8 @@ def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
                         "by the kernel (float32, bfloat16, int8)")
     if n_rows < 1:
         raise ValueError("fused_topk: the shard has no valid rows")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"fused_topk: kernel supports 1 <= k <= {MAX_K}, "
-                         f"got k={k}")
+    if k < 1:
+        raise ValueError(f"fused_topk: need k >= 1, got k={k}")
     if packed4 and docs.dtype != torch.int8:
         raise TypeError("fused_topk: packed4 docs must be int8 bytes")
     if grouped and not packed4:
@@ -168,6 +181,11 @@ def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
             raise ValueError(f"fused_topk: {name} must be a contiguous "
                              f"float32 tensor over the shard's rows")
     q = q.contiguous()
+    doc_type = ((_INT4_PER_GROUP if grouped else _INT4_PER_DOC) if packed4
+                else _DOC_TYPES[docs.dtype])
+    if k > MAX_SHALLOW_K:
+        return _launch_deep(q, docs, k, n_rows, bias, scale, n_groups,
+                            doc_type, workspace_cap)
     splits, per = _splits(bsz, n_rows, k, dev)
     part_g = torch.empty((bsz, splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((bsz, splits, k), dtype=torch.int32, device=dev)
@@ -180,11 +198,44 @@ def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
         None if scale is None else scale.data_ptr(),
         part_g.data_ptr(), part_i.data_ptr(), out_g.data_ptr(),
         out_i.data_ptr(), bsz, n_rows, d, k, n_groups, splits, per,
-        (_INT4_PER_GROUP if grouped else _INT4_PER_DOC) if packed4
-        else _DOC_TYPES[docs.dtype], stream)
+        doc_type, stream)
     if err != 0:
         raise RuntimeError(f"fused_topk kernel launch failed: CUDA error {err}")
     fused_topk.launches += 1
+    return out_g, out_i
+
+
+def _launch_deep(q: Tensor, docs: Tensor, k: int, n_rows: int,
+                 bias: Optional[Tensor], scale: Optional[Tensor],
+                 n_groups: int, doc_type: int,
+                 cap: Optional[int]) -> Tuple[Tensor, Tensor]:
+    """The deep launch (``k > MAX_SHALLOW_K``), operands checked by
+    :func:`_launch`."""
+    bsz, d = q.shape
+    dev = docs.device
+    p = deep_topk.fused_plan(bsz, n_rows, k, cap)
+
+    def words(n):
+        return torch.empty((p.rows, max(1, n)), dtype=torch.int64, device=dev)
+
+    ws_g = torch.empty((p.rows, p.chunk), dtype=torch.float32, device=dev)
+    ws_a, ws_b, run0, run1 = (words(p.entries), words(p.entries),
+                              words(2 * k), words(2 * k))
+    out_g = torch.empty((bsz, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((bsz, k), dtype=torch.int64, device=dev)
+    err = _lib().fused_topk_deep_launch(
+        q.data_ptr(), docs.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if scale is None else scale.data_ptr(), ws_g.data_ptr(),
+        ws_a.data_ptr(), ws_b.data_ptr(), run0.data_ptr(), run1.data_ptr(),
+        out_g.data_ptr(), out_i.data_ptr(), bsz, n_rows, d, k, n_groups,
+        doc_type, p.rows, p.chunk,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_topk deep launch failed: "
+                           f"{deep_topk.describe(err)}")
+    fused_topk.launches += 1
+    fused_topk.deep_launches += 1
     return out_g, out_i
 
 
@@ -192,18 +243,22 @@ def fused_topk(queries: Tensor, docs: Tensor, k: int, *, mode: str = "dot",
                valid_docs: Optional[int] = None,
                bias: Optional[Tensor] = None,
                scale: Optional[Tensor] = None,
-               packed4: bool = False) -> Tuple[Tensor, Tensor]:
+               packed4: bool = False,
+               workspace_cap: Optional[int] = None) -> Tuple[Tensor, Tensor]:
     """Exact top-k of ``score(q, d)`` over a shard, fused on the card.
 
     Args as :func:`ragroute_tpu.ops.pallas_topk.pallas_topk`: ``queries``
     ``[B, d]``; ``docs`` ``[N, d]`` (f32 / bf16 / int8, or int4-packed
     ``[N, d/2]`` with ``packed4``); ``bias`` the gain-form ``[N]`` bias;
     ``scale`` the per-doc ``[N]`` (or per-group ``[N, G]`` for int4)
-    dequantization factor; ``valid_docs`` the number of real rows.
+    dequantization factor; ``valid_docs`` the number of real rows;
+    ``workspace_cap`` the deep launch's workspace in bytes (default
+    ``deep_topk.WORKSPACE_CAP``).
 
     Returns ``(scores [B, k], indices [B, k])`` in natural score form, best
-    first. A CUDA tensor runs the kernel (k up to 160; deeper raises); a
-    CPU tensor runs :func:`fused_topk_reference`.
+    first. A CUDA tensor runs the kernel (the shallow launch up to
+    :data:`MAX_SHALLOW_K`, the deep launch past it); a CPU tensor runs
+    :func:`fused_topk_reference`.
     """
     bsz = queries.shape[0]
     n = docs.shape[0]
@@ -218,7 +273,8 @@ def fused_topk(queries: Tensor, docs: Tensor, k: int, *, mode: str = "dot",
             gains, idx = _launch(q, docs, k, min(valid, n), b,
                                  None if scale is None
                                  else scale.to(torch.float32),
-                                 packed4=packed4)
+                                 packed4=packed4,
+                                 workspace_cap=workspace_cap)
     else:
         gains, idx = fused_topk_reference(q, docs, k, valid_docs=valid,
                                           bias=b, scale=scale,
@@ -227,3 +283,4 @@ def fused_topk(queries: Tensor, docs: Tensor, k: int, *, mode: str = "dot",
 
 
 fused_topk.launches = 0   # kernel launches since the count was last reset
+fused_topk.deep_launches = 0   # of which deep launches (k > MAX_SHALLOW_K)

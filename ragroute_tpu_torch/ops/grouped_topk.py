@@ -47,7 +47,13 @@ unchanged downstream.
 
 On a CUDA tensor :func:`grouped_pair_topk` launches
 ``csrc/grouped_pair_topk.cu`` or raises; on a CPU tensor it runs the plain
-version.
+version. Up to :data:`MAX_SHALLOW_RANKS` winners a (row, tile) the kernel
+keeps each row's in its thread; past that, any ``ranks`` as the TPU kernel
+takes, the deep launch writes the scaled and biased gains of a chunk of pair
+blocks to device memory and selects and merges them there
+(``csrc/deep_topk.cuh``), in chunks that keep the workspace under
+``deep_topk.WORKSPACE_CAP``
+(:func:`ragroute_tpu_torch.ops.deep_topk.pair_plan`).
 """
 
 from __future__ import annotations
@@ -59,13 +65,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ragroute_tpu_torch.ops import deep_topk
 from ragroute_tpu_torch.ops.stream_topk import stream_topk
 from ragroute_tpu_torch.ops.topk import NEG_INF, topk_stable
 
 Tensor = torch.Tensor
 
 PAIR_ROWS = 256          # pair rows per block (csrc/grouped_pair_topk.cu TE)
-MAX_RANKS = 160          # winners per (row, tile) the kernel can keep
+MAX_SHALLOW_RANKS = deep_topk.SHALLOW_MAX   # deepest per-thread tile list
 RANK_ALIGN = 16          # depth multiple the kernel takes
 
 
@@ -141,6 +148,9 @@ def grouped_pair_topk_reference(q: Tensor, cc: ClusteredCoarse,
             gains = torch.nn.functional.pad(gains, (0, s_pad - s),
                                             value=NEG_INF)
         tiles = gains.reshape(-1, PAIR_ROWS, n_tiles, tds)
+        if ranks > tds:      # more winners a tile than slots: -inf offers
+            tiles = torch.nn.functional.pad(tiles, (0, ranks - tds),
+                                            value=NEG_INF)
         tg, ti = topk_stable(tiles, ranks)          # [g, 256, n_tiles, ranks]
         offers_g = tg.reshape(-1, PAIR_ROWS, kw)
         offers_i = (ti + base).reshape(-1, PAIR_ROWS, kw)
@@ -160,13 +170,17 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.grouped_pair_topk_launch.argtypes = [vp] * 9 + [ci] * 7 + [vp]
         lib.grouped_pair_topk_launch.restype = ci
+        lib.grouped_pair_topk_deep_launch.argtypes = ([vp] * 13 + [ci] * 8
+                                                      + [vp])
+        lib.grouped_pair_topk_deep_launch.restype = ci
         lib._argtypes_set = True
     return lib
 
 
 def grouped_pair_topk(q: Tensor, cc: ClusteredCoarse, blk_cluster: Tensor,
                       kappa: int, *, rows: Optional[Tensor] = None,
-                      n_real: Optional[Tensor] = None
+                      n_real: Optional[Tensor] = None,
+                      workspace_cap: Optional[int] = None
                       ) -> Tuple[Tensor, Tensor]:
     """Per-pair-row rank-capped winners over each row's cluster slab.
 
@@ -177,6 +191,8 @@ def grouped_pair_topk(q: Tensor, cc: ClusteredCoarse, blk_cluster: Tensor,
     ``G = Ep / PAIR_ROWS``. ``n_real`` (a device i32): the number of real
     blocks; blocks at or past it return at once and their output rows are
     left unwritten (nothing collects them). No host read.
+    ``workspace_cap``: the deep launch's workspace in bytes (default
+    ``deep_topk.WORKSPACE_CAP``).
 
     Returns ``(gains [Ep, kw] f32, slots [Ep, kw] i32)``, best first, slots
     within the row's cluster."""
@@ -195,11 +211,10 @@ def grouped_pair_topk(q: Tensor, cc: ClusteredCoarse, blk_cluster: Tensor,
     if cc.docs.dtype != torch.int8 or q.dtype != torch.bfloat16:
         raise TypeError(f"grouped_pair_topk: the kernel takes bf16 rows and "
                         f"int8 slabs, got {q.dtype} and {cc.docs.dtype}")
-    if r % RANK_ALIGN or s % 8 or ranks > MAX_RANKS:
+    if r % RANK_ALIGN or s % 8:
         raise ValueError(
-            f"grouped_pair_topk: kernel needs r % {RANK_ALIGN} == 0, "
-            f"S % 8 == 0 and at most {MAX_RANKS} winners per tile; got "
-            f"r={r}, S={s}, ranks={ranks}")
+            f"grouped_pair_topk: kernel needs r % {RANK_ALIGN} == 0 and "
+            f"S % 8 == 0; got r={r}, S={s}")
     for name, t, shape in (("blk_cluster", blk_cluster, (g,)),
                            ("rows", rows, (ep,)), ("n_real", n_real, None)):
         if t is not None and (t.dtype != torch.int32 or t.device != dev
@@ -220,21 +235,36 @@ def grouped_pair_topk(q: Tensor, cc: ClusteredCoarse, blk_cluster: Tensor,
     q = q.contiguous()
     out_g = torch.empty((ep, kw), dtype=torch.float32, device=dev)
     out_i = torch.empty((ep, kw), dtype=torch.int32, device=dev)
-    err = _lib().grouped_pair_topk_launch(
-        q.data_ptr(), cc.docs.data_ptr(), cc.bias.data_ptr(),
-        cc.scale.data_ptr(), blk_cluster.data_ptr(),
-        None if rows is None else rows.data_ptr(),
-        None if n_real is None else n_real.data_ptr(),
-        out_g.data_ptr(), out_i.data_ptr(), g, c, r, s, tds, ranks, kw,
-        torch.cuda.current_stream(dev).cuda_stream)
+    ptrs = (q.data_ptr(), cc.docs.data_ptr(), cc.bias.data_ptr(),
+            cc.scale.data_ptr(), blk_cluster.data_ptr(),
+            None if rows is None else rows.data_ptr(),
+            None if n_real is None else n_real.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if ranks > MAX_SHALLOW_RANKS:
+        p = deep_topk.pair_plan(g, s, tds, ranks, kw, cap=workspace_cap)
+        rows_c = p.blocks * PAIR_ROWS
+        ws_g = torch.empty((rows_c, s), dtype=torch.float32, device=dev)
+        ws = [torch.empty((rows_c, max(1, n)), dtype=torch.int64, device=dev)
+              for n in (p.entries, p.entries, kw)]
+        err = _lib().grouped_pair_topk_deep_launch(
+            *ptrs, ws_g.data_ptr(), *(w.data_ptr() for w in ws),
+            out_g.data_ptr(), out_i.data_ptr(), g, c, r, s, tds, ranks, kw,
+            p.blocks, stream)
+    else:
+        err = _lib().grouped_pair_topk_launch(
+            *ptrs, out_g.data_ptr(), out_i.data_ptr(), g, c, r, s, tds,
+            ranks, kw, stream)
     if err != 0:
-        raise RuntimeError(f"grouped_pair_topk kernel launch failed: CUDA "
-                           f"error {err}")
+        what = (deep_topk.describe(err) if ranks > MAX_SHALLOW_RANKS
+                else f"CUDA error {err}")
+        raise RuntimeError(f"grouped_pair_topk kernel launch failed: {what}")
     grouped_pair_topk.launches += 1
+    grouped_pair_topk.deep_launches += ranks > MAX_SHALLOW_RANKS
     return out_g, out_i
 
 
 grouped_pair_topk.launches = 0   # kernel launches since the last reset
+grouped_pair_topk.deep_launches = 0   # of which deep (ranks > 160)
 
 
 def probe_dispatch(probe: Tensor, n_clusters: int):

@@ -13,6 +13,10 @@ Fused top-k (:func:`fused_topk` against :func:`fused_topk_reference`):
   order: indices and scores must be equal. Duplicate doc rows put ties
   across tile, split and k boundaries. f32 / bf16 / int8 / int4 with
   per-doc and per-group scales, k from 10 to 160.
+* :func:`deep_exact_cases`: the same kind of data past the shallow depth
+  (k 161 to 1,100 over 20,000 docs, three select runs), through the deep
+  launch, with chunks of docs and slices of query rows forced by a small
+  workspace cap (``Case.cap``).
 * :func:`compare_tolerant`: the path's shapes (bf16 operands, different
   summation order): scores within ``1e-3 * max|score|``, winner-set recall,
   and every disagreement a near-tie at the k boundary.
@@ -20,7 +24,8 @@ Fused top-k (:func:`fused_topk` against :func:`fused_topk_reference`):
 Streaming top-k (:func:`stream_topk` against :func:`stream_topk_reference`):
 :func:`stream_exact_cases` (ties across group, split and k boundaries,
 ``-inf`` entries and rows, rows shorter than 2k or off the 16-byte grid,
-sorted runs, long rows cut into splits), :func:`stream_runs_case` (the
+sorted runs, long rows cut into splits, deep lists from 161 to ``k = M``
+over one run and over runs merged), :func:`stream_runs_case` (the
 probed collect's sorted runs) and :func:`stream_path_case`; the kernel does no
 arithmetic, so both must come out equal.
 
@@ -33,9 +38,10 @@ Grouped pair top-k (:func:`grouped_pair_topk` against
 :func:`grouped_pair_topk_reference`): :func:`pair_exact_cases` (integer
 data: one tile and two, ``S`` off the 128 grid, an empty cluster, a block of
 padding rows, equal gains across a tile boundary, an l2-style bias,
-``ranks`` 1 to 64) come out equal in gains, and in slots where the gain is
-finite; :func:`pair_path_case` is held within ``1e-4`` relative, with at
-most a millionth of its clearly ordered slots differing (near-ties at a
+``ranks`` 1 to 64, and deep ranks 200 and 256 through the deep launch,
+one of them in chunks of two blocks) come out equal in gains, and in slots
+where the gain is finite; :func:`pair_path_case` is held within ``1e-4``
+relative, with at most a millionth of its clearly ordered slots differing (near-ties at a
 tile's rank cut), each differing slot carrying the gain written for it.
 
 :func:`k1_bound` to :func:`k4_bound` give the least time an H100 SXM could
@@ -52,6 +58,7 @@ import numpy as np
 import torch
 
 from ragroute_tpu_torch.index.shard import _pack_int4
+from ragroute_tpu_torch.ops import deep_topk
 from ragroute_tpu_torch.ops.fused_topk import (TILE_D, fused_topk,
                                                fused_topk_reference,
                                                gain_form)
@@ -84,6 +91,10 @@ class Case:
     scale: Optional[Tensor] = None
     valid_docs: Optional[int] = None
     packed4: bool = False
+    cap: Optional[int] = None       # deep launches: workspace cap to run at
+
+
+DEEP_KS = (161, 256, 600, 1100)
 
 
 def exact_cases(device, *, bsz: int = 37, n: int = 3 * TILE_D + 17,
@@ -138,11 +149,54 @@ def exact_cases(device, *, bsz: int = 37, n: int = 3 * TILE_D + 17,
                128, "l2", bias=l2_bias, packed4=True)
 
 
+def deep_exact_cases(device, *, bsz: int = 37, n: int = 20_000, d: int = 64,
+                     seed: int = 3) -> Iterator[Case]:
+    """Exact-arithmetic cases of the deep launch (k past 160): integer data
+    in [-4, 4] over 20,000 docs (three select runs of 8,192), duplicate
+    rows either side of the run boundaries, so that ties cross runs, merges
+    and the k boundary. bf16 dot at k 161, 256, 600, 1,100; f32, int8 with
+    power-of-two scales (l2), int4 with per-group scales; 1,100 past 1,000
+    valid rows; a -inf bias tail; chunks of one run and slices of 10 query
+    rows forced by a small workspace cap."""
+    rng = np.random.default_rng(seed)
+    docs = rng.integers(-4, 5, (n, d)).astype(np.float32)
+    for src, dsts in ((5, (8190, 8191, 8192, 8193, 16383, 16384, 19999)),
+                      (9, (100, 8000, 8200, 12000, 16390))):
+        docs[list(dsts)] = docs[src]
+    q = torch.from_numpy(rng.integers(-4, 5, (bsz, d)).astype(np.float32)
+                         ).to(device)
+    scale = torch.from_numpy((2.0 ** rng.integers(-3, 2, n)).astype(
+        np.float32)).to(device)
+    bf16 = torch.from_numpy(docs).to(device).to(torch.bfloat16)
+    for k in DEEP_KS:
+        yield Case(f"deep-bf16-dot-k{k}", q, bf16, k, "dot")
+    yield Case("deep-f32-dot-k256", q, torch.from_numpy(docs).to(device),
+               256, "dot")
+    yield Case("deep-int8-scale-l2-k300", q,
+               torch.from_numpy(docs).to(device).to(torch.int8), 300, "l2",
+               scale=scale)
+    gscale = torch.from_numpy((2.0 ** rng.integers(-3, 2, (n, d // 16)))
+                              .astype(np.float32)).to(device)
+    packed = torch.from_numpy(_pack_int4(docs.astype(np.int8))).to(device)
+    yield Case("deep-int4-group-dot-k600", q, packed, 600, "dot",
+               scale=gscale, packed4=True)
+    yield Case("deep-bf16-dot-k1100-valid1000", q, bf16, 1100, "dot",
+               valid_docs=1000)
+    tail = torch.zeros(n, dtype=torch.float32, device=device)
+    tail[n - 5000:] = NEG_INF
+    yield Case("deep-bf16-dot-k256-inf-tail", q, bf16, 256, "dot", bias=tail)
+    # chunks of one run, a running merge each, and slices of 10 rows
+    per_row = 4 * deep_topk.RUN + deep_topk.WORD * 4 * 600
+    yield Case("deep-bf16-dot-k600-chunks-slices", q, bf16, 600, "dot",
+               cap=10 * per_row)
+
+
 def run_kernel(case: Case) -> Tuple[Tensor, Tensor]:
     """The wrapper on CUDA tensors: launches the kernel."""
     return fused_topk(case.queries, case.docs, case.k, mode=case.mode,
                       valid_docs=case.valid_docs, bias=case.bias,
-                      scale=case.scale, packed4=case.packed4)
+                      scale=case.scale, packed4=case.packed4,
+                      workspace_cap=case.cap)
 
 
 def run_plain(case: Case, q_chunk: Optional[int] = None
@@ -260,7 +314,10 @@ def int8_path_case(device, *, n: int, d: int, k: int, bsz: int = 512,
 def k1_bound(case: Case) -> Dict[str, float]:
     """Least time for one fused top-k call: every operand read once and the
     lists written once at the HBM rate, against ``2 * B * N * d``
-    operations at the peak rate of the product's operand type."""
+    operations at the peak rate of the product's operand type. A deep
+    launch (k past 160) also writes its f32 gains out and reads them back,
+    ``8 * B * N`` bytes the function itself does not need: they stay out of
+    ``bound_ms`` and go to ``workspace_bytes`` and ``design_floor_ms``."""
     bsz, d = case.queries.shape
     n = case.valid_docs or case.docs.shape[0]
     q_bytes = 4 if case.docs.dtype == torch.float32 else 2
@@ -269,15 +326,25 @@ def k1_bound(case: Case) -> Dict[str, float]:
               + sum(t[:n].numel() * 4 for t in (case.bias, case.scale)
                     if t is not None)
               + bsz * case.k * 12)
-    return _bound(nbytes, 2.0 * bsz * n * d, PEAK_FLOPS[case.docs.dtype])
+    return _bound(nbytes, 2.0 * bsz * n * d, PEAK_FLOPS[case.docs.dtype],
+                  8 * bsz * n if case.k > deep_topk.SHALLOW_MAX else 0)
 
 
-def _bound(nbytes: float, flops: float, peak: float) -> Dict[str, float]:
+def _bound(nbytes: float, flops: float, peak: float,
+           workspace: float = 0) -> Dict[str, float]:
+    """``bound_ms`` from the function's own bytes and operations; with a
+    ``workspace`` (bytes a design moves through device memory on top of
+    them), ``design_floor_ms`` is the same bound with those bytes added."""
     by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     by_ops = 1e3 * flops / peak
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bytes": float(nbytes), "flops": float(flops)}
+    out = {"bound_ms": max(by_bytes, by_ops),
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+           "bytes": float(nbytes), "flops": float(flops)}
+    if workspace:
+        out["workspace_bytes"] = float(workspace)
+        out["design_floor_ms"] = max(
+            1e3 * (nbytes + workspace) / HBM_BYTES_PER_S, by_ops)
+    return out
 
 
 # ---- streaming top-k over stored gains --------------------------------------
@@ -296,7 +363,7 @@ def stream_exact_cases(device, *, bsz: int = 37, m: int = 5000,
     g[6, [7, 1300, 4999]] = [1.0, 1.0, 2.0]
     g[7, :] = 0.0                      # all tied: positions 0..k-1 win
     gains = torch.from_numpy(g).to(device)
-    for k in (1, 10, 32, 128, 160):
+    for k in (1, 10, 32, 128, 160) + DEEP_KS + (m,):
         yield f"stream-int-k{k}", gains, k
     yield "stream-one-row", gains[:1, :1031].contiguous(), 32
     # fewer positions than 2k, and rows off the 16-byte grid (M % 4 != 0)
@@ -311,6 +378,9 @@ def stream_exact_cases(device, *, bsz: int = 37, m: int = 5000,
         np.tile(g, (1, 5))[:9, :20_003])).to(device)
     yield "stream-split-select-k160", wide, 160
     yield "stream-split-warp-k32", wide, 32
+    # deep lists over three runs merged, to k = M
+    for k in (161, 1100, wide.shape[1]):
+        yield f"stream-split-deep-k{k}", wide, k
 
 
 def stream_runs_case(device, *, bsz: int = 512, runs: int = 512, kw: int = 8,
@@ -496,6 +566,7 @@ class PairCase:
     rows: Optional[Tensor] = None
     n_real: Optional[Tensor] = None
     n_pairs: Optional[int] = None   # (query, probe) pairs among the rows
+    cap: Optional[int] = None       # deep ranks: workspace cap to run at
 
     @property
     def real_rows(self) -> int:
@@ -507,7 +578,8 @@ class PairCase:
 
 def run_pair_kernel(case: PairCase) -> Tuple[Tensor, Tensor]:
     return grouped_pair_topk(case.q, case.cc, case.blk_cluster, case.kappa,
-                             rows=case.rows, n_real=case.n_real)
+                             rows=case.rows, n_real=case.n_real,
+                             workspace_cap=case.cap)
 
 
 def run_pair_plain(case: PairCase, n_blocks: Optional[int] = None
@@ -543,9 +615,10 @@ def pair_exact_cases(device, *, c: int = 4, r: int = 32, bsz: int = 19,
     the slots either side of the 1,024 boundary carry the same codes;
     the bias is an l2-style negative integer; the last block's rows all
     name query 0 (padding); ``kappa`` from 1 to 128 (``ranks`` 1 to 64: up
-    to 16 the kernel's lists live in registers, deeper ones in local memory);
-    pair rows given directly, by the row table, and with a real-block
-    count below the grid's."""
+    to 16 the kernel's lists live in registers, deeper ones in local memory)
+    and the deep ranks 200 (more than a 128-slot tile holds, and over three
+    tiles) and 256 (also in chunks of two blocks); pair rows given directly,
+    by the row table, and with a real-block count below the grid's."""
     rng = np.random.default_rng(seed)
     blk = np.array([3, 0, 2, 1, 0, 3], np.int32)
     g = blk.shape[0]
@@ -556,8 +629,8 @@ def pair_exact_cases(device, *, c: int = 4, r: int = 32, bsz: int = 19,
     rows_np[-PAIR_ROWS:] = 0
     rows = torch.from_numpy(rows_np).to(device)
     blk_t = torch.from_numpy(blk).to(device)
-    for s, kappas in ((72, (1, 8, 40)), (1024, (3, 16)),
-                      (1096, (1, 2, 8, 11, 128)), (2056, (8, 48))):
+    for s, kappas in ((72, (1, 8, 40, 200)), (1024, (3, 16)),
+                      (1096, (1, 2, 8, 11, 128, 512)), (2056, (8, 48, 600))):
         docs = rng.integers(-4, 5, (c, r, s)).astype(np.int8)
         if s > 1030:
             docs[:, :, 1024:1030] = docs[:, :, 1018:1024]
@@ -576,6 +649,14 @@ def pair_exact_cases(device, *, c: int = 4, r: int = 32, bsz: int = 19,
             yield PairCase(f"pair-S{s}-kappa{kappa}-rows-nreal", q, rows=rows,
                            n_real=torch.tensor([g - 2], dtype=torch.int32,
                                                device=device), **common)
+            if kappa == 512:      # deep ranks in chunks of two blocks
+                tds, _, ranks, kw = tiling(s, kappa)
+                plan = deep_topk.pair_plan(g, s, tds, ranks, kw)
+                yield PairCase(
+                    f"pair-S{s}-kappa{kappa}-rows-nreal-chunks", q, rows=rows,
+                    n_real=torch.tensor([g - 1], dtype=torch.int32,
+                                        device=device),
+                    cap=2 * plan.workspace_bytes // plan.blocks, **common)
 
 
 def pair_gains_of(case: PairCase, rows_e: Tensor, slots: Tensor) -> Tensor:
@@ -666,16 +747,21 @@ def k4_bound(case: PairCase) -> Dict[str, float]:
     rate (the int8 codes are multiplied as bf16) over the (query, probe)
     pairs the function needs. The rows that pad each cluster's pairs to
     whole blocks name query 0 and nothing collects them: their operations
-    are reported as ``padded_flops`` and do not enter the bound."""
+    are reported as ``padded_flops`` and do not enter the bound. Deep ranks
+    (past 160) also write the real rows' f32 gains out and read them back:
+    that round trip stays out of ``bound_ms`` and goes to
+    ``workspace_bytes`` and ``design_floor_ms``."""
     real = case.real_rows
     blocks = real // PAIR_ROWS
     _, r, s = case.cc.docs.shape
     kw = tiling(s, case.kappa)[3]
     clusters = int(torch.unique(case.blk_cluster[:blocks]).numel())
     q_rows = case.q.shape[0] if case.rows is not None else real
+    ranks = tiling(s, case.kappa)[2]
     nbytes = (q_rows * r * 2 + clusters * (r * s + 8 * s) + blocks * 4
               + (real * 4 if case.rows is not None else 0) + real * kw * 8)
     pairs = real if case.n_pairs is None else case.n_pairs
-    out = _bound(nbytes, 2.0 * pairs * r * s, PEAK_FLOPS[torch.int8])
+    out = _bound(nbytes, 2.0 * pairs * r * s, PEAK_FLOPS[torch.int8],
+                 8 * real * s if ranks > deep_topk.SHALLOW_MAX else 0)
     out["padded_flops"] = 2.0 * real * r * s
     return out

@@ -70,8 +70,6 @@ def test_kernel_counts_launches_and_raises_on_what_it_does_not_take(cuda):
     fused_topk(q, docs, 8)
     assert fused_topk.launches == before + 1
     with pytest.raises(ValueError):
-        fused_topk(q, docs, 161)                        # k > 160
-    with pytest.raises(ValueError):
         fused_topk(torch.randn(4, 40, device=cuda),
                    torch.randn(300, 40, device=cuda), 8)  # d % 16
     packed = torch.zeros(300, 32, dtype=torch.int8, device=cuda)
@@ -84,8 +82,30 @@ def test_kernel_counts_launches_and_raises_on_what_it_does_not_take(cuda):
         fused_topk(q, docs.half(), 8)                   # fp16 docs
     assert fused_topk.launches == before + 1
     fused_topk(q, packed, 8, packed4=True)              # int4 launches
-    fused_topk(q, docs, 160)                            # the deepest list
-    assert fused_topk.launches == before + 3
+    fused_topk(q, docs, 160)          # the shallow launch's deepest list
+    deep = fused_topk.deep_launches
+    fused_topk(q, docs, 161)          # past it, the deep launch
+    fused_topk(q, packed, 300, packed4=True)
+    assert fused_topk.launches == before + 5
+    assert fused_topk.deep_launches == deep + 2
+
+
+def test_kernel_deep_exact_cases_equal_plain(cuda):
+    """k 161 to 1,100 over 20,000 integer docs (three select runs, ties
+    across runs, merges and the k boundary; f32 / bf16 / int8 / int4; k past
+    the valid rows; a -inf tail; chunks and row slices forced by a small
+    workspace cap): the deep launch's indices and scores equal the plain
+    version's, one launch a call."""
+    failed = []
+    before, n = fused_topk.deep_launches, 0
+    for case in kc.deep_exact_cases(cuda):
+        (ks, ki), (ps, pi) = kc.run_pair(case)
+        torch.cuda.synchronize()
+        if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+            failed.append(case.name)
+        n += 1
+    assert not failed, failed
+    assert fused_topk.deep_launches == before + n
 
 
 @pytest.mark.parametrize("grouped", [False, True])
@@ -141,9 +161,15 @@ def test_stream_kernel_equals_plain(cuda):
     assert stream_topk.launches == before + 1
     pg, pi = stream_topk_reference(gains, 32)
     assert torch.equal(ki, pi) and torch.equal(kg, pg)
+    # past the shallow depth: the deep launch (runs merged), to k = M
+    for k in (161, 1100, gains.shape[1]):
+        kg, ki = stream_topk(gains, k)
+        pg, pi = stream_topk_reference(gains, k)
+        assert torch.equal(ki, pi) and torch.equal(kg, pg), k
+    assert stream_topk.launches == before + 4
     with pytest.raises(ValueError):
-        stream_topk(gains, 161)
-    assert stream_topk.launches == before + 1
+        stream_topk(gains, gains.shape[1] + 1)          # k > M
+    assert stream_topk.launches == before + 4
 
 
 def test_stream_kernel_probed_collect_equals_plain(cuda):
@@ -206,8 +232,6 @@ def test_approximate_engine_on_the_card_matches_the_cpu_engine(cuda, impl,
     """The approximate modes on the card (kernels) against the same engine
     on the CPU (plain versions) over one layout carried across: same
     masks, scores within 1e-3 * max|score|, winners equal up to near-ties."""
-    import numpy as np
-
     from ragroute_tpu_torch.engine import FederatedSearchEngine
     from ragroute_tpu_torch.index import ShardSet, make_synthetic_world
     from ragroute_tpu_torch.router import CorpusRouter, RouterBank
@@ -217,20 +241,9 @@ def test_approximate_engine_on_the_card_matches_the_cpu_engine(cuda, impl,
                                subclusters=16)
     host = ShardSet.build(syn.world, syn.embeddings, dtype=dtype, **build)
 
-    def to(ss, dev):        # the same layouts on another device
-        import dataclasses
-
-        moved = [dataclasses.replace(
-            s, docs=s.docs.to(dev), bias=s.bias.to(dev),
-            scale=None if s.scale is None else s.scale.to(dev),
-            center=None if s.center is None else s.center.to(dev),
-            ivf=None if s.ivf is None else s.ivf.to(dev),
-            lr=None if s.lr is None else s.lr.to(dev)) for s in ss.shards]
-        return dataclasses.replace(ss, shards=moved)
-
     def engine(dev):
         return FederatedSearchEngine(
-            to(host, dev), CorpusRouter.from_seed(
+            _on(host, dev), CorpusRouter.from_seed(
                 syn.world.router_input_dim, 0, dev),
             RouterBank.create(syn.world, syn.centroids, device=dev),
             impl=impl)
@@ -238,6 +251,27 @@ def test_approximate_engine_on_the_card_matches_the_cpu_engine(cuda, impl,
     embs = dict(syn.query_embs)
     gpu = engine(cuda).search(embs, strategy="all", fetch_candidates=False)
     cpu = engine("cpu").search(embs, strategy="all", fetch_candidates=False)
+    _close_engines(gpu, cpu, 48)
+
+
+def _on(ss, dev):
+    """The same shard set and layouts on another device."""
+    import dataclasses
+
+    moved = [dataclasses.replace(
+        s, docs=s.docs.to(dev), bias=s.bias.to(dev),
+        scale=None if s.scale is None else s.scale.to(dev),
+        center=None if s.center is None else s.center.to(dev),
+        ivf=None if s.ivf is None else s.ivf.to(dev),
+        lr=None if s.lr is None else s.lr.to(dev)) for s in ss.shards]
+    return dataclasses.replace(ss, shards=moved)
+
+
+def _close_engines(gpu, cpu, n_queries):
+    """Same valid counts, scores within 1e-3 * max|score|, 99% of the
+    winners shared (bf16 near-ties may swap)."""
+    import numpy as np
+
     np.testing.assert_array_equal(gpu.merged_valid, cpu.merged_valid)
     valid = cpu.merged_shard >= 0
     tol = 1e-3 * float(np.abs(cpu.merged_score[valid]).max())
@@ -245,7 +279,7 @@ def test_approximate_engine_on_the_card_matches_the_cpu_engine(cuda, impl,
                                cpu.merged_score[valid], rtol=0, atol=tol)
     hits = sum(len(set(zip(gpu.merged_shard[r], gpu.merged_local[r]))
                    & set(zip(cpu.merged_shard[r], cpu.merged_local[r])))
-               for r in range(48))
+               for r in range(n_queries))
     assert hits >= 0.99 * valid.sum()
 
 
@@ -327,12 +361,72 @@ def test_pair_topk_matches_plain_within_tolerance_and_raises(cuda):
     with pytest.raises(TypeError):                       # f32 rows
         grouped_pair_topk(case.q.float(), case.cc, case.blk_cluster, 8,
                           rows=case.rows)
-    with pytest.raises(ValueError):                      # ranks > 160
-        grouped_pair_topk(case.q, case.cc, case.blk_cluster, 400,
-                          rows=case.rows)
+    # ranks 200 a tile (past the shallow 160): the deep launch
+    case.kappa = 400
+    deep = grouped_pair_topk.deep_launches
+    out = kc.run_pair_kernel(case)
+    assert grouped_pair_topk.deep_launches == deep + 1
+    res = kc.compare_pair((out[0][:real], out[1][:real]),
+                          kc.run_pair_plain(case, real // kc.PAIR_ROWS),
+                          rel=1e-4, case=case)
+    assert res["ok"], res
     with pytest.raises(ValueError):                      # int64 row table
         grouped_pair_topk(case.q, case.cc, case.blk_cluster, 8,
                           rows=case.rows.long())
+
+
+def test_pair_topk_deep_ranks_match_plain_at_the_reduced_world(cuda):
+    """256 ranks a tile: the probed scan under an open cap (kappa = k' =
+    256) over the reduced world's 64 clusters of 568 slots, every query
+    probing every cluster; gains within 1e-4 relative, every slot that
+    differs from the plain version's carries the gain written for it."""
+    from ragroute_tpu_torch.ops.grouped_topk import grouped_pair_topk
+
+    case = kc.pair_path_case(cuda, bsz=64, c=64, s=568, nprobe=64,
+                             kappa=256, seed=6)
+    assert kc.tiling(568, 256)[2] == 256
+    deep = grouped_pair_topk.deep_launches
+    out = kc.run_pair_kernel(case)
+    assert grouped_pair_topk.deep_launches == deep + 1
+    real = case.real_rows
+    res = kc.compare_pair((out[0][:real], out[1][:real]),
+                          kc.run_pair_plain(case, real // kc.PAIR_ROWS),
+                          rel=1e-4, case=case)
+    assert res["ok"], res
+
+
+def test_lowrank_refine_mult_8_on_the_card_matches_the_cpu_engine(cuda):
+    """``--impl lowrank --refine-mult 8`` (k' = 256 at medrag's k = 32) on
+    a reduced world: the engine on the card, whose coarse scans take the
+    fused kernel's deep launch, against the same engine on the CPU (plain
+    versions) over one layout carried across: same masks, scores within
+    1e-3 * max|score|, winners equal up to near-ties."""
+    from ragroute_tpu_torch.engine import FederatedSearchEngine
+    from ragroute_tpu_torch.index import ShardSet, make_synthetic_world
+    from ragroute_tpu_torch.main import parse_args
+    from ragroute_tpu_torch.router import CorpusRouter, RouterBank
+    from ragroute_tpu_torch.system import ServingSystem
+
+    k_refine = ServingSystem(parse_args([
+        "--dataset", "medrag", "--routing", "ragroute", "--disable-llm",
+        "--impl", "lowrank", "--refine-mult", "8"])).k_refine
+    assert k_refine == 256
+    syn = make_synthetic_world("medrag", docs_per_source=6000,
+                               num_queries=48, seed=4, with_payloads=False)
+    host = ShardSet.build(syn.world, syn.embeddings, dtype=torch.bfloat16,
+                          lowrank=-1)
+    embs = dict(syn.query_embs)
+    outs = []
+    deep = fused_topk.deep_launches
+    for dev in (cuda, "cpu"):
+        eng = FederatedSearchEngine(
+            _on(host, dev), CorpusRouter.from_seed(
+                syn.world.router_input_dim, 0, dev),
+            RouterBank.create(syn.world, syn.centroids, device=dev),
+            impl="lowrank", k_refine=k_refine)
+        outs.append(eng.search(embs, strategy="all", fetch_candidates=False))
+    assert fused_topk.deep_launches >= deep + 4     # one a source
+    _close_engines(*outs, 48)
 
 
 @pytest.mark.parametrize("tier,kw", [

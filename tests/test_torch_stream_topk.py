@@ -17,7 +17,7 @@ from threadpoolctl import threadpool_limits
 import jax.numpy as jnp
 
 from ragroute_tpu.ops.pallas_topk import pallas_stream_topk
-from ragroute_tpu_torch.ops.stream_topk import (MAX_K, stream_topk,
+from ragroute_tpu_torch.ops.stream_topk import (MAX_SHALLOW_K, stream_topk,
                                                 stream_topk_reference)
 
 NEG_INF = float("-inf")
@@ -78,7 +78,7 @@ def test_wrapper_is_the_plain_version_on_cpu_and_checks_its_arguments():
     b = stream_topk_reference(g, 10)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert stream_topk.launches == 0        # no kernel ran on the CPU
-    assert MAX_K == 160
+    assert MAX_SHALLOW_K == 160
     with pytest.raises(ValueError):
         stream_topk(g, 301)                 # k > M
     with pytest.raises(ValueError):
