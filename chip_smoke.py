@@ -127,7 +127,8 @@ Phases, each of which fails the run when it fails:
    ``--llm-serving continuous --llm-prefix-cache --llm-spec-window 4``
    (``--llm-max-new 32``): every answer 200, K5 launched, tokens a second
    printed. One decode step at B=16 over a 2,080-position cache is timed
-   and profiled against its bound. The 36-layer bf16 prefill logits through
+   and profiled against its bound, and so is one prefill of the lockstep
+   batch (16 prompts of 2,048 tokens). The 36-layer bf16 prefill logits through
    K5 stay within 0.05 x max|logit| of the plain version's, and two layers
    of Qwen3-8B at f32 give the plain path's greedy tokens for 16 steps
    (near-ties of the plain path's top two logits counted).
@@ -175,7 +176,7 @@ from ragroute_tpu_torch.ops.decode_attention import decode_attention
 from ragroute_tpu_torch.ops.fused_topk import fused_topk
 from ragroute_tpu_torch.ops.grouped_gains import grouped_gains
 from ragroute_tpu_torch.ops.grouped_topk import grouped_pair_topk
-from ragroute_tpu_torch.ops.int4_matmul import int4_matmul
+from ragroute_tpu_torch.ops.int4_matmul import M_SWITCH, int4_matmul
 from ragroute_tpu_torch.ops.stream_topk import stream_topk
 from ragroute_tpu_torch.utils.precision import resolve_device
 
@@ -333,7 +334,12 @@ def phase_environment() -> str:
 # ---- phase 2: kernels against their plain versions ---------------------------
 
 def _check_fused_path(case, label: str, reps: int = 10,
-                      q_chunk=None, device: bool = False) -> dict:
+                      q_chunk=None, device: bool = False,
+                      old: str = None) -> dict:
+    """Kernel against plain version at a path shape, with CUDA-event times,
+    the bound, and with ``old`` (a launch the wrapper's plan took before
+    the wgmma scan, named to ``kernel_checks.run_kernel``) that launch's
+    time as ``old_ms``."""
     kernel, plain = kc.run_pair(case, q_chunk)
     res = kc.compare_tolerant(kernel, plain)
     log(f"[kernel] fused_topk {label}: recall {res['recall']:.6f} "
@@ -355,6 +361,11 @@ def _check_fused_path(case, label: str, reps: int = 10,
         row["device_ms"] = dc.device_ms(lambda: kc.run_kernel(case),
                                         fused_topk, warmup=1, reps=3)
         note = f" (device {row['device_ms']:.3f})"
+    if old:
+        row["old_ms"] = kc.cuda_time_ms(lambda: kc.run_kernel(case, old),
+                                        reps=reps)
+        row["old_kernel"] = old
+        note += f" (the {old} launch before: {row['old_ms']:.3f})"
     if "workspace_bytes" in bound:   # the deep launch's gains' round trip
         row["workspace_bytes"] = bound["workspace_bytes"]
         row["design_floor_ms"] = bound["design_floor_ms"]
@@ -389,8 +400,21 @@ def phase_fused(dev) -> dict:
         f"20,000 docs; f32 / bf16 / int8 / int4 per-group; k past the valid "
         f"rows, a -inf tail, chunks and row slices): indices and scores "
         f"equal")
+    wg = []
+    for case in kc.wgmma_exact_cases(dev):
+        (ks, ki), (ps, pi) = kc.run_kernel(case, "wgmma"), kc.run_plain(case)
+        torch.cuda.synchronize()
+        if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+            raise AssertionError(f"the wgmma scan != plain on exact case "
+                                 f"{case.name}")
+        wg.append(case.name)
+    log(f"[kernel] fused_topk {len(wg)} exact cases of the wgmma scan (bf16, "
+        f"k {', '.join(map(str, kc.WGMMA_KS))}; B=150 over two query blocks, "
+        f"845 docs off the tile, d 64 / 80 / 192, -inf tail, valid_docs < N, "
+        f"splits of several tiles): indices and scores equal")
     res = _check_fused_path(kc.path_case(dev),
-                            "path shape B=512 N=734003 d=768 bf16 dot k=32")
+                            "path shape B=512 N=734003 d=768 bf16 dot k=32",
+                            old="shallow")
     modes = {}
     modes["int4_per_doc"] = _check_fused_path(
         kc.int4_path_case(dev, grouped=False),
@@ -401,7 +425,7 @@ def phase_fused(dev) -> dict:
     coarse = kc.path_case(dev, d=128, k=128, seed=4)
     modes["coarse_k128"] = _check_fused_path(
         coarse, "low-rank coarse scan B=512 N=734003 r=128 bf16 k=128",
-        reps=5)
+        reps=5, device=True, old="shallow")
     del coarse
     # --refine-mult 8: k' = 256 past the shallow launch
     coarse = kc.path_case(dev, d=128, k=256, seed=4)
@@ -717,7 +741,9 @@ def phase_int4(dev) -> dict:
         n += 1
     log(f"[kernel] int4_matmul {n} exact cases (bf16 and f32 activations; "
         f"OUT 260 / 300 / 40 off the 16-byte grid; groups 6 / 12 / 24; M 1 "
-        f"to 100; a split contraction): outputs equal")
+        f"to 100; a split contraction; the prefill kernel at M {M_SWITCH} "
+        f"and {M_SWITCH + 37}, OUT 208, groups over 1, 2 and 4 stages): "
+        f"outputs equal")
     modes = {}
     for case in dc.int4_path_cases(dev):
         got, want = dc.run_int4(case), dc.run_int4_plain(case)
@@ -726,9 +752,12 @@ def phase_int4(dev) -> dict:
         if not res["ok"]:
             raise AssertionError(f"int4_matmul disagrees with its plain "
                                  f"version on {case.name}: {res}")
-        prefill = case.x.shape[0] > 16
+        prefill = case.x.shape[0] >= M_SWITCH
         reps = 5 if prefill else 20
         ms = kc.cuda_time_ms(lambda: dc.run_int4(case), reps=reps)
+        # the first kernel, which the plan took at prefill before
+        old_ms = (kc.cuda_time_ms(lambda: dc.run_int4(case, "mma"),
+                                  reps=reps) if prefill else None)
         dev_ms = dc.device_ms(lambda: dc.run_int4(case), int4_matmul)
         plain_ms = kc.cuda_time_ms(lambda: dc.run_int4_plain(case), warmup=1,
                                    reps=3)
@@ -743,13 +772,17 @@ def phase_int4(dev) -> dict:
             f"{plain_ms:.3f} ms, bound "
             f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
             f"{bound['bytes'] / 1e6:.1f} MB, {bound['flops'] / 1e12:.4f} "
-            f"TFLOP); note: dequant to bf16 + torch.matmul {note_ms:.3f} ms")
+            f"TFLOP); note: dequant to bf16 + torch.matmul {note_ms:.3f} ms"
+            + ("" if old_ms is None else
+               f"; the first kernel, before: {old_ms:.4f} ms"))
         modes[case.name] = {"max_abs_err": res["max_abs_err"], "ms": ms,
                             "device_ms": dev_ms, "plain_ms": plain_ms,
                             "bound_ms": bound["bound_ms"],
                             "bound_by": bound["bound_by"],
                             "library_ms": None,
                             "dequant_matmul_note_ms": note_ms}
+        if old_ms is not None:
+            modes[case.name].update(old_ms=old_ms, old_kernel="mma")
         del case
         torch.cuda.empty_cache()
     head = modes.pop("qwen3-8b decode head")
@@ -1694,7 +1727,9 @@ def phase_generation(dev, smi: str) -> dict:
                                                     save_world)
     from ragroute_tpu_torch.llm.service import ByteTokenizer
     from ragroute_tpu_torch.llm.shapes import QWEN3_8B, quantized_from_masters
-    from ragroute_tpu_torch.measure import (decode_step_breakdown,
+    from ragroute_tpu_torch.measure import (LLM_BATCH, LLM_PROMPT,
+                                            decode_step_breakdown,
+                                            prefill_breakdown,
                                             print_decode_breakdown)
 
     out = {}
@@ -1734,6 +1769,17 @@ def phase_generation(dev, smi: str) -> dict:
         step = decode_step_breakdown(params, QWEN3_8B, dev)
         print_decode_breakdown(step, smi)
         out["decode_step"] = step
+        pre = prefill_breakdown(params, QWEN3_8B, dev)
+        log(f"[prefill:qwen3-8b] B={LLM_BATCH} P={LLM_PROMPT} int4 weights, "
+            f"int8 KV: {pre['prefill_ms']:.3f} ms (host clock); profiler: "
+            f"wall {pre['profile_wall_ms']:.3f} ms, device "
+            f"{pre['profile_device_ms']:.3f} ms, busy share "
+            f"{pre['busy_share']:.3f}, K5 launches {pre['k5_launches']} "
+            f"({smi})")
+        for k in pre["kernels"]:
+            log(f"[prefill:qwen3-8b]   {k['ms']:9.3f} ms {k['calls']:5d} "
+                f"calls  {k['name']}")
+        out["prefill"] = pre
 
         kern, plain = _prefill_logits(params, QWEN3_8B, dev)
         scale = float(plain.abs().max())

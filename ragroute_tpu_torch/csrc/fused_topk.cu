@@ -52,19 +52,45 @@
 // What bounds it on an H100 SXM (data-sheet peaks at its 700 W limit): at
 // B = 512, D = 768, bf16, one batch reads ~1.1 GB of docs for ~0.58 TFLOP,
 // ~510 FLOP per byte, above the card's bf16 ridge of ~295 FLOP per byte
-// (989 TFLOP/s over 3.35 TB/s): the kernel is compute-bound once the
-// product runs on tensor cores. This design does nothing about that yet:
-// WMMA from shared memory, no cp.async or TMA pipelining, no wgmma, and the
-// query tile is re-read per doc tile. At B = 8 the same shard is read for
-// 64x less work and the bound is the ~0.33 ms it takes to read the docs
-// once at 3.35 TB/s.
+// (989 TFLOP/s over 3.35 TB/s): the scan is compute-bound once the product
+// runs on tensor cores. At B = 8 the same shard is read for 64x less work
+// and the bound is the ~0.33 ms it takes to read the docs once.
+//
+// bf16 docs with k <= KMAX take a mainloop for that (wgmma_topk_kernel,
+// chosen by ops/fused_topk.py::_plan):
+//   * one producer warp keeps a ring of 3 or 4 stages in flight by TMA, each
+//     the [128 query rows x 64] and [192 docs x 64] bf16 chunks (128-byte
+//     swizzle; zeros past B, D and the valid rows), so no thread copies an
+//     operand and the query tile is not re-read through registers;
+//   * two consumer warp groups, 64 query rows each, run wgmma m64n192k16
+//     from the ring into f32 registers (96 a thread), releasing each stage
+//     as soon as its products are done;
+//   * the fold stays in registers: each gain gets its scale and bias (the
+//     tile's, staged in shared memory under the products; -inf past the
+//     valid rows) and one compare with its row's current k-th best, with no
+//     branch; only the few that pass go to the row's candidate buffer in
+//     shared memory, and a buffer that may not take another step's is
+//     merged into the row's sorted list by rank (merge_buffer: a warp ranks
+//     up to 32 candidates at once in the lists' full order, gain desc then
+//     index asc, so arrival order does not matter);
+//   * past k = KSHALLOW the lists (up to 160 KB for 128 rows) take the room
+//     of a consumer group: one group, 64 query rows a block.
+// Grid (query tiles) x (doc splits) with the query tile fastest, so that the
+// blocks reading one doc range run together and the docs cross HBM about
+// once; what bounds it now is the fold, which the two groups run at the same
+// time while the tensor cores wait, and the query chunk's re-read from L2
+// for every doc tile. f32, int8 and int4 docs keep the first design
+// (partial_topk_kernel: WMMA from shared memory, operands copied through
+// registers, one 64-doc tile at a time).
 
 #include <cuda_bf16.h>
+#include <float.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
 #include "deep_topk.cuh"
+#include "hopper.cuh"
 #include "topk_merge.cuh"
 
 namespace {
@@ -329,6 +355,344 @@ __global__ void __launch_bounds__(THREADS) partial_topk_kernel(
   }
 }
 
+// ---- bf16 docs, k <= KMAX: wgmma fed by a TMA ring ---------------------------
+
+constexpr int WK = 64;            // contraction chunk: 128-byte rows
+constexpr int WTD = 192;          // docs a tile (the wgmma's N)
+constexpr int W_STEP = 8;         // accumulators a thread folds a step
+constexpr int W_CAP = 32;         // a row's candidate buffer
+constexpr int W_MAX_STAGES = 4;
+
+__host__ __device__ constexpr int w_stage_bytes(int nwg) {
+  return (64 * nwg + WTD) * WK * 2;
+}
+
+// Shared memory of a block of NWG consumer groups (64 query rows each) at
+// depth K: the ring (stages of a [64 NWG x 64] query chunk and a [192 x 64]
+// doc chunk, 1024-aligned), the rows' lists, candidate buffers and buffer
+// counts, each group's doc tile bias and scale (two tiles, in turn), the
+// barriers; plus 1024 bytes to align the ring.
+__host__ __device__ constexpr int w_smem_bytes(int nwg, int stages, int K) {
+  return stages * w_stage_bytes(nwg) + 64 * nwg * ((K + W_CAP) * 8 + 4) +
+         nwg * 4 * WTD * 4 + 2 * stages * 8 + 1024;
+}
+
+// (a, ia) comes before (b, ib): the lists' order, gain desc then index asc
+__device__ __forceinline__ bool precedes(float a, int ia, float b, int ib) {
+  return a > b || (a == b && ia < ib);
+}
+
+// One warp merges a row's candidate buffer (n <= 32 entries, any order) into
+// the row's sorted list of K: each entry's new place is its rank in the
+// union under the lists' order, found by counting, so no entry is inserted
+// one at a time; places past K fall off. A list entry's rank counts the
+// candidates before it (a pass over the candidates, shuffled to every lane);
+// a candidate's counts the candidates before it in the same pass and the
+// list entries before it by a binary search of the sorted list. An unfilled
+// list slot is (-inf, 0) and comes after every candidate.
+template <int SLOTS>
+__device__ __forceinline__ void merge_buffer(float* rg, int* ri,
+                                             const float* bg, const int* bi,
+                                             int K, int n, int lane) {
+  float e[SLOTS];
+  int ix[SLOTS], rl[SLOTS];
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int at = lane + 32 * s;
+    e[s] = at < K ? rg[at] : neg_inf();
+    ix[s] = at < K ? ri[at] : 0;
+    rl[s] = 0;
+  }
+  const bool mine = lane < n;
+  const float bx = mine ? bg[lane] : neg_inf();
+  const int bid = mine ? bi[lane] : 0;
+  int rb = 0;
+  for (int j = 0; j < n; ++j) {
+    const float xj = __shfl_sync(FULL, bx, j);
+    const int ij = __shfl_sync(FULL, bid, j);
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) rl[s] += precedes(xj, ij, e[s], ix[s]);
+    rb += precedes(xj, ij, bx, bid);
+  }
+  int lo = 0, hi = K;  // list entries before my candidate: a prefix
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (precedes(rg[mid], ri[mid], bx, bid)) lo = mid + 1; else hi = mid;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int at = lane + 32 * s, to = at + rl[s];
+    if (at < K && to < K) { rg[to] = e[s]; ri[to] = ix[s]; }
+  }
+  if (mine && rb + lo < K) { rg[rb + lo] = bx; ri[rb + lo] = bid; }
+  __syncwarp();
+}
+
+// Fold step S of a doc tile: the gains x[8] of accumulators 8 S .. + 8
+// (u = 4 cc + v: doc 16 S + 8 cc + 2 tig + (v & 1) of the tile, row r0 +
+// 8 (v >> 1)) formed as the plain version forms them from the tile's scale
+// and bias staged in shared memory (ts, tb: the bias 0 where there is none,
+// -inf past N), and the mask of those that reach their row's threshold
+// (its k-th best, at least the lowest finite gain). No branch: the step's
+// eight gains are independent work for the scheduler.
+template <int S, int NACC>
+__device__ __forceinline__ unsigned fold_step(const float (&acc)[NACC],
+                                              float (&x)[W_STEP],
+                                              const float* tb, const float* ts,
+                                              bool has_scale, int tig,
+                                              float thr0, float thr1) {
+  unsigned m = 0;
+#pragma unroll
+  for (int cc = 0; cc < 2; ++cc) {
+    const int jt = 16 * S + 8 * cc + 2 * tig;  // the tile's doc of v = 0, 2
+    const float2 bs = *reinterpret_cast<const float2*>(tb + jt);
+    float2 sc = make_float2(1.0f, 1.0f);
+    if (has_scale) sc = *reinterpret_cast<const float2*>(ts + jt);
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const bool odd = v & 1;
+      float g = acc[8 * S + 4 * cc + v];
+      // separate roundings, as the plain version computes them
+      if (has_scale) g = __fmul_rn(g, odd ? sc.y : sc.x);
+      g = __fadd_rn(g, odd ? bs.y : bs.x);
+      x[4 * cc + v] = g;
+      m |= g >= (v & 2 ? thr1 : thr0) ? 1u << (4 * cc + v) : 0u;
+    }
+  }
+  return m;
+}
+
+// Grid (query tiles of 64 NWG, doc splits), the query tile fastest. The
+// producer warp group's first thread walks the split's doc tiles of 192 and,
+// for each, the D / 64 contraction chunks, loading each chunk of the query
+// tile and of the doc tile into the ring. Consumer group wg owns query rows
+// q0 + 64 wg .. + 64: per doc tile it runs wgmma m64n192k16 over the chunks
+// into f32 registers, releasing each stage once its products are done, then
+// folds the [64 x 192] gains: each gain is formed (x scale, + bias, -inf
+// past N) in registers and compared with its row's current k-th best; the
+// few that pass go to the row's buffer in shared memory, and a buffer that
+// may not take another block of candidates is merged into the row's list
+// (merge_buffer), as are all of them after the last tile.
+template <int NWG, int SLOTS>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap dmap, const float* __restrict__ bias,
+    const float* __restrict__ scale, float* __restrict__ part_g,
+    int* __restrict__ part_i, int B, int N, int D, int K, int splits,
+    int tiles_per_split, int stages) {
+  constexpr int TQ = 64 * NWG;
+  constexpr int QT = TQ * WK * 2;        // query chunk bytes
+  constexpr int STAGE = w_stage_bytes(NWG);
+  constexpr int NACC = WTD / 2;          // accumulators a thread
+  static_assert(NACC / W_STEP == 12, "the fold's switch has 12 steps");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the ring on a 1024-byte boundary, as an offset from the shared array
+  // (so that the compiler keeps shared-memory loads and stores)
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  float* run_g = reinterpret_cast<float*>(smem + stages * STAGE);
+  int* run_i = reinterpret_cast<int*>(run_g + TQ * K);
+  float* buf_g = reinterpret_cast<float*>(run_i + TQ * K);
+  int* buf_i = reinterpret_cast<int*>(buf_g + TQ * W_CAP);
+  int* buf_n = buf_i + TQ * W_CAP;
+  float* tile_v = reinterpret_cast<float*>(buf_n + TQ);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tile_v + NWG * 4 * WTD);
+  uint64_t* empty = full + stages;
+  const int wg = threadIdx.x >> 7;
+  const int q0 = blockIdx.x * TQ, split = blockIdx.y;
+  const int n_tiles = (N + WTD - 1) / WTD;
+  const int tile_begin = split * tiles_per_split;
+  const int tile_end = min(tile_begin + tiles_per_split, n_tiles);
+  const int chunks = (D + WK - 1) / WK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * NWG);  // one arrival a consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  for (int e = threadIdx.x; e < TQ * K; e += blockDim.x) {
+    run_g[e] = neg_inf();
+    run_i[e] = 0;
+  }
+  for (int e = threadIdx.x; e < TQ; e += blockDim.x) buf_n[e] = 0;
+  __syncthreads();
+
+  if (wg == NWG) {  // ---- producer ----
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 128 * NWG) {
+      hopper::prefetch_tmap(&qmap);
+      hopper::prefetch_tmap(&dmap);
+      const int total = max(0, tile_end - tile_begin) * chunks;
+      for (int i = 0; i < total; ++i) {
+        const int s = i % stages;
+        const int t = tile_begin + i / chunks, k0 = (i % chunks) * WK;
+        unsigned char* st = smem + s * STAGE;
+        hopper::mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], STAGE);
+        hopper::tma_load_2d(st, &qmap, &full[s], k0, q0);
+        hopper::tma_load_2d(st + QT, &dmap, &full[s], k0, t * WTD);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  hopper::setmaxnreg_inc<232>();
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  // accumulator 4c + v holds row r0 + 8 (v >> 1), doc 8c + 2 tig + (v & 1)
+  // of the tile; this warp's rows are wr .. wr + 16 of the block's
+  const int wr = 64 * wg + 16 * warp, r0 = wr + gid;
+  float* g0 = run_g + r0 * K;
+  float* g1 = run_g + (r0 + 8) * K;
+  // rows past B (zero queries) take nothing
+  // a gain passes at its row's threshold: the row's k-th best, and at
+  // least the lowest finite gain (-inf never enters); rows past B (zero
+  // queries) take nothing
+  const float pinf = __int_as_float(0x7f800000), low = -FLT_MAX;
+  float thr0 = q0 + r0 < B ? low : pinf;
+  float thr1 = q0 + r0 + 8 < B ? low : pinf;
+  auto merge_row = [&](int row) {
+    merge_buffer<SLOTS>(run_g + row * K, run_i + row * K, buf_g + row * W_CAP,
+                        buf_i + row * W_CAP, K, buf_n[row], lane);
+    if (lane == 0) buf_n[row] = 0;
+    __syncwarp();
+  };
+  float acc[NACC];
+#pragma unroll
+  for (int e = 0; e < NACC; ++e) acc[e] = 0.0f;
+
+  const int tid = threadIdx.x & 127;
+  for (int t = tile_begin, i = 0; t < tile_end; ++t) {
+    const int j0 = t * WTD;
+    // the tile's bias and scale, loaded under the products, staged below
+    float v[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = j0 + tid + 128 * h;
+      const bool in = tid + 128 * h < WTD && j < N;
+      v[h] = !in ? neg_inf() : bias ? __ldg(bias + j) : 0.0f;
+      v[2 + h] = scale && in ? __ldg(scale + j) : 1.0f;
+    }
+    for (int c = 0; c < chunks; ++c, ++i) {
+      const int s = i % stages;
+      const unsigned char* st = smem + s * STAGE;
+      hopper::mbar_wait(&full[s], (i / stages) & 1);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WK / 16; ++kk)
+        hopper::wgmma_m64n192k16_ss(
+            acc, hopper::desc_sw128(st + wg * (64 * 128) + 32 * kk),
+            hopper::desc_sw128(st + QT + 32 * kk), c > 0 || kk > 0);
+      hopper::wgmma_commit();
+      // the chunk before this one is done: its slot goes back to the ring
+      hopper::wgmma_wait<1>();
+      if (c > 0 && lane == 0) hopper::mbar_arrive(&empty[(i - 1) % stages]);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_accumulators<NACC>(acc);
+    if (lane == 0) hopper::mbar_arrive(&empty[(i - 1) % stages]);
+
+    // ---- fold the [64 x 192] gain tile, 8 accumulators a step ----
+    // (a loop over a switch: each case is one step's own registers, and
+    // the rarer merges below are one copy of code, not one a step)
+    float* tb = tile_v + ((t & 1) * NWG + wg) * 2 * WTD;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (tid + 128 * h < WTD) {
+        tb[tid + 128 * h] = v[h];
+        tb[WTD + tid + 128 * h] = v[2 + h];
+      }
+    }
+    hopper::named_barrier(1 + wg, 128);
+    for (int step = 0; step < NACC / W_STEP; ++step) {
+      float x[W_STEP];
+      unsigned m = 0;
+      switch (step) {
+#define RAGROUTE_FOLD(S)                                                   \
+  case S:                                                                  \
+    m = fold_step<S, NACC>(acc, x, tb, tb + WTD, scale, tig, thr0, thr1);  \
+                                                                           \
+    break;
+        RAGROUTE_FOLD(0) RAGROUTE_FOLD(1) RAGROUTE_FOLD(2) RAGROUTE_FOLD(3)
+        RAGROUTE_FOLD(4) RAGROUTE_FOLD(5) RAGROUTE_FOLD(6) RAGROUTE_FOLD(7)
+        RAGROUTE_FOLD(8) RAGROUTE_FOLD(9) RAGROUTE_FOLD(10) RAGROUTE_FOLD(11)
+#undef RAGROUTE_FOLD
+      }
+      if (!__any_sync(FULL, m)) continue;
+      // append this lane's candidates to their rows' buffers (x is picked
+      // by a select chain, not a runtime index, to stay in registers)
+      for (; m; m &= m - 1) {
+        const int u = __ffs(m) - 1;
+        float g = x[0];
+#pragma unroll
+        for (int w = 1; w < W_STEP; ++w) g = u == w ? x[w] : g;
+        const int row = r0 + (u & 2 ? 8 : 0);
+        const int at = row * W_CAP + atomicAdd(&buf_n[row], 1);
+        buf_g[at] = g;
+        buf_i[at] = j0 + 16 * step + 8 * (u >> 2) + 2 * tig + (u & 1);
+      }
+      __syncwarp();
+      // a row takes at most 16 candidates a step (2 docs x 2 columns from
+      // each of its 4 lanes): buffers past W_CAP - 16 are merged now
+      unsigned rows =
+          __ballot_sync(FULL, lane < 16 && buf_n[wr + lane] > W_CAP - 16);
+      for (; rows; rows &= rows - 1) merge_row(wr + __ffs(rows) - 1);
+      if (q0 + r0 < B) thr0 = fmaxf(g0[K - 1], low);
+      if (q0 + r0 + 8 < B) thr1 = fmaxf(g1[K - 1], low);
+    }
+  }
+  __syncwarp();
+  unsigned rows = __ballot_sync(FULL, lane < 16 && buf_n[wr + lane] > 0);
+  for (; rows; rows &= rows - 1) merge_row(wr + __ffs(rows) - 1);
+
+  // each warp writes out its own 16 rows
+  for (int r = wr; r < wr + 16; ++r) {
+    const int row = q0 + r;
+    if (row >= B) break;
+    for (int c = lane; c < K; c += 32) {
+      const size_t o = ((size_t)row * splits + split) * K + c;
+      part_g[o] = run_g[r * K + c];
+      part_i[o] = run_i[r * K + c];
+    }
+  }
+}
+
+template <int NWG, int SLOTS>
+cudaError_t launch_wgmma(const void* q, const void* docs, const float* bias,
+                         const float* scale, float* part_g, int* part_i,
+                         int B, int N, int D, int K, int splits,
+                         int tiles_per_split, cudaStream_t stream) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return err;
+  int stages = W_MAX_STAGES;
+  while (stages > 2 && w_smem_bytes(NWG, stages, K) > optin) --stages;
+  const int smem = w_smem_bytes(NWG, stages, K);
+  if (smem > optin) return cudaErrorInvalidValue;
+  CUtensorMap qmap, dmap;
+  err = hopper_host::make_tmap_2d(&qmap, q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                  2, B, D, D, 64 * NWG, WK);
+  if (err != cudaSuccess) return err;
+  err = hopper_host::make_tmap_2d(&dmap, docs,
+                                  CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, N, D, D,
+                                  WTD, WK);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(wgmma_topk_kernel<NWG, SLOTS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + 64 * NWG - 1) / (64 * NWG), splits);
+  wgmma_topk_kernel<NWG, SLOTS><<<grid, 128 * (NWG + 1), smem, stream>>>(
+      qmap, dmap, bias, scale, part_g, part_i, B, N, D, K, splits,
+      tiles_per_split, stages);
+  return cudaGetLastError();
+}
+
 // ---- deep lists (k > KMAX): a doc chunk's gains in device memory ------------
 
 // One block a (query tile, doc tile) of the chunk [c0, c_end): the [TQ x TD]
@@ -529,3 +893,39 @@ extern "C" int fused_topk_deep_launch(const void* q, const void* docs,
   return 0;
 }
 
+
+// bf16 docs [N, D] and bf16 queries [B, D] (16-byte aligned bases), k <=
+// KMAX, through wgmma_topk_kernel (query tiles of 128 up to k = KSHALLOW,
+// of 64 past it, where the lists take the room of a second consumer group),
+// then merge_splits_kernel; tiles_per_split counts doc tiles of 192 (ops/
+// fused_topk.py::_plan). Arguments otherwise as fused_topk_launch.
+extern "C" int fused_topk_wgmma_launch(const void* q, const void* docs,
+                                       const void* bias, const void* scale,
+                                       void* part_g, void* part_i,
+                                       void* out_g, void* out_i, int B, int N,
+                                       int D, int K, int splits,
+                                       int tiles_per_split, void* stream) {
+  if (B < 1 || N < 1 || D < 16 || D % 16 != 0 || K < 1 || K > topk::KMAX ||
+      splits < 1 || splits > 65535 || tiles_per_split < 1 ||
+      reinterpret_cast<uintptr_t>(q) % 16 ||
+      reinterpret_cast<uintptr_t>(docs) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* b = static_cast<const float*>(bias);
+  const float* s = static_cast<const float*>(scale);
+  float* pg = static_cast<float*>(part_g);
+  int* pi = static_cast<int*>(part_i);
+  const cudaError_t err =
+      K <= topk::KSHALLOW
+          ? launch_wgmma<2, topk::SLOTS_SHALLOW>(q, docs, b, s, pg, pi, B, N,
+                                                 D, K, splits, tiles_per_split,
+                                                 st)
+          : launch_wgmma<1, topk::SLOTS_DEEP>(q, docs, b, s, pg, pi, B, N, D,
+                                              K, splits, tiles_per_split, st);
+  if (err != cudaSuccess) return (int)err;
+  topk::merge_splits_kernel<long long>
+      <<<B, topk::MERGE_THREADS, splits * (int)sizeof(int), st>>>(
+          pg, pi, static_cast<float*>(out_g), static_cast<long long*>(out_i),
+          splits, K);
+  return (int)cudaGetLastError();
+}

@@ -28,19 +28,47 @@
 // once; byte tiles of [64 rows x 128 columns] go to shared memory by cp.async
 // (16-byte copies, double buffered); when the column blocks alone cannot fill
 // the card (OUT = 1024 at decode gives 8), the packed rows are cut into splits
-// whose partial sums a second small kernel adds up in split order. At prefill
-// (M = B * P in the thousands) the same kernel runs 64-row M tiles and is
-// bound by its operations; it is plain mma.sync from shared memory, with no
-// wgmma, TMA or warp specialisation.
+// whose partial sums a second small kernel adds up in split order.
 //
-// Fragment bookkeeping: a warp owns 16 rows x 32 columns as four n8 tiles.
-// Tile j's mma column n stands for output column 4 * n + j of the warp's 32,
-// so each lane reads one 32-bit word of four neighbouring bytes from shared
-// memory and gets one B element of each of the four tiles from it.
+// At prefill (M = B * P in the thousands) it is bound by its operations
+// (Qwen3-8B gate/up, 8,192 x 4,096 x 12,288: 0.83 ms at the bf16 peak), and
+// a second kernel takes those shapes (int4_mm_wgmma_kernel, chosen by
+// ops/int4_matmul.py::_plan from M and the operands' types and alignment):
+//   * one producer warp keeps a ring of 8 stages in flight by TMA, each the
+//     [128 tokens x 64] bf16 tile of one half's activations (128-byte
+//     swizzle) and the [64 packed rows x 128 columns] byte tile;
+//   * two consumer warp groups, 64 output columns each, run wgmma
+//     m64n128k16 with the weights as the A operand from registers: each
+//     thread turns its 16-bit words of packed bytes into bf16 codes (a
+//     nibble ^ 8 under a bf16 exponent of 128, minus 136: exact), so the
+//     unpacked codes never go through shared memory, and the activations
+//     are the B operand read by the tensor cores from the ring;
+//   * the ring walks each group twice, low nibbles with the low half's
+//     activations, then high nibbles with the high half's, so that one f32
+//     partial (64 registers) is live at a time: at each (group, half) end it
+//     is multiplied by the group's column scales and added to the f32
+//     accumulator, low group g before high group g;
+//   * each block's 128 tokens reuse every unpacked code; a stage's unpack
+//     overlaps the previous stage's products; blocks walk the output in
+//     bands of 8 token blocks, so that those in flight share their tiles in
+//     L2.
+// What bounds it now: one stage's products in flight a group (the A
+// fragments of the next stage are written while they run, and a second
+// stage in flight makes ptxas serialise the wgmmas), the partial's scale
+// and add at each group's end, and the 168 registers a thread of a
+// 384-thread block has, which leave no room for a second partial.
+
+// Fragment bookkeeping of the first kernel: a warp owns 16 rows x 32
+// columns as four n8 tiles. Tile j's mma column n stands for output column
+// 4 * n + j of the warp's 32, so each lane reads one 32-bit word of four
+// neighbouring bytes from shared memory and gets one B element of each of
+// the four tiles from it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -406,6 +434,229 @@ cudaError_t launch_f32(const void* x, const void* w, const float* scale,
   return cudaGetLastError();
 }
 
+// ---- prefill: wgmma fed by a TMA ring ---------------------------------------
+
+constexpr int WG_BM = 128;                   // tokens a block (wgmma N)
+constexpr int WG_BN = 128;                   // output columns a block
+constexpr int WG_TK = 64;                    // packed rows a stage
+constexpr int WG_STAGES = 8;
+constexpr int WG_X_TILE = WG_BM * 128;       // bytes: 128 tokens x 64 bf16
+constexpr int WG_W_TILE = WG_TK * WG_BN;     // bytes: 64 rows x 128 columns
+constexpr int WG_STAGE = WG_X_TILE + WG_W_TILE;
+constexpr int WG_THREADS = 384;              // 2 consumer groups + producer
+constexpr int WG_SMEM = WG_STAGES * WG_STAGE + 2 * WG_STAGES * 8 + 1024;
+// blocks walk the output in bands of this many token blocks, the column
+// blocks of a band in turn, so that the blocks in flight share their
+// activation rows and packed columns in L2
+constexpr int WG_BAND = 8;
+
+// byte (r, c) of a [rows x 128] byte tile in the 128-byte swizzle
+__device__ __forceinline__ int swz128(int r, int c) {
+  return r * 128 + ((((c >> 4) ^ r) & 7) << 4) + (c & 15);
+}
+
+// Two nibbles (bits 0-3 and 16-19 of t) as a bf16x2 of their signed codes:
+// (nibble ^ 8) under a bf16 exponent of 128 reads 128 + (code + 8); minus
+// 136 leaves the code, exactly.
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t t) {
+  uint32_t v = ((t ^ 0x00080008u) & 0x000F000Fu) | 0x43004300u;
+  __nv_bfloat162 b = *reinterpret_cast<__nv_bfloat162*>(&v);
+  b = __hsub2(b, __floats2bfloat162_rn(136.0f, 136.0f));
+  return *reinterpret_cast<uint32_t*>(&b);
+}
+
+// The A fragments of one stage (four k16 steps) from its byte tile: this
+// thread's rows are output columns c and c + 1 of the block (neighbouring
+// bytes), its k the fragment's 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9.
+__device__ __forceinline__ void wg_unpack(uint32_t (&a)[4][4],
+                                          const unsigned char* wt, int half,
+                                          int c, int tig) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int r = 16 * kk + 2 * tig;
+    const uint32_t u0 = *reinterpret_cast<const uint16_t*>(wt + swz128(r, c));
+    const uint32_t u1 = *reinterpret_cast<const uint16_t*>(wt + swz128(r + 1, c));
+    const uint32_t u2 = *reinterpret_cast<const uint16_t*>(wt + swz128(r + 8, c));
+    const uint32_t u3 = *reinterpret_cast<const uint16_t*>(wt + swz128(r + 9, c));
+    // byte 0: column c (row gid), byte 1: column c + 1 (row gid + 8); row
+    // k in the low 16 bits, k + 1 in the high
+    const uint32_t w01 = (u0 | (u1 << 16)) >> (4 * half);
+    const uint32_t w89 = (u2 | (u3 << 16)) >> (4 * half);
+    a[kk][0] = nibbles_bf16x2(w01);
+    a[kk][1] = nibbles_bf16x2(w01 >> 8);
+    a[kk][2] = nibbles_bf16x2(w89);
+    a[kk][3] = nibbles_bf16x2(w89 >> 8);
+  }
+}
+
+// Stages [rel, upto) are complete: their slots go back to the ring (one
+// arrival a consumer warp).
+__device__ __forceinline__ void wg_release(int& rel, int upto,
+                                           uint64_t* empty) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0)
+    for (int j = rel; j < upto; ++j) hopper::mbar_arrive(&empty[j % WG_STAGES]);
+  rel = max(rel, upto);
+}
+
+// A complete (group, half) partial times the group's column scales `sc`,
+// added to the accumulator (two roundings, as the plain version).
+__device__ __forceinline__ void wg_flush(const float (&part)[64],
+                                         float (&acc)[64], float2 sc) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    acc[4 * j + 0] = __fadd_rn(acc[4 * j + 0], __fmul_rn(part[4 * j + 0], sc.x));
+    acc[4 * j + 1] = __fadd_rn(acc[4 * j + 1], __fmul_rn(part[4 * j + 1], sc.x));
+    acc[4 * j + 2] = __fadd_rn(acc[4 * j + 2], __fmul_rn(part[4 * j + 2], sc.y));
+    acc[4 * j + 3] = __fadd_rn(acc[4 * j + 3], __fmul_rn(part[4 * j + 3], sc.y));
+  }
+}
+
+// Stage i: its bytes are unpacked while stage i - 1's products run; then,
+// i - 1 done, its slot goes back to the ring and, at the start of a (group,
+// half), the last one's partial is scaled and added and the new group's
+// column scales are loaded (a stage or more before their use); then i's
+// products are issued.
+__device__ __forceinline__ void wg_step(
+    int i, uint32_t (&a)[4][4], float (&part)[64], float (&acc)[64],
+    float2& sc, int& rel, unsigned char* smem, uint64_t* full,
+    uint64_t* empty, const float* __restrict__ scale, int c, int col,
+    int tig, int OUT, int ng, int tpg) {
+  const int s = i % WG_STAGES;
+  const unsigned char* st = smem + s * WG_STAGE;
+  hopper::mbar_wait(&full[s], (i / WG_STAGES) & 1);
+  wg_unpack(a, st + WG_X_TILE, (i / tpg) & 1, c, tig);
+  hopper::wgmma_wait<0>();
+  hopper::fence_accumulators<64>(part);
+  wg_release(rel, i, empty);
+  const bool cont = i % tpg > 0;
+  if (!cont && i > 0) wg_flush(part, acc, sc);
+  if (!cont && col < OUT) {
+    const int gg = ((i / tpg) & 1) * ng + i / (2 * tpg);
+    sc = __ldg(reinterpret_cast<const float2*>(scale + (size_t)gg * OUT + col));
+  }
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hopper::wgmma_m64n128k16_rs(part, a[kk], hopper::desc_sw128(st + 32 * kk),
+                                cont || kk > 0);
+  hopper::wgmma_commit();
+}
+
+// One block a (column block, token block), in bands (WG_BAND); block =
+// consumer warp groups 0 and 1 (output columns n0 + 64 wg .. + 64) and a
+// producer warp whose first thread issues the TMA loads. The ring's sequence: for each group g of a
+// half, for the low half then the high half, the group's stages of 64 packed
+// rows.
+__global__ void __launch_bounds__(WG_THREADS, 1) int4_mm_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap wmap, const float* __restrict__ scale,
+    float* __restrict__ out, int M, int H, int OUT, int group) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the ring on a 1024-byte boundary, as an offset from the shared array
+  // (so that the compiler keeps shared-memory loads and stores)
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + WG_STAGES * WG_STAGE);
+  uint64_t* empty = full + WG_STAGES;
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);   // one arrival a consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  // block -> (column block, token block), band by band
+  const int n_cols = (OUT + WG_BN - 1) / WG_BN, n_toks = (M + WG_BM - 1) / WG_BM;
+  const int band = blockIdx.x / (WG_BAND * n_cols);
+  const int band_rows = min(WG_BAND, n_toks - band * WG_BAND);
+  const int in_band = blockIdx.x - band * WG_BAND * n_cols;
+  const int n0 = (in_band / band_rows) * WG_BN;
+  const int m0 = (band * WG_BAND + in_band % band_rows) * WG_BM;
+  const int tpg = group / WG_TK;             // stages of one (group, half)
+  const int total = 2 * (H / WG_TK);         // stages of the block
+
+  if (wg == 2) {  // ---- producer ----
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      hopper::prefetch_tmap(&xmap);
+      hopper::prefetch_tmap(&wmap);
+      for (int i = 0; i < total; ++i) {
+        const int s = i % WG_STAGES;
+        const uint32_t ph = (i / WG_STAGES) & 1;
+        const int t = i % tpg, half = (i / tpg) & 1, g = i / (2 * tpg);
+        const int krow = g * group + t * WG_TK;
+        unsigned char* st = smem + s * WG_STAGE;
+        hopper::mbar_wait(&empty[s], ph ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], WG_STAGE);
+        hopper::tma_load_2d(st, &xmap, &full[s], half * H + krow, m0);
+        hopper::tma_load_2d(st + WG_X_TILE, &wmap, &full[s], n0, krow);
+      }
+    }
+  } else {  // ---- consumers ----
+    hopper::setmaxnreg_inc<232>();
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int gid = lane >> 2, tig = lane & 3;
+    // A row 16 warp + gid (+ 8) of this group's m64 tile is output column
+    // c (c + 1) of the block: each thread's two rows are neighbouring bytes
+    const int c = 64 * wg + 16 * warp + 2 * gid;
+    const int col = n0 + c;
+    const int ng = H / group;
+    float acc[64], part[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;   // part: the first
+    // product of each (group, half) overwrites it
+    uint32_t a0[4][4], a1[4][4];   // two stages' A fragments, in turn
+    float2 sc = make_float2(0.0f, 0.0f);   // the current group's scales
+    int rel = 0;                           // stages not yet released
+    for (int i = 0; i < total; i += 2) {   // total is even
+      wg_step(i, a0, part, acc, sc, rel, smem, full, empty, scale, c, col,
+              tig, OUT, ng, tpg);
+      wg_step(i + 1, a1, part, acc, sc, rel, smem, full, empty, scale, c,
+              col, tig, OUT, ng, tpg);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_accumulators<64>(part);
+    wg_release(rel, total, empty);
+    wg_flush(part, acc, sc);
+
+    // accumulator j: token 8 (j / 4) + 2 tig + (j & 1), column c + (j & 2) / 2
+    if (col < OUT) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int tok = m0 + 8 * j + 2 * tig;
+        if (tok < M)
+          *reinterpret_cast<float2*>(out + (size_t)tok * OUT + col) =
+              make_float2(acc[4 * j + 0], acc[4 * j + 2]);
+        if (tok + 1 < M)
+          *reinterpret_cast<float2*>(out + (size_t)(tok + 1) * OUT + col) =
+              make_float2(acc[4 * j + 1], acc[4 * j + 3]);
+      }
+    }
+  }
+}
+
+cudaError_t launch_wgmma(const void* x, const void* w, const float* scale,
+                         float* out, int M, int H, int OUT, int group,
+                         cudaStream_t st) {
+  CUtensorMap xmap, wmap;
+  cudaError_t e = hopper_host::make_tmap_2d(
+      &xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, 2 * H, 2 * H, WG_BM,
+      64);
+  if (e != cudaSuccess) return e;
+  e = hopper_host::make_tmap_2d(&wmap, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, H,
+                                OUT, OUT, WG_TK, WG_BN);
+  if (e != cudaSuccess) return e;
+  e = set_smem(int4_mm_wgmma_kernel, WG_SMEM);
+  if (e != cudaSuccess) return e;
+  const int grid = ((OUT + WG_BN - 1) / WG_BN) * ((M + WG_BM - 1) / WG_BM);
+  int4_mm_wgmma_kernel<<<grid, WG_THREADS, WG_SMEM, st>>>(xmap, wmap, scale,
+                                                          out, M, H, OUT,
+                                                          group);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launch on `stream`. x [M, IN] (bf16 when x_is_bf16, else f32); w [IN/2,
@@ -445,4 +696,23 @@ extern "C" int int4_matmul_launch(const void* x, const void* w,
                                                static_cast<float*>(y), n,
                                                splits);
   return (int)cudaGetLastError();
+}
+
+// The prefill kernel (int4_mm_wgmma_kernel): bf16 x [M, IN], w [IN/2, OUT]
+// int8, scale [IN/group, OUT] f32, y [M, OUT] f32; needs OUT % 16 == 0,
+// group % 64 == 0 and 16-byte aligned x and w (ops/int4_matmul.py::_plan
+// sends only such shapes). Returns the CUDA error code (0 on success).
+extern "C" int int4_matmul_wgmma_launch(const void* x, const void* w,
+                                        const void* scale, void* y, int M,
+                                        int IN, int OUT, int group,
+                                        void* stream) {
+  const int H = IN / 2;
+  if (M < 1 || IN < 2 || IN % 2 || OUT < 16 || OUT % 16 || group < WG_TK ||
+      group % WG_TK || H % group ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_wgmma(x, w, static_cast<const float*>(scale),
+                           static_cast<float*>(y), M, H, OUT, group,
+                           static_cast<cudaStream_t>(stream));
 }

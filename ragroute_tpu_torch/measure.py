@@ -3,6 +3,7 @@
     python -m ragroute_tpu_torch.measure [--parent DIR]
     python -m ragroute_tpu_torch.measure --tiers
     python -m ragroute_tpu_torch.measure --kernels [--parent DIR]
+    python -m ragroute_tpu_torch.measure --turns DIR
 
 Needs a card (fails without one). It makes the synthetic medrag world at
 the benchmark's size (1,048,575 docs x 768, bf16 on the card) with the
@@ -41,6 +42,18 @@ under an open cap (64 queries x 64 clusters of 568 slots); each with its
 bound (``kernel_checks``: a deep launch's gains cross device memory twice,
 which its bound counts).
 
+``--kernels`` also runs, from this tree, K5's two kernels over M (16 to
+8,192) at the gate/up shape and K1's wgmma scan against the deep launch
+over k (32 to 160) and the docs' width (128 to 768), the readings that set
+``int4_matmul.M_SWITCH`` and ``fused_topk.W_DEEP_BELOW_D``; with
+``--parent DIR`` K5 at the two prefill shapes joins the turns.
+
+``--turns DIR`` times, from DIR (an unpacked earlier tree) and this tree in
+turns, the exact engine step (B = 512 and 2,048, routing ``ragroute`` and
+``all``) and one lockstep generation batch of Qwen3-8B (random int4
+weights, int8 KV, 16 prompts of 2,048 tokens: the prefill, then 32 greedy
+decode steps), each in a process of its own.
+
 ``--tiers`` measures the host-RAM capacity tiers instead: the synthetic
 medrag world at eight times that size (8,388,600 docs x 768, 64 topics per
 source, int8, rows made block by block from the seed) under a device budget
@@ -56,7 +69,9 @@ completes, a ``torch.profiler`` window over 5 steps at B = 512 (device time
 by kernel, the host->device copies among them, and the busy share), the
 kernels' launches per step, and the peak device and host memory.
 
-:func:`decode_step_breakdown` times one decode step of the served decoder
+:func:`prefill_breakdown` times and profiles one prefill of the lockstep
+service's batch (16 prompts of 2,048 tokens). :func:`decode_step_breakdown`
+times one decode step of the served decoder
 (``chip_smoke.py`` runs it on Qwen3-8B with random int4 weights at B = 16
 over a 2,080-position int8 KV cache): the step's host-clock time, its bound
 (the weights read once plus the valid K/V, over 3.35 TB/s) and a
@@ -95,12 +110,13 @@ print(kc.cuda_time_ms(lambda: kc.run_kernel(case)))
 """
 
 
-# K2 and K6 at the main path's shapes; uses only functions that every tree
-# since the decode-attention kernel's port has
-K2K6_TIMER = """
+# K2, K5 at prefill and K6 at the main path's shapes; uses only functions
+# that every tree since the decode-attention kernel's port has
+TURNS_TIMER = """
 import json, torch
 from ragroute_tpu_torch.ops import decoder_checks as dc, kernel_checks as kc
 from ragroute_tpu_torch.ops.decode_attention import decode_attention
+from ragroute_tpu_torch.ops.int4_matmul import int4_matmul
 from ragroute_tpu_torch.ops.stream_topk import stream_topk
 dev, rows = torch.device("cuda"), []
 for name, m, k, pad, seed in (("k2 ivf collect [512, 131072] k=32", 131072,
@@ -114,6 +130,15 @@ for name, m, k, pad, seed in (("k2 ivf collect [512, 131072] k=32", 131072,
                  "library_ms": kc.cuda_time_ms(
                      lambda: torch.topk(gains, k, dim=1), reps=50)})
     del gains
+for case in dc.int4_path_cases(dev):
+    if case.x.shape[0] < 1024:
+        continue
+    f = lambda: dc.run_int4(case)
+    rows.append({"name": "k5 " + case.name, "ms": kc.cuda_time_ms(f, reps=10),
+                 "device_ms": dc.device_ms(f, int4_matmul, reps=10),
+                 "library_ms": None})
+    del case
+    torch.cuda.empty_cache()
 for case in dc.attn_path_cases(dev):
     f = lambda: dc.run_attn(case)
     rows.append({"name": "k6 " + case.name,
@@ -123,6 +148,42 @@ for case in dc.attn_path_cases(dev):
                  kc.cuda_time_ms(lambda: dc.sdpa_note(case), reps=50)})
     del case
     torch.cuda.empty_cache()
+print(json.dumps(rows))
+"""
+
+
+# this tree only: K5's two kernels over M at the gate/up shape (the readings
+# that set int4_matmul.M_SWITCH), and K1's wgmma scan against the deep
+# launch over k and the docs' width (those that set the plan's crossover)
+SWITCH_TIMER = """
+import json, torch
+from ragroute_tpu_torch.ops import decoder_checks as dc, kernel_checks as kc
+from ragroute_tpu_torch.ops.fused_topk import fused_topk
+from ragroute_tpu_torch.ops.int4_matmul import int4_matmul
+dev, rows = torch.device("cuda"), []
+for m in (16, 64, 128, 256, 512, 2048, 8192):
+    gen = torch.Generator(device=dev).manual_seed(m)
+    case = dc._rand_case(f"k5 gate/up M={m}", dev, m, 4096, 12288, 128,
+                         torch.bfloat16, gen, exact=False)
+    for kernel in ("mma", "wgmma"):
+        f = lambda: dc.run_int4(case, kernel)
+        rows.append({"name": case.name, "kernel": kernel,
+                     "ms": kc.cuda_time_ms(f, reps=10),
+                     "device_ms": dc.device_ms(f, int4_matmul, reps=10)})
+    del case
+    torch.cuda.empty_cache()
+for d, ks in ((768, (32, 64, 128, 160)), (128, (32, 64, 128, 160)),
+              (256, (128, 160)), (384, (128, 160)), (512, (128, 160))):
+    for k in ks:
+        case = kc.path_case(dev, d=d, k=k, seed=4 if d == 128 else 0)
+        for kernel in ("wgmma", "deep"):
+            f = lambda: kc.run_kernel(case, kernel)
+            rows.append({"name": f"k1 B=512 N=734003 d={d} k={k}",
+                         "kernel": kernel, "ms": kc.cuda_time_ms(f, reps=5),
+                         "device_ms": dc.device_ms(f, fused_topk, warmup=1,
+                                                   reps=3)})
+        del case
+        torch.cuda.empty_cache()
 print(json.dumps(rows))
 """
 
@@ -169,6 +230,100 @@ row("k4 reduced world nprobe == C = 64, S = 568, kappa 256 (ranks 256)",
     reps=20)
 print(json.dumps(rows))
 """
+
+
+# --turns: the exact engine step over the 1,048,575-doc world (bf16, impl
+# auto, B = 512 and 2,048, routing ragroute and all; host clock around
+# engine.search, median of 10 after 2 warm-ups) and one lockstep batch of
+# Qwen3-8B with random int4 weights and an int8 KV cache (B = 16 prompts of
+# 2,048 tokens, prefill then 32 greedy decode steps; CUDA-synchronised host
+# clock, median of 3 after a warm-up); both use only functions that every
+# tree since on-card generation has
+STEP_TIMER = """
+import json, time, numpy as np, torch
+from ragroute_tpu_torch.engine import FederatedSearchEngine
+from ragroute_tpu_torch.index import ShardSet, make_synthetic_world
+from ragroute_tpu_torch.router import CorpusRouter, RouterBank
+dev, rows = torch.device("cuda"), []
+syn = make_synthetic_world("medrag", docs_per_source_map={
+    "pubmed": 734_003, "statpearls": 104_857, "textbooks": 83_886,
+    "wikipedia": 125_829}, num_queries=2048, seed=0, with_payloads=False)
+ss = ShardSet.build(syn.world, syn.embeddings, dtype=torch.bfloat16,
+                    device=dev)
+eng = FederatedSearchEngine(
+    ss, CorpusRouter.from_seed(syn.world.router_input_dim, 0, dev),
+    RouterBank.create(syn.world, syn.centroids, device=dev), impl="auto")
+for strategy in ("ragroute", "all"):
+    for bsz in (512, 2048):
+        q = {enc: e[:bsz] for enc, e in syn.query_embs.items()}
+        times = []
+        for i in range(12):
+            t0 = time.perf_counter()
+            eng.search(q, strategy=strategy, staged=False,
+                       fetch_candidates=False)
+            times.append(1e3 * (time.perf_counter() - t0))
+        rows.append({"name": f"exact step {strategy} B={bsz}",
+                     "ms": float(np.median(times[2:]))})
+print(json.dumps(rows))
+"""
+
+LOCKSTEP_TIMER = """
+import json, time, numpy as np, torch
+from ragroute_tpu_torch.llm.model import decode_step, init_cache, prefill
+from ragroute_tpu_torch.llm.shapes import QWEN3_8B, quantized_from_masters
+dev, cfg = torch.device("cuda"), QWEN3_8B
+params = quantized_from_masters(cfg, 4, dev)
+b, p, new = 16, 2048, 32
+gen = torch.Generator(device=dev).manual_seed(0)
+ids = torch.randint(0, cfg.vocab_size, (b, p), generator=gen, device=dev,
+                    dtype=torch.int32)
+mask = torch.ones_like(ids)
+lengths = torch.full((b,), p, dtype=torch.int32, device=dev)
+def batch():
+    cache = init_cache(cfg, b, p + new, "int8", device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, ids, mask, cache)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tok = logits.argmax(-1)
+    for t in range(new):
+        logits, cache = decode_step(params, cfg, cache, tok, lengths, p, t)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t0)
+with torch.no_grad():
+    batch()
+    runs = [batch() for _ in range(3)]
+pre = float(np.median([r[0] for r in runs]))
+tot = float(np.median([r[1] for r in runs]))
+print(json.dumps([{"name": "lockstep prefill B=16 P=2048", "ms": pre},
+                  {"name": "lockstep batch B=16 P=2048 +32", "ms": tot,
+                   "tokens_per_s": b * new / (tot / 1e3)}]))
+"""
+
+
+def served_in_turns(parent: str, card: str):
+    """The exact engine step and a lockstep generation batch from
+    ``parent`` and this tree in turns (parent, this, this, parent), each in
+    a process of its own."""
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = []
+    for label, tree in (("parent", parent), ("change", here),
+                        ("change", here), ("parent", parent)):
+        for timer in (STEP_TIMER, LOCKSTEP_TIMER):
+            proc = subprocess.run([sys.executable, "-c", timer], cwd=tree,
+                                  capture_output=True, text=True,
+                                  timeout=1200)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{label} timer failed:\n{proc.stderr}")
+            for row in json.loads(proc.stdout.strip().splitlines()[-1]):
+                extra = ("" if "tokens_per_s" not in row else
+                         f", {row['tokens_per_s']:.1f} tokens/s")
+                print(f"[turns] {label}: {row['name']}: {row['ms']:.3f} ms"
+                      f"{extra} ({card})", flush=True)
+                out.append(dict(row, tree=label))
+    return out
 
 
 def _card() -> str:
@@ -270,7 +425,7 @@ def kernels_in_turns(parent: Optional[str], card: str):
     turns = ((("parent", parent), ("change", here), ("change", here),
               ("parent", parent)) if parent else (("change", here),))
     for label, tree in turns:
-        proc = subprocess.run([sys.executable, "-c", K2K6_TIMER], cwd=tree,
+        proc = subprocess.run([sys.executable, "-c", TURNS_TIMER], cwd=tree,
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             raise RuntimeError(f"{label} kernel timer failed:\n{proc.stderr}")
@@ -280,6 +435,14 @@ def kernels_in_turns(parent: Optional[str], card: str):
             print(f"[kernels] {label}: {row['name']}: {row['ms']:.4f} ms "
                   f"(device {row['device_ms']:.4f}){lib} ({card})", flush=True)
             out.append(dict(row, tree=label))
+    proc = subprocess.run([sys.executable, "-c", SWITCH_TIMER], cwd=here,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"switch timer failed:\n{proc.stderr}")
+    for row in json.loads(proc.stdout.strip().splitlines()[-1]):
+        print(f"[switch] {row['name']} {row['kernel']}: {row['ms']:.4f} ms "
+              f"(device {row['device_ms']:.4f}) ({card})", flush=True)
+        out.append(dict(row, tree="change"))
     proc = subprocess.run([sys.executable, "-c", DEEP_TIMER], cwd=here,
                           capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
@@ -519,6 +682,53 @@ def decode_step_breakdown(params, cfg, device, *, bsz: int = LLM_BATCH,
                         for n, ms, c in rows[:top]]}
 
 
+def prefill_breakdown(params, cfg, device, *, bsz: int = LLM_BATCH,
+                      prompt: int = LLM_PROMPT, cache_dtype="int8",
+                      top: int = 12) -> dict:
+    """One ``llm.model.prefill`` of ``bsz`` prompts of ``prompt`` tokens,
+    the lockstep service's batch: its host-clock ms after a warm-up (a
+    synchronise at each end) and a ``torch.profiler`` window over one more
+    (device time by kernel, busy share, K5 launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ragroute_tpu_torch.llm.model import init_cache, prefill
+    from ragroute_tpu_torch.ops.int4_matmul import int4_matmul
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (bsz, prompt), generator=gen,
+                        device=device, dtype=torch.int32)
+    mask = torch.ones_like(ids)
+    with torch.no_grad():
+        times = []
+        for _ in range(2):
+            cache = init_cache(cfg, bsz, prompt, cache_dtype, device=device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(params, cfg, ids, mask, cache)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        cache = init_cache(cfg, bsz, prompt, cache_dtype, device=device)
+        int4_matmul.launches = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prefill(params, cfg, ids, mask, cache)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    return {"prefill_ms": times[-1], "profile_wall_ms": wall_ms,
+            "profile_device_ms": device_ms,
+            "busy_share": device_ms / wall_ms if wall_ms else None,
+            "k5_launches": int4_matmul.launches,
+            "kernels": [{"name": n[:90], "ms": ms, "calls": c}
+                        for n, ms, c in rows[:top]]}
+
+
 def print_decode_breakdown(out: dict, card: str, label: str = "qwen3-8b"
                            ) -> None:
     print(f"[decode:{label}] B={LLM_BATCH} S={LLM_PROMPT + LLM_NEW} int4 "
@@ -541,10 +751,17 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", default=None)
     ap.add_argument("--tiers", action="store_true")
     ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--turns", default=None, metavar="DIR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure: needs a CUDA card", file=sys.stderr)
         return 2
+    if args.turns:
+        card = _card()
+        print(f"[card] {card}; torch {torch.__version__}", flush=True)
+        print(json.dumps({"card": card, "turns": served_in_turns(
+            args.turns, card)}))
+        return 0
     if args.kernels:
         card = _card()
         print(f"[card] {card}; torch {torch.__version__}", flush=True)

@@ -12,7 +12,9 @@ int4 matmul (:func:`int4_matmul` against :func:`int4_matmul_reference`):
   nibbles and power-of-two scales, so every product and sum is exact in any
   order: outputs equal. The DEMO_CFG shapes (OUT = 260 and 64, off the
   16-byte grid), groups that are not a multiple of 16 (24, 12, 6), M from 1
-  to 100 (one and several M tiles) and a contraction long enough to be split.
+  to 100 (one and several M tiles) and a contraction long enough to be split;
+  then :func:`int4_prefill_exact_cases`, on the prefill kernel's side of
+  ``M_SWITCH``.
 * :func:`int4_path_cases`: Qwen3-8B's projections at decode (B = 16) and its
   gate and down at prefill (M = 16 * 512), Qwen3-0.6B's tied head; held
   within ``1e-4 * max|y|`` at bf16 activations.
@@ -38,7 +40,8 @@ import torch
 from ragroute_tpu_torch.llm.shapes import QWEN3_06B, QWEN3_8B
 from ragroute_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference)
-from ragroute_tpu_torch.ops.int4_matmul import (int4_matmul,
+from ragroute_tpu_torch.ops.int4_matmul import _launch as _int4_launch
+from ragroute_tpu_torch.ops.int4_matmul import (M_SWITCH, int4_matmul,
                                                 int4_matmul_reference)
 from ragroute_tpu_torch.ops.kernel_checks import PEAK_FLOPS, _bound
 
@@ -86,6 +89,21 @@ def int4_exact_cases(device, seed: int = 0) -> Iterator[MatCase]:
         for dt in (torch.bfloat16, torch.float32):
             yield _rand_case(f"M{m}-{i}x{o}-g{g}-{str(dt)[6:]}", device, m, i,
                              o, g, dt, gen, exact=True)
+    yield from int4_prefill_exact_cases(device, seed + 1)
+
+
+def int4_prefill_exact_cases(device, seed: int = 1) -> Iterator[MatCase]:
+    """Exact cases of the prefill (wgmma) kernel, bf16 activations from
+    ``M_SWITCH`` rows: M at the switch and 37 past it (a ragged last token
+    block), OUT off the 128-column block (208), groups of one 64-row stage,
+    of two and of four (a group over several stages)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for m, i, o, g in ((M_SWITCH, 256, 128, 64),
+                       (M_SWITCH + 37, 512, 208, 128),
+                       (M_SWITCH + 37, 1024, 256, 256),
+                       (2 * M_SWITCH + 5, 2048, 384, 128)):
+        yield _rand_case(f"prefill-M{m}-{i}x{o}-g{g}-bfloat16", device, m, i,
+                         o, g, torch.bfloat16, gen, exact=True)
 
 
 def int4_path_cases(device, seed: int = 1) -> List[MatCase]:
@@ -110,8 +128,13 @@ def int4_path_cases(device, seed: int = 1) -> List[MatCase]:
     return out
 
 
-def run_int4(case: MatCase) -> Tensor:
-    return int4_matmul(case.x, case.w, case.scale, group=case.group)
+def run_int4(case: MatCase, kernel: Optional[str] = None) -> Tensor:
+    """The wrapper on CUDA tensors; ``kernel`` (``"wgmma"`` or ``"mma"``)
+    names the kernel in place of the wrapper's plan, to time the two
+    against each other at one shape."""
+    if kernel is None:
+        return int4_matmul(case.x, case.w, case.scale, group=case.group)
+    return _int4_launch(case.x, case.w, case.scale, case.group, kernel)
 
 
 def run_int4_plain(case: MatCase) -> Tensor:

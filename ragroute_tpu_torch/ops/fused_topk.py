@@ -19,9 +19,14 @@ count, so rows at or past it are never read and cannot win: the same
 result without copying the shard. As in the TPU kernel, a list entry whose
 gain is ``-inf`` carries index 0.
 
-Depth: the kernel keeps 64 query rows' lists in shared memory up to
-:data:`MAX_SHALLOW_K`; a deeper list, any ``k`` as the TPU kernel takes,
-runs the deep launch instead: the same product and epilogue write a chunk
+Launches (:func:`_plan`, a pure function of the shape): bf16 docs up to
+:data:`MAX_SHALLOW_K` take the wgmma scan (``wgmma_topk_kernel``: a TMA
+ring, doc tiles of 192, 128 query rows a block, or 64 past k = 64), except
+lists past k = 64 over docs narrower than :data:`W_DEEP_BELOW_D`, where the
+deep launch is faster; f32, int8 and int4 docs take the first design
+(``partial_topk_kernel``, 64 query rows a block, doc tiles of 64), whose
+lists also stop at :data:`MAX_SHALLOW_K`; a deeper list, any ``k`` as the
+TPU kernel takes, runs the deep launch: the same product and epilogue write a chunk
 of docs' gains to a workspace in device memory, every run of 8,192 docs is
 cut to its best ``k`` and the lists merge (``csrc/deep_topk.cuh``). The
 workspace (gains, lists, running lists) stays under
@@ -33,8 +38,9 @@ run's chunk for every query row would not fit, query rows in slices
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -55,6 +61,21 @@ BLOCKS_PER_SM = 4    # split target: enough blocks to fill every SM
 # fewer and longer splits cost less than they lose in parallelism
 DEEP_BLOCKS_PER_SM = 2
 SHALLOW_K = 64       # topk_merge.cuh KSHALLOW
+# the wgmma scan (bf16 docs): query rows a block up to SHALLOW_K and past
+# it (csrc/fused_topk.cu: 64 a consumer warp group), docs a tile (WTD), and
+# the most waves of one block an SM its split plan weighs (a block takes the
+# whole SM's shared memory)
+W_TILE_Q = 128
+W_TILE_Q_DEEP = 64
+W_TILE_D = 192
+W_MAX_WAVES = 8
+# bf16 lists past SHALLOW_K over docs narrower than this take the deep
+# launch, which is faster there; at the serving width the wgmma scan stays
+# (``measure.py --kernels``, readings in PERF.md: device ms at B = 512 over
+# 734,003 docs, k = 128, wgmma against deep: d = 128 4.49 / 3.07, d = 512
+# 5.09 / 4.79, d = 768 5.51 / 6.03; the threshold between the last two)
+W_DEEP_BELOW_D = 640
+_BF16 = 1
 _DOC_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _INT4_PER_DOC, _INT4_PER_GROUP = 3, 4    # csrc DocType kI4, kI4G
 
@@ -122,28 +143,77 @@ def _lib():
         lib.fused_topk_launch.restype = ci
         lib.fused_topk_deep_launch.argtypes = [vp] * 11 + [ci] * 8 + [vp]
         lib.fused_topk_deep_launch.restype = ci
+        lib.fused_topk_wgmma_launch.argtypes = [vp] * 8 + [ci] * 6 + [vp]
+        lib.fused_topk_wgmma_launch.restype = ci
         lib._argtypes_set = True
     return lib
 
 
-def _splits(bsz: int, n_rows: int, k: int,
-            device: torch.device) -> Tuple[int, int]:
-    """(doc splits, tiles per split): enough blocks to fill the card at
-    small and large batch alike."""
+class Plan(NamedTuple):
+    """How one call runs: ``kernel`` is ``"wgmma"`` (the bf16 scan),
+    ``"shallow"`` (the first design) or ``"deep"`` (lists past
+    :data:`MAX_SHALLOW_K`); ``splits`` doc splits of ``tiles_per_split``
+    tiles of ``tile_d`` docs (unused by the deep launch)."""
+    kernel: str
+    splits: int
+    tiles_per_split: int
+    tile_d: int
+
+
+def _plan(bsz: int, n_rows: int, d: int, k: int, doc_type: int, sms: int,
+          kernel: Optional[str] = None) -> Plan:
+    """The launch for ``bsz`` queries over ``n_rows`` docs of width ``d``
+    and ``doc_type`` (csrc DocType) at depth ``k`` on a card of ``sms``
+    SMs; a pure function of these. ``kernel`` names one to plan for instead of choosing (the
+    measurements time the launches against each other at one shape). The
+    doc splits fill the card at small and large batch alike: the first
+    design's blocks are small (several an SM); the wgmma scan's take a whole
+    SM, so its split count is the one of at most :data:`W_MAX_WAVES` waves
+    that finishes soonest (waves times tiles a split), the fewest splits
+    among equals."""
+    if kernel is None:
+        if k > MAX_SHALLOW_K or (doc_type == _BF16 and k > SHALLOW_K
+                                 and d < W_DEEP_BELOW_D):
+            kernel = "deep"
+        else:
+            kernel = "wgmma" if doc_type == _BF16 else "shallow"
+    if kernel == "deep":
+        return Plan("deep", 1, 1, 0)
+    if kernel == "wgmma":
+        tile_d = W_TILE_D
+        n_tiles = -(-n_rows // tile_d)
+        n_qtiles = -(-bsz // (W_TILE_Q if k <= SHALLOW_K else W_TILE_Q_DEEP))
+        best = None
+        for waves in range(1, W_MAX_WAVES + 1):
+            want = max(1, min(n_tiles, MAX_SPLITS,
+                              -(-waves * sms // n_qtiles)))
+            per = -(-n_tiles // want)
+            splits = -(-n_tiles // per)
+            cost = -(-n_qtiles * splits // sms) * per
+            if best is None or cost < best[0]:
+                best = (cost, splits, per)
+        return Plan("wgmma", best[1], best[2], tile_d)
     n_qtiles = -(-bsz // TILE_Q)
     n_tiles = -(-n_rows // TILE_D)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     per_sm = BLOCKS_PER_SM if k <= SHALLOW_K else DEEP_BLOCKS_PER_SM
     splits = max(1, min(n_tiles, MAX_SPLITS,
                         math.ceil(per_sm * sms / n_qtiles)))
     per = -(-n_tiles // splits)
-    return -(-n_tiles // per), per
+    return Plan("shallow", -(-n_tiles // per), per, TILE_D)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The card's SM count (asked once: a decode step launches the kernel
+    hundreds of times)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
             bias: Optional[Tensor], scale: Optional[Tensor],
             packed4: bool = False,
-            workspace_cap: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+            workspace_cap: Optional[int] = None,
+            kernel: Optional[str] = None) -> Tuple[Tensor, Tensor]:
     bsz, d = q.shape
     dev = docs.device
     grouped = scale is not None and scale.dim() == 2
@@ -181,26 +251,38 @@ def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
             raise ValueError(f"fused_topk: {name} must be a contiguous "
                              f"float32 tensor over the shard's rows")
     q = q.contiguous()
+    if q.data_ptr() % 16:       # the wgmma scan's TMA reads need 16 bytes
+        q = q.clone()
     doc_type = ((_INT4_PER_GROUP if grouped else _INT4_PER_DOC) if packed4
                 else _DOC_TYPES[docs.dtype])
-    if k > MAX_SHALLOW_K:
+    plan = _plan(bsz, n_rows, d, k, doc_type, _sm_count(dev), kernel)
+    if plan.kernel == "wgmma" and doc_type != _BF16:
+        raise ValueError("fused_topk: the wgmma scan takes bf16 docs only")
+    if plan.kernel == "deep":
         return _launch_deep(q, docs, k, n_rows, bias, scale, n_groups,
                             doc_type, workspace_cap)
-    splits, per = _splits(bsz, n_rows, k, dev)
+    splits, per = plan.splits, plan.tiles_per_split
     part_g = torch.empty((bsz, splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((bsz, splits, k), dtype=torch.int32, device=dev)
     out_g = torch.empty((bsz, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((bsz, k), dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().fused_topk_launch(
-        q.data_ptr(), docs.data_ptr(),
-        None if bias is None else bias.data_ptr(),
-        None if scale is None else scale.data_ptr(),
-        part_g.data_ptr(), part_i.data_ptr(), out_g.data_ptr(),
-        out_i.data_ptr(), bsz, n_rows, d, k, n_groups, splits, per,
-        doc_type, stream)
+    ptrs = (q.data_ptr(), docs.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if scale is None else scale.data_ptr(),
+            part_g.data_ptr(), part_i.data_ptr(), out_g.data_ptr(),
+            out_i.data_ptr())
+    if plan.kernel == "wgmma":
+        err = _lib().fused_topk_wgmma_launch(*ptrs, bsz, n_rows, d, k, splits,
+                                             per, stream)
+    else:
+        err = _lib().fused_topk_launch(*ptrs, bsz, n_rows, d, k, n_groups,
+                                       splits, per, doc_type, stream)
     if err != 0:
-        raise RuntimeError(f"fused_topk kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused_topk {plan.kernel} launch failed for "
+                           f"queries [{bsz}, {d}] over docs [{n_rows}, "
+                           f"{docs.shape[1]}] {docs.dtype} k={k}: CUDA error "
+                           f"{err}")
     fused_topk.launches += 1
     return out_g, out_i
 
@@ -209,8 +291,8 @@ def _launch_deep(q: Tensor, docs: Tensor, k: int, n_rows: int,
                  bias: Optional[Tensor], scale: Optional[Tensor],
                  n_groups: int, doc_type: int,
                  cap: Optional[int]) -> Tuple[Tensor, Tensor]:
-    """The deep launch (``k > MAX_SHALLOW_K``), operands checked by
-    :func:`_launch`."""
+    """The deep launch (lists past :data:`MAX_SHALLOW_K`, or bf16 lists
+    past 64 over narrow docs), operands checked by :func:`_launch`."""
     bsz, d = q.shape
     dev = docs.device
     p = deep_topk.fused_plan(bsz, n_rows, k, cap)
@@ -256,9 +338,8 @@ def fused_topk(queries: Tensor, docs: Tensor, k: int, *, mode: str = "dot",
     ``deep_topk.WORKSPACE_CAP``).
 
     Returns ``(scores [B, k], indices [B, k])`` in natural score form, best
-    first. A CUDA tensor runs the kernel (the shallow launch up to
-    :data:`MAX_SHALLOW_K`, the deep launch past it); a CPU tensor runs
-    :func:`fused_topk_reference`.
+    first. A CUDA tensor runs the kernel (the launch :func:`_plan` picks
+    from the shape); a CPU tensor runs :func:`fused_topk_reference`.
     """
     bsz = queries.shape[0]
     n = docs.shape[0]
@@ -283,4 +364,4 @@ def fused_topk(queries: Tensor, docs: Tensor, k: int, *, mode: str = "dot",
 
 
 fused_topk.launches = 0   # kernel launches since the count was last reset
-fused_topk.deep_launches = 0   # of which deep launches (k > MAX_SHALLOW_K)
+fused_topk.deep_launches = 0   # of which deep launches

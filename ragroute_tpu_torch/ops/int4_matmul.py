@@ -7,8 +7,13 @@ in its high nibble; scales are f32 ``[IN/group, OUT]``, one per group of
 ``group`` code rows and output column, the low half's groups first.
 
 :func:`int4_matmul` is the wrapper: on a CUDA tensor it launches
-``csrc/int4_matmul.cu`` (bf16 activations on the tensor cores, f32 by FMA;
-every packed byte read from device memory once) or raises; on a CPU tensor
+``csrc/int4_matmul.cu`` or raises. :func:`_plan`, a pure function of the
+shape, picks the kernel: from :data:`M_SWITCH` rows of bf16 activations
+(prefill), the wgmma kernel fed by a TMA ring; below it, and for f32
+activations, ragged OUT or groups off the 64-row grid, the first kernel
+(``mma.sync`` for bf16, FMA for f32; every packed byte read from device
+memory once, the contraction split where the column blocks leave SMs idle);
+ on a CPU tensor
 it runs :func:`int4_matmul_reference`, the plain version, which computes each
 group's partial product in f32, multiplies it by the group's scale and adds
 it to the running f32 sum, as the TPU kernel does.
@@ -24,7 +29,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,7 +38,13 @@ Tensor = torch.Tensor
 TK = 64                  # csrc/int4_matmul.cu: packed rows a tile
 BN = 128                 # output columns a block
 BLOCKS_PER_SM = 2        # split target at small M: blocks in flight an SM
-
+# rows of bf16 activations from which the wgmma kernel (128 tokens x 128
+# columns a block, groups of whole 64-row stages) takes a call: measured at
+# the Qwen3-8B gate/up shape by ``measure.py --kernels`` (PERF.md;
+# device ms, first kernel against wgmma: M = 16 0.042 / 0.060, M = 64
+# 0.134 / 0.058, M = 8,192 11.26 / 2.76)
+M_SWITCH = 64
+WG_TK = 64               # int4_mm_wgmma_kernel: packed rows a stage
 
 def pack_int4_rows(codes: Tensor) -> Tensor:
     """Pack int4 codes ``[IN, OUT]`` (values in [-8, 7]) to int8 ``[IN/2,
@@ -120,30 +131,64 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.int4_matmul_launch.argtypes = [vp] * 5 + [ci] * 8 + [vp]
         lib.int4_matmul_launch.restype = ci
+        lib.int4_matmul_wgmma_launch.argtypes = [vp] * 4 + [ci] * 4 + [vp]
+        lib.int4_matmul_wgmma_launch.restype = ci
         lib._argtypes_set = True
     return lib
 
 
+class Plan(NamedTuple):
+    """How one call runs: ``kernel`` is ``"wgmma"`` (prefill) or ``"mma"``
+    (the first kernel, with ``splits`` of ``rows_per_split`` packed rows;
+    1 and all of them for the wgmma kernel)."""
+    kernel: str
+    splits: int
+    rows_per_split: int
+
+
 @functools.lru_cache(maxsize=None)
-def _splits(m: int, half: int, out: int, group: int, device: torch.device
-            ) -> Tuple[int, int]:
-    """(splits, packed rows a split): cut the contraction when the column
-    and row blocks alone leave SMs idle (decode at narrow OUT), at whole
-    groups where a group spans whole tiles, so that each group's partial
-    sum meets its scale once. Cached: a decode step asks for the same few
-    shapes hundreds of times."""
+def _plan(m: int, half: int, out: int, group: int, bf16: bool,
+          aligned: bool, sms: int, kernel: Optional[str] = None) -> Plan:
+    """The launch for ``x [m, 2 half]`` against packed ``[half, out]`` with
+    scale groups of ``group`` code rows on a card of ``sms`` SMs; a pure
+    function of these (``aligned``: x and the packed bytes start on 16
+    bytes). ``kernel`` names one to plan for instead of choosing (the
+    measurements time the two against each other at one shape). The wgmma
+    kernel takes bf16 activations from :data:`M_SWITCH` rows when its TMA
+    tiles fit the operands (OUT a multiple of 16, groups of whole 64-row
+    stages). The first kernel cuts the contraction when its column and row
+    blocks alone leave SMs idle (decode at narrow OUT), at whole groups
+    where a group spans whole tiles, so that each group's partial sum meets
+    its scale once. Cached: a decode step asks for the same few shapes
+    hundreds of times."""
+    fits = bf16 and aligned and out % 16 == 0 and group % WG_TK == 0
+    if kernel is None:
+        kernel = "wgmma" if fits and m >= M_SWITCH else "mma"
+    if kernel == "wgmma":
+        if not fits:
+            raise ValueError(f"int4_matmul: the wgmma kernel does not take "
+                             f"x [{m}, {2 * half}] (bf16 {bf16}, aligned "
+                             f"{aligned}) @ [{half}, {out}] group {group}")
+        return Plan("wgmma", 1, half)
     bm = 16 if m <= 16 else 64
     blocks = -(-out // BN) * -(-m // bm)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     tiles = -(-half // TK)
     want = max(1, min(tiles, math.ceil(BLOCKS_PER_SM * sms / blocks)))
     per = -(-tiles // want)
     unit = group // TK if group % TK == 0 else 1
     per = -(-per // unit) * unit
-    return -(-tiles // per), per * TK
+    return Plan("mma", -(-tiles // per), per * TK)
 
 
-def _launch(x: Tensor, w_packed: Tensor, scales: Tensor, group: int) -> Tensor:
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The card's SM count (asked once: a decode step launches the kernel
+    hundreds of times)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch(x: Tensor, w_packed: Tensor, scales: Tensor, group: int,
+            kernel: Optional[str] = None) -> Tensor:
     m, in_dim = x.shape
     half, out = w_packed.shape
     dev = w_packed.device
@@ -162,21 +207,27 @@ def _launch(x: Tensor, w_packed: Tensor, scales: Tensor, group: int) -> Tensor:
     out_t = torch.empty((m, out), dtype=torch.float32, device=dev)
     if m == 0:
         return out_t
-    splits, per = _splits(m, half, out, group, dev)
-    ws = (torch.empty((splits, m, out), dtype=torch.float32, device=dev)
-          if splits > 1 else None)
     bf16 = x.dtype == torch.bfloat16
-    vec = (out % 16 == 0 and half % (8 if bf16 else 4) == 0
-           and x.data_ptr() % 16 == 0 and w_packed.data_ptr() % 16 == 0)
-    err = _lib().int4_matmul_launch(
-        x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
-        out_t.data_ptr(), None if ws is None else ws.data_ptr(), m, in_dim,
-        out, group, splits, per, int(bf16), int(vec),
-        torch.cuda.current_stream(dev).cuda_stream)
+    aligned = x.data_ptr() % 16 == 0 and w_packed.data_ptr() % 16 == 0
+    plan = _plan(m, half, out, group, bf16, aligned, _sm_count(dev), kernel)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if plan.kernel == "wgmma":
+        err = _lib().int4_matmul_wgmma_launch(
+            x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
+            out_t.data_ptr(), m, in_dim, out, group, stream)
+    else:
+        ws = (torch.empty((plan.splits, m, out), dtype=torch.float32,
+                          device=dev) if plan.splits > 1 else None)
+        vec = (out % 16 == 0 and half % (8 if bf16 else 4) == 0 and aligned)
+        err = _lib().int4_matmul_launch(
+            x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
+            out_t.data_ptr(), None if ws is None else ws.data_ptr(), m,
+            in_dim, out, group, plan.splits, plan.rows_per_split, int(bf16),
+            int(vec), stream)
     if err != 0:
-        raise RuntimeError(f"int4_matmul kernel launch failed for x "
-                           f"[{m}, {in_dim}] @ packed [{half}, {out}] "
-                           f"group {group}: CUDA error {err}")
+        raise RuntimeError(f"int4_matmul {plan.kernel} launch failed for x "
+                           f"[{m}, {in_dim}] {x.dtype} @ packed [{half}, "
+                           f"{out}] group {group}: CUDA error {err}")
     int4_matmul.launches += 1
     return out_t
 

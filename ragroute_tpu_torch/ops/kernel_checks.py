@@ -13,6 +13,10 @@ Fused top-k (:func:`fused_topk` against :func:`fused_topk_reference`):
   order: indices and scores must be equal. Duplicate doc rows put ties
   across tile, split and k boundaries. f32 / bf16 / int8 / int4 with
   per-doc and per-group scales, k from 10 to 160.
+* :func:`wgmma_exact_cases`: the same kind of data through the wgmma scan
+  (bf16 docs, k 10 to 160): a partial query block, partial doc tiles,
+  contraction chunks past d, a -inf bias tail, ``valid_docs < N`` and
+  splits of several tiles.
 * :func:`deep_exact_cases`: the same kind of data past the shallow depth
   (k 161 to 1,100 over 20,000 docs, three select runs), through the deep
   launch, with chunks of docs and slices of query rows forced by a small
@@ -59,6 +63,8 @@ import torch
 
 from ragroute_tpu_torch.index.shard import _pack_int4
 from ragroute_tpu_torch.ops import deep_topk
+from ragroute_tpu_torch.ops.fused_topk import _launch as _fused_launch
+from ragroute_tpu_torch.ops.fused_topk import _plan as _fused_plan
 from ragroute_tpu_torch.ops.fused_topk import (TILE_D, fused_topk,
                                                fused_topk_reference,
                                                gain_form)
@@ -149,6 +155,40 @@ def exact_cases(device, *, bsz: int = 37, n: int = 3 * TILE_D + 17,
                128, "l2", bias=l2_bias, packed4=True)
 
 
+WGMMA_KS = (10, 32, 64, 160)
+
+
+def wgmma_exact_cases(device, *, bsz: int = 150, n: int = 3 * 256 + 77,
+                      seed: int = 5) -> Iterator[Case]:
+    """Exact-arithmetic cases of the wgmma scan (bf16 docs, k up to 160):
+    integer data in [-4, 4], 150 query rows (a second, partial block of
+    128), 845 docs (a partial last tile of 256 and of 128), d 64, 80 (a
+    contraction chunk past the columns) and 192 (three chunks); duplicate
+    rows on both sides of the tile boundaries; at every k in
+    :data:`WGMMA_KS`: dot, l2 (bias), a -inf bias tail and ``valid_docs <
+    N``; and 20,000 docs, where splits span several tiles."""
+    rng = np.random.default_rng(seed)
+    for d, rows in ((64, n), (80, n), (192, n), (64, 20_000)):
+        docs = rng.integers(-4, 5, (rows, d)).astype(np.float32)
+        for src, dsts in ((7, (127, 128, 255, 256, 257, 511, 512, 767)),
+                          (11, (383, 384, 640, 768, 769, rows - 1))):
+            docs[list(dsts)] = docs[src]
+        q = torch.from_numpy(rng.integers(-4, 5, (bsz, d)).astype(np.float32)
+                             ).to(device)
+        bf16 = torch.from_numpy(docs).to(device).to(torch.bfloat16)
+        tail = torch.zeros(rows, dtype=torch.float32, device=device)
+        tail[rows - 100:] = NEG_INF
+        for k in WGMMA_KS:
+            yield Case(f"wgmma-d{d}-n{rows}-dot-k{k}", q, bf16, k, "dot")
+            if rows != n:
+                continue
+            yield Case(f"wgmma-d{d}-l2-k{k}", q, bf16, k, "l2")
+            yield Case(f"wgmma-d{d}-inf-tail-k{k}", q, bf16, k, "dot",
+                       bias=tail)
+            yield Case(f"wgmma-d{d}-valid-k{k}", q, bf16, k, "dot",
+                       valid_docs=rows - 200)
+
+
 def deep_exact_cases(device, *, bsz: int = 37, n: int = 20_000, d: int = 64,
                      seed: int = 3) -> Iterator[Case]:
     """Exact-arithmetic cases of the deep launch (k past 160): integer data
@@ -191,12 +231,25 @@ def deep_exact_cases(device, *, bsz: int = 37, n: int = 20_000, d: int = 64,
                cap=10 * per_row)
 
 
-def run_kernel(case: Case) -> Tuple[Tensor, Tensor]:
-    """The wrapper on CUDA tensors: launches the kernel."""
-    return fused_topk(case.queries, case.docs, case.k, mode=case.mode,
-                      valid_docs=case.valid_docs, bias=case.bias,
-                      scale=case.scale, packed4=case.packed4,
-                      workspace_cap=case.cap)
+def run_kernel(case: Case, kernel: Optional[str] = None
+               ) -> Tuple[Tensor, Tensor]:
+    """The wrapper on CUDA tensors: launches the kernel. ``kernel`` names
+    the launch (``"wgmma"``, ``"shallow"``, ``"deep"``) in place of the
+    wrapper's plan, to time the launches against each other at one
+    shape."""
+    if kernel is None:
+        return fused_topk(case.queries, case.docs, case.k, mode=case.mode,
+                          valid_docs=case.valid_docs, bias=case.bias,
+                          scale=case.scale, packed4=case.packed4,
+                          workspace_cap=case.cap)
+    q, b = gain_form(case.queries, case.docs, mode=case.mode, bias=case.bias,
+                     packed4=case.packed4)
+    n = case.docs.shape[0]
+    valid = n if case.valid_docs is None else min(case.valid_docs, n)
+    g, i = _fused_launch(q, case.docs, case.k, valid, b, case.scale,
+                         packed4=case.packed4, workspace_cap=case.cap,
+                         kernel=kernel)
+    return gain_to_natural(g, case.queries, case.mode), i
 
 
 def run_plain(case: Case, q_chunk: Optional[int] = None
@@ -315,11 +368,17 @@ def k1_bound(case: Case) -> Dict[str, float]:
     """Least time for one fused top-k call: every operand read once and the
     lists written once at the HBM rate, against ``2 * B * N * d``
     operations at the peak rate of the product's operand type. A deep
-    launch (k past 160) also writes its f32 gains out and reads them back,
-    ``8 * B * N`` bytes the function itself does not need: they stay out of
-    ``bound_ms`` and go to ``workspace_bytes`` and ``design_floor_ms``."""
+    launch (k past 160, or as the wrapper's plan takes it) also writes its
+    f32 gains out and reads them back, ``8 * B * N`` bytes the function
+    itself does not need: they stay out of ``bound_ms`` and go to
+    ``workspace_bytes`` and ``design_floor_ms``."""
     bsz, d = case.queries.shape
     n = case.valid_docs or case.docs.shape[0]
+    doc_type = (3 if case.packed4 else
+                {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[
+                    case.docs.dtype])
+    # the deep decision depends on the shape alone (not on the SM count)
+    deep = _fused_plan(bsz, n, d, case.k, doc_type, 132).kernel == "deep"
     q_bytes = 4 if case.docs.dtype == torch.float32 else 2
     nbytes = (bsz * d * q_bytes
               + n * case.docs.shape[1] * case.docs.element_size()
@@ -327,7 +386,7 @@ def k1_bound(case: Case) -> Dict[str, float]:
                     if t is not None)
               + bsz * case.k * 12)
     return _bound(nbytes, 2.0 * bsz * n * d, PEAK_FLOPS[case.docs.dtype],
-                  8 * bsz * n if case.k > deep_topk.SHALLOW_MAX else 0)
+                  8 * bsz * n if deep else 0)
 
 
 def _bound(nbytes: float, flops: float, peak: float,

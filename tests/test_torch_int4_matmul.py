@@ -67,6 +67,26 @@ def test_plain_version_matches_jax_kernel(m, in_dim, out, group):
                                atol=1e-4 * np.abs(deq).max())
 
 
+@pytest.mark.parametrize("m", [tx.M_SWITCH - 1, tx.M_SWITCH, 300])
+def test_plain_version_matches_jax_kernel_at_prefill_rows(m):
+    """Either side of the prefill kernel's switch (on the card the wrapper
+    takes the first kernel below ``M_SWITCH`` and the wgmma kernel from
+    it; here both are the plain version): the function is the JAX
+    package's at a prefill-like M, groups of whole 64-row stages."""
+    rng = np.random.default_rng(m)
+    in_dim, out, group = 256, 48, 64
+    x = rng.normal(size=(m, in_dim)).astype(np.float32)
+    packed = rng.integers(-128, 128, (in_dim // 2, out)).astype(np.int8)
+    scales = (rng.random((in_dim // group, out)) * 0.05 + 1e-3).astype(
+        np.float32)
+    want = np.asarray(jx.int4_matmul(jnp.asarray(x), jnp.asarray(packed),
+                                     jnp.asarray(scales), group=group))
+    got = tx.int4_matmul(torch.from_numpy(x), torch.from_numpy(packed),
+                         torch.from_numpy(scales), group=group).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
 def test_exact_integer_cases_are_exact():
     """Small integer activations and power-of-two scales: every partial sum
     is exact, so the plain version equals the dequantized product."""

@@ -1,9 +1,9 @@
-"""Card-only tests: the hand-written kernels (csrc/fused_topk.cu,
-csrc/stream_topk.cu, csrc/grouped_gains.cu, csrc/grouped_pair_topk.cu,
-csrc/int4_matmul.cu, csrc/decode_attention.cu) against their plain PyTorch
-versions, at test size, the host-RAM tiers' engine on the card against the
-same engine on the CPU, and the int4 decoder's greedy tokens on the card
-against the CPU's.
+"""Card-only tests: the hand-written kernels (csrc/fused_topk.cu with its
+wgmma scan, csrc/stream_topk.cu, csrc/grouped_gains.cu,
+csrc/grouped_pair_topk.cu, csrc/int4_matmul.cu with its prefill kernel,
+csrc/decode_attention.cu) against their plain PyTorch versions, at test
+size, the host-RAM tiers' engine on the card against the same engine on the
+CPU, and the int4 decoder's greedy tokens on the card against the CPU's.
 
 A CUDA kernel has no CPU mode, so every test here needs a card; the
 ``cuda`` fixture decides that (never at import) and skips otherwise. On the
@@ -88,6 +88,37 @@ def test_kernel_counts_launches_and_raises_on_what_it_does_not_take(cuda):
     fused_topk(q, packed, 300, packed4=True)
     assert fused_topk.launches == before + 5
     assert fused_topk.deep_launches == deep + 2
+
+
+@pytest.mark.parametrize("kernel", [None, "wgmma"])
+def test_wgmma_scan_exact_cases_equal_plain(cuda, kernel):
+    """bf16 docs through the wgmma scan (``kernel="wgmma"``: every case,
+    k 10 to 160; None: the wrapper's plan, which sends the narrow docs'
+    lists past 64 to the deep launch): a partial query block, partial doc
+    tiles, contraction chunks past d, a -inf bias tail, valid_docs < N and
+    splits of several tiles; indices and scores equal the plain version."""
+    failed = []
+    for case in kc.wgmma_exact_cases(cuda):
+        got = kc.run_kernel(case, kernel)
+        want = kc.run_plain(case)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])):
+            failed.append(case.name)
+    assert not failed, failed
+
+
+@pytest.mark.parametrize("bsz,n,d,k", [(300, 60_000, 768, 32),
+                                       (8, 100_003, 768, 64),
+                                       (200, 30_000, 768, 160),
+                                       (512, 50_000, 128, 32)])
+def test_wgmma_scan_matches_plain_within_tolerance(cuda, bsz, n, d, k):
+    case = kc.path_case(cuda, bsz=bsz, n=n, d=d, k=k, seed=bsz + k)
+    before = fused_topk.launches
+    kernel = kc.run_kernel(case, "wgmma")
+    assert fused_topk.launches == before + 1
+    res = kc.compare_tolerant(kernel, kc.run_plain(case))
+    assert res["ok"], res
+    assert res["recall"] >= 0.999, res
 
 
 def test_kernel_deep_exact_cases_equal_plain(cuda):
@@ -519,6 +550,38 @@ def test_int4_matmul_matches_plain_within_tolerance(cuda, m, in_dim, out,
     with pytest.raises(TypeError):
         int4_matmul(case.x.to(torch.float16), case.w, case.scale,
                     group=group)
+
+
+def test_int4_prefill_kernel_exact_cases_equal_plain(cuda):
+    """The prefill (wgmma) kernel's exact cases: M at the switch and past it
+    (a ragged last token block), OUT off the 128-column block, groups of
+    one, two and four 64-row stages; each a launch of that kernel."""
+    from ragroute_tpu_torch.ops import decoder_checks as dc
+    from ragroute_tpu_torch.ops.int4_matmul import M_SWITCH, int4_matmul
+
+    failed = []
+    for case in dc.int4_prefill_exact_cases(cuda):
+        assert case.x.shape[0] >= M_SWITCH
+        before = int4_matmul.launches
+        got = dc.run_int4(case, "wgmma")
+        assert int4_matmul.launches == before + 1
+        if not torch.equal(got, dc.run_int4_plain(case)):
+            failed.append(case.name)
+    assert not failed, failed
+
+
+@pytest.mark.parametrize("m,in_dim,out", [(1000, 1024, 2048),
+                                          (4096, 4096, 1024)])
+def test_int4_prefill_kernel_matches_plain_within_tolerance(cuda, m, in_dim,
+                                                            out):
+    from ragroute_tpu_torch.ops import decoder_checks as dc
+
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    case = dc._rand_case("t", cuda, m, in_dim, out, 128, torch.bfloat16,
+                         gen, exact=False)
+    res = dc.matmul_close(dc.run_int4(case, "wgmma"),
+                          dc.run_int4_plain(case))
+    assert res["ok"], res
 
 
 def test_decode_attention_matches_plain_and_attend(cuda):
