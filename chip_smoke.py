@@ -18,17 +18,20 @@ Phases, each of which fails the run when it fails:
    of the plain version and, where one PyTorch call computes the same
    function, of that call:
 
-   * fused top-k: exact cases of the shallow launch (k 10 to 160) and of
-     the deep one (k 161 to 1,100, chunks and row slices); B=512 over one
-     734,003 x 768 centred bf16 dot shard, k=32 (1e-3 x max|score|,
-     winner-set recall >= 0.999); the same shard int4-packed with per-doc
-     and with per-group scales; the low-rank coarse scan (734,003 x 128
-     bf16) at k'=128 and, through the deep launch, k'=256 (--refine-mult
-     8); the host tiers' launches: one int8 slab of the stream tier
-     (346,112 x 768, per-doc scale, k=32) and hostrefine's flat coarse scan
-     (2,936,320 x 128 int8, per-doc scale, -inf bias on the padding rows)
-     at k'=128 and 256; the deep rows with the profiler's device time and a
-     bound that counts the gains' round trip through device memory;
+   * fused top-k: exact cases of the shallow launch (k 10 to 160), of
+     the wgmma scan over bf16 docs and over int8 and int4 docs (no,
+     per-doc and per-group scales) and of the deep launch (k 161 to 1,100,
+     chunks and row slices); B=512 over one 734,003 x 768 centred bf16 dot
+     shard, k=32 (1e-3 x max|score|, winner-set recall >= 0.999); the same
+     shard int4-packed with per-doc and with per-group scales, in int8 and
+     in f32; the low-rank coarse scan (734,003 x 128 bf16) at k'=128 and,
+     through the deep launch, k'=256 (--refine-mult 8); the host tiers'
+     launches: one int8 slab of the stream tier (346,112 x 768, per-doc
+     scale, k=32) and hostrefine's flat coarse scan (2,936,320 x 128 int8,
+     per-doc scale, -inf bias on the padding rows) at k'=128 and 256; each
+     int8 / int4 row with the first design's time at the same shape beside
+     it, the deep rows with the profiler's device time and a bound that
+     counts the gains' round trip through device memory;
    * streaming top-k: exact cases over both of its paths (the radix select
      a block, the warp-streaming path, runs merged across splits) and the
      deep launch (k 161 to M, one run and runs merged, rows in slices),
@@ -39,13 +42,16 @@ Phases, each of which fails the run when it fails:
    * grouped gains: 512 queries x 512 probes over 4,096 bf16 slabs of
      768 x 256 (1e-3 x max|gain|);
    * grouped pair top-k: exact cases (ranks 1 to 64 and the deep launch's
-     200 and 256), then 256 ranks a tile at the reduced world's probed scan
+     200 and 256) through the plan and again through the wgmma kernel and
+     the first design where each takes them, then 256 ranks a tile at the
+     reduced world's probed scan
      under an open cap (64 queries x 64 clusters of 568 slots, kappa 256),
      then 512 queries x 512 probes over 4,096 int8 coarse slabs of 128 x
      1,584, kappa 8 (gains 1e-4 relative, slots equal where the gains are
      clearly ordered, up to a millionth of near-ties at a tile's rank cut;
      every slot that differs from the plain version's must carry,
-     recomputed, the gain written for it);
+     recomputed, the gain written for it), with the first design's time
+     at the same shape beside the wgmma kernel's;
    * int4 matmul (the decoder's K5): exact integer cases (outputs equal),
      then Qwen3-8B's projections and untied head at decode (B=16), its
      gate and down at prefill (16 x 512 rows) and Qwen3-0.6B's tied head,
@@ -73,7 +79,8 @@ Phases, each of which fails the run when it fails:
    must all answer 200, with 32 docs for every query the router sends
    somewhere (and none for a query it sends nowhere, as in the reference),
    the batcher must form a batch larger than one, and the path's kernels
-   must have launched between the warm-up and the last answer; then
+   must have launched between the warm-up and the last answer (the exact
+   path through K1's wgmma scan); then
    ``engine.search`` on 64 queries is held against ``exact_oracle`` (exact
    and low-rank: recall >= 0.99; ivf at its default nprobe C/8: recall
    >= 0.9). The hybrid engine on the ivf run's layouts must probe only
@@ -107,7 +114,8 @@ Phases, each of which fails the run when it fails:
    with ``--refine-mult 8``, whose recall must reach the default depth's
    and whose K1 or K2 must take the deep launch): every ``/query`` answers
    200, the path's kernels launch (the grouped pair top-k only on the
-   probed path), ``last_phases`` is printed, and ``engine.search`` on 64
+   probed path, through its wgmma kernel; the stream tier's slabs through
+   K1's wgmma scan), ``last_phases`` is printed, and ``engine.search`` on 64
    queries is held against the exact f32 oracle over the generated rows
    (stream >= 0.95, the int8 gate, and >= 0.995 of the exact winners of its
    own stored bytes, beside the recall of a plain f32 scan of those bytes
@@ -215,6 +223,11 @@ PATH_KERNELS = {"exact": ("fused_topk",),
                 "llm_batch": ("int4_matmul",),
                 "llm_continuous": ("int4_matmul",)}
 
+# the kernels each served path must launch through their wgmma designs:
+# K1's scan (bf16, int8 and int4 docs) and K4's pair scan
+WGMMA_PATHS = {"exact": ("fused_topk",), "stream": ("fused_topk",),
+               "hostrefine_probed": ("grouped_pair_topk",)}
+
 # the paths served at --refine-mult 8 (k' = 256 at medrag's k = 32), the
 # kernels that must take their deep launch there, and the default-depth run
 # whose recall on the same queries each must reach
@@ -256,17 +269,29 @@ def log(msg: str) -> None:
 def reset_counts() -> None:
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
-        if hasattr(wrapper, "deep_launches"):
-            wrapper.deep_launches = 0
+        for extra in ("deep_launches", "wgmma_launches"):
+            if hasattr(wrapper, extra):
+                setattr(wrapper, extra, 0)
 
 
 def read_counts() -> dict:
     """Launches of every kernel; under ``deep``, those of the deep launch
-    (lists past 160) of the three top-k kernels."""
+    (lists past 160) of the three top-k kernels; under ``wgmma``, those of
+    K1's scan and K4's wgmma kernel."""
     out = {name: k[0].launches for name, k in KERNELS.items()}
-    out["deep"] = {name: k[0].deep_launches for name, k in KERNELS.items()
-                   if hasattr(k[0], "deep_launches")}
+    for extra in ("deep", "wgmma"):
+        out[extra] = {name: getattr(k[0], f"{extra}_launches")
+                      for name, k in KERNELS.items()
+                      if hasattr(k[0], f"{extra}_launches")}
     return out
+
+
+def check_wgmma(label: str, launches: dict) -> None:
+    """The path's kernels that must have run their wgmma design did."""
+    for name in WGMMA_PATHS.get(label, ()):
+        if launches["wgmma"][name] <= 0:
+            raise AssertionError(f"the {label} path never launched the "
+                                 f"wgmma design of {name}")
 
 
 def check_deep(label: str, launches: dict, recall: float, out: dict) -> None:
@@ -337,12 +362,13 @@ def _check_fused_path(case, label: str, reps: int = 10,
                       q_chunk=None, device: bool = False,
                       old: str = None) -> dict:
     """Kernel against plain version at a path shape, with CUDA-event times,
-    the bound, and with ``old`` (a launch the wrapper's plan took before
-    the wgmma scan, named to ``kernel_checks.run_kernel``) that launch's
-    time as ``old_ms``."""
+    the bound, and with ``old`` (the launch the wrapper's plan took before
+    the wgmma scan took the shape, named to ``kernel_checks.run_kernel``)
+    that launch's time as ``old_ms``."""
     kernel, plain = kc.run_pair(case, q_chunk)
     res = kc.compare_tolerant(kernel, plain)
-    log(f"[kernel] fused_topk {label}: recall {res['recall']:.6f} "
+    plan = kc.fused_plan_of(case)
+    log(f"[kernel] fused_topk {label} ({plan}): recall {res['recall']:.6f} "
         f"max_abs_err {res['max_abs_err']:.3e} tol {res['tol']:.3e} "
         f"non-tie mismatches {res['non_tie_mismatches']}")
     if not res["ok"] or res["recall"] < 0.999:
@@ -353,7 +379,7 @@ def _check_fused_path(case, label: str, reps: int = 10,
     plain_ms = kc.cuda_time_ms(lambda: kc.run_plain(case, q_chunk), warmup=1,
                                reps=max(3, reps // 2))
     bound = kc.k1_bound(case)
-    row = {"max_abs_err": res["max_abs_err"], "ms": ms,
+    row = {"kernel": plan, "max_abs_err": res["max_abs_err"], "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
            "bound_by": bound["bound_by"], "library_ms": None}
     note = floor = ""
@@ -412,16 +438,42 @@ def phase_fused(dev) -> dict:
         f"k {', '.join(map(str, kc.WGMMA_KS))}; B=150 over two query blocks, "
         f"845 docs off the tile, d 64 / 80 / 192, -inf tail, valid_docs < N, "
         f"splits of several tiles): indices and scores equal")
+    qn = []
+    for case in kc.quant_exact_cases(dev):
+        (ks, ki), (ps, pi) = kc.run_kernel(case, "wgmma"), kc.run_plain(case)
+        torch.cuda.synchronize()
+        if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+            raise AssertionError(f"the wgmma scan != plain on exact case "
+                                 f"{case.name}")
+        qn.append(case.name)
+    log(f"[kernel] fused_topk {len(qn)} exact cases of the wgmma scan over "
+        f"int8 and int4 docs (no, per-doc and per-group scales; k "
+        f"{', '.join(map(str, kc.WGMMA_KS))}; d 64 / 80 / 96 / 192, packed "
+        f"rows of 32 to 96 bytes, -inf tail, valid_docs < N, 20,000 docs in "
+        f"splits): indices and scores equal")
     res = _check_fused_path(kc.path_case(dev),
                             "path shape B=512 N=734003 d=768 bf16 dot k=32",
                             old="shallow")
     modes = {}
     modes["int4_per_doc"] = _check_fused_path(
         kc.int4_path_case(dev, grouped=False),
-        "B=512 N=734003 d=768 int4 per-doc scale k=32", reps=5)
+        "B=512 N=734003 d=768 int4 per-doc scale k=32", reps=5, device=True,
+        old="shallow")
     modes["int4_per_group"] = _check_fused_path(
         kc.int4_path_case(dev, grouped=True),
-        "B=512 N=734003 d=768 int4 per-group scale (6 groups) k=32", reps=5)
+        "B=512 N=734003 d=768 int4 per-group scale (6 groups) k=32", reps=5,
+        device=True, old="shallow")
+    # the same shard in int8 (--dtype int8 in HBM) and in f32 (the first
+    # design: f32 stays off the tensor cores)
+    hbm = kc.int8_path_case(dev, n=734_003, d=768, k=32, seed=8)
+    modes["int8_hbm_k32"] = _check_fused_path(
+        hbm, "B=512 N=734003 d=768 int8 per-doc scale k=32", reps=5,
+        device=True, old="shallow")
+    del hbm
+    f32 = kc.path_case(dev, dtype=torch.float32)
+    modes["f32_k32"] = _check_fused_path(
+        f32, "B=512 N=734003 d=768 f32 dot k=32", reps=3)
+    del f32
     coarse = kc.path_case(dev, d=128, k=128, seed=4)
     modes["coarse_k128"] = _check_fused_path(
         coarse, "low-rank coarse scan B=512 N=734003 r=128 bf16 k=128",
@@ -439,7 +491,7 @@ def phase_fused(dev) -> dict:
     slab = kc.int8_path_case(dev, n=TIER_SLAB_ROWS, d=768, k=32, seed=6)
     modes["int8_slab_k32"] = _check_fused_path(
         slab, f"stream slab B=512 N={TIER_SLAB_ROWS} d=768 int8 per-doc "
-        f"scale k=32", reps=5)
+        f"scale k=32", reps=5, device=True, old="shallow")
     del slab
     n_pad = -(-SMOKE_TIER_DOCS["pubmed"] // 512) * 512
     flat = kc.int8_path_case(dev, n=n_pad, d=128, k=128,
@@ -449,7 +501,7 @@ def phase_fused(dev) -> dict:
         flat, f"hostrefine flat coarse scan B=512 N={n_pad} r=128 int8 "
         f"per-doc scale, -inf bias on {n_pad - SMOKE_TIER_DOCS['pubmed']} "
         f"padding "
-        f"rows, k'=128", reps=5, q_chunk=64)
+        f"rows, k'=128", reps=3, q_chunk=64, device=True, old="shallow")
     flat.k = 256
     modes["int8_coarse_k256"] = _check_fused_path(
         flat, f"hostrefine flat coarse scan B=512 N={n_pad} r=128 int8 "
@@ -616,6 +668,22 @@ def phase_pair(dev) -> dict:
         f"across the tile boundary, negative biases, ranks 1..64 and deep "
         f"ranks 200 / 256, row table, real-block count, chunks of blocks): "
         f"gains equal, slots equal where finite")
+    for kernel in ("wgmma", "shallow"):   # each launch where it takes them
+        n = 0
+        for case in kc.pair_exact_cases(dev):
+            if not kc.pair_takes(case, kernel):
+                continue
+            out = kc.run_pair_kernel(case, kernel)
+            real = case.real_rows
+            plain = kc.run_pair_plain(case, real // kc.PAIR_ROWS)
+            torch.cuda.synchronize()
+            res = kc.compare_pair((out[0][:real], out[1][:real]), plain)
+            if not res["ok"] or res["max_abs_err"] != 0.0:
+                raise AssertionError(f"the {kernel} launch != plain on exact "
+                                     f"case {case.name}: {res}")
+            n += 1
+        log(f"[kernel] grouped_pair_topk {n} exact cases through the "
+            f"{kernel} launch: gains equal, slots equal where finite")
     deep = _check_pair_path(kc.pair_path_case(
         dev, bsz=64, c=64, s=568, nprobe=64, kappa=256, seed=6), reps=5)
     case = kc.pair_path_case(dev)
@@ -641,7 +709,12 @@ def phase_pair(dev) -> dict:
                              f"version on the path shape: {res}")
     del out, plain
     torch.cuda.empty_cache()
+    plan = kc.pair_plan_of(case)
     ms = kc.cuda_time_ms(lambda: kc.run_pair_kernel(case))
+    dev_ms = dc.device_ms(lambda: kc.run_pair_kernel(case), grouped_pair_topk,
+                          warmup=1, reps=5)
+    # the first design, which took this shape before the wgmma kernel
+    old_ms = kc.cuda_time_ms(lambda: kc.run_pair_kernel(case, "shallow"))
     plain_ms = kc.cuda_time_ms(lambda: kc.run_pair_plain(case, blocks),
                                warmup=1, reps=2)
     bound = kc.k4_bound(case)
@@ -659,8 +732,9 @@ def phase_pair(dev) -> dict:
             torch.topk(gains, kw, dim=2)
 
     note_ms = kc.cuda_time_ms(bmm_topk_note, warmup=1, reps=2)
-    log(f"[kernel] grouped_pair_topk path shape: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
+    log(f"[kernel] grouped_pair_topk path shape ({plan}): kernel {ms:.3f} ms "
+        f"(device {dev_ms:.3f}; the shallow launch before: {old_ms:.3f}), "
+        f"plain {plain_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
         f"({bound['bound_by']}; {bound['bytes'] / 1e6:.1f} MB, "
         f"{bound['flops'] / 1e12:.4f} TFLOP over the {case.n_pairs} real "
         f"pairs, {bound['padded_flops'] / 1e12:.4f} over the blocks' rows); "
@@ -668,7 +742,8 @@ def phase_pair(dev) -> dict:
         f"{note_ms:.3f} ms")
     del case, qb, cl
     torch.cuda.empty_cache()
-    return {"max_abs_err": res["max_abs_err"], "ms": ms,
+    return {"kernel": plan, "max_abs_err": res["max_abs_err"], "ms": ms,
+            "device_ms": dev_ms, "old_ms": old_ms, "old_kernel": "shallow",
             "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
             "bound_by": bound["bound_by"], "library_ms": None,
             "bmm_topk_note_ms": note_ms, "modes": {"ranks256": deep}}
@@ -980,6 +1055,7 @@ def serve_path(root: str, dev, syn, label: str, flags, recall_gate: float
         if launches[name] <= 0:
             raise AssertionError(
                 f"the {label} path never launched the {name} kernel")
+    check_wgmma(label, launches)
 
     q = {enc: e[:N_CHECK] for enc, e in syn.query_embs.items()}
     out = engine.search(q, strategy="ragroute")
@@ -1458,6 +1534,7 @@ def serve_tier(root: str, dev, syn, label: str, impl: str,
                 f"the {label} path never launched the {name} kernel")
     if "probed" not in label and launches["grouped_pair_topk"]:
         raise AssertionError(f"the {label} path ran the probed scan")
+    check_wgmma(label, launches)
 
     q = {enc: e[:N_CHECK] for enc, e in syn.query_embs.items()}
     out = engine.search(q, strategy="ragroute", fetch_candidates=False)

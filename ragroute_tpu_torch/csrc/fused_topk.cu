@@ -56,9 +56,9 @@
 // runs on tensor cores. At B = 8 the same shard is read for 64x less work
 // and the bound is the ~0.33 ms it takes to read the docs once.
 //
-// bf16 docs with k <= KMAX take a mainloop for that (wgmma_topk_kernel,
-// chosen by ops/fused_topk.py::_plan):
-//   * one producer warp keeps a ring of 3 or 4 stages in flight by TMA, each
+// bf16, int8 and int4 docs with k <= KMAX take a mainloop for that
+// (wgmma_topk_kernel, chosen by ops/fused_topk.py::_plan):
+//   * one producer warp keeps a ring of 2 to 4 stages in flight by TMA, each
 //     the [128 query rows x 64] and [192 docs x 64] bf16 chunks (128-byte
 //     swizzle; zeros past B, D and the valid rows), so no thread copies an
 //     operand and the query tile is not re-read through registers;
@@ -79,9 +79,42 @@
 // blocks reading one doc range run together and the docs cross HBM about
 // once; what bounds it now is the fold, which the two groups run at the same
 // time while the tensor cores wait, and the query chunk's re-read from L2
-// for every doc tile. f32, int8 and int4 docs keep the first design
-// (partial_topk_kernel: WMMA from shared memory, operands copied through
-// registers, one 64-doc tile at a time).
+// for every doc tile.
+//
+// int8 and int4 docs keep that mainloop and fold; only the doc operand
+// changes. The queries are wgmma's A (the fold is per query row, so query
+// rows are M) and the docs its B, which is read from shared memory, so the
+// codes become bf16 there: TMA brings a [192 docs x 64 bytes] raw box into
+// a ring of its own, and the producer group's four warps convert it into
+// the stage's bf16 doc tile in the 128-byte swizzle (codes.cuh: an int8
+// code under an f32 exponent of 2^23, a nibble ^ 8 under a bf16 exponent of
+// 128; both exact), fence it for the tensor cores and arrive on the stage's
+// barrier beside the query chunk's TMA bytes. kI4G's scales multiply
+// the codes there, both in bf16 and rounded once, as the plain version's
+// dequant does; per-doc scales stay in the fold. Choices:
+//   * shared memory: the bf16 ring keeps as many stages as fit beside a raw
+//     ring of 2 stages of 12 KB, and the raw ring takes what is left
+//     (w_smem_bytes: 3 + 2 at k <= 32, the serving depth; 2 + 3 at k = 64).
+//     Measured against 2 bf16 stages with 4 raw ones, the third bf16 stage
+//     gained more (readings in PERF.md): raw loads are issued the moment a
+//     slot is free, so their latency is hidden by the raw ring's depth;
+//   * the conversion competes with the fold for issue slots, so the whole
+//     producer group converts: the query chunks are loaded by the consumer
+//     groups themselves, each its own half as it releases a stage; kI4G's
+//     group scales are loaded a chunk ahead, with the two group indices a
+//     thread's units share computed once a chunk (an integer division for
+//     every unit cost more than the conversion itself, as PERF.md reads);
+//   * int4's layout (byte j holds dim j low, dim j + D/2 high): the ring
+//     walks the packed row twice, each raw box feeding two chunks in a row,
+//     its low nibbles against the query chunk at dims 64 p .. and its high
+//     nibbles against the one at D/2 + 64 p .., so every stage pairs one
+//     query chunk with one doc chunk as bf16's do and a box is read once;
+//   * TMA needs a row stride of a multiple of 16 bytes: D % 16 for int8
+//     (always, as the kernel takes it) and D % 32 for int4; other int4
+//     widths keep partial_topk_kernel (the plan's choice). f32 docs keep it
+//     too: TF32 would change answers that the plain version forms in f32.
+// The producer group keeps its registers when it converts (no setmaxnreg:
+// every thread keeps what the launch bounds give it).
 
 #include <cuda_bf16.h>
 #include <float.h>
@@ -89,6 +122,7 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "codes.cuh"
 #include "deep_topk.cuh"
 #include "hopper.cuh"
 #include "topk_merge.cuh"
@@ -355,26 +389,37 @@ __global__ void __launch_bounds__(THREADS) partial_topk_kernel(
   }
 }
 
-// ---- bf16 docs, k <= KMAX: wgmma fed by a TMA ring ---------------------------
+// ---- bf16, int8 and int4 docs, k <= KMAX: wgmma fed by a TMA ring ---------
 
-constexpr int WK = 64;            // contraction chunk: 128-byte rows
+constexpr int WK = 64;            // contraction chunk: 128-byte bf16 rows
 constexpr int WTD = 192;          // docs a tile (the wgmma's N)
 constexpr int W_STEP = 8;         // accumulators a thread folds a step
 constexpr int W_CAP = 32;         // a row's candidate buffer
 constexpr int W_MAX_STAGES = 4;
+// int8 / int4 docs: the raw ring (TMA boxes of [192 docs x 64 bytes], plain
+// row-major; 2 to 4 stages) and the producer group's threads that convert
+// it, 6 units of 16 raw bytes a thread a chunk
+constexpr int W_MIN_RAW = 2;
+constexpr int W_MAX_RAW = 4;
+constexpr int W_RAW_BYTES = WTD * 64;
+constexpr int W_CONV = 128;
+constexpr int W_UNITS = WTD * 4 / W_CONV;
 
 __host__ __device__ constexpr int w_stage_bytes(int nwg) {
   return (64 * nwg + WTD) * WK * 2;
 }
 
 // Shared memory of a block of NWG consumer groups (64 query rows each) at
-// depth K: the ring (stages of a [64 NWG x 64] query chunk and a [192 x 64]
-// doc chunk, 1024-aligned), the rows' lists, candidate buffers and buffer
-// counts, each group's doc tile bias and scale (two tiles, in turn), the
-// barriers; plus 1024 bytes to align the ring.
-__host__ __device__ constexpr int w_smem_bytes(int nwg, int stages, int K) {
-  return stages * w_stage_bytes(nwg) + 64 * nwg * ((K + W_CAP) * 8 + 4) +
-         nwg * 4 * WTD * 4 + 2 * stages * 8 + 1024;
+// depth K with `raw` raw stages: the ring (stages of a [64 NWG x 64] query
+// chunk and a [192 x 64] bf16 doc chunk, 1024-aligned), the raw stages, the
+// rows' lists, candidate buffers and buffer counts, each group's doc tile
+// bias and scale (two tiles, in turn), the barriers; plus 1024 bytes to
+// align the ring.
+__host__ __device__ constexpr int w_smem_bytes(int nwg, int stages, int K,
+                                               int raw) {
+  return stages * w_stage_bytes(nwg) + raw * W_RAW_BYTES +
+         64 * nwg * ((K + W_CAP) * 8 + 4) + nwg * 4 * WTD * 4 +
+         (2 * stages + raw) * 8 + 1024;
 }
 
 // (a, ia) comes before (b, ib): the lists' order, gain desc then index asc
@@ -463,24 +508,121 @@ __device__ __forceinline__ unsigned fold_step(const float (&acc)[NACC],
   return m;
 }
 
+// Contraction chunk c of a doc tile: the query columns it pairs with and the
+// byte column of the docs' raw box it converts. int8: chunk c is bytes 64 c
+// ..; int4: the ring walks the packed row twice, chunk 2 p the low nibbles
+// of bytes 64 p .. (dims 64 p ..) and chunk 2 p + 1 their high nibbles (dims
+// D/2 + 64 p ..), so a raw box feeds two chunks in a row.
+template <int DT>
+__device__ __forceinline__ int w_q_col(int c, int D) {
+  if constexpr (DT == kI4 || DT == kI4G)
+    return (c & 1 ? D / 2 : 0) + (c >> 1) * WK;
+  return c * WK;
+}
+
+// kI4G: the group scales (as bf16) of a converter thread's units of chunk c
+// of the doc tile at j0, unit j taking codes 0..7 and 8..15 of its 16 raw
+// bytes; zero where the codes are past the row's bytes (the raw box's zero
+// fill) or the doc past N. Loaded before the chunk's barrier waits, so that
+// their latency hides under them.
+template <int DT>
+__device__ __forceinline__ void w_group_scales(__nv_bfloat16 (&sc)[W_UNITS][2],
+                                               int c, int ctid,
+                                               const float* __restrict__ gscale,
+                                               int G, int N, int D, int j0) {
+  if constexpr (DT == kI4G) {
+    // a thread's units share their 16 raw bytes' place in the row (W_CONV is
+    // a multiple of 4), so their two groups are the same: two divisions
+    const int h = D >> 1, per = D / G;
+    const int col = (c >> 1) * WK + (ctid & 3) * 16, dim = (c & 1 ? h : 0) + col;
+    const int g0 = dim / per, g1 = (dim + 8) / per;
+    const bool in0 = col < h, in1 = col + 8 < h;
+#pragma unroll
+    for (int j = 0; j < W_UNITS; ++j) {
+      const int doc = j0 + ((ctid + W_CONV * j) >> 2);
+      const float* sg = gscale + (size_t)doc * G;
+      const bool in = doc < N;
+      sc[j][0] = __float2bfloat16_rn(in && in0 ? __ldg(sg + g0) : 0.0f);
+      sc[j][1] = __float2bfloat16_rn(in && in1 ? __ldg(sg + g1) : 0.0f);
+    }
+  }
+}
+
+// One raw chunk (docs j0 .. j0 + 192 of the raw box `src`) into the stage's
+// bf16 doc tile `dst` (K-major, 128-byte swizzle), by the W_CONV converter
+// threads: a thread takes W_UNITS units of 16 raw bytes of a doc row (16
+// codes of int8, or the low or high nibbles of 16 packed bytes), all
+// unrolled so that their loads and conversions overlap, and writes their 16
+// bf16 each (two 16-byte chunks of the row). kI4G: each 8 codes times their
+// group's scale (w_group_scales), both in bf16, rounded once (the plain
+// version's dequant).
+template <int DT>
+__device__ __forceinline__ void w_convert(const unsigned char* src,
+                                          unsigned char* dst, int c, int ctid,
+                                          const __nv_bfloat16 (&sc)[W_UNITS][2]) {
+  const bool high = (DT == kI4 || DT == kI4G) && (c & 1);
+#pragma unroll
+  for (int j = 0; j < W_UNITS; ++j) {
+    const int u = ctid + W_CONV * j, row = u >> 2, piece = u & 3;
+    const uint4 w = *reinterpret_cast<const uint4*>(src + row * 64 + piece * 16);
+    uint2 a, b, e, f;
+    if constexpr (DT == kI8) {
+      a = codes::int8x4_bf16(w.x);
+      b = codes::int8x4_bf16(w.y);
+      e = codes::int8x4_bf16(w.z);
+      f = codes::int8x4_bf16(w.w);
+    } else {
+      a = codes::nibbles4_bf16(w.x, high);
+      b = codes::nibbles4_bf16(w.y, high);
+      e = codes::nibbles4_bf16(w.z, high);
+      f = codes::nibbles4_bf16(w.w, high);
+    }
+    if constexpr (DT == kI4G) {
+      a.x = codes::scale_bf16x2(a.x, sc[j][0]);
+      a.y = codes::scale_bf16x2(a.y, sc[j][0]);
+      b.x = codes::scale_bf16x2(b.x, sc[j][0]);
+      b.y = codes::scale_bf16x2(b.y, sc[j][0]);
+      e.x = codes::scale_bf16x2(e.x, sc[j][1]);
+      e.y = codes::scale_bf16x2(e.y, sc[j][1]);
+      f.x = codes::scale_bf16x2(f.x, sc[j][1]);
+      f.y = codes::scale_bf16x2(f.y, sc[j][1]);
+    }
+    unsigned char* line = dst + row * 128;
+    *reinterpret_cast<uint4*>(line + (((2 * piece) ^ (row & 7)) << 4)) =
+        make_uint4(a.x, a.y, b.x, b.y);
+    *reinterpret_cast<uint4*>(line + (((2 * piece + 1) ^ (row & 7)) << 4)) =
+        make_uint4(e.x, e.y, f.x, f.y);
+  }
+}
+
 // Grid (query tiles of 64 NWG, doc splits), the query tile fastest. The
 // producer warp group's first thread walks the split's doc tiles of 192 and,
-// for each, the D / 64 contraction chunks, loading each chunk of the query
-// tile and of the doc tile into the ring. Consumer group wg owns query rows
-// q0 + 64 wg .. + 64: per doc tile it runs wgmma m64n192k16 over the chunks
-// into f32 registers, releasing each stage once its products are done, then
-// folds the [64 x 192] gains: each gain is formed (x scale, + bias, -inf
-// past N) in registers and compared with its row's current k-th best; the
-// few that pass go to the row's buffer in shared memory, and a buffer that
-// may not take another block of candidates is merged into the row's list
-// (merge_buffer), as are all of them after the last tile.
-template <int NWG, int SLOTS>
+// for each, the contraction chunks of 64, loading each chunk of the query
+// tile and of the doc tile into the ring. bf16 docs arrive by TMA as they
+// are. int8 and int4 docs arrive by TMA as raw bytes in a ring of their own
+// (`raw` stages), and the whole producer group converts each chunk into the
+// ring's bf16 doc tile (w_convert), fences it for the tensor cores and
+// arrives on the stage's barrier; its first thread loads the raw boxes, the
+// next as soon as the group is done with a slot (a named barrier), and each
+// consumer group loads its own half of the query chunk into a stage as it
+// releases it (so that the loads run ahead of use by the ring's depth and no
+// producer thread waits on the consumers). Consumer group wg
+// owns query rows q0 + 64 wg .. + 64: per doc tile it runs wgmma m64n192k16
+// over the chunks into f32 registers, releasing each stage once its products
+// are done, then folds the [64 x 192] gains: each gain is formed (x scale,
+// + bias, -inf past N) in registers and compared with its row's current k-th
+// best; the few that pass go to the row's buffer in shared memory, and a
+// buffer that may not take another block of candidates is merged into the
+// row's list (merge_buffer), as are all of them after the last tile. kI4G's scales are applied by the converters, so `scale` is null
+// there and `gscale` holds them.
+template <int NWG, int SLOTS, int DT>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap dmap, const float* __restrict__ bias,
-    const float* __restrict__ scale, float* __restrict__ part_g,
-    int* __restrict__ part_i, int B, int N, int D, int K, int splits,
-    int tiles_per_split, int stages) {
+    const float* __restrict__ scale, const float* __restrict__ gscale,
+    float* __restrict__ part_g, int* __restrict__ part_i, int B, int N, int D,
+    int K, int G, int splits, int tiles_per_split, int stages, int raw_stages) {
+  constexpr bool RAW = DT != kBF16;
   constexpr int TQ = 64 * NWG;
   constexpr int QT = TQ * WK * 2;        // query chunk bytes
   constexpr int STAGE = w_stage_bytes(NWG);
@@ -490,7 +632,9 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
   // the ring on a 1024-byte boundary, as an offset from the shared array
   // (so that the compiler keeps shared-memory loads and stores)
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
-  float* run_g = reinterpret_cast<float*>(smem + stages * STAGE);
+  unsigned char* raw = smem + stages * STAGE;
+  const int n_raw = RAW ? raw_stages : 0;
+  float* run_g = reinterpret_cast<float*>(raw + n_raw * W_RAW_BYTES);
   int* run_i = reinterpret_cast<int*>(run_g + TQ * K);
   float* buf_g = reinterpret_cast<float*>(run_i + TQ * K);
   int* buf_i = reinterpret_cast<int*>(buf_g + TQ * W_CAP);
@@ -498,18 +642,24 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
   float* tile_v = reinterpret_cast<float*>(buf_n + TQ);
   uint64_t* full = reinterpret_cast<uint64_t*>(tile_v + NWG * 4 * WTD);
   uint64_t* empty = full + stages;
+  uint64_t* raw_full = empty + stages;
   const int wg = threadIdx.x >> 7;
   const int q0 = blockIdx.x * TQ, split = blockIdx.y;
   const int n_tiles = (N + WTD - 1) / WTD;
   const int tile_begin = split * tiles_per_split;
   const int tile_end = min(tile_begin + tiles_per_split, n_tiles);
-  const int chunks = (D + WK - 1) / WK;
+  // int4: the packed row walked twice, as many chunks as its bytes take
+  const int chunks = RAW && DT != kI8 ? 2 * ((D / 2 + WK - 1) / WK)
+                                      : (D + WK - 1) / WK;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
-      hopper::mbar_init(&full[s], 1);
+      // the TMA's arrival; int8 / int4: one a consumer group's query half
+      // and one a converter thread
+      hopper::mbar_init(&full[s], RAW ? NWG + W_CONV : 1);
       hopper::mbar_init(&empty[s], 4 * NWG);  // one arrival a consumer warp
     }
+    for (int r = 0; r < n_raw; ++r) hopper::mbar_init(&raw_full[r], 1);
     hopper::fence_barrier_init();
   }
   for (int e = threadIdx.x; e < TQ * K; e += blockDim.x) {
@@ -520,26 +670,74 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
   __syncthreads();
 
   if (wg == NWG) {  // ---- producer ----
-    hopper::setmaxnreg_dec<40>();
-    if (threadIdx.x == 128 * NWG) {
+    // bf16: one thread issues the loads and the group gives up registers to
+    // the consumers; int8 / int4 keep them, the converters use them
+    if constexpr (!RAW) hopper::setmaxnreg_dec<40>();
+    const int ptid = threadIdx.x - 128 * NWG;
+    const int total = max(0, tile_end - tile_begin) * chunks;
+    if constexpr (!RAW) {
+      if (ptid != 0) return;
       hopper::prefetch_tmap(&qmap);
       hopper::prefetch_tmap(&dmap);
-      const int total = max(0, tile_end - tile_begin) * chunks;
       for (int i = 0; i < total; ++i) {
         const int s = i % stages;
-        const int t = tile_begin + i / chunks, k0 = (i % chunks) * WK;
+        const int t = tile_begin + i / chunks, c = i % chunks;
         unsigned char* st = smem + s * STAGE;
         hopper::mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(&full[s], STAGE);
-        hopper::tma_load_2d(st, &qmap, &full[s], k0, q0);
-        hopper::tma_load_2d(st + QT, &dmap, &full[s], k0, t * WTD);
+        hopper::tma_load_2d(st, &qmap, &full[s], c * WK, q0);
+        hopper::tma_load_2d(st + QT, &dmap, &full[s], c * WK, t * WTD);
+      }
+    } else {
+      const int ctid = ptid;
+      // raw box p: chunk p (int8) or chunks 2 p, 2 p + 1 (int4)
+      const int per_box = DT == kI8 ? 1 : 2, boxes = total / per_box;
+      auto load_box = [&](int p) {
+        const int i = p * per_box, r = p % n_raw;
+        const int t = tile_begin + i / chunks, c = i % chunks;
+        hopper::mbar_arrive_expect_tx(&raw_full[r], W_RAW_BYTES);
+        hopper::tma_load_2d(raw + r * W_RAW_BYTES, &dmap, &raw_full[r],
+                            DT == kI8 ? c * WK : (c >> 1) * WK, t * WTD);
+      };
+      if (ctid == 0) {
+        hopper::prefetch_tmap(&dmap);
+        for (int p = 0; p < min(n_raw, boxes); ++p) load_box(p);
+      }
+      // kI4G: each chunk's group scales are loaded a chunk ahead
+      __nv_bfloat16 sc[W_UNITS][2], next[W_UNITS][2];
+      if (total > 0)
+        w_group_scales<DT>(sc, 0, ctid, gscale, G, N, D, tile_begin * WTD);
+      for (int i = 0; i < total; ++i) {
+        const int s = i % stages;
+        const int c = i % chunks;
+        const int p = i / per_box, r = p % n_raw;
+        if (i + 1 < total)
+          w_group_scales<DT>(next, (i + 1) % chunks, ctid, gscale, G, N, D,
+                             (tile_begin + (i + 1) / chunks) * WTD);
+        hopper::mbar_wait(&raw_full[r], (p / n_raw) & 1);
+        hopper::mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
+        w_convert<DT>(raw + r * W_RAW_BYTES, smem + s * STAGE + QT, c, ctid,
+                      sc);
+        hopper::fence_proxy_async();
+        hopper::mbar_arrive(&full[s]);
+        if ((i + 1) % per_box == 0) {  // the box's last chunk: its slot is free
+          hopper::named_barrier(1 + NWG, W_CONV);
+          if (ctid == 0 && p + n_raw < boxes) load_box(p + n_raw);
+        }
+        if constexpr (DT == kI4G) {
+#pragma unroll
+          for (int j = 0; j < W_UNITS; ++j) {
+            sc[j][0] = next[j][0];
+            sc[j][1] = next[j][1];
+          }
+        }
       }
     }
     return;
   }
 
   // ---- consumers ----
-  hopper::setmaxnreg_inc<232>();
+  if constexpr (!RAW) hopper::setmaxnreg_inc<232>();
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   // accumulator 4c + v holds row r0 + 8 (v >> 1), doc 8c + 2 tig + (v & 1)
@@ -547,7 +745,6 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
   const int wr = 64 * wg + 16 * warp, r0 = wr + gid;
   float* g0 = run_g + r0 * K;
   float* g1 = run_g + (r0 + 8) * K;
-  // rows past B (zero queries) take nothing
   // a gain passes at its row's threshold: the row's k-th best, and at
   // least the lowest finite gain (-inf never enters); rows past B (zero
   // queries) take nothing
@@ -563,6 +760,21 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
   float acc[NACC];
 #pragma unroll
   for (int e = 0; e < NACC; ++e) acc[e] = 0.0f;
+  // int8 / int4: this group's half of query chunk j into its stage, by the
+  // group's first thread, once the group is done with the stage
+  const int total = max(0, tile_end - tile_begin) * chunks;
+  const bool q_loader = RAW && warp == 0 && lane == 0;
+  auto load_q = [&](int j) {
+    if (j >= total) return;
+    const int s = j % stages;
+    hopper::mbar_arrive_expect_tx(&full[s], QT / NWG);
+    hopper::tma_load_2d(smem + s * STAGE + wg * (64 * 128), &qmap, &full[s],
+                        w_q_col<DT>(j % chunks, D), q0 + 64 * wg);
+  };
+  if (q_loader) {
+    hopper::prefetch_tmap(&qmap);
+    for (int j = 0; j < stages; ++j) load_q(j);
+  }
 
   const int tid = threadIdx.x & 127;
   for (int t = tile_begin, i = 0; t < tile_end; ++t) {
@@ -590,10 +802,12 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
       // the chunk before this one is done: its slot goes back to the ring
       hopper::wgmma_wait<1>();
       if (c > 0 && lane == 0) hopper::mbar_arrive(&empty[(i - 1) % stages]);
+      if (c > 0 && q_loader) load_q(i - 1 + stages);
     }
     hopper::wgmma_wait<0>();
     hopper::fence_accumulators<NACC>(acc);
     if (lane == 0) hopper::mbar_arrive(&empty[(i - 1) % stages]);
+    if (q_loader) load_q(i - 1 + stages);
 
     // ---- fold the [64 x 192] gain tile, 8 accumulators a step ----
     // (a loop over a switch: each case is one step's own registers, and
@@ -660,37 +874,70 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
   }
 }
 
-template <int NWG, int SLOTS>
+template <int NWG, int SLOTS, int DT>
 cudaError_t launch_wgmma(const void* q, const void* docs, const float* bias,
                          const float* scale, float* part_g, int* part_i,
-                         int B, int N, int D, int K, int splits,
+                         int B, int N, int D, int K, int G, int splits,
                          int tiles_per_split, cudaStream_t stream) {
+  constexpr bool RAW = DT != kBF16;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   if (err != cudaSuccess) return err;
-  int stages = W_MAX_STAGES;
-  while (stages > 2 && w_smem_bytes(NWG, stages, K) > optin) --stages;
-  const int smem = w_smem_bytes(NWG, stages, K);
+  // the bf16 ring as deep as fits (beside two raw stages for int8 / int4),
+  // then the raw ring as deep as fits beside it
+  int raw = RAW ? W_MIN_RAW : 0, stages = 2;
+  while (stages < W_MAX_STAGES &&
+         w_smem_bytes(NWG, stages + 1, K, raw) <= optin)
+    ++stages;
+  while (RAW && raw < W_MAX_RAW &&
+         w_smem_bytes(NWG, stages, K, raw + 1) <= optin)
+    ++raw;
+  const int smem = w_smem_bytes(NWG, stages, K, raw);
   if (smem > optin) return cudaErrorInvalidValue;
   CUtensorMap qmap, dmap;
+  // int8 / int4: each consumer group loads its own 64 query rows
   err = hopper_host::make_tmap_2d(&qmap, q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                                  2, B, D, D, 64 * NWG, WK);
+                                  2, B, D, D, RAW ? 64 : 64 * NWG, WK);
   if (err != cudaSuccess) return err;
-  err = hopper_host::make_tmap_2d(&dmap, docs,
-                                  CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, N, D, D,
-                                  WTD, WK);
+  if constexpr (RAW) {
+    // raw bytes: int8 rows of D, int4 rows of D / 2, boxes of 64 bytes
+    const int cols = DT == kI8 ? D : D / 2;
+    err = hopper_host::make_tmap_2d(&dmap, docs, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                                    1, N, cols, cols, WTD, 64, false);
+  } else {
+    err = hopper_host::make_tmap_2d(&dmap, docs,
+                                    CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, N, D,
+                                    D, WTD, WK);
+  }
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(wgmma_topk_kernel<NWG, SLOTS>,
+  err = cudaFuncSetAttribute(wgmma_topk_kernel<NWG, SLOTS, DT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + 64 * NWG - 1) / (64 * NWG), splits);
-  wgmma_topk_kernel<NWG, SLOTS><<<grid, 128 * (NWG + 1), smem, stream>>>(
-      qmap, dmap, bias, scale, part_g, part_i, B, N, D, K, splits,
-      tiles_per_split, stages);
+  // per-group int4 scales are the converters'; the fold takes per-doc ones
+  const float* fold_scale = DT == kI4G ? nullptr : scale;
+  const float* gscale = DT == kI4G ? scale : nullptr;
+  wgmma_topk_kernel<NWG, SLOTS, DT><<<grid, 128 * (NWG + 1), smem, stream>>>(
+      qmap, dmap, bias, fold_scale, gscale, part_g, part_i, B, N, D, K, G,
+      splits, tiles_per_split, stages, raw);
   return cudaGetLastError();
+}
+
+template <int DT>
+cudaError_t launch_wgmma_k(const void* q, const void* docs, const float* bias,
+                           const float* scale, float* part_g, int* part_i,
+                           int B, int N, int D, int K, int G, int splits,
+                           int tiles_per_split, cudaStream_t stream) {
+  if (K <= topk::KSHALLOW)
+    return launch_wgmma<2, topk::SLOTS_SHALLOW, DT>(
+        q, docs, bias, scale, part_g, part_i, B, N, D, K, G, splits,
+        tiles_per_split, stream);
+  return launch_wgmma<1, topk::SLOTS_DEEP, DT>(
+      q, docs, bias, scale, part_g, part_i, B, N, D, K, G, splits,
+      tiles_per_split, stream);
 }
 
 // ---- deep lists (k > KMAX): a doc chunk's gains in device memory ------------
@@ -894,34 +1141,46 @@ extern "C" int fused_topk_deep_launch(const void* q, const void* docs,
 }
 
 
-// bf16 docs [N, D] and bf16 queries [B, D] (16-byte aligned bases), k <=
-// KMAX, through wgmma_topk_kernel (query tiles of 128 up to k = KSHALLOW,
-// of 64 past it, where the lists take the room of a second consumer group),
-// then merge_splits_kernel; tiles_per_split counts doc tiles of 192 (ops/
+// bf16, int8 or int4 docs (doc_type kBF16, kI8, kI4, kI4G; int4 needs D a
+// multiple of 32, so that a packed row is a whole number of 16 bytes) and
+// bf16 queries [B, D] (16-byte aligned bases), k <= KMAX, through
+// wgmma_topk_kernel (query tiles of 128 up to k = KSHALLOW, of 64 past it,
+// where the lists take the room of a second consumer group), then
+// merge_splits_kernel; tiles_per_split counts doc tiles of 192 (ops/
 // fused_topk.py::_plan). Arguments otherwise as fused_topk_launch.
 extern "C" int fused_topk_wgmma_launch(const void* q, const void* docs,
                                        const void* bias, const void* scale,
                                        void* part_g, void* part_i,
                                        void* out_g, void* out_i, int B, int N,
-                                       int D, int K, int splits,
-                                       int tiles_per_split, void* stream) {
+                                       int D, int K, int G, int splits,
+                                       int tiles_per_split, int doc_type,
+                                       void* stream) {
+  const bool int4 = doc_type == kI4 || doc_type == kI4G;
   if (B < 1 || N < 1 || D < 16 || D % 16 != 0 || K < 1 || K > topk::KMAX ||
       splits < 1 || splits > 65535 || tiles_per_split < 1 ||
+      doc_type < kBF16 || doc_type > kI4G || (int4 && D % 32 != 0) ||
       reinterpret_cast<uintptr_t>(q) % 16 ||
       reinterpret_cast<uintptr_t>(docs) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (doc_type == kI4G && (scale == nullptr || G < 1 || D % G != 0 ||
+                           (D / G) % 8 != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
   const float* s = static_cast<const float*>(scale);
   float* pg = static_cast<float*>(part_g);
   int* pi = static_cast<int*>(part_i);
-  const cudaError_t err =
-      K <= topk::KSHALLOW
-          ? launch_wgmma<2, topk::SLOTS_SHALLOW>(q, docs, b, s, pg, pi, B, N,
-                                                 D, K, splits, tiles_per_split,
-                                                 st)
-          : launch_wgmma<1, topk::SLOTS_DEEP>(q, docs, b, s, pg, pi, B, N, D,
-                                              K, splits, tiles_per_split, st);
+  cudaError_t err;
+#define RAGROUTE_WGMMA(DT) \
+  err = launch_wgmma_k<DT>(q, docs, b, s, pg, pi, B, N, D, K, G, splits, \
+                           tiles_per_split, st)
+  switch (doc_type) {
+    case kBF16: RAGROUTE_WGMMA(kBF16); break;
+    case kI8: RAGROUTE_WGMMA(kI8); break;
+    case kI4: RAGROUTE_WGMMA(kI4); break;
+    default: RAGROUTE_WGMMA(kI4G); break;
+  }
+#undef RAGROUTE_WGMMA
   if (err != cudaSuccess) return (int)err;
   topk::merge_splits_kernel<long long>
       <<<B, topk::MERGE_THREADS, splits * (int)sizeof(int), st>>>(

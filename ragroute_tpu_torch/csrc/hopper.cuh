@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the wgmma mainloops (fused_topk.cu's
-// bf16 scan, int4_matmul.cu's prefill kernel): mbarriers, TMA tile loads,
+// scan, int4_matmul.cu's prefill kernel, grouped_pair_topk.cu's pair scan):
+// mbarriers, TMA tile loads,
 // wgmma descriptors and instructions, register rebalancing between warp
 // groups, and the host-side encoding of a TMA tensor map. Inline PTX for
 // sm_90a; no library.
@@ -75,6 +76,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // to 15 (0 is __syncthreads')
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of them (a wgmma operand that threads wrote, not TMA):
+// each writer fences, then arrives on the barrier the readers wait on.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- TMA ----------------------------------------------------------------------
@@ -176,6 +184,28 @@ __device__ __forceinline__ void wgmma_m64n192k16_ss(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64]: A and B from shared memory
+// (descriptors), both K-major; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D[64 x 128] (+)= A[64 x 16] * B[16 x 128]: A from registers (four bf16x2
 // words a thread, the m16n8k16 A fragment of the thread's warp's 16 rows),
 // B from shared memory (descriptor, K-major); scale_d = 0 overwrites D.
@@ -244,13 +274,16 @@ static inline EncodeTiledFn encode_tiled() {
 // A row-major [rows, cols] matrix of `elem_bytes`-byte elements (row stride
 // `ld` elements, a multiple of 16 bytes; 16-byte aligned base) read in boxes
 // of [box_rows, box_cols] (box_cols * elem_bytes == 128) in the 128-byte
-// swizzle; reads past the matrix fill zeros. Returns cudaSuccess, or
-// cudaErrorInvalidValue when the map cannot be encoded.
+// swizzle, or with `swizzle` false (raw bytes that threads convert) in
+// plain row-major boxes (box_cols * elem_bytes a multiple of 16); reads past
+// the matrix fill zeros. Returns cudaSuccess, or cudaErrorInvalidValue when
+// the map cannot be encoded.
 static inline cudaError_t make_tmap_2d(CUtensorMap* map, const void* base,
                                        CUtensorMapDataType type,
                                        int elem_bytes, uint64_t rows,
                                        uint64_t cols, uint64_t ld,
-                                       uint32_t box_rows, uint32_t box_cols) {
+                                       uint32_t box_rows, uint32_t box_cols,
+                                       bool swizzle = true) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {cols, rows};
@@ -260,7 +293,8 @@ static inline cudaError_t make_tmap_2d(CUtensorMap* map, const void* base,
   const CUresult r =
       fn(map, type, 2, const_cast<void*>(base), dims, strides, box,
          elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -68,6 +68,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "codes.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -455,15 +456,7 @@ __device__ __forceinline__ int swz128(int r, int c) {
   return r * 128 + ((((c >> 4) ^ r) & 7) << 4) + (c & 15);
 }
 
-// Two nibbles (bits 0-3 and 16-19 of t) as a bf16x2 of their signed codes:
-// (nibble ^ 8) under a bf16 exponent of 128 reads 128 + (code + 8); minus
-// 136 leaves the code, exactly.
-__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t t) {
-  uint32_t v = ((t ^ 0x00080008u) & 0x000F000Fu) | 0x43004300u;
-  __nv_bfloat162 b = *reinterpret_cast<__nv_bfloat162*>(&v);
-  b = __hsub2(b, __floats2bfloat162_rn(136.0f, 136.0f));
-  return *reinterpret_cast<uint32_t*>(&b);
-}
+using codes::nibbles_bf16x2;  // (nibble ^ 8) under 128, minus 136: exact
 
 // The A fragments of one stage (four k16 steps) from its byte tile: this
 // thread's rows are output columns c and c + 1 of the block (neighbouring

@@ -23,6 +23,14 @@ prints:
    fused top-k kernel at the serving shape from that tree and from this one
    in turns (parent, this, this, parent), each in a process of its own.
 
+The int8 and int4 shapes of K1 and K4's path shape in turns (``--kernels
+--parent DIR``): K1 over one stream slab (346,112 x 768 int8, k = 32), the
+734,003 x 768 shard in int8 and in int4 with per-doc and per-group scales
+(k = 32) and hostrefine's flat coarse slab (2,936,320 x 128 int8, k' =
+128), K4 at the probed scan's serving shape (512 queries x 512 probes of
+4,096 slabs of 128 x 1,584); CUDA events (median of 5) and the profiler's
+device time, each tree's own plan.
+
 ``--kernels`` times the streaming top-k (K2) and decode attention (K6) at
 the main path's shapes instead: K2 over [512, 131,072] (k = 32, the ivf
 collect) and [512, 4,096] (k' = 128, the probed collect) beside
@@ -44,15 +52,20 @@ which its bound counts).
 
 ``--kernels`` also runs, from this tree, K5's two kernels over M (16 to
 8,192) at the gate/up shape and K1's wgmma scan against the deep launch
-over k (32 to 160) and the docs' width (128 to 768), the readings that set
-``int4_matmul.M_SWITCH`` and ``fused_topk.W_DEEP_BELOW_D``; with
+over k (32 to 160) and the docs' width (128 to 768) for bf16, and for int8
+(hostrefine's flat coarse slab at k' 32 to 160, the 768-wide shard at 128
+and 160) and int4 (per-doc scales, widths 128 and 768), the readings that
+set ``int4_matmul.M_SWITCH`` and ``fused_topk.W_DEEP_BELOW_D``; with
 ``--parent DIR`` K5 at the two prefill shapes joins the turns.
 
 ``--turns DIR`` times, from DIR (an unpacked earlier tree) and this tree in
 turns, the exact engine step (B = 512 and 2,048, routing ``ragroute`` and
-``all``) and one lockstep generation batch of Qwen3-8B (random int4
+``all``), one lockstep generation batch of Qwen3-8B (random int4
 weights, int8 KV, 16 prompts of 2,048 tokens: the prefill, then 32 greedy
-decode steps), each in a process of its own.
+decode steps) and the host tiers' steps at B = 512 (routing ``ragroute``
+and ``all``: ``stream`` and ``hostrefine`` over the clustered coarse slab,
+over the world ``chip_smoke.py`` serves, half of ``--tiers``' under half
+its budget), each in a process of its own.
 
 ``--tiers`` measures the host-RAM capacity tiers instead: the synthetic
 medrag world at eight times that size (8,388,600 docs x 768, 64 topics per
@@ -152,9 +165,48 @@ print(json.dumps(rows))
 """
 
 
+# K1 at its int8 and int4 path shapes and K4 at its path shape, each tree's
+# own plan; uses only functions that every tree since the deep lists has
+QUANT_TIMER = """
+import json, torch
+from ragroute_tpu_torch.ops import decoder_checks as dc, kernel_checks as kc
+from ragroute_tpu_torch.ops.fused_topk import fused_topk
+from ragroute_tpu_torch.ops.grouped_topk import grouped_pair_topk
+dev, rows = torch.device("cuda"), []
+def row(name, f, wrapper, reps=5):
+    f()
+    rows.append({"name": name, "ms": kc.cuda_time_ms(f, reps=reps),
+                 "device_ms": dc.device_ms(f, wrapper, warmup=1, reps=reps),
+                 "library_ms": None})
+    torch.cuda.empty_cache()
+n_flat = 2_936_320
+for name, make in (
+        ("k1 stream slab 346112 x 768 int8 k=32",
+         lambda: kc.int8_path_case(dev, n=346_112, d=768, k=32, seed=6)),
+        ("k1 734003 x 768 int8 k=32",
+         lambda: kc.int8_path_case(dev, n=734_003, d=768, k=32, seed=8)),
+        ("k1 734003 x 768 int4 per-doc k=32",
+         lambda: kc.int4_path_case(dev, grouped=False)),
+        ("k1 734003 x 768 int4 per-group k=32",
+         lambda: kc.int4_path_case(dev, grouped=True)),
+        ("k1 flat coarse 2936320 x 128 int8 k'=128",
+         lambda: kc.int8_path_case(dev, n=n_flat, d=128, k=128,
+                                   pad_tail=n_flat - 2_936_012, seed=7))):
+    case = make()
+    row(name, lambda: kc.run_kernel(case), fused_topk, reps=3 if "coarse"
+        in name else 5)
+    del case
+case = kc.pair_path_case(dev)
+row("k4 B=512 P=512 C=4096 r=128 S=1584 kappa 8",
+    lambda: kc.run_pair_kernel(case), grouped_pair_topk, reps=10)
+print(json.dumps(rows))
+"""
+
+
 # this tree only: K5's two kernels over M at the gate/up shape (the readings
 # that set int4_matmul.M_SWITCH), and K1's wgmma scan against the deep
-# launch over k and the docs' width (those that set the plan's crossover)
+# launch over k and the docs' width, for bf16, int8 and int4 docs (those
+# that set the plan's crossovers)
 SWITCH_TIMER = """
 import json, torch
 from ragroute_tpu_torch.ops import decoder_checks as dc, kernel_checks as kc
@@ -172,18 +224,32 @@ for m in (16, 64, 128, 256, 512, 2048, 8192):
                      "device_ms": dc.device_ms(f, int4_matmul, reps=10)})
     del case
     torch.cuda.empty_cache()
-for d, ks in ((768, (32, 64, 128, 160)), (128, (32, 64, 128, 160)),
-              (256, (128, 160)), (384, (128, 160)), (512, (128, 160))):
+def scan_against_deep(label, case, ks):
     for k in ks:
-        case = kc.path_case(dev, d=d, k=k, seed=4 if d == 128 else 0)
+        case.k = k
         for kernel in ("wgmma", "deep"):
             f = lambda: kc.run_kernel(case, kernel)
-            rows.append({"name": f"k1 B=512 N=734003 d={d} k={k}",
+            rows.append({"name": f"k1 B=512 {label} k={k}",
                          "kernel": kernel, "ms": kc.cuda_time_ms(f, reps=5),
                          "device_ms": dc.device_ms(f, fused_topk, warmup=1,
                                                    reps=3)})
-        del case
         torch.cuda.empty_cache()
+for d, ks in ((768, (32, 64, 128, 160)), (128, (32, 64, 128, 160)),
+              (256, (128, 160)), (384, (128, 160)), (512, (128, 160))):
+    scan_against_deep(f"N=734003 d={d} bf16",
+                      kc.path_case(dev, d=d, seed=4 if d == 128 else 0), ks)
+n_flat = 2_936_320
+for label, make, ks in (
+        (f"N={n_flat} d=128 int8 (flat coarse)", lambda: kc.int8_path_case(
+            dev, n=n_flat, d=128, k=32, pad_tail=n_flat - 2_936_012, seed=7),
+         (32, 64, 128, 160)),
+        ("N=734003 d=768 int8", lambda: kc.int8_path_case(
+            dev, n=734_003, d=768, k=32, seed=8), (128, 160)),
+        ("N=734003 d=128 int4 per-doc", lambda: kc.int4_path_case(
+            dev, grouped=False, d=128), (128, 160)),
+        ("N=734003 d=768 int4 per-doc", lambda: kc.int4_path_case(
+            dev, grouped=False), (128, 160))):
+    scan_against_deep(label, make(), ks)
 print(json.dumps(rows))
 """
 
@@ -267,6 +333,58 @@ for strategy in ("ragroute", "all"):
 print(json.dumps(rows))
 """
 
+# --turns: the host tiers' steps over the world chip_smoke.py serves (the
+# synthetic medrag world at four times the benchmark's size, int8, 64 topics
+# a source, under 1.5 GB: pubmed goes to the host tier): stream, then
+# hostrefine over the clustered coarse slab; host clock around
+# engine.search at B = 512, median of 5 after a warm-up; uses only functions
+# that every tree since the host tiers has
+TIER_TIMER = """
+import json, time, numpy as np, torch
+from ragroute_tpu_torch.engine.streamed import StreamedSearchEngine
+from ragroute_tpu_torch.index.streamed import StreamedShardSet
+from ragroute_tpu_torch.index.synthetic import make_streamed_world
+from ragroute_tpu_torch.ops.grouped_topk import cluster_coarse_slab
+from ragroute_tpu_torch.router import CorpusRouter, RouterBank
+dev, rows = torch.device("cuda"), []
+docs = {"pubmed": 2_936_012, "statpearls": 419_428, "textbooks": 335_544,
+        "wikipedia": 503_316}
+syn = make_streamed_world("medrag", docs_per_source_map=docs,
+                          num_queries=512, seed=0, subclusters=64)
+router = CorpusRouter.from_seed(syn.world.router_input_dim, 0, dev)
+bank = RouterBank.create(syn.world, syn.centroids, device=dev)
+for tier in ("stream", "hostrefine"):
+    sset = StreamedShardSet.build(syn.world, syn.row_sources,
+                                  dtype=torch.int8, tier=tier,
+                                  hbm_budget_bytes=int(1.5e9), device=dev)
+    label = tier
+    if tier == "hostrefine":
+        label = "hostrefine probed"
+        for st in sset.sources:
+            if st.coarse_docs is None:
+                continue
+            n = st.n_docs
+            st.coarse_cl = cluster_coarse_slab(
+                st.coarse_docs[:n].cpu().numpy(),
+                st.coarse_scale[:n].cpu().numpy(),
+                st.coarse_bias[:n].cpu().numpy(), 0, device=dev)
+            st.coarse_docs = st.coarse_scale = st.coarse_bias = None
+    eng = StreamedSearchEngine(sset, router, bank)
+    for strategy in ("ragroute", "all"):
+        times = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.search(syn.query_embs, strategy=strategy,
+                       fetch_candidates=False)
+            times.append(1e3 * (time.perf_counter() - t0))
+        rows.append({"name": f"{label} step {strategy} B=512",
+                     "ms": float(np.median(times[1:]))})
+    del eng, sset
+    torch.cuda.empty_cache()
+print(json.dumps(rows))
+"""
+
 LOCKSTEP_TIMER = """
 import json, time, numpy as np, torch
 from ragroute_tpu_torch.llm.model import decode_step, init_cache, prefill
@@ -304,14 +422,14 @@ print(json.dumps([{"name": "lockstep prefill B=16 P=2048", "ms": pre},
 
 
 def served_in_turns(parent: str, card: str):
-    """The exact engine step and a lockstep generation batch from
-    ``parent`` and this tree in turns (parent, this, this, parent), each in
-    a process of its own."""
+    """The exact engine step, a lockstep generation batch and the host
+    tiers' steps from ``parent`` and this tree in turns (parent, this,
+    this, parent), each in a process of its own."""
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = []
     for label, tree in (("parent", parent), ("change", here),
                         ("change", here), ("parent", parent)):
-        for timer in (STEP_TIMER, LOCKSTEP_TIMER):
+        for timer in (STEP_TIMER, LOCKSTEP_TIMER, TIER_TIMER):
             proc = subprocess.run([sys.executable, "-c", timer], cwd=tree,
                                   capture_output=True, text=True,
                                   timeout=1200)
@@ -414,8 +532,9 @@ def parent_vs_change(parent: str, card: str):
 
 
 def kernels_in_turns(parent: Optional[str], card: str):
-    """K2 and K6 timed from this tree, or from ``parent`` and this tree in
-    turns (parent, this, this, parent), K1 at the serving shape too; then
+    """K2 and K6, K1 at its int8 and int4 shapes and K4 timed from this
+    tree, or from ``parent`` and this tree in turns (parent, this, this,
+    parent), K1 at the serving shape too; then the crossover readings and
     the deep lists from this tree."""
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = []
@@ -425,16 +544,19 @@ def kernels_in_turns(parent: Optional[str], card: str):
     turns = ((("parent", parent), ("change", here), ("change", here),
               ("parent", parent)) if parent else (("change", here),))
     for label, tree in turns:
-        proc = subprocess.run([sys.executable, "-c", TURNS_TIMER], cwd=tree,
-                              capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{label} kernel timer failed:\n{proc.stderr}")
-        for row in json.loads(proc.stdout.strip().splitlines()[-1]):
-            lib = ("" if row["library_ms"] is None
-                   else f", library {row['library_ms']:.4f} ms")
-            print(f"[kernels] {label}: {row['name']}: {row['ms']:.4f} ms "
-                  f"(device {row['device_ms']:.4f}){lib} ({card})", flush=True)
-            out.append(dict(row, tree=label))
+        for timer in (QUANT_TIMER, TURNS_TIMER):
+            proc = subprocess.run([sys.executable, "-c", timer], cwd=tree,
+                                  capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{label} kernel timer failed:\n"
+                                   f"{proc.stderr}")
+            for row in json.loads(proc.stdout.strip().splitlines()[-1]):
+                lib = ("" if row["library_ms"] is None
+                       else f", library {row['library_ms']:.4f} ms")
+                print(f"[kernels] {label}: {row['name']}: {row['ms']:.4f} ms "
+                      f"(device {row['device_ms']:.4f}){lib} ({card})",
+                      flush=True)
+                out.append(dict(row, tree=label))
     proc = subprocess.run([sys.executable, "-c", SWITCH_TIMER], cwd=here,
                           capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:

@@ -19,20 +19,23 @@ count, so rows at or past it are never read and cannot win: the same
 result without copying the shard. As in the TPU kernel, a list entry whose
 gain is ``-inf`` carries index 0.
 
-Launches (:func:`_plan`, a pure function of the shape): bf16 docs up to
-:data:`MAX_SHALLOW_K` take the wgmma scan (``wgmma_topk_kernel``: a TMA
-ring, doc tiles of 192, 128 query rows a block, or 64 past k = 64), except
-lists past k = 64 over docs narrower than :data:`W_DEEP_BELOW_D`, where the
-deep launch is faster; f32, int8 and int4 docs take the first design
-(``partial_topk_kernel``, 64 query rows a block, doc tiles of 64), whose
-lists also stop at :data:`MAX_SHALLOW_K`; a deeper list, any ``k`` as the
-TPU kernel takes, runs the deep launch: the same product and epilogue write a chunk
-of docs' gains to a workspace in device memory, every run of 8,192 docs is
-cut to its best ``k`` and the lists merge (``csrc/deep_topk.cuh``). The
-workspace (gains, lists, running lists) stays under
-``deep_topk.WORKSPACE_CAP`` = 256 MiB: docs go in chunks and, where even one
-run's chunk for every query row would not fit, query rows in slices
-(:func:`ragroute_tpu_torch.ops.deep_topk.fused_plan`).
+Launches (:func:`_plan`, a pure function of the shape): bf16, int8 and int4
+docs (per-doc or per-group scales) up to :data:`MAX_SHALLOW_K` take the
+wgmma scan (``wgmma_topk_kernel``: a TMA ring, doc tiles of 192, 128 query
+rows a block, or 64 past k = 64; int8 and int4 codes arrive as raw bytes
+and the producer's warps turn them into bf16 tiles), except lists past
+k = 64 over docs narrower than the type's :data:`W_DEEP_BELOW_D`, where the
+deep launch is faster; f32 docs, and int4 docs whose packed rows are not a
+whole number of 16 bytes (d % 32, the TMA's row stride), take the first
+design (``partial_topk_kernel``, 64 query rows a block, doc tiles of 64),
+whose lists also stop at :data:`MAX_SHALLOW_K`; a deeper list, any ``k`` as
+the TPU kernel takes, runs the deep launch: the same product and epilogue
+write a chunk of docs' gains to a workspace in device memory, every run of
+8,192 docs is cut to its best ``k`` and the lists merge
+(``csrc/deep_topk.cuh``). The workspace (gains, lists, running lists) stays
+under ``deep_topk.WORKSPACE_CAP`` = 256 MiB: docs go in chunks and, where
+even one run's chunk for every query row would not fit, query rows in
+slices (:func:`ragroute_tpu_torch.ops.deep_topk.fused_plan`).
 """
 
 from __future__ import annotations
@@ -61,23 +64,40 @@ BLOCKS_PER_SM = 4    # split target: enough blocks to fill every SM
 # fewer and longer splits cost less than they lose in parallelism
 DEEP_BLOCKS_PER_SM = 2
 SHALLOW_K = 64       # topk_merge.cuh KSHALLOW
-# the wgmma scan (bf16 docs): query rows a block up to SHALLOW_K and past
-# it (csrc/fused_topk.cu: 64 a consumer warp group), docs a tile (WTD), and
+# the wgmma scan: query rows a block up to SHALLOW_K and past it
+# (csrc/fused_topk.cu: 64 a consumer warp group), docs a tile (WTD), and
 # the most waves of one block an SM its split plan weighs (a block takes the
 # whole SM's shared memory)
 W_TILE_Q = 128
 W_TILE_Q_DEEP = 64
 W_TILE_D = 192
 W_MAX_WAVES = 8
-# bf16 lists past SHALLOW_K over docs narrower than this take the deep
-# launch, which is faster there; at the serving width the wgmma scan stays
-# (``measure.py --kernels``, readings in PERF.md: device ms at B = 512 over
-# 734,003 docs, k = 128, wgmma against deep: d = 128 4.49 / 3.07, d = 512
-# 5.09 / 4.79, d = 768 5.51 / 6.03; the threshold between the last two)
-W_DEEP_BELOW_D = 640
-_BF16 = 1
-_DOC_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_F32, _BF16, _I8 = 0, 1, 2
+_DOC_TYPES = {torch.float32: _F32, torch.bfloat16: _BF16, torch.int8: _I8}
 _INT4_PER_DOC, _INT4_PER_GROUP = 3, 4    # csrc DocType kI4, kI4G
+# lists past SHALLOW_K over docs narrower than this take the deep launch,
+# which is faster there; at the serving width the wgmma scan stays
+# (``measure.py --kernels``, readings in PERF.md; device ms at B = 512, k =
+# 128, scan against deep). bf16 over 734,003 docs: d = 128 4.49 / 3.07, d =
+# 512 5.09 / 4.79, d = 768 5.51 / 6.03; the threshold between the last two.
+# int8 over hostrefine's 2,936,320-row coarse slab, d = 128: 10.44 / 13.24
+# (k = 160: 11.64 / 14.60; the deep launch's int8 gains run the first
+# design's product); over 734,003 docs, d = 768: 6.96 / 7.41: the scan from
+# d = 128, the narrowest reading. int4 per-doc over 734,003 docs: d = 128
+# 4.61 / 3.12, d = 768 7.13 / 6.71 (k = 160: 7.55 / 7.26): the deep launch
+# at every width read, so the threshold above the widest.
+W_DEEP_BELOW_D = {_BF16: 640, _I8: 128, _INT4_PER_DOC: 800,
+                  _INT4_PER_GROUP: 800}
+
+
+def scan_takes(d: int, doc_type: int) -> bool:
+    """Whether the wgmma scan takes docs of width ``d`` and ``doc_type``
+    (csrc DocType): bf16 and int8 at every width the kernel takes, int4
+    where a packed row is a whole number of 16 bytes (``d % 32``: the
+    TMA's row stride); f32 never (TF32 would change its answers)."""
+    if doc_type in (_INT4_PER_DOC, _INT4_PER_GROUP):
+        return d % 32 == 0
+    return doc_type in (_BF16, _I8)
 
 
 def gain_form(queries: Tensor, docs: Tensor, *, mode: str,
@@ -143,14 +163,14 @@ def _lib():
         lib.fused_topk_launch.restype = ci
         lib.fused_topk_deep_launch.argtypes = [vp] * 11 + [ci] * 8 + [vp]
         lib.fused_topk_deep_launch.restype = ci
-        lib.fused_topk_wgmma_launch.argtypes = [vp] * 8 + [ci] * 6 + [vp]
+        lib.fused_topk_wgmma_launch.argtypes = [vp] * 8 + [ci] * 8 + [vp]
         lib.fused_topk_wgmma_launch.restype = ci
         lib._argtypes_set = True
     return lib
 
 
 class Plan(NamedTuple):
-    """How one call runs: ``kernel`` is ``"wgmma"`` (the bf16 scan),
+    """How one call runs: ``kernel`` is ``"wgmma"`` (the scan),
     ``"shallow"`` (the first design) or ``"deep"`` (lists past
     :data:`MAX_SHALLOW_K`); ``splits`` doc splits of ``tiles_per_split``
     tiles of ``tile_d`` docs (unused by the deep launch)."""
@@ -164,19 +184,25 @@ def _plan(bsz: int, n_rows: int, d: int, k: int, doc_type: int, sms: int,
           kernel: Optional[str] = None) -> Plan:
     """The launch for ``bsz`` queries over ``n_rows`` docs of width ``d``
     and ``doc_type`` (csrc DocType) at depth ``k`` on a card of ``sms``
-    SMs; a pure function of these. ``kernel`` names one to plan for instead of choosing (the
-    measurements time the launches against each other at one shape). The
-    doc splits fill the card at small and large batch alike: the first
-    design's blocks are small (several an SM); the wgmma scan's take a whole
-    SM, so its split count is the one of at most :data:`W_MAX_WAVES` waves
-    that finishes soonest (waves times tiles a split), the fewest splits
-    among equals."""
+    SMs; a pure function of these. ``kernel`` names one to plan for instead
+    of choosing (the measurements time the launches against each other at
+    one shape); a scan the docs cannot take raises. The doc splits fill the
+    card at small and large batch alike: the first design's blocks are small
+    (several an SM); the wgmma scan's take a whole SM, so its split count is
+    the one of at most :data:`W_MAX_WAVES` waves that finishes soonest
+    (waves times tiles a split), the fewest splits among equals."""
     if kernel is None:
-        if k > MAX_SHALLOW_K or (doc_type == _BF16 and k > SHALLOW_K
-                                 and d < W_DEEP_BELOW_D):
+        if k > MAX_SHALLOW_K:
+            kernel = "deep"
+        elif not scan_takes(d, doc_type):
+            kernel = "shallow"
+        elif k > SHALLOW_K and d < W_DEEP_BELOW_D[doc_type]:
             kernel = "deep"
         else:
-            kernel = "wgmma" if doc_type == _BF16 else "shallow"
+            kernel = "wgmma"
+    elif kernel == "wgmma" and not scan_takes(d, doc_type):
+        raise ValueError(f"fused_topk: the wgmma scan does not take doc "
+                         f"type {doc_type} at d={d}")
     if kernel == "deep":
         return Plan("deep", 1, 1, 0)
     if kernel == "wgmma":
@@ -256,8 +282,6 @@ def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
     doc_type = ((_INT4_PER_GROUP if grouped else _INT4_PER_DOC) if packed4
                 else _DOC_TYPES[docs.dtype])
     plan = _plan(bsz, n_rows, d, k, doc_type, _sm_count(dev), kernel)
-    if plan.kernel == "wgmma" and doc_type != _BF16:
-        raise ValueError("fused_topk: the wgmma scan takes bf16 docs only")
     if plan.kernel == "deep":
         return _launch_deep(q, docs, k, n_rows, bias, scale, n_groups,
                             doc_type, workspace_cap)
@@ -273,8 +297,9 @@ def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
             part_g.data_ptr(), part_i.data_ptr(), out_g.data_ptr(),
             out_i.data_ptr())
     if plan.kernel == "wgmma":
-        err = _lib().fused_topk_wgmma_launch(*ptrs, bsz, n_rows, d, k, splits,
-                                             per, stream)
+        err = _lib().fused_topk_wgmma_launch(*ptrs, bsz, n_rows, d, k,
+                                             n_groups, splits, per, doc_type,
+                                             stream)
     else:
         err = _lib().fused_topk_launch(*ptrs, bsz, n_rows, d, k, n_groups,
                                        splits, per, doc_type, stream)
@@ -284,6 +309,7 @@ def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
                            f"{docs.shape[1]}] {docs.dtype} k={k}: CUDA error "
                            f"{err}")
     fused_topk.launches += 1
+    fused_topk.wgmma_launches += plan.kernel == "wgmma"
     return out_g, out_i
 
 
@@ -291,8 +317,8 @@ def _launch_deep(q: Tensor, docs: Tensor, k: int, n_rows: int,
                  bias: Optional[Tensor], scale: Optional[Tensor],
                  n_groups: int, doc_type: int,
                  cap: Optional[int]) -> Tuple[Tensor, Tensor]:
-    """The deep launch (lists past :data:`MAX_SHALLOW_K`, or bf16 lists
-    past 64 over narrow docs), operands checked by :func:`_launch`."""
+    """The deep launch (lists past :data:`MAX_SHALLOW_K`, or lists past 64
+    over narrow docs), operands checked by :func:`_launch`."""
     bsz, d = q.shape
     dev = docs.device
     p = deep_topk.fused_plan(bsz, n_rows, k, cap)
@@ -365,3 +391,4 @@ def fused_topk(queries: Tensor, docs: Tensor, k: int, *, mode: str = "dot",
 
 fused_topk.launches = 0   # kernel launches since the count was last reset
 fused_topk.deep_launches = 0   # of which deep launches
+fused_topk.wgmma_launches = 0  # of which the wgmma scan

@@ -47,10 +47,16 @@ unchanged downstream.
 
 On a CUDA tensor :func:`grouped_pair_topk` launches
 ``csrc/grouped_pair_topk.cu`` or raises; on a CPU tensor it runs the plain
-version. Up to :data:`MAX_SHALLOW_RANKS` winners a (row, tile) the kernel
-keeps each row's in its thread; past that, any ``ranks`` as the TPU kernel
-takes, the deep launch writes the scaled and biased gains of a chunk of pair
-blocks to device memory and selects and merges them there
+version. Which launch (:func:`_plan`, a pure function of the shape): up to
+:data:`W_MAX_RANKS` winners a (row, tile) and :data:`W_MAX_KW` a row over
+slabs of depth up to :data:`W_MAX_DEPTH` (the serving caps and rank) the
+wgmma kernel (``pair_wgmma_kernel``: the block's query rows resident in
+shared memory, the slab converted to bf16 by the producer warps, each
+thread's best kept in registers); up to :data:`MAX_SHALLOW_RANKS` the first
+design, which keeps each row's winners in its thread; past that, any
+``ranks`` as the TPU kernel takes, the deep launch writes the scaled and
+biased gains of a chunk of pair blocks to device memory and selects and
+merges them there
 (``csrc/deep_topk.cuh``), in chunks that keep the workspace under
 ``deep_topk.WORKSPACE_CAP``
 (:func:`ragroute_tpu_torch.ops.deep_topk.pair_plan`).
@@ -74,6 +80,12 @@ Tensor = torch.Tensor
 PAIR_ROWS = 256          # pair rows per block (csrc/grouped_pair_topk.cu TE)
 MAX_SHALLOW_RANKS = deep_topk.SHALLOW_MAX   # deepest per-thread tile list
 RANK_ALIGN = 16          # depth multiple the kernel takes
+# the wgmma kernel: deepest tile list (PW_MAX_RANKS: a thread's lists stay
+# in registers), longest running list (PW_MAX_KW: kept in shared memory)
+# and slab depth kept resident in shared memory (PW_MAX_R)
+W_MAX_RANKS = 8
+W_MAX_KW = 16
+W_MAX_DEPTH = 128
 
 
 @dataclasses.dataclass
@@ -173,8 +185,28 @@ def _lib():
         lib.grouped_pair_topk_deep_launch.argtypes = ([vp] * 13 + [ci] * 8
                                                       + [vp])
         lib.grouped_pair_topk_deep_launch.restype = ci
+        lib.grouped_pair_topk_wgmma_launch.argtypes = ([vp] * 9 + [ci] * 7
+                                                       + [vp])
+        lib.grouped_pair_topk_wgmma_launch.restype = ci
         lib._argtypes_set = True
     return lib
+
+
+def _plan(r: int, ranks: int, kw: int, kernel: Optional[str] = None) -> str:
+    """The launch for slabs of depth ``r`` at ``ranks`` winners a (row,
+    tile) and ``kw`` a row: ``"wgmma"``, ``"shallow"`` (the first design)
+    or ``"deep"``; a pure function of these. ``kernel`` names one to run
+    instead of choosing (the measurements time the launches against each
+    other at one shape); a launch that does not take the shape raises."""
+    fits = {"wgmma": (ranks <= W_MAX_RANKS and kw <= W_MAX_KW
+                      and r <= W_MAX_DEPTH),
+            "shallow": ranks <= MAX_SHALLOW_RANKS, "deep": True}
+    if kernel is None:
+        return next(name for name, ok in fits.items() if ok)
+    if not fits[kernel]:
+        raise ValueError(f"grouped_pair_topk: the {kernel} launch does not "
+                         f"take depth {r} at {ranks} ranks")
+    return kernel
 
 
 def grouped_pair_topk(q: Tensor, cc: ClusteredCoarse, blk_cluster: Tensor,
@@ -206,6 +238,18 @@ def grouped_pair_topk(q: Tensor, cc: ClusteredCoarse, blk_cluster: Tensor,
                          f"the rows' {q.shape[1]}")
     if not cc.docs.is_cuda:
         return grouped_pair_topk_reference(q, cc, blk_cluster, kappa, rows)
+    return _launch(q, cc, blk_cluster, kappa, rows, n_real, workspace_cap)
+
+
+def _launch(q: Tensor, cc: ClusteredCoarse, blk_cluster: Tensor, kappa: int,
+            rows: Optional[Tensor], n_real: Optional[Tensor],
+            workspace_cap: Optional[int] = None,
+            kernel: Optional[str] = None) -> Tuple[Tensor, Tensor]:
+    """Checks the operands and launches the kernel :func:`_plan` picks, or
+    the one ``kernel`` names."""
+    g = blk_cluster.shape[0]
+    ep = g * PAIR_ROWS
+    c, r, s = cc.docs.shape
     dev = cc.docs.device
     tds, n_tiles, ranks, kw = tiling(s, kappa)
     if cc.docs.dtype != torch.int8 or q.dtype != torch.bfloat16:
@@ -232,7 +276,10 @@ def grouped_pair_topk(q: Tensor, cc: ClusteredCoarse, blk_cluster: Tensor,
             or cc.docs.data_ptr() % 16):
         raise ValueError("grouped_pair_topk: q and the slab must be on one "
                          "device, the slab contiguous and 16-byte aligned")
+    launch = _plan(r, ranks, kw, kernel)
     q = q.contiguous()
+    if q.data_ptr() % 16:       # the wgmma kernel's row copies take 16 bytes
+        q = q.clone()
     out_g = torch.empty((ep, kw), dtype=torch.float32, device=dev)
     out_i = torch.empty((ep, kw), dtype=torch.int32, device=dev)
     ptrs = (q.data_ptr(), cc.docs.data_ptr(), cc.bias.data_ptr(),
@@ -240,7 +287,7 @@ def grouped_pair_topk(q: Tensor, cc: ClusteredCoarse, blk_cluster: Tensor,
             None if rows is None else rows.data_ptr(),
             None if n_real is None else n_real.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if ranks > MAX_SHALLOW_RANKS:
+    if launch == "deep":
         p = deep_topk.pair_plan(g, s, tds, ranks, kw, cap=workspace_cap)
         rows_c = p.blocks * PAIR_ROWS
         ws_g = torch.empty((rows_c, s), dtype=torch.float32, device=dev)
@@ -251,20 +298,24 @@ def grouped_pair_topk(q: Tensor, cc: ClusteredCoarse, blk_cluster: Tensor,
             out_g.data_ptr(), out_i.data_ptr(), g, c, r, s, tds, ranks, kw,
             p.blocks, stream)
     else:
-        err = _lib().grouped_pair_topk_launch(
-            *ptrs, out_g.data_ptr(), out_i.data_ptr(), g, c, r, s, tds,
-            ranks, kw, stream)
+        fn = (_lib().grouped_pair_topk_wgmma_launch if launch == "wgmma"
+              else _lib().grouped_pair_topk_launch)
+        err = fn(*ptrs, out_g.data_ptr(), out_i.data_ptr(), g, c, r, s, tds,
+                 ranks, kw, stream)
     if err != 0:
-        what = (deep_topk.describe(err) if ranks > MAX_SHALLOW_RANKS
+        what = (deep_topk.describe(err) if launch == "deep"
                 else f"CUDA error {err}")
-        raise RuntimeError(f"grouped_pair_topk kernel launch failed: {what}")
+        raise RuntimeError(f"grouped_pair_topk {launch} launch failed: "
+                           f"{what}")
     grouped_pair_topk.launches += 1
-    grouped_pair_topk.deep_launches += ranks > MAX_SHALLOW_RANKS
+    grouped_pair_topk.deep_launches += launch == "deep"
+    grouped_pair_topk.wgmma_launches += launch == "wgmma"
     return out_g, out_i
 
 
 grouped_pair_topk.launches = 0   # kernel launches since the last reset
 grouped_pair_topk.deep_launches = 0   # of which deep (ranks > 160)
+grouped_pair_topk.wgmma_launches = 0  # of which the wgmma kernel
 
 
 def probe_dispatch(probe: Tensor, n_clusters: int):

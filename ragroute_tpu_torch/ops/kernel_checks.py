@@ -16,7 +16,9 @@ Fused top-k (:func:`fused_topk` against :func:`fused_topk_reference`):
 * :func:`wgmma_exact_cases`: the same kind of data through the wgmma scan
   (bf16 docs, k 10 to 160): a partial query block, partial doc tiles,
   contraction chunks past d, a -inf bias tail, ``valid_docs < N`` and
-  splits of several tiles.
+  splits of several tiles; :func:`quant_exact_cases` the same for int8
+  docs and int4 docs with no, per-doc and per-group scales (a packed row
+  of 32, 48 and 96 bytes: raw boxes past the row, and its two halves).
 * :func:`deep_exact_cases`: the same kind of data past the shallow depth
   (k 161 to 1,100 over 20,000 docs, three select runs), through the deep
   launch, with chunks of docs and slices of query rows forced by a small
@@ -47,6 +49,8 @@ one of them in chunks of two blocks) come out equal in gains, and in slots
 where the gain is finite; :func:`pair_path_case` is held within ``1e-4``
 relative, with at most a millionth of its clearly ordered slots differing (near-ties at a
 tile's rank cut), each differing slot carrying the gain written for it.
+:func:`run_pair_kernel` takes the launch to run (``"wgmma"``, ``"shallow"``,
+``"deep"``) in place of the wrapper's plan.
 
 :func:`k1_bound` to :func:`k4_bound` give the least time an H100 SXM could
 take for a call, from the data-sheet peaks below.
@@ -70,6 +74,8 @@ from ragroute_tpu_torch.ops.fused_topk import (TILE_D, fused_topk,
                                                gain_form)
 from ragroute_tpu_torch.ops.grouped_gains import (GROUP_ROWS, grouped_gains,
                                                   grouped_gains_reference)
+from ragroute_tpu_torch.ops.grouped_topk import _launch as _pair_launch
+from ragroute_tpu_torch.ops.grouped_topk import _plan as _pair_plan
 from ragroute_tpu_torch.ops.grouped_topk import (PAIR_ROWS, ClusteredCoarse,
                                                  grouped_pair_topk,
                                                  grouped_pair_topk_reference,
@@ -189,6 +195,63 @@ def wgmma_exact_cases(device, *, bsz: int = 150, n: int = 3 * 256 + 77,
                        valid_docs=rows - 200)
 
 
+def quant_exact_cases(device, *, bsz: int = 150, n: int = 3 * 256 + 77,
+                      seed: int = 6) -> Iterator[Case]:
+    """Exact-arithmetic cases of the wgmma scan over int8 and int4 docs (k
+    up to 160): integer codes in [-4, 4], power-of-two per-doc and
+    per-group scales (16 dims a group), so that every product, dequant and
+    sum is exact; 150 query rows, 845 docs (partial doc tiles), duplicate
+    rows on both sides of the tile boundaries. d 64 (an int4 row of 32
+    bytes: a raw box past it), 96 (48 bytes) and 192 (96 bytes: the two
+    halves in different boxes); 80 for int8 only (int4 rows of 40 bytes
+    keep the first design). At every k of :data:`WGMMA_KS`: int8 dot and l2
+    with scales, int4 with no, per-doc and per-group scales, a -inf bias
+    tail and ``valid_docs < N``; and 20,000 docs at d = 128, where splits
+    span several tiles."""
+    rng = np.random.default_rng(seed)
+    for d, rows in ((64, n), (96, n), (192, n), (80, n), (128, 20_000)):
+        docs = rng.integers(-4, 5, (rows, d)).astype(np.float32)
+        for src, dsts in ((7, (127, 128, 191, 192, 383, 384, 575, 576)),
+                          (11, (255, 256, 640, 767, 768, rows - 1))):
+            docs[list(dsts)] = docs[src]
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        q = t(rng.integers(-4, 5, (bsz, d)).astype(np.float32))
+        scale = t((2.0 ** rng.integers(-3, 2, rows)).astype(np.float32))
+        gscale = t((2.0 ** rng.integers(-3, 2, (rows, d // 16))
+                    ).astype(np.float32))
+        int8 = t(docs.astype(np.int8))
+        packed = t(_pack_int4(docs.astype(np.int8))) if d % 32 == 0 else None
+        tail = torch.zeros(rows, dtype=torch.float32, device=device)
+        tail[rows - 100:] = NEG_INF
+        for k in WGMMA_KS:
+            name = f"quant-d{d}-n{rows}"
+            yield Case(f"{name}-int8-dot-k{k}", q, int8, k, "dot",
+                       scale=scale)
+            if packed is not None:
+                yield Case(f"{name}-int4-group-dot-k{k}", q, packed, k,
+                           "dot", scale=gscale, packed4=True)
+            if rows != n:
+                continue
+            yield Case(f"{name}-int8-l2-k{k}", q, int8, k, "l2", scale=scale)
+            yield Case(f"{name}-int8-inf-tail-k{k}", q, int8, k, "dot",
+                       bias=tail, scale=scale)
+            yield Case(f"{name}-int8-valid-k{k}", q, int8, k, "dot",
+                       scale=scale, valid_docs=rows - 200)
+            if packed is None:
+                continue
+            yield Case(f"{name}-int4-none-dot-k{k}", q, packed, k, "dot",
+                       packed4=True)
+            yield Case(f"{name}-int4-doc-dot-k{k}", q, packed, k, "dot",
+                       scale=scale, packed4=True)
+            yield Case(f"{name}-int4-group-inf-tail-k{k}", q, packed, k,
+                       "dot", bias=tail, scale=gscale, packed4=True)
+            yield Case(f"{name}-int4-doc-valid-k{k}", q, packed, k, "dot",
+                       scale=scale, packed4=True, valid_docs=rows - 200)
+
+
 def deep_exact_cases(device, *, bsz: int = 37, n: int = 20_000, d: int = 64,
                      seed: int = 3) -> Iterator[Case]:
     """Exact-arithmetic cases of the deep launch (k past 160): integer data
@@ -301,15 +364,16 @@ def compare_tolerant(kernel: Tuple[Tensor, Tensor],
 
 
 def path_case(device, *, bsz: int = 512, n: int = 734_003, d: int = 768,
-              k: int = 32, seed: int = 0) -> Case:
-    """The serving path's shape: one centred bf16 dot shard (the medrag
-    pubmed shard at the benchmark's size), made on the card."""
+              k: int = 32, seed: int = 0, dtype=torch.bfloat16) -> Case:
+    """The serving path's shape: one centred dot shard (the medrag pubmed
+    shard at the benchmark's size, bf16 or ``dtype``), made on the card."""
     g = torch.Generator(device=device).manual_seed(seed)
     docs = torch.randn((n, d), generator=g, device=device)
-    docs = (docs - docs.mean(dim=0)).to(torch.bfloat16)
+    docs = (docs - docs.mean(dim=0)).to(dtype)
     queries = torch.randn((bsz, d), generator=g, device=device)
     bias = torch.zeros(n, dtype=torch.float32, device=device)
-    return Case("path-bf16-dot", queries, docs, k, "dot", bias=bias)
+    return Case(f"path-{str(dtype)[6:]}-dot", queries, docs, k, "dot",
+                bias=bias)
 
 
 def cuda_time_ms(fn, *, warmup: int = 3, reps: int = 10) -> float:
@@ -364,6 +428,19 @@ def int8_path_case(device, *, n: int, d: int, k: int, bsz: int = 512,
                 scale=scale)
 
 
+def fused_plan_of(case: Case) -> str:
+    """The launch the wrapper's plan takes for the case (it depends on the
+    shape alone, not on the SM count)."""
+    bsz, d = case.queries.shape
+    n = case.valid_docs or case.docs.shape[0]
+    if case.packed4:
+        doc_type = 4 if case.scale is not None and case.scale.dim() == 2 else 3
+    else:
+        doc_type = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[
+            case.docs.dtype]
+    return _fused_plan(bsz, n, d, case.k, doc_type, 132).kernel
+
+
 def k1_bound(case: Case) -> Dict[str, float]:
     """Least time for one fused top-k call: every operand read once and the
     lists written once at the HBM rate, against ``2 * B * N * d``
@@ -374,11 +451,7 @@ def k1_bound(case: Case) -> Dict[str, float]:
     ``workspace_bytes`` and ``design_floor_ms``."""
     bsz, d = case.queries.shape
     n = case.valid_docs or case.docs.shape[0]
-    doc_type = (3 if case.packed4 else
-                {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[
-                    case.docs.dtype])
-    # the deep decision depends on the shape alone (not on the SM count)
-    deep = _fused_plan(bsz, n, d, case.k, doc_type, 132).kernel == "deep"
+    deep = fused_plan_of(case) == "deep"
     q_bytes = 4 if case.docs.dtype == torch.float32 else 2
     nbytes = (bsz * d * q_bytes
               + n * case.docs.shape[1] * case.docs.element_size()
@@ -635,10 +708,34 @@ class PairCase:
                             else min(g, int(self.n_real)))
 
 
-def run_pair_kernel(case: PairCase) -> Tuple[Tensor, Tensor]:
-    return grouped_pair_topk(case.q, case.cc, case.blk_cluster, case.kappa,
-                             rows=case.rows, n_real=case.n_real,
-                             workspace_cap=case.cap)
+def run_pair_kernel(case: PairCase, kernel: Optional[str] = None
+                    ) -> Tuple[Tensor, Tensor]:
+    """The wrapper on CUDA tensors; ``kernel`` names the launch in place of
+    the wrapper's plan."""
+    if kernel is None:
+        return grouped_pair_topk(case.q, case.cc, case.blk_cluster,
+                                 case.kappa, rows=case.rows,
+                                 n_real=case.n_real, workspace_cap=case.cap)
+    return _pair_launch(case.q, case.cc, case.blk_cluster, case.kappa,
+                        case.rows, case.n_real, case.cap, kernel)
+
+
+def pair_plan_of(case: PairCase) -> str:
+    """The launch the wrapper's plan takes for the case."""
+    _, r, s = case.cc.docs.shape
+    _, _, ranks, kw = tiling(s, case.kappa)
+    return _pair_plan(r, ranks, kw)
+
+
+def pair_takes(case: PairCase, kernel: Optional[str]) -> bool:
+    """Whether the named launch (None: the plan's) takes the case."""
+    _, r, s = case.cc.docs.shape
+    _, _, ranks, kw = tiling(s, case.kappa)
+    try:
+        _pair_plan(r, ranks, kw, kernel)
+    except ValueError:
+        return False
+    return True
 
 
 def run_pair_plain(case: PairCase, n_blocks: Optional[int] = None
@@ -674,7 +771,8 @@ def pair_exact_cases(device, *, c: int = 4, r: int = 32, bsz: int = 19,
     the slots either side of the 1,024 boundary carry the same codes;
     the bias is an l2-style negative integer; the last block's rows all
     name query 0 (padding); ``kappa`` from 1 to 128 (``ranks`` 1 to 64: up
-    to 16 the kernel's lists live in registers, deeper ones in local memory)
+    to 8 the wgmma kernel takes them, lists of 1, 2, 4 and 8 a thread; the
+    first design keeps its lists in registers to 16, deeper in local memory)
     and the deep ranks 200 (more than a 128-slot tile holds, and over three
     tiles) and 256 (also in chunks of two blocks); pair rows given directly,
     by the row table, and with a real-block count below the grid's."""
@@ -689,7 +787,8 @@ def pair_exact_cases(device, *, c: int = 4, r: int = 32, bsz: int = 19,
     rows = torch.from_numpy(rows_np).to(device)
     blk_t = torch.from_numpy(blk).to(device)
     for s, kappas in ((72, (1, 8, 40, 200)), (1024, (3, 16)),
-                      (1096, (1, 2, 8, 11, 128, 512)), (2056, (8, 48, 600))):
+                      (1096, (1, 2, 4, 8, 11, 128, 512)),
+                      (2056, (8, 48, 600))):
         docs = rng.integers(-4, 5, (c, r, s)).astype(np.int8)
         if s > 1030:
             docs[:, :, 1024:1030] = docs[:, :, 1018:1024]

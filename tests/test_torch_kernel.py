@@ -1,6 +1,7 @@
 """Card-only tests: the hand-written kernels (csrc/fused_topk.cu with its
-wgmma scan, csrc/stream_topk.cu, csrc/grouped_gains.cu,
-csrc/grouped_pair_topk.cu, csrc/int4_matmul.cu with its prefill kernel,
+wgmma scan over bf16, int8 and int4 docs, csrc/stream_topk.cu,
+csrc/grouped_gains.cu, csrc/grouped_pair_topk.cu with its wgmma kernel,
+csrc/int4_matmul.cu with its prefill kernel,
 csrc/decode_attention.cu) against their plain PyTorch versions, at test
 size, the host-RAM tiers' engine on the card against the same engine on the
 CPU, and the int4 decoder's greedy tokens on the card against the CPU's.
@@ -119,6 +120,57 @@ def test_wgmma_scan_matches_plain_within_tolerance(cuda, bsz, n, d, k):
     res = kc.compare_tolerant(kernel, kc.run_plain(case))
     assert res["ok"], res
     assert res["recall"] >= 0.999, res
+
+
+@pytest.mark.parametrize("kernel", [None, "wgmma"])
+def test_quant_scan_exact_cases_equal_plain(cuda, kernel):
+    """int8 and int4 docs (no, per-doc and per-group scales) through the
+    wgmma scan (``kernel="wgmma"``: every case, k 10 to 160; None: the
+    wrapper's plan): partial doc tiles, packed rows shorter than a raw box
+    and split across boxes, a -inf bias tail, valid_docs < N and splits of
+    several tiles; indices and scores equal the plain version, one launch
+    a call."""
+    failed, n = [], 0
+    before = fused_topk.launches
+    for case in kc.quant_exact_cases(cuda):
+        got = kc.run_kernel(case, kernel)
+        want = kc.run_plain(case)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])):
+            failed.append(case.name)
+        n += 1
+    assert not failed, failed
+    assert fused_topk.launches == before + n
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_quant_scan_int4_matches_plain_within_tolerance(cuda, grouped):
+    """Random packed nibbles through the scan: only the summation order
+    differs from the plain version."""
+    case = kc.int4_path_case(cuda, grouped=grouped, bsz=200, n=50_000,
+                             d=768, k=32)
+    case.valid_docs = 49_990
+    kernel = kc.run_kernel(case, "wgmma")
+    res = kc.compare_tolerant(kernel, kc.run_plain(case))
+    assert res["ok"] and res["recall"] >= 0.999, res
+    assert int(kernel[1].max()) < 49_990
+
+
+def test_quant_scan_plan_and_refusals(cuda):
+    """The wrapper sends int8 and int4 (d % 32) to the scan, keeps int4
+    rows of 40 bytes and f32 on the first design, and the scan refuses
+    those when it is named."""
+    from ragroute_tpu_torch.ops import fused_topk as ft
+
+    q = torch.randn(4, 80, device=cuda)
+    packed = torch.zeros(300, 40, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="does not take"):
+        ft._launch(q.to(torch.bfloat16), packed, 8, 300, None, None,
+                   packed4=True, kernel="wgmma")
+    before = fused_topk.launches
+    fused_topk(q, packed, 8, packed4=True)          # the first design
+    fused_topk(q, torch.zeros(300, 80, dtype=torch.int8, device=cuda), 8)
+    assert fused_topk.launches == before + 2
 
 
 def test_kernel_deep_exact_cases_equal_plain(cuda):
@@ -372,6 +424,28 @@ def test_pair_topk_exact_cases_equal_plain(cuda):
         n += 1
     assert not failed, failed
     assert grouped_pair_topk.launches == before + n
+
+
+@pytest.mark.parametrize("kernel", ["wgmma", "shallow"])
+def test_pair_topk_named_launch_exact_cases_equal_plain(cuda, kernel):
+    """The exact cases through the wgmma kernel and through the first
+    design, each where it takes the shape (the wgmma kernel: ranks 1 to 8,
+    S 72 to 2,056, one tile and three, the row table and the real-block
+    count): gains equal, slots equal where finite."""
+    failed, n = [], 0
+    for case in kc.pair_exact_cases(cuda):
+        if not kc.pair_takes(case, kernel):
+            continue
+        out = kc.run_pair_kernel(case, kernel)
+        real = case.real_rows
+        plain = kc.run_pair_plain(case, real // kc.PAIR_ROWS)
+        torch.cuda.synchronize()
+        res = kc.compare_pair((out[0][:real], out[1][:real]), plain)
+        if not res["ok"] or res["max_abs_err"] != 0.0:
+            failed.append((case.name, res))
+        n += 1
+    assert not failed, failed
+    assert n >= 27
 
 
 def test_pair_topk_matches_plain_within_tolerance_and_raises(cuda):

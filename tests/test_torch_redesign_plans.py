@@ -66,26 +66,32 @@ def test_int4_plan_keeps_the_decode_splits(m, half, out, group, splits, rows):
 
 # ---- K1 ----------------------------------------------------------------------
 
-BF16, I8, F32, I4 = 1, 2, 0, 3
+BF16, I8, F32, I4, I4G = 1, 2, 0, 3, 4
 
 
 @pytest.mark.parametrize("k,d,want", [
     (10, 768, "wgmma"), (32, 768, "wgmma"), (64, 768, "wgmma"),
     (65, 768, "wgmma"), (160, 768, "wgmma"), (161, 768, "deep"),
     (64, 128, "wgmma"), (65, 128, "deep"), (128, 128, "deep"),
-    (160, ft.W_DEEP_BELOW_D - 16, "deep"),
-    (160, ft.W_DEEP_BELOW_D, "wgmma"), (256, 768, "deep"),
+    (160, ft.W_DEEP_BELOW_D[BF16] - 16, "deep"),
+    (160, ft.W_DEEP_BELOW_D[BF16], "wgmma"), (256, 768, "deep"),
 ])
 def test_fused_plan_for_bf16_docs(k, d, want):
     assert ft._plan(512, 734_003, d, k, BF16, SMS).kernel == want
 
 
-@pytest.mark.parametrize("doc_type", [F32, I8, I4])
+@pytest.mark.parametrize("doc_type,d", [(F32, 128), (F32, 768), (I4, 80),
+                                        (I4G, 80), (I4, 48)])
 @pytest.mark.parametrize("k,want", [(32, "shallow"), (160, "shallow"),
                                     (161, "deep")])
-def test_fused_plan_keeps_the_first_design_off_bf16(doc_type, k, want):
-    assert ft._plan(512, 734_003, 128, k, doc_type, SMS).kernel == want
+def test_fused_plan_keeps_the_first_design_off_bf16(doc_type, d, k, want):
+    """f32 docs (TF32 would change their answers) and int4 rows that are
+    not a whole number of 16 bytes (d % 32: TMA's row stride) keep the
+    first design up to k = 160; the scan refuses them when named."""
+    assert ft._plan(512, 734_003, d, k, doc_type, SMS).kernel == want
     assert deep_topk.SHALLOW_MAX == ft.MAX_SHALLOW_K == 160
+    with pytest.raises(ValueError, match="does not take"):
+        ft._plan(512, 734_003, d, k, doc_type, SMS, "wgmma")
 
 
 @pytest.mark.parametrize("bsz", [1, 8, 37, 130, 512, 2048])
