@@ -20,15 +20,19 @@ Phases, each of which fails the run when it fails:
 
    * fused top-k: exact cases of the shallow launch (k 10 to 160), of
      the wgmma scan over bf16 docs and over int8 and int4 docs (no,
-     per-doc and per-group scales) and of the deep launch (k 161 to 1,100,
-     chunks and row slices); B=512 over one 734,003 x 768 centred bf16 dot
+     per-doc and per-group scales), of the deep launch (k 161 to 1,100,
+     chunks and row slices; through the plan and named) and of the scan's
+     deep fold (k 65 to 1,024, bf16 / int8 / int4, buffers cut many
+     times); B=512 over one 734,003 x 768 centred bf16 dot
      shard, k=32 (1e-3 x max|score|, winner-set recall >= 0.999); the same
      shard int4-packed with per-doc and with per-group scales, in int8 and
-     in f32; the low-rank coarse scan (734,003 x 128 bf16) at k'=128 and,
-     through the deep launch, k'=256 (--refine-mult 8); the host tiers'
+     in f32; the low-rank coarse scan (734,003 x 128 bf16) at k'=128 and
+     k'=256 (--refine-mult 8), through the deep fold with the deep launch's
+     time beside it; the host tiers'
      launches: one int8 slab of the stream tier (346,112 x 768, per-doc
      scale, k=32) and hostrefine's flat coarse scan (2,936,320 x 128 int8,
-     per-doc scale, -inf bias on the padding rows) at k'=128 and 256; each
+     per-doc scale, -inf bias on the padding rows) at k'=128 and 256
+     (the deep fold, with the deep launch's time beside it); each
      int8 / int4 row with the first design's time at the same shape beside
      it, the deep rows with the profiler's device time and a bound that
      counts the gains' round trip through device memory;
@@ -52,12 +56,14 @@ Phases, each of which fails the run when it fails:
      every slot that differs from the plain version's must carry,
      recomputed, the gain written for it), with the first design's time
      at the same shape beside the wgmma kernel's;
-   * int4 matmul (the decoder's K5): exact integer cases (outputs equal),
-     then Qwen3-8B's projections and untied head at decode (B=16), its
-     gate and down at prefill (16 x 512 rows) and Qwen3-0.6B's tied head,
-     bf16 activations (1e-4 x max|y|), with the device time from the
-     profiler beside the CUDA-event time and dequant-to-bf16 +
-     ``torch.matmul`` as a note;
+   * int4 matmul (the decoder's K5): exact integer cases (outputs equal;
+     the decode kernel at M = 1, 16, 40 and 63 with splits summed in the
+     launch), then Qwen3-8B's projections and untied head at decode
+     (B=16, the decode kernel), its gate and down at prefill (16 x 512
+     rows, the prefill kernel) and Qwen3-0.6B's tied head, bf16
+     activations (1e-4 x max|y|), with the device time from the profiler
+     beside the CUDA-event time, the first kernel's times at the same
+     shape beside them and dequant-to-bf16 + ``torch.matmul`` as a note;
    * decode attention (K6, wired to no engine): small f32 / bf16 / int8
      cases (1e-5, a row with one valid key and a row with none, S under a
      tile, G 1 to 8, Dh 20 to 256, many splits), then the
@@ -70,7 +76,7 @@ Phases, each of which fails the run when it fails:
    ``ServingSystem`` exactly as ``python -m ragroute_tpu_torch.main
    --dataset medrag --routing ragroute --disable-llm --port 0`` builds it:
    first the exact path, then ``--impl lowrank``, then ``--impl lowrank
-   --refine-mult 8`` (k' = 256: the fused kernel's deep launch; recall at
+   --refine-mult 8`` (k' = 256: the fused kernel's deep fold; recall at
    least the default depth's), then ``--impl ivf``
    (bf16 each), the last over a world of the same size made with 64
    topics per source (cluster probing's serving regime; the world the
@@ -112,7 +118,8 @@ Phases, each of which fails the run when it fails:
    clustered one, reached through
    ``RAGROUTE_HOSTREFINE_CLUSTER_MIN_DOCS``, each at the default depth and
    with ``--refine-mult 8``, whose recall must reach the default depth's
-   and whose K1 or K2 must take the deep launch): every ``/query`` answers
+   and whose K1 must take its deep fold and K2 its deep launch): every
+   ``/query`` answers
    200, the path's kernels launch (the grouped pair top-k only on the
    probed path, through its wgmma kernel; the stream tier's slabs through
    K1's wgmma scan), ``last_phases`` is printed, and ``engine.search`` on 64
@@ -135,6 +142,7 @@ Phases, each of which fails the run when it fails:
    ``--llm-serving continuous --llm-prefix-cache --llm-spec-window 4``
    (``--llm-max-new 32``): every answer 200, K5 launched, tokens a second
    printed. One decode step at B=16 over a 2,080-position cache is timed
+   (every K5 call in it one kernel on the device, by the profiler)
    and profiled against its bound, and so is one prefill of the lockstep
    batch (16 prompts of 2,048 tokens). The 36-layer bf16 prefill logits through
    K5 stay within 0.05 x max|logit| of the plain version's, and two layers
@@ -147,7 +155,8 @@ only; ``python3 chip_smoke.py llm`` phases 1, K5 / K6 of 2, and 6.
 
 The second-to-last line is one JSON object with every kernel's launches on
 the main paths (and, for the three top-k kernels, the deep launches among
-them), its error against the plain version, its times and its bound; the
+them; for K1 also its deep fold's), its error against the plain version,
+its times and its bound; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA the
 script exits non-zero and prints no result.
 """
@@ -229,12 +238,13 @@ WGMMA_PATHS = {"exact": ("fused_topk",), "stream": ("fused_topk",),
                "hostrefine_probed": ("grouped_pair_topk",)}
 
 # the paths served at --refine-mult 8 (k' = 256 at medrag's k = 32), the
-# kernels that must take their deep launch there, and the default-depth run
+# kernels that must take the launch that serves that depth there, named by
+# its counter (K1's deep fold, K2's deep launch), and the default-depth run
 # whose recall on the same queries each must reach
 REFINE_MULT = 8
-DEEP_PATHS = {"lowrank_deep": (("fused_topk",), "lowrank"),
-              "hostrefine_deep": (("fused_topk",), "hostrefine"),
-              "hostrefine_probed_deep": (("stream_topk",),
+DEEP_PATHS = {"lowrank_deep": ((("fused_topk", "fold"),), "lowrank"),
+              "hostrefine_deep": ((("fused_topk", "fold"),), "hostrefine"),
+              "hostrefine_probed_deep": ((("stream_topk", "deep"),),
                                          "hostrefine_probed")}
 
 # the medrag world at the benchmark's size (bench.py, BENCH_r05.json)
@@ -269,17 +279,19 @@ def log(msg: str) -> None:
 def reset_counts() -> None:
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
-        for extra in ("deep_launches", "wgmma_launches"):
+        for extra in ("deep_launches", "wgmma_launches", "fold_launches"):
             if hasattr(wrapper, extra):
                 setattr(wrapper, extra, 0)
 
 
 def read_counts() -> dict:
     """Launches of every kernel; under ``deep``, those of the deep launch
-    (lists past 160) of the three top-k kernels; under ``wgmma``, those of
-    K1's scan and K4's wgmma kernel."""
+    (gains through device memory) of the three top-k kernels; under
+    ``wgmma``, those of K1's scan (lists up to 64) and K4's wgmma kernel;
+    under ``fold``, those of K1's scan with the deep fold (lists past
+    64)."""
     out = {name: k[0].launches for name, k in KERNELS.items()}
-    for extra in ("deep", "wgmma"):
+    for extra in ("deep", "wgmma", "fold"):
         out[extra] = {name: getattr(k[0], f"{extra}_launches")
                       for name, k in KERNELS.items()
                       if hasattr(k[0], f"{extra}_launches")}
@@ -295,17 +307,18 @@ def check_wgmma(label: str, launches: dict) -> None:
 
 
 def check_deep(label: str, launches: dict, recall: float, out: dict) -> None:
-    """A --refine-mult 8 run: its kernels took the deep launch, and its
-    recall is at least the default-depth run's on the same queries."""
+    """A --refine-mult 8 run: its kernels took the launch that serves that
+    depth (K1's deep fold, K2's deep launch), and its recall is at least the
+    default-depth run's on the same queries."""
     kernels, default = DEEP_PATHS[label]
-    for name in kernels:
-        if launches["deep"][name] <= 0:
-            raise AssertionError(f"the {label} path never took the deep "
+    for name, counter in kernels:
+        if launches[counter][name] <= 0:
+            raise AssertionError(f"the {label} path never took the {counter} "
                                  f"launch of {name}")
     base = out[default]["recall"]
     log(f"[serve:{label}] recall {recall:.6f} at k' = {REFINE_MULT} k "
         f"against {base:.6f} at the default depth; deep launches "
-        f"{launches['deep']}")
+        f"{launches['deep']}, fold launches {launches['fold']}")
     if recall < base:
         raise AssertionError(f"{label}: recall {recall} below the default "
                              f"depth's {base}")
@@ -417,15 +430,35 @@ def phase_fused(dev) -> dict:
         f"int4 per-doc and per-group, k 10..160): indices and scores equal")
     deep = []
     for case in kc.deep_exact_cases(dev):
-        (ks, ki), (ps, pi) = kc.run_pair(case)
-        torch.cuda.synchronize()
-        if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
-            raise AssertionError(f"kernel != plain on exact case {case.name}")
+        ps, pi = kc.run_plain(case)
+        # the plan's launch (the deep fold where it takes the case), then
+        # the deep launch itself
+        for kernel in (None, "deep"):
+            ks, ki = kc.run_kernel(case, kernel)
+            torch.cuda.synchronize()
+            if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+                raise AssertionError(f"kernel ({kernel or 'plan'}) != plain "
+                                     f"on exact case {case.name}")
         deep.append(case.name)
     log(f"[kernel] fused_topk {len(deep)} deep exact cases (k 161..1100 over "
         f"20,000 docs; f32 / bf16 / int8 / int4 per-group; k past the valid "
-        f"rows, a -inf tail, chunks and row slices): indices and scores "
-        f"equal")
+        f"rows, a -inf tail, chunks and row slices), through the plan and "
+        f"the deep launch: indices and scores equal")
+    fold = []
+    for case in kc.fold_exact_cases(dev):
+        ps, pi = kc.run_plain(case)
+        ks, ki = kc.run_kernel(case, "fold")
+        torch.cuda.synchronize()
+        if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+            raise AssertionError(f"the deep fold != plain on exact case "
+                                 f"{case.name}")
+        fold.append(case.name)
+    log(f"[kernel] fused_topk {len(fold)} exact cases of the deep fold (k "
+        f"{', '.join(map(str, kc.FOLD_KS))}; bf16, int8 and int4 docs; B=150 "
+        f"over two query blocks, 845 and 20,000 docs, ties by the thousand so "
+        f"that buffers are cut many times, one split under a small cap, "
+        f"lists past the valid rows, -inf tail, valid_docs < N): indices and "
+        f"scores equal")
     wg = []
     for case in kc.wgmma_exact_cases(dev):
         (ks, ki), (ps, pi) = kc.run_kernel(case, "wgmma"), kc.run_plain(case)
@@ -474,16 +507,17 @@ def phase_fused(dev) -> dict:
     modes["f32_k32"] = _check_fused_path(
         f32, "B=512 N=734003 d=768 f32 dot k=32", reps=3)
     del f32
+    # the low-rank coarse scan's lists past 64 take the deep fold; the deep
+    # launch (the gains' round trip) took them before
     coarse = kc.path_case(dev, d=128, k=128, seed=4)
     modes["coarse_k128"] = _check_fused_path(
         coarse, "low-rank coarse scan B=512 N=734003 r=128 bf16 k=128",
-        reps=5, device=True, old="shallow")
-    del coarse
-    # --refine-mult 8: k' = 256 past the shallow launch
-    coarse = kc.path_case(dev, d=128, k=256, seed=4)
+        reps=5, device=True, old="deep")
+    # --refine-mult 8: k' = 256
+    coarse.k = 256
     modes["coarse_k256"] = _check_fused_path(
-        coarse, "low-rank coarse scan B=512 N=734003 r=128 bf16 k'=256 "
-        "(deep)", reps=5, device=True)
+        coarse, "low-rank coarse scan B=512 N=734003 r=128 bf16 k'=256",
+        reps=5, device=True, old="deep")
     del coarse
     # the host tiers' launches: one uploaded slab of the stream tier, and
     # hostrefine's flat coarse scan over the padded rank-128 slab of the
@@ -501,12 +535,12 @@ def phase_fused(dev) -> dict:
         flat, f"hostrefine flat coarse scan B=512 N={n_pad} r=128 int8 "
         f"per-doc scale, -inf bias on {n_pad - SMOKE_TIER_DOCS['pubmed']} "
         f"padding "
-        f"rows, k'=128", reps=3, q_chunk=64, device=True, old="shallow")
+        f"rows, k'=128", reps=3, q_chunk=64, device=True, old="deep")
     flat.k = 256
     modes["int8_coarse_k256"] = _check_fused_path(
         flat, f"hostrefine flat coarse scan B=512 N={n_pad} r=128 int8 "
-        f"per-doc scale, -inf padding tail, k'=256 (deep)", reps=3,
-        q_chunk=64, device=True)
+        f"per-doc scale, -inf padding tail, k'=256", reps=3,
+        q_chunk=64, device=True, old="deep")
     del flat
     res["modes"] = modes
     return res
@@ -830,9 +864,11 @@ def phase_int4(dev) -> dict:
         prefill = case.x.shape[0] >= M_SWITCH
         reps = 5 if prefill else 20
         ms = kc.cuda_time_ms(lambda: dc.run_int4(case), reps=reps)
-        # the first kernel, which the plan took at prefill before
-        old_ms = (kc.cuda_time_ms(lambda: dc.run_int4(case, "mma"),
-                                  reps=reps) if prefill else None)
+        # the first kernel, which the plan took at these shapes before the
+        # prefill and the decode kernels took them
+        old_ms = kc.cuda_time_ms(lambda: dc.run_int4(case, "mma"), reps=reps)
+        old_dev_ms = dc.device_ms(lambda: dc.run_int4(case, "mma"),
+                                  int4_matmul)
         dev_ms = dc.device_ms(lambda: dc.run_int4(case), int4_matmul)
         plain_ms = kc.cuda_time_ms(lambda: dc.run_int4_plain(case), warmup=1,
                                    reps=3)
@@ -848,16 +884,16 @@ def phase_int4(dev) -> dict:
             f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
             f"{bound['bytes'] / 1e6:.1f} MB, {bound['flops'] / 1e12:.4f} "
             f"TFLOP); note: dequant to bf16 + torch.matmul {note_ms:.3f} ms"
-            + ("" if old_ms is None else
-               f"; the first kernel, before: {old_ms:.4f} ms"))
+            f"; the first kernel, before: {old_ms:.4f} ms (device "
+            f"{old_dev_ms:.4f})")
         modes[case.name] = {"max_abs_err": res["max_abs_err"], "ms": ms,
                             "device_ms": dev_ms, "plain_ms": plain_ms,
                             "bound_ms": bound["bound_ms"],
                             "bound_by": bound["bound_by"],
                             "library_ms": None,
                             "dequant_matmul_note_ms": note_ms}
-        if old_ms is not None:
-            modes[case.name].update(old_ms=old_ms, old_kernel="mma")
+        modes[case.name].update(old_ms=old_ms, old_device_ms=old_dev_ms,
+                                old_kernel="mma")
         del case
         torch.cuda.empty_cache()
     head = modes.pop("qwen3-8b decode head")
@@ -1845,6 +1881,15 @@ def phase_generation(dev, smi: str) -> dict:
             out[label] = res
         step = decode_step_breakdown(params, QWEN3_8B, dev)
         print_decode_breakdown(step, smi)
+        # every K5 call of a decode step is one kernel on the device: no
+        # more K5 kernels than calls (the profiler may miss a few at its
+        # window's edges), none of them a separate sum of split partials
+        if (step["k5_kernels_per_step"] > step["k5_launches_per_step"]
+                or step["k5_split_sums_per_step"] > 0):
+            raise AssertionError(
+                f"a decode step's {step['k5_launches_per_step']} K5 calls ran "
+                f"{step['k5_kernels_per_step']} kernels on the device "
+                f"({step['k5_split_sums_per_step']} split sums)")
         out["decode_step"] = step
         pre = prefill_breakdown(params, QWEN3_8B, dev)
         log(f"[prefill:qwen3-8b] B={LLM_BATCH} P={LLM_PROMPT} int4 weights, "
@@ -1948,10 +1993,11 @@ def report(smi: str, kres: dict, paths: dict) -> None:
             "launches": sum(by_path[p] for p, ks in PATH_KERNELS.items()
                             if name in ks and p in by_path),
             "launches_by_path": by_path, **kres[name]}
-        if hasattr(KERNELS[name][0], "deep_launches"):
-            row["deep_launches_by_path"] = {
-                p: r["launches"]["deep"][name] for p, r in paths.items()
-                if p in PATH_KERNELS}
+        for extra in ("deep", "fold"):
+            if hasattr(KERNELS[name][0], f"{extra}_launches"):
+                row[f"{extra}_launches_by_path"] = {
+                    p: r["launches"][extra][name] for p, r in paths.items()
+                    if p in PATH_KERNELS}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,10 @@ namespace codes {
 
 // Two nibbles (bits 0-3 and 16-19 of t) as a bf16x2 of their signed codes:
 // (nibble ^ 8) under a bf16 exponent of 128 reads 128 + (code + 8); minus
-// 136 leaves the code, exactly.
+// 136 leaves the code, exactly. ((t ^ 8) & 0xF) | 0x4300 in each half is
+// (t & 0xF) ^ 0x4308: one three-input logic op.
 __device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t t) {
-  uint32_t v = ((t ^ 0x00080008u) & 0x000F000Fu) | 0x43004300u;
+  uint32_t v = (t & 0x000F000Fu) ^ 0x43084308u;
   __nv_bfloat162 b = *reinterpret_cast<__nv_bfloat162*>(&v);
   b = __hsub2(b, __floats2bfloat162_rn(136.0f, 136.0f));
   return *reinterpret_cast<uint32_t*>(&b);

@@ -36,7 +36,9 @@
 //     deep k: the wrapper then asks for fewer, longer splits.
 //   * merge_splits_kernel (topk_merge.cuh): one block per query row merges
 //     the per-split sorted lists into [B, k] under the same order.
-//   * Deeper lists (any k, as the TPU kernel takes; fused_topk_deep_launch):
+//   * Deeper lists (any k, as the TPU kernel takes; fused_topk_deep_launch,
+//     now for f32 docs, int4 rows off the 16-byte grid and lists past the
+//     deep fold's FOLD_MAX_K; the fold below takes the rest):
 //     64 x k lists do not fit beside the tiles past k = 160, and the serial
 //     inserts already dominate at k = 128. So the product leaves the kernel:
 //     chunk_gains_kernel writes a chunk of docs' gain tiles, formed and
@@ -56,7 +58,7 @@
 // runs on tensor cores. At B = 8 the same shard is read for 64x less work
 // and the bound is the ~0.33 ms it takes to read the docs once.
 //
-// bf16, int8 and int4 docs with k <= KMAX take a mainloop for that
+// bf16, int8 and int4 docs with k <= KSHALLOW take a mainloop for that
 // (wgmma_topk_kernel, chosen by ops/fused_topk.py::_plan):
 //   * one producer warp keeps a ring of 2 to 4 stages in flight by TMA, each
 //     the [128 query rows x 64] and [192 docs x 64] bf16 chunks (128-byte
@@ -72,9 +74,10 @@
 //     shared memory, and a buffer that may not take another step's is
 //     merged into the row's sorted list by rank (merge_buffer: a warp ranks
 //     up to 32 candidates at once in the lists' full order, gain desc then
-//     index asc, so arrival order does not matter);
-//   * past k = KSHALLOW the lists (up to 160 KB for 128 rows) take the room
-//     of a consumer group: one group, 64 query rows a block.
+//     index asc, so arrival order does not matter); lists past KSHALLOW
+//     take the deep fold below (in one consumer group of 64 rows with its
+//     lists in shared memory they lost to it, and to the deep launch, at
+//     every shard and width measured: PERF.md).
 // Grid (query tiles) x (doc splits) with the query tile fastest, so that the
 // blocks reading one doc range run together and the docs cross HBM about
 // once; what bounds it now is the fold, which the two groups run at the same
@@ -115,6 +118,36 @@
 //     too: TF32 would change answers that the plain version forms in f32.
 // The producer group keeps its registers when it converts (no setmaxnreg:
 // every thread keeps what the launch bounds give it).
+//
+// Lists past KSHALLOW over the docs the scan takes go to the same kernel
+// with its deep fold (DEEP; fused_topk_fold_launch, ops/fused_topk.py's
+// "fold"), which makes no round trip of gains through device memory:
+//   * two consumer groups again (128 query rows a block): no list lives in
+//     shared memory. Each row keeps a lower bound T on its final k-th best
+//     in a register, -inf at first; each gain costs one strict compare
+//     with it (a step's row maxima first: most steps end there);
+//   * a gain above T is staged in shared memory (W_SB slots a row, a
+//     quad's lanes placed by a prefix of their counts: no atomics), and
+//     staging that could not take another step's goes in one coalesced
+//     copy to the row's buffer for its split in device memory (cap words
+//     of order_key(gain) << 32 | ~position, 4k, ops/deep_topk.py::
+//     fold_cap);
+//   * a buffer that could not take another staging's is cut by its row's
+//     warp (fold_cut, in the warp's staging, emptied first: a pass for the
+//     bytes all words share, then radix passes of a shared-memory
+//     histogram) to its k best and up to k / 2 more, and T rises to the
+//     least word kept. Exact: T never exceeds the k-th best of a subset,
+//     which never exceeds the final k-th best, and within a split the docs
+//     arrive in ascending order, so a later gain equal to T ranks after k
+//     kept ones;
+//   * after the scan every row's buffer is cut to exactly k and sorted by
+//     its warp (a bitonic sort in the ring's shared memory, free by then;
+//     k <= FOLD_MAX_K), and merge_splits_kernel merges the (row, split)
+//     lists.
+// What bounds it (PERF.md): the appends and the cuts, not the products: a
+// cut stalls its consumer group at the next wgmma and, through the shared
+// ring, the other group; the cuts' count falls with the buffer's size, the
+// appends under a stale bound rise with it.
 
 #include <cuda_bf16.h>
 #include <float.h>
@@ -389,7 +422,7 @@ __global__ void __launch_bounds__(THREADS) partial_topk_kernel(
   }
 }
 
-// ---- bf16, int8 and int4 docs, k <= KMAX: wgmma fed by a TMA ring ---------
+// ---- bf16, int8 and int4 docs: wgmma fed by a TMA ring -------------------
 
 constexpr int WK = 64;            // contraction chunk: 128-byte bf16 rows
 constexpr int WTD = 192;          // docs a tile (the wgmma's N)
@@ -404,6 +437,19 @@ constexpr int W_MAX_RAW = 4;
 constexpr int W_RAW_BYTES = WTD * 64;
 constexpr int W_CONV = 128;
 constexpr int W_UNITS = WTD * 4 / W_CONV;
+// the deep fold (lists past KSHALLOW): a consumer warp's radix histogram,
+// the deepest list it takes (a warp sorts a row's list of up to this many
+// in the ring's shared memory after the scan) and the candidate slots a
+// row gets past its list, at least
+constexpr int W_HIST = 256;
+constexpr int FOLD_MAX_K = 1024;
+constexpr int FOLD_SLACK = 32;
+// a row's candidates are staged in shared memory, W_SB at a time, and go to
+// its buffer in device memory in one coalesced copy; a consumer warp's 16
+// rows' staging doubles as its room to cut a buffer of up to W_CUT_WORDS
+// (larger ones are cut in place)
+constexpr int W_SB = 64;
+constexpr int W_CUT_WORDS = 16 * W_SB;
 
 __host__ __device__ constexpr int w_stage_bytes(int nwg) {
   return (64 * nwg + WTD) * WK * 2;
@@ -416,10 +462,11 @@ __host__ __device__ constexpr int w_stage_bytes(int nwg) {
 // bias and scale (two tiles, in turn), the barriers; plus 1024 bytes to
 // align the ring.
 __host__ __device__ constexpr int w_smem_bytes(int nwg, int stages, int K,
-                                               int raw) {
+                                               int raw, bool deep = false) {
   return stages * w_stage_bytes(nwg) + raw * W_RAW_BYTES +
-         64 * nwg * ((K + W_CAP) * 8 + 4) + nwg * 4 * WTD * 4 +
-         (2 * stages + raw) * 8 + 1024;
+         (deep ? 64 * nwg * 12 + nwg * 4 * (W_HIST * 4 + W_CUT_WORDS * 8)
+               : 64 * nwg * ((K + W_CAP) * 8 + 4)) +
+         nwg * 4 * WTD * 4 + (2 * stages + raw) * 8 + 1024;
 }
 
 // (a, ia) comes before (b, ib): the lists' order, gain desc then index asc
@@ -481,12 +528,28 @@ __device__ __forceinline__ void merge_buffer(float* rg, int* ri,
 // -inf past N), and the mask of those that reach their row's threshold
 // (its k-th best, at least the lowest finite gain). No branch: the step's
 // eight gains are independent work for the scheduler.
-template <int S, int NACC>
+template <int S, int NACC, bool STRICT>
 __device__ __forceinline__ unsigned fold_step(const float (&acc)[NACC],
                                               float (&x)[W_STEP],
                                               const float* tb, const float* ts,
                                               bool has_scale, int tig,
                                               float thr0, float thr1) {
+  if constexpr (STRICT) {
+    // the deep fold: a step where no lane's row maximum passes (the common
+    // case once the bounds have risen) costs the gains, six maxima and two
+    // compares; the mask is built only when one does
+    fold_step<S, NACC, false>(acc, x, tb, ts, has_scale, tig,
+                              __int_as_float(0x7f800000),
+                              __int_as_float(0x7f800000));
+    const float m0 = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[4], x[5]));
+    const float m1 = fmaxf(fmaxf(x[2], x[3]), fmaxf(x[6], x[7]));
+    if (!__any_sync(FULL, m0 > thr0 || m1 > thr1)) return 0u;
+    unsigned m = 0;
+#pragma unroll
+    for (int u = 0; u < W_STEP; ++u)
+      m |= x[u] > (u & 2 ? thr1 : thr0) ? 1u << u : 0u;
+    return m;
+  }
   unsigned m = 0;
 #pragma unroll
   for (int cc = 0; cc < 2; ++cc) {
@@ -502,10 +565,128 @@ __device__ __forceinline__ unsigned fold_step(const float (&acc)[NACC],
       if (has_scale) g = __fmul_rn(g, odd ? sc.y : sc.x);
       g = __fadd_rn(g, odd ? bs.y : bs.x);
       x[4 * cc + v] = g;
-      m |= g >= (v & 2 ? thr1 : thr0) ? 1u << (4 * cc + v) : 0u;
+      const float t = v & 2 ? thr1 : thr0;
+      m |= (STRICT ? g > t : g >= t) ? 1u << (4 * cc + v) : 0u;
     }
   }
   return m;
+}
+
+// The deep fold's candidates are 64-bit words, order_key(gain) << 32 |
+// ~position (csrc/deep_topk.cuh): larger words come first in the lists'
+// order (gain desc, position asc), and no two words of a row are equal.
+
+// One warp cuts a row's candidate words[0, n) (n > K) to its K largest, in
+// place at the front, by radix select over the words' bytes from the top: a
+// first pass finds the bytes every word shares (from the least and the
+// greatest word), then a histogram of 256 bins in shared memory a byte,
+// until the bin that holds the K-th word holds at most `slack` words past
+// it; every word at or above that bin is kept (K of them with no slack).
+// Returns the smallest word kept; `kept` gets their count.
+__device__ __forceinline__ deep::u64 fold_cut(deep::u64* words, int n, int K,
+                                              int slack, int* hist, int lane,
+                                              int& kept) {
+  deep::u64 lo = ~0ull, hi = 0ull;
+  for (int e = lane; e < n; e += 32) {
+    const deep::u64 w = words[e];
+    lo = w < lo ? w : lo;
+    hi = w > hi ? w : hi;
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    const deep::u64 a = __shfl_xor_sync(FULL, lo, off);
+    const deep::u64 b = __shfl_xor_sync(FULL, hi, off);
+    lo = a < lo ? a : lo;
+    hi = b > hi ? b : hi;
+  }
+  // the leading bytes all words share (the words are distinct: lo < hi)
+  const int common = __clzll(lo ^ hi) >> 3;
+  deep::u64 mask = common ? ~0ull << (64 - 8 * common) : 0ull;
+  deep::u64 prefix = hi & mask;
+  int need = K;
+  for (int shift = 56 - 8 * common; shift >= 0; shift -= 8) {
+    for (int b = lane; b < W_HIST; b += 32) hist[b] = 0;
+    __syncwarp();
+    for (int base = 0; base < n; base += 32) {
+      const int e = base + lane;
+      const deep::u64 w = e < n ? words[e] : 0ull;
+      const bool in = e < n && (w & mask) == prefix;
+      if (in) atomicAdd(&hist[(int)(w >> shift) & 255], 1);
+    }
+    __syncwarp();
+    // lane l counts bins 255 - 8 l down to 248 - 8 l; the bin where the
+    // count from the top reaches `need` is the next byte
+    int c[8], local = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      c[j] = hist[255 - 8 * lane - j];
+      local += c[j];
+    }
+    int incl = local;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl += t;
+    }
+    int run = incl - local, digit = -1, above = 0, cnt = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (digit < 0 && run < need && run + c[j] >= need) {
+        digit = 255 - 8 * lane - j;
+        above = run;
+        cnt = c[j];
+      }
+      run += c[j];
+    }
+    const int src = __ffs(__ballot_sync(FULL, digit >= 0)) - 1;
+    digit = __shfl_sync(FULL, digit, src);
+    above = __shfl_sync(FULL, above, src);
+    cnt = __shfl_sync(FULL, cnt, src);
+    prefix |= (deep::u64)digit << shift;
+    mask |= (deep::u64)0xff << shift;
+    need -= above;
+    __syncwarp();
+    if (cnt - need <= slack) break;  // every word of this prefix is kept
+  }
+  // the kept words are those >= prefix (K of them and at most `slack` more,
+  // all distinct)
+  const unsigned lt = (1u << lane) - 1u;
+  deep::u64 least = ~0ull;
+  int out = 0;
+  for (int base = 0; base < n; base += 32) {
+    const int e = base + lane;
+    const deep::u64 w = e < n ? words[e] : 0ull;
+    const bool keep = e < n && w >= prefix;
+    const unsigned b = __ballot_sync(FULL, keep);
+    if (keep) {  // every lane has read its word: out + rank <= e
+      words[out + __popc(b & lt)] = w;
+      least = w < least ? w : least;
+    }
+    out += __popc(b);
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    const deep::u64 o = __shfl_xor_sync(FULL, least, off);
+    least = o < least ? o : least;
+  }
+  __syncwarp();
+  kept = out;
+  return least;
+}
+
+// One warp sorts v[0, P) descending, P a power of two.
+__device__ __forceinline__ void warp_bitonic_desc(deep::u64* v, int P,
+                                                  int lane) {
+  for (int size = 2; size <= P; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = lane; i < P / 2; i += 32) {
+        const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
+        const bool desc = (lo & size) == 0;  // the last merge: all descending
+        const deep::u64 a = v[lo], b = v[hi];
+        if ((a < b) == desc) { v[lo] = b; v[hi] = a; }
+      }
+      __syncwarp();
+    }
 }
 
 // Contraction chunk c of a doc tile: the query columns it pairs with and the
@@ -615,13 +796,14 @@ __device__ __forceinline__ void w_convert(const unsigned char* src,
 // buffer that may not take another block of candidates is merged into the
 // row's list (merge_buffer), as are all of them after the last tile. kI4G's scales are applied by the converters, so `scale` is null
 // there and `gscale` holds them.
-template <int NWG, int SLOTS, int DT>
+template <int NWG, int DT, bool DEEP>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap dmap, const float* __restrict__ bias,
     const float* __restrict__ scale, const float* __restrict__ gscale,
-    float* __restrict__ part_g, int* __restrict__ part_i, int B, int N, int D,
-    int K, int G, int splits, int tiles_per_split, int stages, int raw_stages) {
+    float* __restrict__ part_g, int* __restrict__ part_i,
+    deep::u64* __restrict__ cand, int cap, int B, int N, int D, int K, int G,
+    int splits, int tiles_per_split, int stages, int raw_stages) {
   constexpr bool RAW = DT != kBF16;
   constexpr int TQ = 64 * NWG;
   constexpr int QT = TQ * WK * 2;        // query chunk bytes
@@ -634,12 +816,22 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* raw = smem + stages * STAGE;
   const int n_raw = RAW ? raw_stages : 0;
+  // the shallow fold: the rows' lists and candidate buffers; the deep fold:
+  // each row's lower bound and staged count, a histogram a consumer warp
+  // and the rows' staging (their buffers are in device memory); both: the
+  // buffers' counts
   float* run_g = reinterpret_cast<float*>(raw + n_raw * W_RAW_BYTES);
-  int* run_i = reinterpret_cast<int*>(run_g + TQ * K);
-  float* buf_g = reinterpret_cast<float*>(run_i + TQ * K);
-  int* buf_i = reinterpret_cast<int*>(buf_g + TQ * W_CAP);
-  int* buf_n = buf_i + TQ * W_CAP;
-  float* tile_v = reinterpret_cast<float*>(buf_n + TQ);
+  int* run_i = reinterpret_cast<int*>(run_g + (DEEP ? 0 : TQ * K));
+  float* buf_g = reinterpret_cast<float*>(run_i + (DEEP ? 0 : TQ * K));
+  int* buf_i = reinterpret_cast<int*>(buf_g + (DEEP ? 0 : TQ * W_CAP));
+  int* buf_n = buf_i + (DEEP ? 0 : TQ * W_CAP);
+  float* row_t = reinterpret_cast<float*>(buf_n + TQ);
+  int* stg_n = reinterpret_cast<int*>(row_t + (DEEP ? TQ : 0));
+  int* hist = stg_n + (DEEP ? TQ : 0);
+  deep::u64* cut_words =
+      reinterpret_cast<deep::u64*>(hist + (DEEP ? NWG * 4 * W_HIST : 0));
+  float* tile_v = reinterpret_cast<float*>(
+      cut_words + (DEEP ? NWG * 4 * W_CUT_WORDS : 0));
   uint64_t* full = reinterpret_cast<uint64_t*>(tile_v + NWG * 4 * WTD);
   uint64_t* empty = full + stages;
   uint64_t* raw_full = empty + stages;
@@ -662,11 +854,19 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
     for (int r = 0; r < n_raw; ++r) hopper::mbar_init(&raw_full[r], 1);
     hopper::fence_barrier_init();
   }
-  for (int e = threadIdx.x; e < TQ * K; e += blockDim.x) {
-    run_g[e] = neg_inf();
-    run_i[e] = 0;
+  if constexpr (!DEEP) {
+    for (int e = threadIdx.x; e < TQ * K; e += blockDim.x) {
+      run_g[e] = neg_inf();
+      run_i[e] = 0;
+    }
   }
-  for (int e = threadIdx.x; e < TQ; e += blockDim.x) buf_n[e] = 0;
+  for (int e = threadIdx.x; e < TQ; e += blockDim.x) {
+    buf_n[e] = 0;
+    if constexpr (DEEP) {
+      row_t[e] = neg_inf();
+      stg_n[e] = 0;
+    }
+  }
   __syncthreads();
 
   if (wg == NWG) {  // ---- producer ----
@@ -748,11 +948,61 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
   // a gain passes at its row's threshold: the row's k-th best, and at
   // least the lowest finite gain (-inf never enters); rows past B (zero
   // queries) take nothing
-  const float pinf = __int_as_float(0x7f800000), low = -FLT_MAX;
+  // the deep fold: a gain passes above its row's lower bound T, which only
+  // rises (-inf at first: -inf and NaN never pass)
+  const float pinf = __int_as_float(0x7f800000),
+              low = DEEP ? neg_inf() : -FLT_MAX;
   float thr0 = q0 + r0 < B ? low : pinf;
   float thr1 = q0 + r0 + 8 < B ? low : pinf;
+  int* whist = hist + (wg * 4 + warp) * W_HIST;
+  deep::u64* wcut = cut_words + (wg * 4 + warp) * W_CUT_WORDS;
+  // a row's candidate words in device memory: [B, splits, cap]
+  auto row_words = [&](int row) {
+    return cand + ((size_t)(q0 + row) * splits + split) * cap;
+  };
+  // a row's staged candidates to the end of its buffer, one coalesced copy
+  auto flush_row = [&](int row) {
+    const int n = stg_n[row], at = buf_n[row];
+    const deep::u64* from = cut_words + row * W_SB;
+    deep::u64* to = row_words(row) + at;
+    for (int e = lane; e < n; e += 32) to[e] = from[e];
+    __syncwarp();
+    if (lane == 0) {
+      buf_n[row] = at + n;
+      stg_n[row] = 0;
+    }
+    __syncwarp();
+  };
+  // cut a row's candidates to its K best and up to `slack` more and raise
+  // its lower bound to the least kept (at or below the K-th best of a
+  // subset, which never exceeds the final K-th best; a later gain equal to
+  // it comes after K earlier ones: exact); a buffer that fits the warp's
+  // staging (empty by then) is read once into it, cut there and written
+  // back
+  auto cut_row = [&](int row, int slack) {
+    deep::u64* words = row_words(row);
+    const int n = buf_n[row];
+    deep::u64 least;
+    int kept;
+    if (n <= W_CUT_WORDS) {
+#pragma unroll 8
+      for (int e = lane; e < n; e += 32) wcut[e] = words[e];
+      __syncwarp();
+      least = fold_cut(wcut, n, K, slack, whist, lane, kept);
+#pragma unroll 8
+      for (int e = lane; e < kept; e += 32) words[e] = wcut[e];
+    } else {
+      least = fold_cut(words, n, K, slack, whist, lane, kept);
+    }
+    if (lane == 0) {
+      buf_n[row] = kept;
+      row_t[row] = deep::key_gain((uint32_t)(least >> 32));
+    }
+    __syncwarp();
+  };
   auto merge_row = [&](int row) {
-    merge_buffer<SLOTS>(run_g + row * K, run_i + row * K, buf_g + row * W_CAP,
+    merge_buffer<topk::SLOTS_SHALLOW>(run_g + row * K, run_i + row * K,
+                                      buf_g + row * W_CAP,
                         buf_i + row * W_CAP, K, buf_n[row], lane);
     if (lane == 0) buf_n[row] = 0;
     __syncwarp();
@@ -760,6 +1010,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
   float acc[NACC];
 #pragma unroll
   for (int e = 0; e < NACC; ++e) acc[e] = 0.0f;
+  int n0 = 0, n1 = 0;   // the deep fold: rows r0's and r0 + 8's staged count
   // int8 / int4: this group's half of query chunk j into its stage, by the
   // group's first thread, once the group is done with the stage
   const int total = max(0, tile_end - tile_begin) * chunks;
@@ -827,7 +1078,8 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
       switch (step) {
 #define RAGROUTE_FOLD(S)                                                   \
   case S:                                                                  \
-    m = fold_step<S, NACC>(acc, x, tb, tb + WTD, scale, tig, thr0, thr1);  \
+    m = fold_step<S, NACC, DEEP>(acc, x, tb, tb + WTD, scale, tig, thr0,   \
+                                 thr1);                                    \
                                                                            \
     break;
         RAGROUTE_FOLD(0) RAGROUTE_FOLD(1) RAGROUTE_FOLD(2) RAGROUTE_FOLD(3)
@@ -836,6 +1088,39 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
 #undef RAGROUTE_FOLD
       }
       if (!__any_sync(FULL, m)) continue;
+      if constexpr (DEEP) {
+        // a quad (lanes 4 gid .. + 3) shares rows r0 and r0 + 8: a lane's
+        // place in a row's buffer is the count of the quad's lower lanes'
+        // candidates there, so no atomics (the warp owns its rows) and
+        // every candidate has a static register
+        const unsigned m0 = m & 0x33u, m1 = m & 0xCCu;
+        const int c0 = __popc(m0), c1 = __popc(m1);
+        int p0 = c0, p1 = c1;
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          const int t0 = __shfl_up_sync(FULL, p0, off);
+          const int t1 = __shfl_up_sync(FULL, p1, off);
+          if (tig >= off) { p0 += t0; p1 += t1; }
+        }
+        const int at0 = n0 + p0 - c0, at1 = n1 + p1 - c1;
+        deep::u64* w0 = cut_words + r0 * W_SB;
+        deep::u64* w1 = cut_words + (r0 + 8) * W_SB;
+#pragma unroll
+        for (int u = 0; u < W_STEP; ++u) {
+          if (m & (1u << u)) {
+            const int pos = j0 + 16 * step + 8 * (u >> 2) + 2 * tig + (u & 1);
+            const deep::u64 word =
+                ((deep::u64)deep::order_key(x[u]) << 32) | (uint32_t)~pos;
+            if (u & 2)
+              w1[at1 + __popc(m1 & ((1u << u) - 1))] = word;
+            else
+              w0[at0 + __popc(m0 & ((1u << u) - 1))] = word;
+          }
+        }
+        n0 += __shfl_sync(FULL, p0, lane | 3);   // the quad's totals
+        n1 += __shfl_sync(FULL, p1, lane | 3);
+        m = 0;
+      }
       // append this lane's candidates to their rows' buffers (x is picked
       // by a select chain, not a runtime index, to stay in registers)
       for (; m; m &= m - 1) {
@@ -844,21 +1129,91 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
 #pragma unroll
         for (int w = 1; w < W_STEP; ++w) g = u == w ? x[w] : g;
         const int row = r0 + (u & 2 ? 8 : 0);
+        const int pos = j0 + 16 * step + 8 * (u >> 2) + 2 * tig + (u & 1);
         const int at = row * W_CAP + atomicAdd(&buf_n[row], 1);
         buf_g[at] = g;
-        buf_i[at] = j0 + 16 * step + 8 * (u >> 2) + 2 * tig + (u & 1);
+        buf_i[at] = pos;
       }
       __syncwarp();
       // a row takes at most 16 candidates a step (2 docs x 2 columns from
-      // each of its 4 lanes): buffers past W_CAP - 16 are merged now
-      unsigned rows =
-          __ballot_sync(FULL, lane < 16 && buf_n[wr + lane] > W_CAP - 16);
-      for (; rows; rows &= rows - 1) merge_row(wr + __ffs(rows) - 1);
-      if (q0 + r0 < B) thr0 = fmaxf(g0[K - 1], low);
-      if (q0 + r0 + 8 < B) thr1 = fmaxf(g1[K - 1], low);
+      // each of its 4 lanes): buffers past their capacity less 16 are
+      // merged (cut, in the deep fold) now
+      // (the deep fold: staging that could not take another step's goes
+      // to device memory; a buffer that could not take another staging's
+      // is cut, the warp's staging emptied first)
+      if constexpr (DEEP) {
+        if (__any_sync(FULL, n0 > W_SB - 16 || n1 > W_SB - 16)) {
+          if (tig == 0) {
+            stg_n[r0] = n0;
+            stg_n[r0 + 8] = n1;
+          }
+          __syncwarp();
+          unsigned rows =
+              __ballot_sync(FULL, lane < 16 && stg_n[wr + lane] > W_SB - 16);
+          for (; rows; rows &= rows - 1) flush_row(wr + __ffs(rows) - 1);
+          if (__ballot_sync(FULL, lane < 16 && buf_n[wr + lane] > cap - W_SB)) {
+            rows = __ballot_sync(FULL, lane < 16 && stg_n[wr + lane] > 0);
+            for (; rows; rows &= rows - 1) flush_row(wr + __ffs(rows) - 1);
+            rows = __ballot_sync(FULL, lane < 16 && buf_n[wr + lane] > cap - W_SB);
+            for (; rows; rows &= rows - 1) cut_row(wr + __ffs(rows) - 1, K / 2);
+            if (q0 + r0 < B) thr0 = row_t[r0];
+            if (q0 + r0 + 8 < B) thr1 = row_t[r0 + 8];
+          }
+          n0 = stg_n[r0];
+          n1 = stg_n[r0 + 8];
+        }
+      } else {
+        unsigned rows =
+            __ballot_sync(FULL, lane < 16 && buf_n[wr + lane] > W_CAP - 16);
+        for (; rows; rows &= rows - 1) merge_row(wr + __ffs(rows) - 1);
+        if (q0 + r0 < B) thr0 = fmaxf(g0[K - 1], low);
+        if (q0 + r0 + 8 < B) thr1 = fmaxf(g1[K - 1], low);
+      }
     }
   }
   __syncwarp();
+  if constexpr (DEEP) {
+    // every row's candidates cut to its K best and sorted by its warp in
+    // the ring's shared memory, free once both groups are past the scan
+    if (tig == 0) {
+      stg_n[r0] = n0;
+      stg_n[r0 + 8] = n1;
+    }
+    __syncwarp();
+    unsigned staged = __ballot_sync(FULL, lane < 16 && stg_n[wr + lane] > 0);
+    for (; staged; staged &= staged - 1) flush_row(wr + __ffs(staged) - 1);
+    hopper::named_barrier(2 + NWG, 128 * NWG);
+    // each warp's share of the ring: a row's candidates are read into it
+    // once, cut there, and its list sorted there (a buffer larger than the
+    // share is cut in device memory first)
+    const int P = deep::pow2_at_least(K);
+    const int room = stages * STAGE / 8 / (4 * NWG);
+    deep::u64* sorted =
+        reinterpret_cast<deep::u64*>(smem) + (size_t)(wg * 4 + warp) * room;
+    for (int r = wr; r < wr + 16; ++r) {
+      const int row = q0 + r;
+      if (row >= B) break;
+      deep::u64* words = row_words(r);
+      if (buf_n[r] > room) cut_row(r, 0);
+      int n = buf_n[r];
+#pragma unroll 8
+      for (int e = lane; e < n; e += 32) sorted[e] = words[e];
+      __syncwarp();
+      if (n > K) fold_cut(sorted, n, K, 0, whist, lane, n);
+      for (int e = n + lane; e < P; e += 32) sorted[e] = 0ull;
+      __syncwarp();
+      warp_bitonic_desc(sorted, P, lane);
+      for (int e = lane; e < K; e += 32) {
+        const deep::u64 w = sorted[e];
+        const uint32_t key = (uint32_t)(w >> 32);
+        const size_t o = ((size_t)row * splits + split) * K + e;
+        part_g[o] = key ? deep::key_gain(key) : neg_inf();
+        part_i[o] = key ? (int)~(uint32_t)w : 0;
+      }
+      __syncwarp();
+    }
+    return;
+  }
   unsigned rows = __ballot_sync(FULL, lane < 16 && buf_n[wr + lane] > 0);
   for (; rows; rows &= rows - 1) merge_row(wr + __ffs(rows) - 1);
 
@@ -874,11 +1229,12 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
   }
 }
 
-template <int NWG, int SLOTS, int DT>
+template <int NWG, int DT, bool DEEP = false>
 cudaError_t launch_wgmma(const void* q, const void* docs, const float* bias,
                          const float* scale, float* part_g, int* part_i,
                          int B, int N, int D, int K, int G, int splits,
-                         int tiles_per_split, cudaStream_t stream) {
+                         int tiles_per_split, cudaStream_t stream,
+                         deep::u64* cand = nullptr, int cap = 0) {
   constexpr bool RAW = DT != kBF16;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -890,13 +1246,17 @@ cudaError_t launch_wgmma(const void* q, const void* docs, const float* bias,
   // then the raw ring as deep as fits beside it
   int raw = RAW ? W_MIN_RAW : 0, stages = 2;
   while (stages < W_MAX_STAGES &&
-         w_smem_bytes(NWG, stages + 1, K, raw) <= optin)
+         w_smem_bytes(NWG, stages + 1, K, raw, DEEP) <= optin)
     ++stages;
   while (RAW && raw < W_MAX_RAW &&
-         w_smem_bytes(NWG, stages, K, raw + 1) <= optin)
+         w_smem_bytes(NWG, stages, K, raw + 1, DEEP) <= optin)
     ++raw;
-  const int smem = w_smem_bytes(NWG, stages, K, raw);
+  const int smem = w_smem_bytes(NWG, stages, K, raw, DEEP);
   if (smem > optin) return cudaErrorInvalidValue;
+  // the deep fold sorts its warps' lists in the ring
+  if (DEEP && 4 * NWG * 8 * deep::pow2_at_least(K) >
+                  stages * w_stage_bytes(NWG))
+    return cudaErrorInvalidValue;
   CUtensorMap qmap, dmap;
   // int8 / int4: each consumer group loads its own 64 query rows
   err = hopper_host::make_tmap_2d(&qmap, q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
@@ -913,32 +1273,20 @@ cudaError_t launch_wgmma(const void* q, const void* docs, const float* bias,
                                     D, WTD, WK);
   }
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(wgmma_topk_kernel<NWG, SLOTS, DT>,
+  err = cudaFuncSetAttribute(wgmma_topk_kernel<NWG, DT, DEEP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + 64 * NWG - 1) / (64 * NWG), splits);
   // per-group int4 scales are the converters'; the fold takes per-doc ones
   const float* fold_scale = DT == kI4G ? nullptr : scale;
   const float* gscale = DT == kI4G ? scale : nullptr;
-  wgmma_topk_kernel<NWG, SLOTS, DT><<<grid, 128 * (NWG + 1), smem, stream>>>(
-      qmap, dmap, bias, fold_scale, gscale, part_g, part_i, B, N, D, K, G,
-      splits, tiles_per_split, stages, raw);
+  wgmma_topk_kernel<NWG, DT, DEEP>
+      <<<grid, 128 * (NWG + 1), smem, stream>>>(
+          qmap, dmap, bias, fold_scale, gscale, part_g, part_i, cand, cap, B,
+          N, D, K, G, splits, tiles_per_split, stages, raw);
   return cudaGetLastError();
 }
 
-template <int DT>
-cudaError_t launch_wgmma_k(const void* q, const void* docs, const float* bias,
-                           const float* scale, float* part_g, int* part_i,
-                           int B, int N, int D, int K, int G, int splits,
-                           int tiles_per_split, cudaStream_t stream) {
-  if (K <= topk::KSHALLOW)
-    return launch_wgmma<2, topk::SLOTS_SHALLOW, DT>(
-        q, docs, bias, scale, part_g, part_i, B, N, D, K, G, splits,
-        tiles_per_split, stream);
-  return launch_wgmma<1, topk::SLOTS_DEEP, DT>(
-      q, docs, bias, scale, part_g, part_i, B, N, D, K, G, splits,
-      tiles_per_split, stream);
-}
 
 // ---- deep lists (k > KMAX): a doc chunk's gains in device memory ------------
 
@@ -1143,11 +1491,10 @@ extern "C" int fused_topk_deep_launch(const void* q, const void* docs,
 
 // bf16, int8 or int4 docs (doc_type kBF16, kI8, kI4, kI4G; int4 needs D a
 // multiple of 32, so that a packed row is a whole number of 16 bytes) and
-// bf16 queries [B, D] (16-byte aligned bases), k <= KMAX, through
-// wgmma_topk_kernel (query tiles of 128 up to k = KSHALLOW, of 64 past it,
-// where the lists take the room of a second consumer group), then
-// merge_splits_kernel; tiles_per_split counts doc tiles of 192 (ops/
-// fused_topk.py::_plan). Arguments otherwise as fused_topk_launch.
+// bf16 queries [B, D] (16-byte aligned bases), k <= KSHALLOW, through
+// wgmma_topk_kernel (query tiles of 128), then merge_splits_kernel;
+// tiles_per_split counts doc tiles of 192 (ops/fused_topk.py::_plan).
+// Arguments otherwise as fused_topk_launch.
 extern "C" int fused_topk_wgmma_launch(const void* q, const void* docs,
                                        const void* bias, const void* scale,
                                        void* part_g, void* part_i,
@@ -1156,7 +1503,57 @@ extern "C" int fused_topk_wgmma_launch(const void* q, const void* docs,
                                        int tiles_per_split, int doc_type,
                                        void* stream) {
   const bool int4 = doc_type == kI4 || doc_type == kI4G;
-  if (B < 1 || N < 1 || D < 16 || D % 16 != 0 || K < 1 || K > topk::KMAX ||
+  if (B < 1 || N < 1 || D < 16 || D % 16 != 0 || K < 1 ||
+      K > topk::KSHALLOW || splits < 1 || splits > 65535 ||
+      tiles_per_split < 1 || doc_type < kBF16 || doc_type > kI4G ||
+      (int4 && D % 32 != 0) ||
+      reinterpret_cast<uintptr_t>(q) % 16 ||
+      reinterpret_cast<uintptr_t>(docs) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (doc_type == kI4G && (scale == nullptr || G < 1 || D % G != 0 ||
+                           (D / G) % 8 != 0))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* b = static_cast<const float*>(bias);
+  const float* s = static_cast<const float*>(scale);
+  float* pg = static_cast<float*>(part_g);
+  int* pi = static_cast<int*>(part_i);
+  cudaError_t err;
+#define RAGROUTE_WGMMA(DT)                                                   \
+  err = launch_wgmma<2, DT>(q, docs, b, s, pg, pi, B, N, D, K, G, splits,    \
+                            tiles_per_split, st)
+  switch (doc_type) {
+    case kBF16: RAGROUTE_WGMMA(kBF16); break;
+    case kI8: RAGROUTE_WGMMA(kI8); break;
+    case kI4: RAGROUTE_WGMMA(kI4); break;
+    default: RAGROUTE_WGMMA(kI4G); break;
+  }
+#undef RAGROUTE_WGMMA
+  if (err != cudaSuccess) return (int)err;
+  topk::merge_splits_kernel<long long>
+      <<<B, topk::MERGE_THREADS, splits * (int)sizeof(int), st>>>(
+          pg, pi, static_cast<float*>(out_g), static_cast<long long*>(out_i),
+          splits, K);
+  return (int)cudaGetLastError();
+}
+
+// The deep fold: bf16, int8 or int4 docs as fused_topk_wgmma_launch takes
+// them, lists of KSHALLOW < K <= FOLD_MAX_K, through wgmma_topk_kernel with
+// two consumer groups (128 query rows a block) whose rows keep their
+// candidates in cand (u64 [B, splits, cap] words, cap >= K + FOLD_SLACK),
+// cut to the K best whenever a row's fill away from cap could not take
+// another step's; then merge_splits_kernel. part_g / part_i are [B,
+// splits, K]. Returns the CUDA error code (0 on success).
+extern "C" int fused_topk_fold_launch(const void* q, const void* docs,
+                                      const void* bias, const void* scale,
+                                      void* cand, void* part_g, void* part_i,
+                                      void* out_g, void* out_i, int B, int N,
+                                      int D, int K, int G, int splits,
+                                      int tiles_per_split, int cap,
+                                      int doc_type, void* stream) {
+  const bool int4 = doc_type == kI4 || doc_type == kI4G;
+  if (B < 1 || N < 1 || D < 16 || D % 16 != 0 || K <= topk::KSHALLOW ||
+      K > FOLD_MAX_K || cap < K + FOLD_SLACK || cand == nullptr ||
       splits < 1 || splits > 65535 || tiles_per_split < 1 ||
       doc_type < kBF16 || doc_type > kI4G || (int4 && D % 32 != 0) ||
       reinterpret_cast<uintptr_t>(q) % 16 ||
@@ -1170,17 +1567,19 @@ extern "C" int fused_topk_wgmma_launch(const void* q, const void* docs,
   const float* s = static_cast<const float*>(scale);
   float* pg = static_cast<float*>(part_g);
   int* pi = static_cast<int*>(part_i);
+  auto* cw = static_cast<deep::u64*>(cand);
   cudaError_t err;
-#define RAGROUTE_WGMMA(DT) \
-  err = launch_wgmma_k<DT>(q, docs, b, s, pg, pi, B, N, D, K, G, splits, \
-                           tiles_per_split, st)
+#define RAGROUTE_FOLD_LAUNCH(DT)                                             \
+  err = launch_wgmma<2, DT, true>(                                           \
+      q, docs, b, s, pg, pi, B, N, D, K, G, splits, tiles_per_split, st, cw, \
+      cap)
   switch (doc_type) {
-    case kBF16: RAGROUTE_WGMMA(kBF16); break;
-    case kI8: RAGROUTE_WGMMA(kI8); break;
-    case kI4: RAGROUTE_WGMMA(kI4); break;
-    default: RAGROUTE_WGMMA(kI4G); break;
+    case kBF16: RAGROUTE_FOLD_LAUNCH(kBF16); break;
+    case kI8: RAGROUTE_FOLD_LAUNCH(kI8); break;
+    case kI4: RAGROUTE_FOLD_LAUNCH(kI4); break;
+    default: RAGROUTE_FOLD_LAUNCH(kI4G); break;
   }
-#undef RAGROUTE_WGMMA
+#undef RAGROUTE_FOLD_LAUNCH
   if (err != cudaSuccess) return (int)err;
   topk::merge_splits_kernel<long long>
       <<<B, topk::MERGE_THREADS, splits * (int)sizeof(int), st>>>(

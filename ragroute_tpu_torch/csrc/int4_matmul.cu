@@ -58,6 +58,45 @@
 // and add at each group's end, and the 168 registers a thread of a
 // 384-thread block has, which leave no room for a second partial.
 
+// At decode (M < 64 rows of bf16 activations) a third kernel takes the call
+// (int4_mm_decode_kernel, chosen by _plan from M and the same operand
+// checks as the prefill kernel). It is bound by the packed bytes, so its
+// design keeps as many of them in flight as it can and reads each once:
+//   * the prefill kernel's roles: two consumer warp groups of 64 output
+//     columns each run wgmma with the weights as A unpacked from registers
+//     (wg_unpack); the M tokens, rounded up to N = 8, 16, 32 or 64, are B
+//     (wgmma m64nNk16), read from the ring;
+//   * one producer warp keeps a ring of 4 stages in flight by TMA, each one
+//     packed tile of [64 rows x 128 columns] for BOTH halves (its low
+//     nibbles meet the low half's activation chunk, its high nibbles the
+//     high half's: each packed byte crosses HBM once, unlike the prefill
+//     ring, which walks a tile once a half), the two N x 64 activation
+//     chunks (from L2: the activations are a few hundred KB), and, in a
+//     group's first stage, the group's 2 x 128 column scales, so no strided
+//     scale load sits in the mainloop;
+//   * N = 16 needs 8 accumulators a thread a partial, so two blocks share
+//     an SM up to 16 tokens (8 stages each, 128 KB of codes in flight an
+//     SM); one block an SM past 16 tokens;
+//   * a stage's bytes are unpacked while the stage before it is still in
+//     the tensor cores (two sets of A fragments in turn); the consumers
+//     wait for all of a group's products only at its last stage. At 8 and
+//     16 tokens ptxas serialises the products for want of registers under
+//     two blocks an SM (its C7512 note); one block an SM keeps them
+//     asynchronous but measured slower (PERF.md). What bounds it: the
+//     consumers' instructions a packed byte (the unpack and the products'
+//     issue), not the ring, which alone streams the packed bytes faster;
+//   * a low and a high partial a group (each the N / 2 registers of a
+//     wgmma), multiplied by their scales and added low before high at the
+//     group's end: the plain version's two roundings, in its order;
+//   * where the column blocks leave SMs idle, blocks take splits of whole
+//     groups (_plan: one wave of block slots); each writes its partial to a
+//     workspace, then the last block of a column tile to finish (a counter
+//     a column tile: every partial fenced before one atomic a block, the
+//     counter reset by that block for the next launch, so no launch zeroes
+//     it and the blocks' order does not matter) adds the partials in split
+//     order, as reduce_splits_kernel does. One launch a call; the wrapper
+//     keeps the workspace a device and stream.
+
 // Fragment bookkeeping of the first kernel: a warp owns 16 rows x 32
 // columns as four n8 tiles. Tile j's mma column n stands for output column
 // 4 * n + j of the warp's 32, so each lane reads one 32-bit word of four
@@ -650,6 +689,283 @@ cudaError_t launch_wgmma(const void* x, const void* w, const float* scale,
   return cudaGetLastError();
 }
 
+// ---- decode: wgmma fed by a TMA ring, splits summed in the launch ---------
+
+constexpr int DC_BN = 128;                  // output columns a block
+constexpr int DC_TK = 64;                   // packed rows a stage
+constexpr int DC_STAGES = 8;
+constexpr int DC_W_TILE = DC_TK * DC_BN;    // bytes: 64 packed rows x 128 columns
+constexpr int DC_S_TILE = 2 * DC_BN * 4;    // a group's low and high column scales
+constexpr int DC_THREADS = 288;             // 2 consumer groups + a producer warp
+
+// bytes of one half's activation chunk: N tokens x 64 bf16 (128-byte rows)
+__host__ __device__ constexpr int dc_x_tile(int n) { return n * 128; }
+// a stage: the packed tile, the low and the high half's activation chunks
+// and, in a group's first stage, its scales; every part 1024-aligned
+__host__ __device__ constexpr int dc_stage(int n) {
+  return DC_W_TILE + 2 * dc_x_tile(n) + DC_S_TILE;
+}
+__host__ __device__ constexpr int dc_smem(int n) {
+  return DC_STAGES * dc_stage(n) + 2 * DC_STAGES * 8 + 1024;
+}
+
+// Each (group, half) partial times its column scales (sl: low, sh: high;
+// .x column c, .y column c + 1), added to the accumulator low before high
+// (two roundings each, as the plain version).
+template <int NA>
+__device__ __forceinline__ void dc_flush(float (&acc)[NA], const float (&plo)[NA],
+                                         const float (&phi)[NA], float2 sl,
+                                         float2 sh) {
+#pragma unroll
+  for (int e = 0; e < NA; ++e) {
+    const bool hi_col = e & 2;
+    acc[e] = __fadd_rn(acc[e], __fmul_rn(plo[e], hi_col ? sl.y : sl.x));
+    acc[e] = __fadd_rn(acc[e], __fmul_rn(phi[e], hi_col ? sh.y : sh.x));
+  }
+}
+
+// The A fragments of one decode stage, both halves, from its packed tile: a
+// thread's bytes are the column pair c, c + 1 (one 16-bit word) at rows 16
+// kk + 2 tig + {0, 1, 8, 9}; in the 128-byte swizzle the rows of one parity
+// share their chunk, so two base pointers and immediate offsets reach all
+// 16 words, and each pair of words feeds the low and the high half.
+__device__ __forceinline__ void dc_unpack(uint32_t (&alo)[4][4],
+                                          uint32_t (&ahi)[4][4],
+                                          const unsigned char* even,
+                                          const unsigned char* odd) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t u0 = *reinterpret_cast<const uint16_t*>(even + 2048 * kk);
+    const uint32_t u1 = *reinterpret_cast<const uint16_t*>(odd + 2048 * kk);
+    const uint32_t u2 = *reinterpret_cast<const uint16_t*>(even + 2048 * kk + 1024);
+    const uint32_t u3 = *reinterpret_cast<const uint16_t*>(odd + 2048 * kk + 1024);
+    // byte 0: column c (row gid), byte 1: column c + 1 (row gid + 8); row
+    // k in the low 16 bits, k + 1 in the high
+    const uint32_t w01 = __byte_perm(u0, u1, 0x5410);
+    const uint32_t w89 = __byte_perm(u2, u3, 0x5410);
+    alo[kk][0] = nibbles_bf16x2(w01);
+    alo[kk][1] = nibbles_bf16x2(w01 >> 8);
+    alo[kk][2] = nibbles_bf16x2(w89);
+    alo[kk][3] = nibbles_bf16x2(w89 >> 8);
+    ahi[kk][0] = nibbles_bf16x2(w01 >> 4);
+    ahi[kk][1] = nibbles_bf16x2(w01 >> 12);
+    ahi[kk][2] = nibbles_bf16x2(w89 >> 4);
+    ahi[kk][3] = nibbles_bf16x2(w89 >> 12);
+  }
+}
+
+// The decode kernel: grid (column blocks of 128, splits of rows_per_split
+// packed rows, whole groups each). Consumer warp groups 0 and 1 own output
+// columns n0 + 64 wg .. + 64 as wgmma's M (the weights, A, unpacked from
+// registers as the prefill kernel does); the N tokens are B, read from the
+// ring. A stage carries one packed tile for both halves: its low nibbles
+// meet the low half's activations and its high nibbles the high half's, so
+// each packed byte crosses device memory once. With splits, each block
+// writes its partial to ws and the last block of a column tile to finish
+// (a counter a column tile, reset by that block) sums the partials in split
+// order into y, in the same launch.
+template <int N>
+__global__ void __launch_bounds__(DC_THREADS, N <= 16 ? 2 : 1)
+    int4_mm_decode_kernel(const __grid_constant__ CUtensorMap xmap,
+                          const __grid_constant__ CUtensorMap wmap,
+                          const __grid_constant__ CUtensorMap smap,
+                          float* __restrict__ out, float* __restrict__ ws,
+                          unsigned* __restrict__ counters, int M, int H,
+                          int OUT, int group, int rows_per_split) {
+  constexpr int XT = dc_x_tile(N), STAGE = dc_stage(N), NA = N / 2;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ int is_last;
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + DC_STAGES * STAGE);
+  uint64_t* empty = full + DC_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DC_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);   // one arrival a consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  const int n0 = blockIdx.x * DC_BN, splits = gridDim.y;
+  const int row_begin = blockIdx.y * rows_per_split;
+  const int total = (min(H, row_begin + rows_per_split) - row_begin) / DC_TK;
+  const int ng = H / group;
+
+  if (threadIdx.x >= 256) {  // ---- producer warp ----
+    if (threadIdx.x == 256) {
+      hopper::prefetch_tmap(&xmap);
+      hopper::prefetch_tmap(&wmap);
+      hopper::prefetch_tmap(&smap);
+      for (int i = 0; i < total; ++i) {
+        const int s = i % DC_STAGES, krow = row_begin + i * DC_TK;
+        const bool first = krow % group == 0;
+        unsigned char* st = smem + s * STAGE;
+        hopper::mbar_wait(&empty[s], ((i / DC_STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(
+            &full[s], DC_W_TILE + 2 * XT + (first ? DC_S_TILE : 0));
+        hopper::tma_load_2d(st, &wmap, &full[s], n0, krow);
+        hopper::tma_load_2d(st + DC_W_TILE, &xmap, &full[s], krow, 0);
+        hopper::tma_load_2d(st + DC_W_TILE + XT, &xmap, &full[s], H + krow, 0);
+        if (first) {
+          const int g = krow / group;
+          float* sc = reinterpret_cast<float*>(st + DC_W_TILE + 2 * XT);
+          hopper::tma_load_2d(sc, &smap, &full[s], n0, g);
+          hopper::tma_load_2d(sc + DC_BN, &smap, &full[s], n0, ng + g);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  // A row 16 warp + gid (+ 8) of this group's m64 tile is output column c
+  // (c + 1) of the block; accumulator 4 j + v holds token 8 j + 2 tig + (v
+  // & 1) of column c + (v >> 1)
+  const int c = 64 * wg + 16 * warp + 2 * gid;
+  const int col = n0 + c;
+  // this thread's bytes of a packed tile, rows 2 tig (+ 8, + 16 kk) and
+  // 2 tig + 1 (+ 8, + 16 kk)
+  const int even = 256 * tig + ((((c >> 4) ^ (2 * tig)) & 7) << 4) + (c & 15);
+  const int odd = 256 * tig + 128 + ((((c >> 4) ^ (2 * tig + 1)) & 7) << 4) + (c & 15);
+  float acc[NA], plo[NA], phi[NA];
+#pragma unroll
+  for (int e = 0; e < NA; ++e) acc[e] = plo[e] = phi[e] = 0.0f;
+  float2 sl = make_float2(0.0f, 0.0f), sh = sl;
+  // Stage i: its bytes are unpacked (low and high nibbles) while stage i -
+  // 1's products run; its products are issued, low and high in turn; at a
+  // group's last stage the partials are complete (wait for all) and are
+  // scaled and added, otherwise only stage i - 1 must be done (its slot
+  // goes back to the ring, its fragments may be written again).
+  int rel = 0;   // stages not yet released
+  auto release = [&](int upto) {
+    __syncwarp();
+    if (lane == 0)
+      for (int j = rel; j < upto; ++j) hopper::mbar_arrive(&empty[j % DC_STAGES]);
+    rel = upto;
+  };
+  auto step = [&](int i, uint32_t (&alo)[4][4], uint32_t (&ahi)[4][4]) {
+    const int s = i % DC_STAGES, krow = row_begin + i * DC_TK;
+    const bool cont = krow % group != 0;
+    const unsigned char* st = smem + s * STAGE;
+    hopper::mbar_wait(&full[s], (i / DC_STAGES) & 1);
+    dc_unpack(alo, ahi, st + even, st + odd);
+    if (!cont) {  // the group's scales ride in its first stage
+      const float* sc = reinterpret_cast<const float*>(st + DC_W_TILE + 2 * XT);
+      sl = *reinterpret_cast<const float2*>(sc + c);
+      sh = *reinterpret_cast<const float2*>(sc + DC_BN + c);
+    }
+    // the k16 steps' descriptors: 32 bytes (2 in the address field) apart
+    const uint64_t dlo = hopper::desc_sw128(st + DC_W_TILE);
+    const uint64_t dhi = hopper::desc_sw128(st + DC_W_TILE + XT);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hopper::wgmma_m64nk16_rs<N>(plo, alo[kk], dlo + 2 * kk, cont || kk > 0);
+      hopper::wgmma_m64nk16_rs<N>(phi, ahi[kk], dhi + 2 * kk, cont || kk > 0);
+    }
+    hopper::wgmma_commit();
+    if ((krow + DC_TK) % group == 0) {
+      hopper::wgmma_wait<0>();
+      hopper::fence_accumulators<NA>(plo);
+      hopper::fence_accumulators<NA>(phi);
+      release(i + 1);
+      dc_flush<NA>(acc, plo, phi, sl, sh);
+    } else {
+      hopper::wgmma_wait<1>();
+      release(i);
+    }
+  };
+  uint32_t alo0[4][4], ahi0[4][4], alo1[4][4], ahi1[4][4];
+  for (int i = 0; i < total; i += 2) {
+    step(i, alo0, ahi0);
+    if (i + 1 < total) step(i + 1, alo1, ahi1);
+  }
+  // (every group ended in a full wait; this one, on every path, lets ptxas
+  // see that no product is in flight in the code below, whose branches
+  // diverge, and so keep the products above asynchronous)
+  hopper::wgmma_wait<0>();
+  hopper::fence_accumulators<NA>(acc);
+
+  float* dst = splits > 1 ? ws + (size_t)blockIdx.y * M * OUT : out;
+  if (col < OUT) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int tok = 8 * j + 2 * tig;
+      if (tok < M)
+        *reinterpret_cast<float2*>(dst + (size_t)tok * OUT + col) =
+            make_float2(acc[4 * j + 0], acc[4 * j + 2]);
+      if (tok + 1 < M)
+        *reinterpret_cast<float2*>(dst + (size_t)(tok + 1) * OUT + col) =
+            make_float2(acc[4 * j + 1], acc[4 * j + 3]);
+    }
+  }
+  if (splits == 1) return;
+  // the split sum: the block's partial stored (a barrier), then one fenced
+  // arrival a block (the fence is cumulative over what the barrier
+  // ordered); the last block of the column tile adds the partials in split
+  // order (the order of reduce_splits_kernel), reading them from L2, and
+  // resets the counter for the next launch. The blocks' order does not
+  // matter.
+  hopper::named_barrier(1, 256);
+  if (threadIdx.x == 0) {
+    __threadfence();
+    is_last = atomicAdd(&counters[blockIdx.x], 1u) == (unsigned)splits - 1;
+    if (is_last) __threadfence();
+  }
+  hopper::named_barrier(1, 256);
+  if (!is_last) return;
+  // four columns a thread, the partials of 8 splits loaded at once
+  const size_t plane = (size_t)M * OUT;
+  for (int u = threadIdx.x; u < M * (DC_BN / 4); u += 256) {
+    const int tok = u / (DC_BN / 4), cc = n0 + 4 * (u % (DC_BN / 4));
+    if (cc >= OUT) continue;
+    const float* src = ws + (size_t)tok * OUT + cc;
+    float4 sum = __ldcg(reinterpret_cast<const float4*>(src));
+    for (int p0 = 1; p0 < splits; p0 += 8) {
+      float4 v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (p0 + j < splits)
+          v[j] = __ldcg(reinterpret_cast<const float4*>(src + (p0 + j) * plane));
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (p0 + j < splits) {
+          sum.x = __fadd_rn(sum.x, v[j].x);
+          sum.y = __fadd_rn(sum.y, v[j].y);
+          sum.z = __fadd_rn(sum.z, v[j].z);
+          sum.w = __fadd_rn(sum.w, v[j].w);
+        }
+    }
+    *reinterpret_cast<float4*>(out + (size_t)tok * OUT + cc) = sum;
+  }
+  if (threadIdx.x == 0) counters[blockIdx.x] = 0u;
+}
+
+template <int N>
+cudaError_t launch_decode(const void* x, const void* w, const float* scale,
+                          float* out, float* ws, unsigned* counters, int M,
+                          int H, int OUT, int group, int splits,
+                          int rows_per_split, cudaStream_t st) {
+  CUtensorMap xmap, wmap, smap;
+  cudaError_t e = hopper_host::make_tmap_2d(
+      &xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, 2 * H, 2 * H, N, 64);
+  if (e != cudaSuccess) return e;
+  e = hopper_host::make_tmap_2d(&wmap, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, H,
+                                OUT, OUT, DC_TK, DC_BN);
+  if (e != cudaSuccess) return e;
+  e = hopper_host::make_tmap_2d(&smap, scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                4, 2 * H / group, OUT, OUT, 1, DC_BN, false);
+  if (e != cudaSuccess) return e;
+  e = set_smem(int4_mm_decode_kernel<N>, dc_smem(N));
+  if (e != cudaSuccess) return e;
+  const dim3 grid((OUT + DC_BN - 1) / DC_BN, splits);
+  int4_mm_decode_kernel<N><<<grid, DC_THREADS, dc_smem(N), st>>>(
+      xmap, wmap, smap, out, ws, counters, M, H, OUT, group, rows_per_split);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launch on `stream`. x [M, IN] (bf16 when x_is_bf16, else f32); w [IN/2,
@@ -708,4 +1024,45 @@ extern "C" int int4_matmul_wgmma_launch(const void* x, const void* w,
   return (int)launch_wgmma(x, w, static_cast<const float*>(scale),
                            static_cast<float*>(y), M, H, OUT, group,
                            static_cast<cudaStream_t>(stream));
+}
+
+// The decode kernel (int4_mm_decode_kernel): bf16 x [M, IN] with M < 64, w
+// [IN/2, OUT] int8, scale [IN/group, OUT] f32, y [M, OUT] f32; needs OUT %
+// 16 == 0, group % 64 == 0 and 16-byte aligned x, w and scale
+// (ops/int4_matmul.py::_plan sends only such shapes). splits of
+// rows_per_split packed rows (whole groups); with splits > 1, ws is f32
+// [splits, M, OUT] scratch and counters holds one zero a column block of
+// 128 (the launch leaves them zero). One launch. Returns the CUDA error
+// code (0 on success).
+extern "C" int int4_matmul_decode_launch(const void* x, const void* w,
+                                         const void* scale, void* y, void* ws,
+                                         void* counters, int M, int IN,
+                                         int OUT, int group, int splits,
+                                         int rows_per_split, void* stream) {
+  const int H = IN / 2;
+  if (M < 1 || M >= 64 || IN < 2 || IN % 2 || OUT < 16 || OUT % 16 ||
+      group < DC_TK || group % DC_TK || H % group || splits < 1 ||
+      splits > 65535 || rows_per_split < group || rows_per_split % group ||
+      (long long)(splits - 1) * rows_per_split >= H ||
+      (long long)splits * rows_per_split < H ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)) ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(scale) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* s = static_cast<const float*>(scale);
+  float* o = static_cast<float*>(y);
+  float* wsp = static_cast<float*>(ws);
+  unsigned* cnt = static_cast<unsigned*>(counters);
+#define RAGROUTE_DECODE(N)                                                   \
+  launch_decode<N>(x, w, s, o, wsp, cnt, M, H, OUT, group, splits,           \
+                   rows_per_split, st)
+  cudaError_t e;
+  if (M <= 8) e = RAGROUTE_DECODE(8);
+  else if (M <= 16) e = RAGROUTE_DECODE(16);
+  else if (M <= 32) e = RAGROUTE_DECODE(32);
+  else e = RAGROUTE_DECODE(64);
+#undef RAGROUTE_DECODE
+  return (int)e;
 }

@@ -50,22 +50,28 @@ under an open cap (64 queries x 64 clusters of 568 slots); each with its
 bound (``kernel_checks``: a deep launch's gains cross device memory twice,
 which its bound counts).
 
-``--kernels`` also runs, from this tree, K5's two kernels over M (16 to
-8,192) at the gate/up shape and K1's wgmma scan against the deep launch
-over k (32 to 160) and the docs' width (128 to 768) for bf16, and for int8
-(hostrefine's flat coarse slab at k' 32 to 160, the 768-wide shard at 128
-and 160) and int4 (per-doc scales, widths 128 and 768), the readings that
-set ``int4_matmul.M_SWITCH`` and ``fused_topk.W_DEEP_BELOW_D``; with
-``--parent DIR`` K5 at the two prefill shapes joins the turns.
+``--kernels`` also runs, from this tree, K5's kernels over M (1 to 8,192)
+at the gate/up shape (the first kernel against the decode kernel below
+``M_SWITCH`` and the prefill kernel from it) and K1's deep fold against
+the deep launch over k (65 to 256) and the docs' width (128, 512, 768) for
+bf16 over 734,003 docs and at k' = 128 over 83,886 to 262,144, and for int8
+(hostrefine's flat coarse slab, the 768-wide shard) and int4 (per-doc
+scales, widths 128 and 768), the readings behind ``int4_matmul.M_SWITCH``,
+``fused_topk.FOLD_MIN_DOCS`` and the fold's range; with ``--parent DIR`` K5 at the two prefill shapes, K5 at
+Qwen3-8B's five decode shapes and K1's deep lists (the low-rank coarse
+scan at k' = 128 and 256, hostrefine's at k' = 256) join the turns, each
+tree its own plan.
 
 ``--turns DIR`` times, from DIR (an unpacked earlier tree) and this tree in
 turns, the exact engine step (B = 512 and 2,048, routing ``ragroute`` and
 ``all``), one lockstep generation batch of Qwen3-8B (random int4
 weights, int8 KV, 16 prompts of 2,048 tokens: the prefill, then 32 greedy
-decode steps) and the host tiers' steps at B = 512 (routing ``ragroute``
+decode steps), the host tiers' steps at B = 512 (routing ``ragroute``
 and ``all``: ``stream`` and ``hostrefine`` over the clustered coarse slab,
 over the world ``chip_smoke.py`` serves, half of ``--tiers``' under half
-its budget), each in a process of its own.
+its budget), the low-rank engine step at B = 512 and one Qwen3-8B decode
+step (host clock, device time, K5's share and launches), each in a process
+of its own.
 
 ``--tiers`` measures the host-RAM capacity tiers instead: the synthetic
 medrag world at eight times that size (8,388,600 docs x 768, 64 topics per
@@ -203,21 +209,56 @@ print(json.dumps(rows))
 """
 
 
-# this tree only: K5's two kernels over M at the gate/up shape (the readings
-# that set int4_matmul.M_SWITCH), and K1's wgmma scan against the deep
-# launch over k and the docs' width, for bf16, int8 and int4 docs (those
-# that set the plan's crossovers)
+# K5 at Qwen3-8B's five decode shapes and K1's deep lists at the low-rank
+# (k' = 128 and 256) and hostrefine (k' = 256) coarse scans, each tree's
+# own plan; uses only functions that every tree since the deep lists has
+DECODE_DEEP_TIMER = """
+import json, torch
+from ragroute_tpu_torch.ops import decoder_checks as dc, kernel_checks as kc
+from ragroute_tpu_torch.ops.fused_topk import fused_topk
+from ragroute_tpu_torch.ops.int4_matmul import int4_matmul
+dev, rows = torch.device("cuda"), []
+def row(name, f, wrapper, reps):
+    f()
+    rows.append({"name": name, "ms": kc.cuda_time_ms(f, reps=reps),
+                 "device_ms": dc.device_ms(f, wrapper, warmup=1, reps=reps),
+                 "library_ms": None})
+    torch.cuda.empty_cache()
+for case in dc.int4_path_cases(dev):
+    if case.name.startswith("qwen3-8b decode"):
+        row("k5 " + case.name, lambda: dc.run_int4(case), int4_matmul, 20)
+    del case
+n_flat = 2_936_320
+for label, case, ks in (
+        ("k1 low-rank coarse 734003 x 128 bf16",
+         kc.path_case(dev, d=128, k=128, seed=4), (128, 256)),
+        ("k1 flat coarse 2936320 x 128 int8", kc.int8_path_case(
+            dev, n=n_flat, d=128, k=256, pad_tail=n_flat - 2_936_012,
+            seed=7), (256,))):
+    for k in ks:
+        case.k = k
+        row(f"{label} k'={k}", lambda: kc.run_kernel(case), fused_topk, 3)
+    del case
+print(json.dumps(rows))
+"""
+
+
+# this tree only: K5's kernels over M at the gate/up shape (the first
+# kernel against the decode kernel below M_SWITCH and the prefill kernel
+# from it), and K1's deep fold against the deep launch over k (past 64),
+# the docs' width and the shard's size, for bf16, int8 and int4 docs (the
+# readings behind the plan's choices)
 SWITCH_TIMER = """
 import json, torch
 from ragroute_tpu_torch.ops import decoder_checks as dc, kernel_checks as kc
 from ragroute_tpu_torch.ops.fused_topk import fused_topk
 from ragroute_tpu_torch.ops.int4_matmul import int4_matmul
 dev, rows = torch.device("cuda"), []
-for m in (16, 64, 128, 256, 512, 2048, 8192):
+for m in (1, 16, 40, 63, 64, 128, 256, 512, 2048, 8192):
     gen = torch.Generator(device=dev).manual_seed(m)
     case = dc._rand_case(f"k5 gate/up M={m}", dev, m, 4096, 12288, 128,
                          torch.bfloat16, gen, exact=False)
-    for kernel in ("mma", "wgmma"):
+    for kernel in ("mma", "decode" if m < 64 else "wgmma"):
         f = lambda: dc.run_int4(case, kernel)
         rows.append({"name": case.name, "kernel": kernel,
                      "ms": kc.cuda_time_ms(f, reps=10),
@@ -227,28 +268,34 @@ for m in (16, 64, 128, 256, 512, 2048, 8192):
 def scan_against_deep(label, case, ks):
     for k in ks:
         case.k = k
-        for kernel in ("wgmma", "deep"):
+        for kernel in ("fold", "deep") if k > 64 else ("wgmma", "deep"):
             f = lambda: kc.run_kernel(case, kernel)
             rows.append({"name": f"k1 B=512 {label} k={k}",
                          "kernel": kernel, "ms": kc.cuda_time_ms(f, reps=5),
                          "device_ms": dc.device_ms(f, fused_topk, warmup=1,
                                                    reps=3)})
         torch.cuda.empty_cache()
-for d, ks in ((768, (32, 64, 128, 160)), (128, (32, 64, 128, 160)),
-              (256, (128, 160)), (384, (128, 160)), (512, (128, 160))):
+for d in (128, 512, 768):
     scan_against_deep(f"N=734003 d={d} bf16",
-                      kc.path_case(dev, d=d, seed=4 if d == 128 else 0), ks)
+                      kc.path_case(dev, d=d, seed=4 if d == 128 else 0),
+                      (65, 128, 160, 256))
+# the shard sizes below fused_topk.FOLD_MIN_DOCS (the low-rank world's small
+# shards and one between)
+for n in (83_886, 104_857, 125_829, 262_144):
+    for d in (128, 768):
+        scan_against_deep(f"N={n} d={d} bf16", kc.path_case(dev, n=n, d=d,
+                                                            seed=0), (128,))
 n_flat = 2_936_320
 for label, make, ks in (
         (f"N={n_flat} d=128 int8 (flat coarse)", lambda: kc.int8_path_case(
             dev, n=n_flat, d=128, k=32, pad_tail=n_flat - 2_936_012, seed=7),
-         (32, 64, 128, 160)),
+         (65, 128, 256)),
         ("N=734003 d=768 int8", lambda: kc.int8_path_case(
-            dev, n=734_003, d=768, k=32, seed=8), (128, 160)),
+            dev, n=734_003, d=768, k=32, seed=8), (128, 256)),
         ("N=734003 d=128 int4 per-doc", lambda: kc.int4_path_case(
-            dev, grouped=False, d=128), (128, 160)),
+            dev, grouped=False, d=128), (128, 256)),
         ("N=734003 d=768 int4 per-doc", lambda: kc.int4_path_case(
-            dev, grouped=False), (128, 160))):
+            dev, grouped=False), (128, 256))):
     scan_against_deep(label, make(), ks)
 print(json.dumps(rows))
 """
@@ -385,6 +432,51 @@ for tier in ("stream", "hostrefine"):
 print(json.dumps(rows))
 """
 
+# --turns: the low-rank engine step over the 1,048,575-doc world (bf16,
+# rank-128 coarse scan at k' = 128, B = 512, routing ragroute and all; host
+# clock around engine.search, median of 10 after 2 warm-ups) and one decode
+# step of Qwen3-8B with random int4 weights at B = 16 over a 2,080-position
+# int8 cache (measure.decode_step_breakdown: host clock and profiler); both
+# use only functions that every tree since on-card generation has
+LOWRANK_DECODE_TIMER = """
+import json, time, numpy as np, torch
+from ragroute_tpu_torch.engine import FederatedSearchEngine
+from ragroute_tpu_torch.index import ShardSet, make_synthetic_world
+from ragroute_tpu_torch.llm.shapes import QWEN3_8B, quantized_from_masters
+from ragroute_tpu_torch.measure import decode_step_breakdown
+from ragroute_tpu_torch.router import CorpusRouter, RouterBank
+dev, rows = torch.device("cuda"), []
+syn = make_synthetic_world("medrag", docs_per_source_map={
+    "pubmed": 734_003, "statpearls": 104_857, "textbooks": 83_886,
+    "wikipedia": 125_829}, num_queries=512, seed=0, with_payloads=False)
+ss = ShardSet.build(syn.world, syn.embeddings, dtype=torch.bfloat16,
+                    device=dev, lowrank=-1)
+eng = FederatedSearchEngine(
+    ss, CorpusRouter.from_seed(syn.world.router_input_dim, 0, dev),
+    RouterBank.create(syn.world, syn.centroids, device=dev), impl="lowrank")
+for strategy in ("ragroute", "all"):
+    times = []
+    for i in range(12):
+        t0 = time.perf_counter()
+        eng.search(syn.query_embs, strategy=strategy, staged=False,
+                   fetch_candidates=False)
+        times.append(1e3 * (time.perf_counter() - t0))
+    rows.append({"name": f"lowrank step {strategy} B=512",
+                 "ms": float(np.median(times[2:]))})
+del eng, ss, syn
+torch.cuda.empty_cache()
+params = quantized_from_masters(QWEN3_8B, 4, dev)
+step = decode_step_breakdown(params, QWEN3_8B, dev)
+rows.append({"name": "qwen3-8b decode step B=16 S=2080 int4, int8 KV",
+             "ms": step["step_ms"], "device_ms": step["profile_device_ms"],
+             "busy_share": step["busy_share"],
+             "k5_ms": sum(k["ms_per_step"] for k in step["kernels"]
+                          if "int4_mm" in k["name"]
+                          or "reduce_splits" in k["name"]),
+             "k5_launches": step["k5_launches_per_step"]})
+print(json.dumps(rows))
+"""
+
 LOCKSTEP_TIMER = """
 import json, time, numpy as np, torch
 from ragroute_tpu_torch.llm.model import decode_step, init_cache, prefill
@@ -421,15 +513,17 @@ print(json.dumps([{"name": "lockstep prefill B=16 P=2048", "ms": pre},
 """
 
 
-def served_in_turns(parent: str, card: str):
-    """The exact engine step, a lockstep generation batch and the host
-    tiers' steps from ``parent`` and this tree in turns (parent, this,
-    this, parent), each in a process of its own."""
+def served_in_turns(parent: str, card: str, timers=None):
+    """The exact engine step, a lockstep generation batch, the host tiers'
+    steps, the low-rank step and a decode step (``timers``, default all)
+    from ``parent`` and this tree in turns (parent, this, this, parent),
+    each in a process of its own."""
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = []
     for label, tree in (("parent", parent), ("change", here),
                         ("change", here), ("parent", parent)):
-        for timer in (STEP_TIMER, LOCKSTEP_TIMER, TIER_TIMER):
+        for timer in timers or (STEP_TIMER, LOCKSTEP_TIMER, TIER_TIMER,
+                                LOWRANK_DECODE_TIMER):
             proc = subprocess.run([sys.executable, "-c", timer], cwd=tree,
                                   capture_output=True, text=True,
                                   timeout=1200)
@@ -438,6 +532,11 @@ def served_in_turns(parent: str, card: str):
             for row in json.loads(proc.stdout.strip().splitlines()[-1]):
                 extra = ("" if "tokens_per_s" not in row else
                          f", {row['tokens_per_s']:.1f} tokens/s")
+                if "device_ms" in row:
+                    extra += (f", device {row['device_ms']:.3f} ms (K5 "
+                              f"{row['k5_ms']:.3f} in "
+                              f"{row['k5_launches']:.0f} launches), busy "
+                              f"share {row['busy_share']:.3f}")
                 print(f"[turns] {label}: {row['name']}: {row['ms']:.3f} ms"
                       f"{extra} ({card})", flush=True)
                 out.append(dict(row, tree=label))
@@ -544,7 +643,7 @@ def kernels_in_turns(parent: Optional[str], card: str):
     turns = ((("parent", parent), ("change", here), ("change", here),
               ("parent", parent)) if parent else (("change", here),))
     for label, tree in turns:
-        for timer in (QUANT_TIMER, TURNS_TIMER):
+        for timer in (QUANT_TIMER, TURNS_TIMER, DECODE_DEEP_TIMER):
             proc = subprocess.run([sys.executable, "-c", timer], cwd=tree,
                                   capture_output=True, text=True, timeout=900)
             if proc.returncode != 0:
@@ -784,6 +883,12 @@ def decode_step_breakdown(params, cfg, device, *, bsz: int = LLM_BATCH,
             and e.device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
+    # K5's kernels on the device (the profiler's count, which may miss a
+    # few at the window's edges): at most one a call when every call is one
+    # launch, and no separate sum of split partials
+    k5_kernels = sum(c for n, _, c in rows
+                     if "int4_mm" in n or "reduce_splits" in n)
+    k5_split_sums = sum(c for n, _, c in rows if "reduce_splits" in n)
     # the valid K/V a step reads (codes and, for an int8 cache, scales),
     # at the mean valid length of the timed steps
     s_valid = prompt + 2 + (steps + 1) / 2
@@ -799,6 +904,8 @@ def decode_step_breakdown(params, cfg, device, *, bsz: int = LLM_BATCH,
             "profile_device_ms": device_ms / steps,
             "busy_share": device_ms / wall_ms if wall_ms else None,
             "k5_launches_per_step": int4_matmul.launches / steps,
+            "k5_kernels_per_step": k5_kernels / steps,
+            "k5_split_sums_per_step": k5_split_sums / steps,
             "kernels": [{"name": n[:90], "ms_per_step": ms / steps,
                          "calls_per_step": c / steps}
                         for n, ms, c in rows[:top]]}
@@ -860,8 +967,10 @@ def print_decode_breakdown(out: dict, card: str, label: str = "qwen3-8b"
           f"{out['kv_bytes'] / 1e9:.3f} GB K/V at 3.35 TB/s); profiler: "
           f"wall {out['profile_wall_ms']:.3f} ms, device "
           f"{out['profile_device_ms']:.3f} ms a step, busy share "
-          f"{out['busy_share']:.3f}, K5 launches a step "
-          f"{out['k5_launches_per_step']:.1f} ({card})", flush=True)
+          f"{out['busy_share']:.3f}, K5 calls a step "
+          f"{out['k5_launches_per_step']:.1f} and K5 kernels on the device "
+          f"{out['k5_kernels_per_step']:.1f} (split sums "
+          f"{out['k5_split_sums_per_step']:.1f}) ({card})", flush=True)
     for k in out["kernels"]:
         print(f"[decode:{label}]   {k['ms_per_step']:8.3f} ms "
               f"{k['calls_per_step']:7.1f} calls a step  {k['name']}",

@@ -13,7 +13,9 @@ int4 matmul (:func:`int4_matmul` against :func:`int4_matmul_reference`):
   order: outputs equal. The DEMO_CFG shapes (OUT = 260 and 64, off the
   16-byte grid), groups that are not a multiple of 16 (24, 12, 6), M from 1
   to 100 (one and several M tiles) and a contraction long enough to be split;
-  then :func:`int4_prefill_exact_cases`, on the prefill kernel's side of
+  then :func:`int4_decode_exact_cases` (the decode kernel at M = 1, 16, 40
+  and 63, splits summed in the launch) and
+  :func:`int4_prefill_exact_cases`, on the prefill kernel's side of
   ``M_SWITCH``.
 * :func:`int4_path_cases`: Qwen3-8B's projections at decode (B = 16) and its
   gate and down at prefill (M = 16 * 512), Qwen3-0.6B's tied head; held
@@ -89,7 +91,21 @@ def int4_exact_cases(device, seed: int = 0) -> Iterator[MatCase]:
         for dt in (torch.bfloat16, torch.float32):
             yield _rand_case(f"M{m}-{i}x{o}-g{g}-{str(dt)[6:]}", device, m, i,
                              o, g, dt, gen, exact=True)
+    yield from int4_decode_exact_cases(device, seed + 2)
     yield from int4_prefill_exact_cases(device, seed + 1)
+
+
+def int4_decode_exact_cases(device, seed: int = 2) -> Iterator[MatCase]:
+    """Exact cases of the decode kernel, bf16 activations below
+    ``M_SWITCH``: M of one token tile of 8, 16, 32 and 64 (1, 16, 40, 63),
+    each over a contraction cut into 16 splits (wk/wv's plan) and over
+    OUT off the 128-column block (208) with groups of one and of two 64-row
+    stages; then M = ``M_SWITCH``, where the prefill kernel takes over."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for m in (1, 16, 40, 63, M_SWITCH):
+        for i, o, g in ((4096, 1024, 128), (512, 208, 64), (1024, 208, 128)):
+            yield _rand_case(f"decode-M{m}-{i}x{o}-g{g}-bfloat16", device, m,
+                             i, o, g, torch.bfloat16, gen, exact=True)
 
 
 def int4_prefill_exact_cases(device, seed: int = 1) -> Iterator[MatCase]:

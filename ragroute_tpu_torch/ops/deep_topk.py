@@ -23,6 +23,11 @@ RUN = 8192                   # positions a select block holds (RUN_MAX)
 WORD = 8                     # bytes of a list entry (key << 32 | ~position)
 WORKSPACE_CAP = 256 << 20    # bytes of one deep launch's workspace
 MAX_CHUNK = 1 << 21          # K1: docs a chunk (grid.y of its gain kernel)
+# K1's deep fold (csrc/fused_topk.cu): the deepest list it takes (a warp
+# sorts a row's list in shared memory), and the candidate slots a (row,
+# split) gets past its list, at least
+FOLD_MAX_K = 1024
+FOLD_SLACK = 32
 
 
 def list_levels(splits: int, kr: int, k: int) -> List[Tuple[int, int]]:
@@ -108,6 +113,22 @@ def fused_plan(bsz: int, n_rows: int, k: int,
     rows = max(1, min(bsz, cap // per_row))
     return FusedPlan(rows, chunk, splits, min(k, RUN), entries,
                      rows * per_row)
+
+
+def fold_cap(k: int) -> int:
+    """Candidate slots a (row, split) of K1's deep fold: four times its
+    list, on the 32-slot grid. A row's bound rises only at a cut, so a
+    larger buffer takes more candidates under a stale bound and a smaller
+    one cuts more often; up to ``k`` = 256 a cut runs in the warp's staging
+    in shared memory (1,024 words)."""
+    return max(k + FOLD_SLACK, -(-4 * k // 32) * 32)
+
+
+def fold_bytes(bsz: int, splits: int, k: int) -> int:
+    """Device memory of a deep fold's launch: every (row, split)'s
+    candidate words and its list of ``k`` (an f32 gain and an i32 index
+    an entry)."""
+    return bsz * splits * WORD * (fold_cap(k) + k)
 
 
 class PairPlan(NamedTuple):

@@ -20,22 +20,27 @@ result without copying the shard. As in the TPU kernel, a list entry whose
 gain is ``-inf`` carries index 0.
 
 Launches (:func:`_plan`, a pure function of the shape): bf16, int8 and int4
-docs (per-doc or per-group scales) up to :data:`MAX_SHALLOW_K` take the
-wgmma scan (``wgmma_topk_kernel``: a TMA ring, doc tiles of 192, 128 query
-rows a block, or 64 past k = 64; int8 and int4 codes arrive as raw bytes
-and the producer's warps turn them into bf16 tiles), except lists past
-k = 64 over docs narrower than the type's :data:`W_DEEP_BELOW_D`, where the
-deep launch is faster; f32 docs, and int4 docs whose packed rows are not a
-whole number of 16 bytes (d % 32, the TMA's row stride), take the first
-design (``partial_topk_kernel``, 64 query rows a block, doc tiles of 64),
-whose lists also stop at :data:`MAX_SHALLOW_K`; a deeper list, any ``k`` as
-the TPU kernel takes, runs the deep launch: the same product and epilogue
-write a chunk of docs' gains to a workspace in device memory, every run of
-8,192 docs is cut to its best ``k`` and the lists merge
-(``csrc/deep_topk.cuh``). The workspace (gains, lists, running lists) stays
-under ``deep_topk.WORKSPACE_CAP`` = 256 MiB: docs go in chunks and, where
-even one run's chunk for every query row would not fit, query rows in
-slices (:func:`ragroute_tpu_torch.ops.deep_topk.fused_plan`).
+docs (per-doc or per-group scales) take the wgmma scan
+(``wgmma_topk_kernel``: a TMA ring, doc tiles of 192, 128 query rows a
+block; int8 and int4 codes arrive as raw bytes and the producer's warps
+turn them into bf16 tiles) up to :data:`SHALLOW_K`, and past it, over
+shards of :data:`FOLD_MIN_DOCS` docs or more, the same scan with its deep
+fold (each row a lower bound on its k-th best in a register, candidates
+staged in shared memory and kept in device memory, cut by a warp's radix
+select; :func:`fold_takes`: up to ``deep_topk.FOLD_MAX_K``, its workspace
+under the cap); f32 docs, and int4
+docs whose packed rows are not a whole number of 16 bytes (d % 32, the
+TMA's row stride), take the first design (``partial_topk_kernel``, 64 query
+rows a block, doc tiles of 64), whose lists stop at :data:`MAX_SHALLOW_K`;
+a list the fold does not take past that, any ``k`` as the TPU kernel takes,
+runs the deep launch: the same product and epilogue write a chunk of docs'
+gains to a workspace in device memory, every run of 8,192 docs is cut to
+its best ``k`` and the lists merge (``csrc/deep_topk.cuh``). The
+workspaces (the fold's candidates and lists; the deep launch's gains,
+lists and running lists) stay under ``deep_topk.WORKSPACE_CAP`` = 256 MiB:
+the fold in fewer splits, the deep launch in chunks of docs and, where even
+one run's chunk for every query row would not fit, query rows in slices
+(:func:`ragroute_tpu_torch.ops.deep_topk.fused_plan`).
 """
 
 from __future__ import annotations
@@ -64,30 +69,31 @@ BLOCKS_PER_SM = 4    # split target: enough blocks to fill every SM
 # fewer and longer splits cost less than they lose in parallelism
 DEEP_BLOCKS_PER_SM = 2
 SHALLOW_K = 64       # topk_merge.cuh KSHALLOW
-# the wgmma scan: query rows a block up to SHALLOW_K and past it
-# (csrc/fused_topk.cu: 64 a consumer warp group), docs a tile (WTD), and
-# the most waves of one block an SM its split plan weighs (a block takes the
-# whole SM's shared memory)
+# the wgmma scan and its deep fold: query rows a block (csrc/fused_topk.cu:
+# 64 a consumer warp group), docs a tile (WTD), and the most waves of one
+# block an SM their split plans weigh (a block takes the whole SM's shared
+# memory). The scan takes lists up to SHALLOW_K: past it, its one consumer
+# group of 64 rows with lists in shared memory lost to the deep fold, and to
+# the deep launch, at every shard, width and depth read (``measure.py
+# --kernels``, readings in PERF.md: bf16 over 104,857 to 734,003 docs at d =
+# 128, 512 and 768, k' = 65 to 256; int8 over hostrefine's coarse slab), so
+# it was removed. The fold beat the deep launch at every width read over
+# 734,003 docs; a shard's size does matter. The fold pays a fixed cost a (row,
+# split): its first fill (every finite gain enters until the first cut) and
+# the final cut, sort and merge. Over a small shard that cost is most of
+# the launch, and the deep launch is faster: device ms at B = 512, k' =
+# 128, fold against deep, d = 128: 83,886 docs 0.92 / 0.37, 104,857 0.97 /
+# 0.44, 125,829 1.00 / 0.55, 262,144 1.70 / 1.12, 734,003 2.67 / 3.11; d =
+# 768: 125,829 1.24 / 1.05, 262,144 2.01 / 2.17. Lists past SHALLOW_K over
+# fewer docs than FOLD_MIN_DOCS take the deep launch (at the coarse scans'
+# width, 128, the two cross between 262,144 and 734,003 docs).
+FOLD_MIN_DOCS = 400_000
 W_TILE_Q = 128
-W_TILE_Q_DEEP = 64
 W_TILE_D = 192
 W_MAX_WAVES = 8
 _F32, _BF16, _I8 = 0, 1, 2
 _DOC_TYPES = {torch.float32: _F32, torch.bfloat16: _BF16, torch.int8: _I8}
 _INT4_PER_DOC, _INT4_PER_GROUP = 3, 4    # csrc DocType kI4, kI4G
-# lists past SHALLOW_K over docs narrower than this take the deep launch,
-# which is faster there; at the serving width the wgmma scan stays
-# (``measure.py --kernels``, readings in PERF.md; device ms at B = 512, k =
-# 128, scan against deep). bf16 over 734,003 docs: d = 128 4.49 / 3.07, d =
-# 512 5.09 / 4.79, d = 768 5.51 / 6.03; the threshold between the last two.
-# int8 over hostrefine's 2,936,320-row coarse slab, d = 128: 10.44 / 13.24
-# (k = 160: 11.64 / 14.60; the deep launch's int8 gains run the first
-# design's product); over 734,003 docs, d = 768: 6.96 / 7.41: the scan from
-# d = 128, the narrowest reading. int4 per-doc over 734,003 docs: d = 128
-# 4.61 / 3.12, d = 768 7.13 / 6.71 (k = 160: 7.55 / 7.26): the deep launch
-# at every width read, so the threshold above the widest.
-W_DEEP_BELOW_D = {_BF16: 640, _I8: 128, _INT4_PER_DOC: 800,
-                  _INT4_PER_GROUP: 800}
 
 
 def scan_takes(d: int, doc_type: int) -> bool:
@@ -165,60 +171,105 @@ def _lib():
         lib.fused_topk_deep_launch.restype = ci
         lib.fused_topk_wgmma_launch.argtypes = [vp] * 8 + [ci] * 8 + [vp]
         lib.fused_topk_wgmma_launch.restype = ci
+        lib.fused_topk_fold_launch.argtypes = [vp] * 9 + [ci] * 9 + [vp]
+        lib.fused_topk_fold_launch.restype = ci
         lib._argtypes_set = True
     return lib
 
 
 class Plan(NamedTuple):
     """How one call runs: ``kernel`` is ``"wgmma"`` (the scan),
-    ``"shallow"`` (the first design) or ``"deep"`` (lists past
-    :data:`MAX_SHALLOW_K`); ``splits`` doc splits of ``tiles_per_split``
-    tiles of ``tile_d`` docs (unused by the deep launch)."""
+    ``"fold"`` (the scan with the deep fold), ``"shallow"`` (the first
+    design) or ``"deep"`` (the gains' round trip through device memory);
+    ``splits`` doc splits of ``tiles_per_split`` tiles of ``tile_d`` docs
+    (unused by the deep launch); the fold's ``cap`` candidate slots a
+    (row, split)."""
     kernel: str
     splits: int
     tiles_per_split: int
     tile_d: int
+    cap: int = 0
 
 
-def _plan(bsz: int, n_rows: int, d: int, k: int, doc_type: int, sms: int,
-          kernel: Optional[str] = None) -> Plan:
-    """The launch for ``bsz`` queries over ``n_rows`` docs of width ``d``
-    and ``doc_type`` (csrc DocType) at depth ``k`` on a card of ``sms``
-    SMs; a pure function of these. ``kernel`` names one to plan for instead
-    of choosing (the measurements time the launches against each other at
-    one shape); a scan the docs cannot take raises. The doc splits fill the
-    card at small and large batch alike: the first design's blocks are small
-    (several an SM); the wgmma scan's take a whole SM, so its split count is
-    the one of at most :data:`W_MAX_WAVES` waves that finishes soonest
-    (waves times tiles a split), the fewest splits among equals."""
-    if kernel is None:
-        if k > MAX_SHALLOW_K:
-            kernel = "deep"
-        elif not scan_takes(d, doc_type):
-            kernel = "shallow"
-        elif k > SHALLOW_K and d < W_DEEP_BELOW_D[doc_type]:
-            kernel = "deep"
-        else:
-            kernel = "wgmma"
-    elif kernel == "wgmma" and not scan_takes(d, doc_type):
-        raise ValueError(f"fused_topk: the wgmma scan does not take doc "
-                         f"type {doc_type} at d={d}")
-    if kernel == "deep":
-        return Plan("deep", 1, 1, 0)
-    if kernel == "wgmma":
-        tile_d = W_TILE_D
-        n_tiles = -(-n_rows // tile_d)
-        n_qtiles = -(-bsz // (W_TILE_Q if k <= SHALLOW_K else W_TILE_Q_DEEP))
-        best = None
-        for waves in range(1, W_MAX_WAVES + 1):
-            want = max(1, min(n_tiles, MAX_SPLITS,
-                              -(-waves * sms // n_qtiles)))
+def fold_takes(bsz: int, d: int, k: int, doc_type: int,
+               cap: Optional[int] = None) -> bool:
+    """Whether the deep fold takes a list of ``k`` over docs the scan
+    takes: past :data:`SHALLOW_K` up to ``deep_topk.FOLD_MAX_K``, with the
+    workspace of one split under ``cap`` (default
+    ``deep_topk.WORKSPACE_CAP``)."""
+    cap = deep_topk.WORKSPACE_CAP if cap is None else cap
+    return (scan_takes(d, doc_type)
+            and SHALLOW_K < k <= deep_topk.FOLD_MAX_K
+            and deep_topk.fold_bytes(bsz, 1, k) <= cap)
+
+
+def _wave_splits(n_tiles: int, n_qtiles: int, sms: int,
+                 max_splits: int = MAX_SPLITS) -> Tuple[int, int]:
+    """``(splits, tiles a split)`` of the wgmma launches, whose blocks take
+    a whole SM: the split count of at most :data:`W_MAX_WAVES` waves that
+    finishes soonest (waves times tiles a split), the fewest splits among
+    equals, at most ``max_splits``."""
+    best = None
+    for waves in range(1, W_MAX_WAVES + 1):
+        # the split counts that fill these waves, and the largest that
+        # stays inside them
+        for want in (-(-waves * sms // n_qtiles), waves * sms // n_qtiles):
+            want = max(1, min(n_tiles, max_splits, want))
             per = -(-n_tiles // want)
             splits = -(-n_tiles // per)
             cost = -(-n_qtiles * splits // sms) * per
             if best is None or cost < best[0]:
                 best = (cost, splits, per)
-        return Plan("wgmma", best[1], best[2], tile_d)
+    return best[1], best[2]
+
+
+def _plan(bsz: int, n_rows: int, d: int, k: int, doc_type: int, sms: int,
+          kernel: Optional[str] = None, cap: Optional[int] = None) -> Plan:
+    """The launch for ``bsz`` queries over ``n_rows`` docs of width ``d``
+    and ``doc_type`` (csrc DocType) at depth ``k`` on a card of ``sms``
+    SMs, with ``cap`` bytes of workspace (default
+    ``deep_topk.WORKSPACE_CAP``); a pure function of these. ``kernel``
+    names one to plan for instead of choosing (the measurements time the
+    launches against each other at one shape); a launch the shape does not
+    fit raises. Lists past :data:`SHALLOW_K` take the deep fold where it
+    takes them (:func:`fold_takes`) over :data:`FOLD_MIN_DOCS` docs or
+    more, else the deep launch; shallower lists
+    take the wgmma scan where it takes the docs, else the first design. The
+    doc splits fill the card at small and large batch alike: the first
+    design's blocks are small (several an SM); the wgmma launches' take a
+    whole SM (:func:`_wave_splits`), the fold's also no more than its
+    workspace allows."""
+    if kernel is None:
+        if (k > SHALLOW_K and n_rows >= FOLD_MIN_DOCS
+                and fold_takes(bsz, d, k, doc_type, cap)):
+            kernel = "fold"
+        elif k > MAX_SHALLOW_K:
+            kernel = "deep"
+        elif not scan_takes(d, doc_type):
+            kernel = "shallow"
+        elif k > SHALLOW_K:     # a small shard, or the fold's workspace
+            kernel = "deep"     # over the cap
+        else:
+            kernel = "wgmma"
+    elif kernel == "wgmma" and (k > SHALLOW_K or not scan_takes(d, doc_type)):
+        raise ValueError(f"fused_topk: the wgmma scan does not take k={k} "
+                         f"over doc type {doc_type} at d={d}")
+    elif kernel == "fold" and not fold_takes(bsz, d, k, doc_type, cap):
+        raise ValueError(f"fused_topk: the deep fold does not take k={k} "
+                         f"over doc type {doc_type} at d={d}, B={bsz}")
+    if kernel == "deep":
+        return Plan("deep", 1, 1, 0)
+    if kernel == "fold":
+        n_tiles = -(-n_rows // W_TILE_D)
+        limit = (deep_topk.WORKSPACE_CAP if cap is None else cap) // \
+            deep_topk.fold_bytes(bsz, 1, k)
+        splits, per = _wave_splits(n_tiles, -(-bsz // W_TILE_Q), sms,
+                                   min(MAX_SPLITS, limit))
+        return Plan("fold", splits, per, W_TILE_D, deep_topk.fold_cap(k))
+    if kernel == "wgmma":
+        n_tiles = -(-n_rows // W_TILE_D)
+        splits, per = _wave_splits(n_tiles, -(-bsz // W_TILE_Q), sms)
+        return Plan("wgmma", splits, per, W_TILE_D)
     n_qtiles = -(-bsz // TILE_Q)
     n_tiles = -(-n_rows // TILE_D)
     per_sm = BLOCKS_PER_SM if k <= SHALLOW_K else DEEP_BLOCKS_PER_SM
@@ -281,10 +332,14 @@ def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
         q = q.clone()
     doc_type = ((_INT4_PER_GROUP if grouped else _INT4_PER_DOC) if packed4
                 else _DOC_TYPES[docs.dtype])
-    plan = _plan(bsz, n_rows, d, k, doc_type, _sm_count(dev), kernel)
+    plan = _plan(bsz, n_rows, d, k, doc_type, _sm_count(dev), kernel,
+                 workspace_cap)
     if plan.kernel == "deep":
         return _launch_deep(q, docs, k, n_rows, bias, scale, n_groups,
                             doc_type, workspace_cap)
+    if plan.kernel == "fold":
+        return _launch_fold(q, docs, k, n_rows, bias, scale, n_groups,
+                            doc_type, plan)
     splits, per = plan.splits, plan.tiles_per_split
     part_g = torch.empty((bsz, splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((bsz, splits, k), dtype=torch.int32, device=dev)
@@ -313,12 +368,48 @@ def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
     return out_g, out_i
 
 
+def _launch_fold(q: Tensor, docs: Tensor, k: int, n_rows: int,
+                 bias: Optional[Tensor], scale: Optional[Tensor],
+                 n_groups: int, doc_type: int,
+                 plan: Plan) -> Tuple[Tensor, Tensor]:
+    """The deep fold (lists past :data:`SHALLOW_K` over docs the scan
+    takes), operands checked by :func:`_launch`: one scan launch whose rows
+    keep their candidates in ``cand`` (``[B, splits, cap]`` 64-bit words),
+    then the merge of the (row, split) lists."""
+    bsz, d = q.shape
+    dev = docs.device
+    cand = torch.empty((bsz, plan.splits, plan.cap), dtype=torch.int64,
+                       device=dev)
+    part_g = torch.empty((bsz, plan.splits, k), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((bsz, plan.splits, k), dtype=torch.int32,
+                         device=dev)
+    out_g = torch.empty((bsz, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((bsz, k), dtype=torch.int64, device=dev)
+    err = _lib().fused_topk_fold_launch(
+        q.data_ptr(), docs.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if scale is None else scale.data_ptr(), cand.data_ptr(),
+        part_g.data_ptr(), part_i.data_ptr(), out_g.data_ptr(),
+        out_i.data_ptr(), bsz, n_rows, d, k, n_groups, plan.splits,
+        plan.tiles_per_split, plan.cap, doc_type,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_topk fold launch failed for queries "
+                           f"[{bsz}, {d}] over docs [{n_rows}, "
+                           f"{docs.shape[1]}] {docs.dtype} k={k}: CUDA error "
+                           f"{err}")
+    fused_topk.launches += 1
+    fused_topk.fold_launches += 1
+    return out_g, out_i
+
+
 def _launch_deep(q: Tensor, docs: Tensor, k: int, n_rows: int,
                  bias: Optional[Tensor], scale: Optional[Tensor],
                  n_groups: int, doc_type: int,
                  cap: Optional[int]) -> Tuple[Tensor, Tensor]:
-    """The deep launch (lists past :data:`MAX_SHALLOW_K`, or lists past 64
-    over narrow docs), operands checked by :func:`_launch`."""
+    """The deep launch (lists the fold and the first design do not take),
+    operands checked by :func:`_launch`."""
     bsz, d = q.shape
     dev = docs.device
     p = deep_topk.fused_plan(bsz, n_rows, k, cap)
@@ -392,3 +483,4 @@ def fused_topk(queries: Tensor, docs: Tensor, k: int, *, mode: str = "dot",
 fused_topk.launches = 0   # kernel launches since the count was last reset
 fused_topk.deep_launches = 0   # of which deep launches
 fused_topk.wgmma_launches = 0  # of which the wgmma scan
+fused_topk.fold_launches = 0   # of which the scan with the deep fold

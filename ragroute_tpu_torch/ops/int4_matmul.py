@@ -9,14 +9,16 @@ in its high nibble; scales are f32 ``[IN/group, OUT]``, one per group of
 :func:`int4_matmul` is the wrapper: on a CUDA tensor it launches
 ``csrc/int4_matmul.cu`` or raises. :func:`_plan`, a pure function of the
 shape, picks the kernel: from :data:`M_SWITCH` rows of bf16 activations
-(prefill), the wgmma kernel fed by a TMA ring; below it, and for f32
-activations, ragged OUT or groups off the 64-row grid, the first kernel
-(``mma.sync`` for bf16, FMA for f32; every packed byte read from device
-memory once, the contraction split where the column blocks leave SMs idle);
- on a CPU tensor
-it runs :func:`int4_matmul_reference`, the plain version, which computes each
-group's partial product in f32, multiplies it by the group's scale and adds
-it to the running f32 sum, as the TPU kernel does.
+(prefill), the wgmma kernel fed by a TMA ring; below it (decode), the
+decode kernel, also wgmma from a TMA ring, with its contraction split where
+the column blocks leave SMs idle and the splits summed in the same launch
+(one launch a call; a persistent workspace a device and stream); f32
+activations, ragged OUT and groups off the 64-row grid take the first
+kernel (``mma.sync`` for bf16, FMA for f32; every packed byte read from
+device memory once, split contractions summed by a second launch). On a
+CPU tensor it runs :func:`int4_matmul_reference`, the plain version, which
+computes each group's partial product in f32, multiplies it by the group's
+scale and adds it to the running f32 sum, as the TPU kernel does.
 
 :func:`pack_int4_rows`, :func:`quantize_int4` and :func:`dequant_int4` are
 this package's copies of the JAX package's host functions, written on
@@ -45,6 +47,11 @@ BLOCKS_PER_SM = 2        # split target at small M: blocks in flight an SM
 # 0.134 / 0.058, M = 8,192 11.26 / 2.76)
 M_SWITCH = 64
 WG_TK = 64               # int4_mm_wgmma_kernel: packed rows a stage
+# the decode kernel (int4_mm_decode_kernel): output columns a block, and the
+# blocks an SM holds at once, by tokens (two up to 16 rows, where the
+# accumulators leave room for a second block's registers)
+DEC_BN = 128
+DEC_BLOCKS_PER_SM = {16: 2, 64: 1}
 
 def pack_int4_rows(codes: Tensor) -> Tensor:
     """Pack int4 codes ``[IN, OUT]`` (values in [-8, 7]) to int8 ``[IN/2,
@@ -133,14 +140,16 @@ def _lib():
         lib.int4_matmul_launch.restype = ci
         lib.int4_matmul_wgmma_launch.argtypes = [vp] * 4 + [ci] * 4 + [vp]
         lib.int4_matmul_wgmma_launch.restype = ci
+        lib.int4_matmul_decode_launch.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+        lib.int4_matmul_decode_launch.restype = ci
         lib._argtypes_set = True
     return lib
 
 
 class Plan(NamedTuple):
-    """How one call runs: ``kernel`` is ``"wgmma"`` (prefill) or ``"mma"``
-    (the first kernel, with ``splits`` of ``rows_per_split`` packed rows;
-    1 and all of them for the wgmma kernel)."""
+    """How one call runs: ``kernel`` is ``"wgmma"`` (prefill), ``"decode"``
+    or ``"mma"`` (the first kernel), with ``splits`` of ``rows_per_split``
+    packed rows (1 and all of them for the wgmma kernel)."""
     kernel: str
     splits: int
     rows_per_split: int
@@ -151,25 +160,41 @@ def _plan(m: int, half: int, out: int, group: int, bf16: bool,
           aligned: bool, sms: int, kernel: Optional[str] = None) -> Plan:
     """The launch for ``x [m, 2 half]`` against packed ``[half, out]`` with
     scale groups of ``group`` code rows on a card of ``sms`` SMs; a pure
-    function of these (``aligned``: x and the packed bytes start on 16
-    bytes). ``kernel`` names one to plan for instead of choosing (the
-    measurements time the two against each other at one shape). The wgmma
-    kernel takes bf16 activations from :data:`M_SWITCH` rows when its TMA
-    tiles fit the operands (OUT a multiple of 16, groups of whole 64-row
-    stages). The first kernel cuts the contraction when its column and row
-    blocks alone leave SMs idle (decode at narrow OUT), at whole groups
-    where a group spans whole tiles, so that each group's partial sum meets
-    its scale once. Cached: a decode step asks for the same few shapes
-    hundreds of times."""
+    function of these (``aligned``: x, the packed bytes and the scales
+    start on 16 bytes). ``kernel`` names one to plan for instead of
+    choosing (the measurements time the kernels against each other at one
+    shape). Where the TMA tiles fit the operands (bf16 activations, OUT a
+    multiple of 16, groups of whole 64-row stages), the wgmma kernel takes
+    :data:`M_SWITCH` rows and more and the decode kernel fewer; otherwise
+    the first kernel. The decode kernel and the first kernel cut the
+    contraction when their column blocks alone leave SMs idle, at whole
+    groups (where a group spans whole tiles), so that each group's partial
+    sum meets its scale once. Cached: a decode step asks for the same few
+    shapes hundreds of times."""
     fits = bf16 and aligned and out % 16 == 0 and group % WG_TK == 0
     if kernel is None:
-        kernel = "wgmma" if fits and m >= M_SWITCH else "mma"
+        kernel = ("mma" if not fits else
+                  "wgmma" if m >= M_SWITCH else "decode")
+    if kernel in ("wgmma", "decode") and not fits:
+        raise ValueError(f"int4_matmul: the {kernel} kernel does not take "
+                         f"x [{m}, {2 * half}] (bf16 {bf16}, aligned "
+                         f"{aligned}) @ [{half}, {out}] group {group}")
     if kernel == "wgmma":
-        if not fits:
-            raise ValueError(f"int4_matmul: the wgmma kernel does not take "
-                             f"x [{m}, {2 * half}] (bf16 {bf16}, aligned "
-                             f"{aligned}) @ [{half}, {out}] group {group}")
         return Plan("wgmma", 1, half)
+    if kernel == "decode":
+        if m >= M_SWITCH:
+            raise ValueError(f"int4_matmul: the decode kernel takes fewer "
+                             f"than {M_SWITCH} rows, not {m}")
+        # splits of whole groups for about one and a half waves of the SMs'
+        # block slots beside the column blocks, rounded down to a power of
+        # two (the readings of ``measure.py --kernels``' K5 split sweep,
+        # PERF.md: Qwen3-8B q/o 8, k/v 16, gate/up 4, down 8, the head 1)
+        slots = sms * DEC_BLOCKS_PER_SM[16 if m <= 16 else 64]
+        groups = half // group
+        want = max(1, 3 * slots // (2 * -(-out // DEC_BN)))
+        want = min(groups, 1 << (want.bit_length() - 1))
+        per = -(-groups // want)
+        return Plan("decode", -(-groups // per), per * group)
     bm = 16 if m <= 16 else 64
     blocks = -(-out // BN) * -(-m // bm)
     tiles = -(-half // TK)
@@ -208,13 +233,25 @@ def _launch(x: Tensor, w_packed: Tensor, scales: Tensor, group: int,
     if m == 0:
         return out_t
     bf16 = x.dtype == torch.bfloat16
-    aligned = x.data_ptr() % 16 == 0 and w_packed.data_ptr() % 16 == 0
+    aligned = (x.data_ptr() % 16 == 0 and w_packed.data_ptr() % 16 == 0
+               and scales.data_ptr() % 16 == 0)
     plan = _plan(m, half, out, group, bf16, aligned, _sm_count(dev), kernel)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if plan.kernel == "wgmma":
         err = _lib().int4_matmul_wgmma_launch(
             x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
             out_t.data_ptr(), m, in_dim, out, group, stream)
+    elif plan.kernel == "decode":
+        ws, counters = (None, None)
+        if plan.splits > 1:
+            ws, counters = _decode_workspace(dev, stream,
+                                             plan.splits * m * out,
+                                             -(-out // DEC_BN))
+        err = _lib().int4_matmul_decode_launch(
+            x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
+            out_t.data_ptr(), None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(), m, in_dim,
+            out, group, plan.splits, plan.rows_per_split, stream)
     else:
         ws = (torch.empty((plan.splits, m, out), dtype=torch.float32,
                           device=dev) if plan.splits > 1 else None)
@@ -230,6 +267,24 @@ def _launch(x: Tensor, w_packed: Tensor, scales: Tensor, group: int,
                            f"{out}] group {group}: CUDA error {err}")
     int4_matmul.launches += 1
     return out_t
+
+
+# the decode kernel's split partials and column-block counters, kept a
+# (device, stream): the launches of one stream run in order, so one
+# workspace serves them all; the kernel leaves its counters at zero
+_DECODE_WS: dict = {}
+
+
+def _decode_workspace(dev: torch.device, stream: int, floats: int,
+                      counters: int) -> Tuple[Tensor, Tensor]:
+    key = (dev.index, stream)
+    ws, cnt = _DECODE_WS.get(key, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=dev)
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros(counters, dtype=torch.int32, device=dev)
+    _DECODE_WS[key] = (ws, cnt)
+    return ws, cnt
 
 
 def int4_matmul(x: Tensor, w_packed: Tensor, scales: Tensor, *,

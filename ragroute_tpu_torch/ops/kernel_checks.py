@@ -14,7 +14,7 @@ Fused top-k (:func:`fused_topk` against :func:`fused_topk_reference`):
   across tile, split and k boundaries. f32 / bf16 / int8 / int4 with
   per-doc and per-group scales, k from 10 to 160.
 * :func:`wgmma_exact_cases`: the same kind of data through the wgmma scan
-  (bf16 docs, k 10 to 160): a partial query block, partial doc tiles,
+  (bf16 docs, k 10 to 64): a partial query block, partial doc tiles,
   contraction chunks past d, a -inf bias tail, ``valid_docs < N`` and
   splits of several tiles; :func:`quant_exact_cases` the same for int8
   docs and int4 docs with no, per-doc and per-group scales (a packed row
@@ -23,6 +23,12 @@ Fused top-k (:func:`fused_topk` against :func:`fused_topk_reference`):
   (k 161 to 1,100 over 20,000 docs, three select runs), through the deep
   launch, with chunks of docs and slices of query rows forced by a small
   workspace cap (``Case.cap``).
+* :func:`fold_exact_cases`: the same kind of data through the wgmma scan's
+  deep fold (k 65 to 1,024; bf16, int8 and int4 docs): gains that tie by
+  the thousand, so every row's candidates overflow and are cut many times;
+  a partial query block, partial doc tiles, splits of several tiles, one
+  split forced by the workspace cap, lists longer than the valid rows, a
+  -inf bias tail and ``valid_docs < N``.
 * :func:`compare_tolerant`: the path's shapes (bf16 operands, different
   summation order): scores within ``1e-3 * max|score|``, winner-set recall,
   and every disagreement a near-tie at the k boundary.
@@ -106,6 +112,60 @@ class Case:
     cap: Optional[int] = None       # deep launches: workspace cap to run at
 
 
+FOLD_KS = (65, 128, 160, 256, 600, 1024)
+
+
+def fold_exact_cases(device, *, bsz: int = 150, seed: int = 7
+                     ) -> Iterator[Case]:
+    """Exact-arithmetic cases of the deep fold (k in :data:`FOLD_KS`):
+    integer data in [-4, 4] at d = 64, so gains tie by the thousand and a
+    row's candidate buffer overflows and is cut many times; 150 query rows
+    (a second, partial block of 128); 845 docs (partial doc tiles) and
+    20,000 (splits of several tiles); duplicate rows either side of the tile
+    boundaries. bf16 dot, int8 with power-of-two per-doc scales and int4
+    with per-group scales at every k up to the docs; over 845 docs also
+    bf16 l2, a -inf bias tail and ``valid_docs < N``; a list past the 900
+    valid rows of 20,000; and one split forced by the workspace cap."""
+    rng = np.random.default_rng(seed)
+    d = 64
+    for rows in (3 * 256 + 77, 20_000):
+        docs = rng.integers(-4, 5, (rows, d)).astype(np.float32)
+        for src, dsts in ((7, (191, 192, 383, 384, 575, 576, rows - 1)),
+                          (11, (100, 101, 767, 768, rows - 2))):
+            docs[list(dsts)] = docs[src]
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        q = t(rng.integers(-4, 5, (bsz, d)).astype(np.float32))
+        scale = t((2.0 ** rng.integers(-3, 2, rows)).astype(np.float32))
+        gscale = t((2.0 ** rng.integers(-3, 2, (rows, d // 16))
+                    ).astype(np.float32))
+        bf16 = t(docs).to(torch.bfloat16)
+        int8 = t(docs.astype(np.int8))
+        packed = t(_pack_int4(docs.astype(np.int8)))
+        tail = torch.zeros(rows, dtype=torch.float32, device=device)
+        tail[rows - 300:] = NEG_INF
+        for k in (k for k in FOLD_KS if k <= rows):
+            name = f"fold-n{rows}"
+            yield Case(f"{name}-bf16-dot-k{k}", q, bf16, k, "dot")
+            yield Case(f"{name}-int8-dot-k{k}", q, int8, k, "dot",
+                       scale=scale)
+            yield Case(f"{name}-int4-group-dot-k{k}", q, packed, k, "dot",
+                       scale=gscale, packed4=True)
+            if rows > 1000:
+                continue
+            yield Case(f"{name}-bf16-l2-k{k}", q, bf16, k, "l2")
+            yield Case(f"{name}-bf16-inf-tail-k{k}", q, bf16, k, "dot",
+                       bias=tail)
+            yield Case(f"{name}-int8-valid-k{k}", q, int8, k, "dot",
+                       scale=scale, valid_docs=rows - 200)
+    yield Case("fold-n20000-bf16-dot-k1024-valid900", q, bf16, 1024, "dot",
+               valid_docs=900)
+    yield Case("fold-n20000-bf16-dot-k256-one-split", q, bf16, 256, "dot",
+               cap=deep_topk.fold_bytes(bsz, 1, 256))
+
+
 DEEP_KS = (161, 256, 600, 1100)
 
 
@@ -161,12 +221,12 @@ def exact_cases(device, *, bsz: int = 37, n: int = 3 * TILE_D + 17,
                128, "l2", bias=l2_bias, packed4=True)
 
 
-WGMMA_KS = (10, 32, 64, 160)
+WGMMA_KS = (10, 32, 64)
 
 
 def wgmma_exact_cases(device, *, bsz: int = 150, n: int = 3 * 256 + 77,
                       seed: int = 5) -> Iterator[Case]:
-    """Exact-arithmetic cases of the wgmma scan (bf16 docs, k up to 160):
+    """Exact-arithmetic cases of the wgmma scan (bf16 docs, k up to 64):
     integer data in [-4, 4], 150 query rows (a second, partial block of
     128), 845 docs (a partial last tile of 256 and of 128), d 64, 80 (a
     contraction chunk past the columns) and 192 (three chunks); duplicate
@@ -198,7 +258,7 @@ def wgmma_exact_cases(device, *, bsz: int = 150, n: int = 3 * 256 + 77,
 def quant_exact_cases(device, *, bsz: int = 150, n: int = 3 * 256 + 77,
                       seed: int = 6) -> Iterator[Case]:
     """Exact-arithmetic cases of the wgmma scan over int8 and int4 docs (k
-    up to 160): integer codes in [-4, 4], power-of-two per-doc and
+    up to 64): integer codes in [-4, 4], power-of-two per-doc and
     per-group scales (16 dims a group), so that every product, dequant and
     sum is exact; 150 query rows, 845 docs (partial doc tiles), duplicate
     rows on both sides of the tile boundaries. d 64 (an int4 row of 32
@@ -297,7 +357,7 @@ def deep_exact_cases(device, *, bsz: int = 37, n: int = 20_000, d: int = 64,
 def run_kernel(case: Case, kernel: Optional[str] = None
                ) -> Tuple[Tensor, Tensor]:
     """The wrapper on CUDA tensors: launches the kernel. ``kernel`` names
-    the launch (``"wgmma"``, ``"shallow"``, ``"deep"``) in place of the
+    the launch (``"wgmma"``, ``"fold"``, ``"shallow"``, ``"deep"``) in place of the
     wrapper's plan, to time the launches against each other at one
     shape."""
     if kernel is None:
@@ -438,17 +498,17 @@ def fused_plan_of(case: Case) -> str:
     else:
         doc_type = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[
             case.docs.dtype]
-    return _fused_plan(bsz, n, d, case.k, doc_type, 132).kernel
+    return _fused_plan(bsz, n, d, case.k, doc_type, 132, cap=case.cap).kernel
 
 
 def k1_bound(case: Case) -> Dict[str, float]:
     """Least time for one fused top-k call: every operand read once and the
     lists written once at the HBM rate, against ``2 * B * N * d``
-    operations at the peak rate of the product's operand type. A deep
-    launch (k past 160, or as the wrapper's plan takes it) also writes its
-    f32 gains out and reads them back, ``8 * B * N`` bytes the function
-    itself does not need: they stay out of ``bound_ms`` and go to
-    ``workspace_bytes`` and ``design_floor_ms``."""
+    operations at the peak rate of the product's operand type. The deep
+    launch, where the wrapper's plan takes it, also writes its f32 gains
+    out and reads them back, ``8 * B * N`` bytes the function itself does
+    not need: they stay out of ``bound_ms`` and go to ``workspace_bytes``
+    and ``design_floor_ms``. The deep fold makes no such round trip."""
     bsz, d = case.queries.shape
     n = case.valid_docs or case.docs.shape[0]
     deep = fused_plan_of(case) == "deep"

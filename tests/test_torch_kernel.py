@@ -1,7 +1,7 @@
 """Card-only tests: the hand-written kernels (csrc/fused_topk.cu with its
-wgmma scan over bf16, int8 and int4 docs, csrc/stream_topk.cu,
+wgmma scan over bf16, int8 and int4 docs and its deep fold, csrc/stream_topk.cu,
 csrc/grouped_gains.cu, csrc/grouped_pair_topk.cu with its wgmma kernel,
-csrc/int4_matmul.cu with its prefill kernel,
+csrc/int4_matmul.cu with its prefill and decode kernels,
 csrc/decode_attention.cu) against their plain PyTorch versions, at test
 size, the host-RAM tiers' engine on the card against the same engine on the
 CPU, and the int4 decoder's greedy tokens on the card against the CPU's.
@@ -94,8 +94,8 @@ def test_kernel_counts_launches_and_raises_on_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("kernel", [None, "wgmma"])
 def test_wgmma_scan_exact_cases_equal_plain(cuda, kernel):
     """bf16 docs through the wgmma scan (``kernel="wgmma"``: every case,
-    k 10 to 160; None: the wrapper's plan, which sends the narrow docs'
-    lists past 64 to the deep launch): a partial query block, partial doc
+    k 10 to 64; None: the wrapper's plan, the same launch): a partial
+    query block, partial doc
     tiles, contraction chunks past d, a -inf bias tail, valid_docs < N and
     splits of several tiles; indices and scores equal the plain version."""
     failed = []
@@ -110,7 +110,7 @@ def test_wgmma_scan_exact_cases_equal_plain(cuda, kernel):
 
 @pytest.mark.parametrize("bsz,n,d,k", [(300, 60_000, 768, 32),
                                        (8, 100_003, 768, 64),
-                                       (200, 30_000, 768, 160),
+                                       (200, 30_000, 768, 64),
                                        (512, 50_000, 128, 32)])
 def test_wgmma_scan_matches_plain_within_tolerance(cuda, bsz, n, d, k):
     case = kc.path_case(cuda, bsz=bsz, n=n, d=d, k=k, seed=bsz + k)
@@ -122,10 +122,25 @@ def test_wgmma_scan_matches_plain_within_tolerance(cuda, bsz, n, d, k):
     assert res["recall"] >= 0.999, res
 
 
+@pytest.mark.parametrize("bsz,n,d,k", [(200, 30_000, 768, 160),
+                                       (512, 50_000, 128, 128),
+                                       (8, 100_003, 128, 256)])
+def test_deep_fold_matches_plain_within_tolerance(cuda, bsz, n, d, k):
+    """The wgmma scan's deep fold on random bf16 data (lists past 64, where
+    the scan's own lists stop)."""
+    case = kc.path_case(cuda, bsz=bsz, n=n, d=d, k=k, seed=bsz + k)
+    before = fused_topk.fold_launches
+    kernel = kc.run_kernel(case, "fold")
+    assert fused_topk.fold_launches == before + 1
+    res = kc.compare_tolerant(kernel, kc.run_plain(case))
+    assert res["ok"], res
+    assert res["recall"] >= 0.999, res
+
+
 @pytest.mark.parametrize("kernel", [None, "wgmma"])
 def test_quant_scan_exact_cases_equal_plain(cuda, kernel):
     """int8 and int4 docs (no, per-doc and per-group scales) through the
-    wgmma scan (``kernel="wgmma"``: every case, k 10 to 160; None: the
+    wgmma scan (``kernel="wgmma"``: every case, k 10 to 64; None: the
     wrapper's plan): partial doc tiles, packed rows shorter than a raw box
     and split across boxes, a -inf bias tail, valid_docs < N and splits of
     several tiles; indices and scores equal the plain version, one launch
@@ -182,13 +197,41 @@ def test_kernel_deep_exact_cases_equal_plain(cuda):
     failed = []
     before, n = fused_topk.deep_launches, 0
     for case in kc.deep_exact_cases(cuda):
-        (ks, ki), (ps, pi) = kc.run_pair(case)
+        ps, pi = kc.run_plain(case)
+        ks, ki = kc.run_kernel(case, "deep")
         torch.cuda.synchronize()
         if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
             failed.append(case.name)
-        n += 1
+        # the plan's launch (the deep fold where it takes the case) too
+        ks, ki = kc.run_kernel(case)
+        torch.cuda.synchronize()
+        if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+            failed.append(f"{case.name} {kc.fused_plan_of(case)}")
+        n += 1 + (kc.fused_plan_of(case) == "deep")
     assert not failed, failed
     assert fused_topk.deep_launches == before + n
+
+
+def test_kernel_deep_fold_exact_cases_equal_plain(cuda):
+    """The wgmma scan's deep fold, k 65 to 1,024 over integer docs whose
+    gains tie by the thousand (every row's buffer cut many times), bf16,
+    int8 and int4 docs, a partial query block, partial doc tiles, splits of
+    several tiles, one split under a small cap, lists past the valid rows,
+    a -inf tail and ``valid_docs < N``: indices and scores equal the plain
+    version's, through the fold named and through the plan, one fold launch
+    a call."""
+    failed = []
+    before, n = fused_topk.fold_launches, 0
+    for case in kc.fold_exact_cases(cuda):
+        ps, pi = kc.run_plain(case)
+        for kernel in ("fold", None):
+            ks, ki = kc.run_kernel(case, kernel)
+            torch.cuda.synchronize()
+            if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+                failed.append(f"{case.name} {kernel}")
+            n += kernel == "fold" or kc.fused_plan_of(case) == "fold"
+    assert not failed, failed
+    assert fused_topk.fold_launches == before + n
 
 
 @pytest.mark.parametrize("grouped", [False, True])
@@ -641,6 +684,32 @@ def test_int4_prefill_kernel_exact_cases_equal_plain(cuda):
         assert int4_matmul.launches == before + 1
         if not torch.equal(got, dc.run_int4_plain(case)):
             failed.append(case.name)
+    assert not failed, failed
+
+
+def test_int4_decode_kernel_exact_cases_equal_plain(cuda):
+    """The decode kernel's exact cases: M = 1, 16, 40 and 63 (token tiles
+    of 8, 16, 32 and 64), a contraction in 16 splits summed in the launch,
+    OUT off the 128-column block, groups of one and two 64-row stages; each
+    one launch of the kernel the plan names (decode below ``M_SWITCH``, the
+    prefill kernel at it), held beside the first kernel on the same case."""
+    from ragroute_tpu_torch.ops import decoder_checks as dc
+    from ragroute_tpu_torch.ops.int4_matmul import M_SWITCH, _plan, int4_matmul
+
+    failed = []
+    for case in dc.int4_decode_exact_cases(cuda):
+        m, in_dim = case.x.shape
+        plan = _plan(m, in_dim // 2, case.w.shape[1], case.group, True, True,
+                     132)
+        assert plan.kernel == ("decode" if m < M_SWITCH else "wgmma")
+        want = dc.run_int4_plain(case)
+        for kernel in (plan.kernel, "mma"):
+            before = int4_matmul.launches
+            got = dc.run_int4(case, kernel)
+            assert int4_matmul.launches == before + 1
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                failed.append(f"{case.name} {kernel}")
     assert not failed, failed
 
 

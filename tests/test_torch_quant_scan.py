@@ -4,9 +4,9 @@ The kernels run only on a card (``tests/test_torch_kernel.py``). Here:
 
 * ``ops/fused_topk.py::_plan`` sends int8 and int4 docs (per-doc and
   per-group scales) to the scan at the serving shapes and up to k = 64,
-  int8 up to k = 160, other lists past 64 to the deep launch where it is
-  faster (the measured thresholds), and keeps the first design for f32 and
-  for int4 rows that are not a whole number of 16 bytes;
+  lists past 64 to the scan's deep fold at every width (it beat the scan
+  and the deep launch at every width read), and keeps the first design for
+  f32 and for int4 rows that are not a whole number of 16 bytes;
 * the converters' bit arithmetic (``csrc/codes.cuh``), emulated in plain
   torch integer and float operations over every int8 code and every
   nibble, gives the codes of a plain cast and of ``unpack_int4``, and the
@@ -42,29 +42,26 @@ def test_plan_sends_int8_and_int4_to_the_scan_at_the_serving_shapes(
 @pytest.mark.parametrize("doc_type", [I8, I4, I4G])
 @pytest.mark.parametrize("k", [1, 10, 32, 64, 65, 128, 160])
 def test_plan_keeps_the_scan_at_the_serving_width(doc_type, k):
-    """At d = 768 int8 lists take the scan to k = 160; int4 lists past 64
-    take the deep launch (faster there in the measured crossover); lists
-    past 160 take it for every type."""
-    scan = k <= ft.SHALLOW_K or doc_type == I8
+    """At d = 768 lists up to 64 take the scan and deeper ones its deep
+    fold, for every type, past 160 too."""
+    scan = k <= ft.SHALLOW_K
     assert ft._plan(512, 734_003, 768, k, doc_type,
-                    SMS).kernel == ("wgmma" if scan else "deep")
+                    SMS).kernel == ("wgmma" if scan else "fold")
     assert ft._plan(512, 734_003, 768, k + 161, doc_type,
-                    SMS).kernel == "deep"
+                    SMS).kernel == "fold"
 
 
 @pytest.mark.parametrize("doc_type", [I8, I4, I4G])
 def test_plan_uses_the_measured_deep_thresholds(doc_type):
-    """Lists past 64 over docs narrower than the type's measured width
-    take the deep launch (hostrefine's 128-wide coarse slab at k' = 128);
-    up to 64 the scan keeps them at every width."""
-    below = ft.W_DEEP_BELOW_D[doc_type]
-    assert below % 32 == 0 and 128 <= below <= 768 + 32
-    d = below - 32
-    assert ft._plan(512, 2_936_320, d, 128, doc_type, SMS).kernel == "deep"
-    assert ft._plan(512, 2_936_320, d, 64, doc_type, SMS).kernel == "wgmma"
-    assert ft._plan(512, 2_936_320, below, 128, doc_type,
-                    SMS).kernel == "wgmma"
-    assert ft._plan(512, 2_936_320, 128, 32, doc_type, SMS).kernel == "wgmma"
+    """The measured crossover left no width threshold: lists past 64 take
+    the deep fold at every width (hostrefine's 128-wide coarse slab at k' =
+    128 and 256 among them); up to 64 the scan keeps them; the deep launch
+    only past the fold's depth."""
+    for d in (128, 256, 512, 768):
+        assert ft._plan(512, 2_936_320, d, 128, doc_type, SMS).kernel == "fold"
+        assert ft._plan(512, 2_936_320, d, 256, doc_type, SMS).kernel == "fold"
+        assert ft._plan(512, 2_936_320, d, 64, doc_type, SMS).kernel == "wgmma"
+    assert ft._plan(512, 2_936_320, 128, 1100, doc_type, SMS).kernel == "deep"
 
 
 @pytest.mark.parametrize("doc_type,d,want", [
