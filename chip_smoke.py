@@ -26,7 +26,9 @@ Phases, each of which fails the run when it fails:
      times); B=512 over one 734,003 x 768 centred bf16 dot
      shard, k=32 (1e-3 x max|score|, winner-set recall >= 0.999); the same
      shard int4-packed with per-doc and with per-group scales, in int8 and
-     in f32; the low-rank coarse scan (734,003 x 128 bf16) at k'=128 and
+     in f32 (the f32 scan: its exact cases at k 1 to 64 through the plan
+     and by name first; cuBLAS's SGEMM of the product as a note); the
+     low-rank coarse scan (734,003 x 128 bf16) at k'=128 and
      k'=256 (--refine-mult 8), through the deep fold with the deep launch's
      time beside it; the host tiers'
      launches: one int8 slab of the stream tier (346,112 x 768, per-doc
@@ -43,8 +45,13 @@ Phases, each of which fails the run when it fails:
      collect, [512, 4,096] with -inf entries, k'=128 and 256, random and as
      sorted runs of 8 with ties (equal; CUDA-event and profiler device
      times);
-   * grouped gains: 512 queries x 512 probes over 4,096 bf16 slabs of
-     768 x 256 (1e-3 x max|gain|);
+   * grouped gains: exact cases (f32 / bf16 / int8 / int4 slabs, S 8 to
+     328, d 64 to 192, the row table, a real-block count under the grid's)
+     through the plan and through the wgmma kernel, the f32 kernel and the
+     first design by name, then 512 queries x 512 probes over 4,096 slabs
+     of 768 x 256 in bf16, int8 and int4 (1e-3 x max|gain|), each with the
+     profiler's device time, its bound's share and the first design's times
+     beside it;
    * grouped pair top-k: exact cases (ranks 1 to 64 and the deep launch's
      200 and 256) through the plan and again through the wgmma kernel and
      the first design where each takes them, then 256 ranks a tile at the
@@ -75,10 +82,12 @@ Phases, each of which fails the run when it fails:
    docs x 768 is written to a temporary data root and served by the port's
    ``ServingSystem`` exactly as ``python -m ragroute_tpu_torch.main
    --dataset medrag --routing ragroute --disable-llm --port 0`` builds it:
-   first the exact path, then ``--impl lowrank``, then ``--impl lowrank
+   first the exact path, then the exact path at ``--dtype float32`` (3.22
+   GB on the card; recall >= 0.999: f32 docs are the oracle's own
+   arithmetic), then ``--impl lowrank``, then ``--impl lowrank
    --refine-mult 8`` (k' = 256: the fused kernel's deep fold; recall at
    least the default depth's), then ``--impl ivf``
-   (bf16 each), the last over a world of the same size made with 64
+   (bf16 each but the f32 run), the last over a world of the same size made with 64
    topics per source (cluster probing's serving regime; the world the
    other two serve is isotropic inside a source). In every run
    sequential and concurrent GET /query requests
@@ -86,13 +95,15 @@ Phases, each of which fails the run when it fails:
    somewhere (and none for a query it sends nowhere, as in the reference),
    the batcher must form a batch larger than one, and the path's kernels
    must have launched between the warm-up and the last answer (the exact
-   path through K1's wgmma scan); then
+   path through K1's wgmma scan, the f32 one through its f32 scan, ivf
+   through K3's wgmma kernel); then
    ``engine.search`` on 64 queries is held against ``exact_oracle`` (exact
    and low-rank: recall >= 0.99; ivf at its default nprobe C/8: recall
    >= 0.9). The hybrid engine on the ivf run's layouts must probe only
    the large shard and only at a small batch.
 4. A reduced topical world (4 x 32,768 docs) on the card: ivf with
-   ``nprobe == C`` gives the exact path's winner sets (f32); bf16 ivf at
+   ``nprobe == C`` gives the exact path's winner sets (f32, through K3's
+   f32 kernel); bf16 ivf at
    the default nprobe reaches recall >= 0.9; int4 flat >= 0.90, int4 with
    the low-rank coarse scan >= 0.95, int4 ivf at full probe >= 0.98 of
    the flat int4 scan's winners (the gates of the JAX package's tests);
@@ -217,6 +228,7 @@ KERNELS = {
 }
 # the kernels each served path must launch
 PATH_KERNELS = {"exact": ("fused_topk",),
+                "exact_f32": ("fused_topk",),
                 "ivf": ("stream_topk", "grouped_gains"),
                 "lowrank": ("fused_topk",),
                 "lowrank_deep": ("fused_topk",),
@@ -233,9 +245,13 @@ PATH_KERNELS = {"exact": ("fused_topk",),
                 "llm_continuous": ("int4_matmul",)}
 
 # the kernels each served path must launch through their wgmma designs:
-# K1's scan (bf16, int8 and int4 docs) and K4's pair scan
+# K1's scan (bf16, int8 and int4 docs), K3's grouped GEMM and K4's pair scan
 WGMMA_PATHS = {"exact": ("fused_topk",), "stream": ("fused_topk",),
+               "ivf": ("grouped_gains",),
                "hostrefine_probed": ("grouped_pair_topk",)}
+# the kernels each served path must launch through their f32 designs: K1's
+# f32 scan on the exact path over f32 docs
+F32_PATHS = {"exact_f32": ("fused_topk",)}
 
 # the paths served at --refine-mult 8 (k' = 256 at medrag's k = 32), the
 # kernels that must take the launch that serves that depth there, named by
@@ -251,6 +267,10 @@ DEEP_PATHS = {"lowrank_deep": ((("fused_topk", "fold"),), "lowrank"),
 MEDRAG_DOCS = {"pubmed": 734_003, "statpearls": 104_857,
                "textbooks": 83_886, "wikipedia": 125_829}
 NUM_QUERIES = 512
+# recall@32 of engine.search against exact_oracle on the served paths (the
+# rest: 0.99); f32 docs are the oracle's own arithmetic, so only a swap at a
+# rounding-level near-tie may differ
+RECALL_GATES = {"ivf": 0.9, "exact_f32": 0.999}
 BURST = 128          # concurrent GET /query after 16 sequential ones
 N_CHECK = 64         # queries of engine.search held against exact_oracle
 IVF_TOPICS = 64      # topics per source of the world --impl ivf serves
@@ -279,7 +299,8 @@ def log(msg: str) -> None:
 def reset_counts() -> None:
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
-        for extra in ("deep_launches", "wgmma_launches", "fold_launches"):
+        for extra in ("deep_launches", "wgmma_launches", "fold_launches",
+                      "f32_launches"):
             if hasattr(wrapper, extra):
                 setattr(wrapper, extra, 0)
 
@@ -287,11 +308,12 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     """Launches of every kernel; under ``deep``, those of the deep launch
     (gains through device memory) of the three top-k kernels; under
-    ``wgmma``, those of K1's scan (lists up to 64) and K4's wgmma kernel;
-    under ``fold``, those of K1's scan with the deep fold (lists past
-    64)."""
+    ``wgmma``, those of K1's scan (lists up to 64), K3's wgmma kernel and
+    K4's wgmma kernel; under ``fold``, those of K1's scan with the deep fold
+    (lists past 64); under ``f32``, those of K1's f32 scan and K3's f32
+    kernel."""
     out = {name: k[0].launches for name, k in KERNELS.items()}
-    for extra in ("deep", "wgmma", "fold"):
+    for extra in ("deep", "wgmma", "fold", "f32"):
         out[extra] = {name: getattr(k[0], f"{extra}_launches")
                       for name, k in KERNELS.items()
                       if hasattr(k[0], f"{extra}_launches")}
@@ -299,11 +321,13 @@ def read_counts() -> dict:
 
 
 def check_wgmma(label: str, launches: dict) -> None:
-    """The path's kernels that must have run their wgmma design did."""
-    for name in WGMMA_PATHS.get(label, ()):
-        if launches["wgmma"][name] <= 0:
-            raise AssertionError(f"the {label} path never launched the "
-                                 f"wgmma design of {name}")
+    """The path's kernels that must have run their wgmma (or f32) design
+    did."""
+    for counter, paths in (("wgmma", WGMMA_PATHS), ("f32", F32_PATHS)):
+        for name in paths.get(label, ()):
+            if launches[counter][name] <= 0:
+                raise AssertionError(f"the {label} path never launched the "
+                                     f"{counter} design of {name}")
 
 
 def check_deep(label: str, launches: dict, recall: float, out: dict) -> None:
@@ -471,6 +495,24 @@ def phase_fused(dev) -> dict:
         f"k {', '.join(map(str, kc.WGMMA_KS))}; B=150 over two query blocks, "
         f"845 docs off the tile, d 64 / 80 / 192, -inf tail, valid_docs < N, "
         f"splits of several tiles): indices and scores equal")
+    f32 = []
+    for case in kc.f32_exact_cases(dev):
+        ps, pi = kc.run_plain(case)
+        for kernel in (None, "f32"):
+            ks, ki = kc.run_kernel(case, kernel)
+            torch.cuda.synchronize()
+            if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+                raise AssertionError(f"the f32 scan ({kernel or 'plan'}) != "
+                                     f"plain on exact case {case.name}")
+        if kc.fused_plan_of(case) != "f32":
+            raise AssertionError(f"fused_topk plans {case.name} to "
+                                 f"{kc.fused_plan_of(case)}")
+        f32.append(case.name)
+    log(f"[kernel] fused_topk {len(f32)} exact cases of the f32 scan (k "
+        f"{', '.join(map(str, kc.F32_KS))}; B=200 over two query tiles, 845 "
+        f"docs off the tile, d 64 / 80 / 96, dot / l2 / cos, -inf tail, "
+        f"valid_docs < N, per-doc scales, 20,000 docs in splits), through the "
+        f"plan and by name: indices and scores equal")
     qn = []
     for case in kc.quant_exact_cases(dev):
         (ks, ki), (ps, pi) = kc.run_kernel(case, "wgmma"), kc.run_plain(case)
@@ -496,8 +538,9 @@ def phase_fused(dev) -> dict:
         kc.int4_path_case(dev, grouped=True),
         "B=512 N=734003 d=768 int4 per-group scale (6 groups) k=32", reps=5,
         device=True, old="shallow")
-    # the same shard in int8 (--dtype int8 in HBM) and in f32 (the first
-    # design: f32 stays off the tensor cores)
+    # the same shard in int8 (--dtype int8 in HBM) and in f32 (the f32
+    # scan: f32 stays off the tensor cores), each with the first design's
+    # time beside it
     hbm = kc.int8_path_case(dev, n=734_003, d=768, k=32, seed=8)
     modes["int8_hbm_k32"] = _check_fused_path(
         hbm, "B=512 N=734003 d=768 int8 per-doc scale k=32", reps=5,
@@ -505,8 +548,20 @@ def phase_fused(dev) -> dict:
     del hbm
     f32 = kc.path_case(dev, dtype=torch.float32)
     modes["f32_k32"] = _check_fused_path(
-        f32, "B=512 N=734003 d=768 f32 dot k=32", reps=3)
+        f32, "B=512 N=734003 d=768 f32 dot k=32", reps=3, device=True,
+        old="shallow")
+    # a note: cuBLAS's SGEMM of the product alone (no top-k), full f32; the
+    # port never calls it
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    modes["f32_k32"]["sgemm_note_ms"] = kc.cuda_time_ms(
+        lambda: torch.matmul(f32.queries, f32.docs.T), warmup=1, reps=3)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"[kernel] fused_topk f32 path shape: note: torch.matmul [512 x 768] "
+        f"@ [768 x 734003] f32 without TF32 (cuBLAS SGEMM, the product "
+        f"alone) {modes['f32_k32']['sgemm_note_ms']:.3f} ms")
     del f32
+    torch.cuda.empty_cache()
     # the low-rank coarse scan's lists past 64 take the deep fold; the deep
     # launch (the gains' round trip) took them before
     coarse = kc.path_case(dev, d=128, k=128, seed=4)
@@ -629,60 +684,101 @@ def _check_stream_collect(gains, label: str, k: int) -> dict:
     return {**row, "max_abs_err": err}
 
 
-def phase_grouped(dev) -> dict:
-    n = 0
-    for case in kc.grouped_exact_cases(dev):
-        out = kc.run_grouped_kernel(case)
-        real = case.real_rows
-        plain = kc.run_grouped_plain(case, real // kc.GROUP_ROWS)
-        torch.cuda.synchronize()
-        if not torch.equal(out[:real], plain):
-            raise AssertionError(
-                f"grouped_gains != plain on exact case {case.name}")
-        n += 1
-    log(f"[kernel] grouped_gains {n} exact cases (f32 / bf16 / int8 / int4 "
-        f"slabs, S=72, row table, real-block count): gains equal")
-    case = kc.grouped_path_case(dev)
+def _check_grouped_path(case, label: str) -> dict:
+    """K3 at a path shape: the plan's kernel against the plain version
+    (1e-3 x max|gain|), CUDA-event and profiler device times, the bound,
+    and the first design's times at the same shape (``old_ms``)."""
     real = case.real_rows
     blocks = real // kc.GROUP_ROWS
+    plan = kc.grouped_plan_of(case)
     out = kc.run_grouped_kernel(case)
     plain = kc.run_grouped_plain(case, blocks)
     torch.cuda.synchronize()
     res = kc.compare_grouped(out[:real], plain)
-    log(f"[kernel] grouped_gains path shape B=512 P=512 C=4096 d=768 S=256 "
-        f"bf16: {blocks} real blocks of {case.blk_cluster.shape[0]}, "
-        f"max_abs_err {res['max_abs_err']:.3e} tol {res['tol']:.3e} "
-        f"-inf places equal {res['same_inf']}")
+    log(f"[kernel] grouped_gains {label} ({plan}): {blocks} real blocks of "
+        f"{case.blk_cluster.shape[0]}, max_abs_err {res['max_abs_err']:.3e} "
+        f"tol {res['tol']:.3e} -inf places equal {res['same_inf']}")
     if not res["ok"]:
         raise AssertionError(f"grouped_gains disagrees with its plain "
-                             f"version on the path shape: {res}")
+                             f"version on {label}: {res}")
     del out, plain
     torch.cuda.empty_cache()
     ms = kc.cuda_time_ms(lambda: kc.run_grouped_kernel(case))
+    dev_ms = dc.device_ms(lambda: kc.run_grouped_kernel(case), grouped_gains,
+                          warmup=1, reps=10)
+    old_ms = kc.cuda_time_ms(lambda: kc.run_grouped_kernel(case, "first"))
+    old_dev = dc.device_ms(lambda: kc.run_grouped_kernel(case, "first"),
+                           grouped_gains, warmup=1, reps=10)
     plain_ms = kc.cuda_time_ms(lambda: kc.run_grouped_plain(case, blocks),
                                warmup=1, reps=3)
     bound = kc.k3_bound(case)
+    log(f"[kernel] grouped_gains {label}: kernel {ms:.3f} ms (device "
+        f"{dev_ms:.3f}, {bound['bound_ms'] / dev_ms:.2f} of the bound), the "
+        f"first design {old_ms:.3f} ms (device {old_dev:.3f}), plain "
+        f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
+        f"({bound['bound_by']}; {bound['bytes'] / 1e6:.1f} MB, "
+        f"{bound['flops'] / 1e12:.4f} TFLOP)")
+    return {"kernel": plan, "max_abs_err": res["max_abs_err"], "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "bound_share": bound["bound_ms"] / dev_ms, "library_ms": None,
+            "old_ms": old_ms, "old_device_ms": old_dev,
+            "old_kernel": "first"}
+
+
+def phase_grouped(dev) -> dict:
+    n = 0
+    for case in kc.grouped_exact_cases(dev):
+        real = case.real_rows
+        plain = kc.run_grouped_plain(case, real // kc.GROUP_ROWS)
+        # the plan's kernel, then each kernel that takes the slab type by
+        # name
+        for kernel in (None, "wgmma", "f32", "first"):
+            if kernel is not None and not kc.grouped_takes(case, kernel):
+                continue
+            out = kc.run_grouped_kernel(case, kernel)
+            torch.cuda.synchronize()
+            if not torch.equal(out[:real], plain):
+                raise AssertionError(f"grouped_gains ({kernel or 'plan'}) != "
+                                     f"plain on exact case {case.name}")
+            n += 1
+        if kc.grouped_plan_of(case) != (
+                "f32" if case.docs.dtype == torch.float32 else "wgmma"):
+            raise AssertionError(f"grouped_gains plans {case.name} to "
+                                 f"{kc.grouped_plan_of(case)}")
+    log(f"[kernel] grouped_gains {n} exact launches (f32 / bf16 / int8 / "
+        f"int4 slabs, S {', '.join(map(str, kc.GROUPED_S))}, row table, "
+        f"real-block count; through the plan, the wgmma or f32 kernel and the "
+        f"first design by name): gains equal")
+    case = kc.grouped_path_case(dev)
+    res = _check_grouped_path(
+        case, "path shape B=512 P=512 C=4096 d=768 S=256 bf16")
     # no single PyTorch call computes this; for a note, torch.bmm over the
     # gathered bf16 slabs of 512 blocks at a time (bf16 output, no epilogue)
+    blocks = case.real_rows // kc.GROUP_ROWS
     cl = case.blk_cluster[:blocks].long()
-    qb = case.q[case.rows[:real].long()].reshape(blocks, kc.GROUP_ROWS, -1)
+    qb = case.q[case.rows[:case.real_rows].long()].reshape(
+        blocks, kc.GROUP_ROWS, -1)
 
     def bmm_note():
         for g0 in range(0, blocks, 512):
             torch.bmm(qb[g0:g0 + 512], case.docs[cl[g0:g0 + 512]])
 
-    bmm_ms = kc.cuda_time_ms(bmm_note, warmup=1, reps=3)
-    log(f"[kernel] grouped_gains path shape: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
-        f"({bound['bound_by']}; {bound['bytes'] / 1e6:.1f} MB, "
-        f"{bound['flops'] / 1e12:.4f} TFLOP); note: torch.bmm over gathered "
-        f"bf16 slabs {bmm_ms:.3f} ms")
+    res["bmm_note_ms"] = kc.cuda_time_ms(bmm_note, warmup=1, reps=3)
+    log(f"[kernel] grouped_gains path shape: note: torch.bmm over gathered "
+        f"bf16 slabs {res['bmm_note_ms']:.3f} ms")
     del case, qb, cl
     torch.cuda.empty_cache()
-    return {"max_abs_err": res["max_abs_err"], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
-            "bound_by": bound["bound_by"], "library_ms": None,
-            "bmm_note_ms": bmm_ms}
+    modes = {}
+    for slab in ("int8", "int4"):
+        case = kc.grouped_path_case(dev, slab=slab)
+        modes[slab] = _check_grouped_path(
+            case, f"path shape B=512 P=512 C=4096 d=768 S=256 {slab}, a "
+            f"scale a slot")
+        del case
+        torch.cuda.empty_cache()
+    res["modes"] = modes
+    return res
 
 
 def phase_pair(dev) -> dict:
@@ -1128,6 +1224,7 @@ def phase_main_paths(dev) -> dict:
     n_docs = sum(MEDRAG_DOCS.values())
     out = {}
     for topics, runs in ((1, (("exact", []),
+                              ("exact_f32", ["--dtype", "float32"]),
                               ("lowrank", ["--impl", "lowrank"]),
                               ("lowrank_deep", ["--impl", "lowrank",
                                                 "--refine-mult",
@@ -1146,7 +1243,7 @@ def phase_main_paths(dev) -> dict:
             for label, flags in runs:
                 out[label] = serve_path(
                     root, dev, syn, label, flags,
-                    recall_gate=0.9 if label == "ivf" else 0.99)
+                    recall_gate=RECALL_GATES.get(label, 0.99))
                 if label in DEEP_PATHS:
                     check_deep(label, out[label]["launches"],
                                out[label]["recall"], out)
@@ -1193,8 +1290,14 @@ def phase_reduced(dev) -> None:
     # scores that agree to 1e-5 relative: the two kernels sum in different
     # orders)
     eng = engine(torch.float32, "ivf", ivf_clusters=128, nprobe=128)
+    reset_counts()
     full = search(eng)
     exact = search(FederatedSearchEngine(eng.shard_set, router, bank))
+    # the f32 ivf run through K3's f32 kernel (K1 at these 64 queries takes
+    # its first design: fused_topk.f32_scan_pays)
+    if grouped_gains.f32_launches < 4:
+        raise AssertionError(f"the f32 ivf run did not take K3's f32 "
+                             f"kernel: {read_counts()}")
     swaps = 0
     for r, (a, b) in enumerate(zip(_winner_sets(full), _winner_sets(exact))):
         if a != b:
@@ -1993,7 +2096,7 @@ def report(smi: str, kres: dict, paths: dict) -> None:
             "launches": sum(by_path[p] for p, ks in PATH_KERNELS.items()
                             if name in ks and p in by_path),
             "launches_by_path": by_path, **kres[name]}
-        for extra in ("deep", "fold"):
+        for extra in ("deep", "wgmma", "fold", "f32"):
             if hasattr(KERNELS[name][0], f"{extra}_launches"):
                 row[f"{extra}_launches_by_path"] = {
                     p: r["launches"][extra][name] for p, r in paths.items()

@@ -114,10 +114,28 @@
 //     query chunk with one doc chunk as bf16's do and a box is read once;
 //   * TMA needs a row stride of a multiple of 16 bytes: D % 16 for int8
 //     (always, as the kernel takes it) and D % 32 for int4; other int4
-//     widths keep partial_topk_kernel (the plan's choice). f32 docs keep it
-//     too: TF32 would change answers that the plain version forms in f32.
+//     widths keep partial_topk_kernel (the plan's choice). f32 docs do not
+//     take the tensor cores: TF32 would change answers that the plain
+//     version forms in f32 (below).
 // The producer group keeps its registers when it converts (no setmaxnreg:
 // every thread keeps what the launch bounds give it).
+//
+// f32 docs with k <= KSHALLOW take f32_topk_kernel (fused_topk_f32_launch,
+// ops/fused_topk.py's "f32"): full f32 FMA on the CUDA cores, f32_tile.cuh's
+// product over 128 query rows x 128 docs a tile (8 x 8 accumulators a
+// thread), the operands' [128 x 32] boxes brought by a producer warp's TMA
+// into a ring of 4 to 6 stages, and the fold above (branch-free compares
+// with each row's k-th best in registers, candidates to a row's buffer in
+// shared memory, merge_buffer by rank, split lists merged by topk_merge.cuh).
+// A warp owns 16 rows whole, so it merges their buffers alone, and the
+// consumer warps wait on the ring's barriers, not on each other, so one
+// warp's fold runs beside the others' products. What bounds it is f32 FMA
+// at 67 TFLOP/s (8.6 ms at B = 512 over 734,003 x 768; it runs at about 60%
+// of that, PERF.md). Its 128-row query tile costs more than one of the
+// first design's 64-row tiles and less than two, so the plan keeps batches
+// of 64 rows or fewer there (ops/fused_topk.py::f32_scan_pays). f32 lists
+// past KSHALLOW keep partial_topk_kernel to KMAX and the deep launch past
+// it.
 //
 // Lists past KSHALLOW over the docs the scan takes go to the same kernel
 // with its deep fold (DEEP; fused_topk_fold_launch, ops/fused_topk.py's
@@ -157,6 +175,7 @@
 
 #include "codes.cuh"
 #include "deep_topk.cuh"
+#include "f32_tile.cuh"
 #include "hopper.cuh"
 #include "topk_merge.cuh"
 
@@ -1288,6 +1307,207 @@ cudaError_t launch_wgmma(const void* q, const void* docs, const float* bias,
 }
 
 
+// ---- f32 docs at k <= KSHALLOW: a register-blocked scan (f32_topk_kernel) --
+
+constexpr int F_TQ = 128;        // query rows a block
+constexpr int F_TD = 128;        // docs a tile
+constexpr int F_BK = 32;         // contraction chunk (floats): 128-byte rows
+constexpr int F_TILE = 128 * F_BK * 4;   // a [128 x 32] f32 box, 16 KB
+constexpr int F_STAGE = 2 * F_TILE;      // a query box and a doc box
+constexpr int F_MAX_STAGES = 6;
+
+// Shared memory at depth K with `stages` ring stages: the ring (1024-byte
+// aligned), the rows' lists, candidate buffers and buffer counts, the
+// barriers.
+__host__ __device__ constexpr int f_smem_bytes(int stages, int K) {
+  return stages * F_STAGE + F_TQ * ((K + W_CAP) * 8 + 4) + 2 * stages * 8 +
+         1024;
+}
+
+// Grid (query tiles of 128, doc splits), the query tile fastest. The block's
+// 8 consumer warps stream the split's doc tiles of 128 in ascending order,
+// each over the contraction in chunks of 32 that a producer warp (the
+// ninth) brings by TMA into a ring of `stages`: a [128 x 32] box of the
+// queries and one of the docs, 128-byte rows in the 128-byte swizzle, zeros
+// past B, N and D. A consumer waits on the stage's barrier and frees it
+// when done (no block-wide barrier, so one warp's fold runs beside the
+// others' products); thread (ty, tx) = (2 warp + lane / 16, lane % 16) keeps
+// the 8 x 8 f32 gains of rows ty + 16 i and docs tx + 16 j (f32_tile.cuh's
+// product, reading the swizzled boxes), so that a warp owns 16 rows whole.
+// After a tile the fold of the wgmma scan follows, 8 gains a step (doc j of
+// the thread's 8 rows): each formed as the plain version forms it (x
+// scale, + bias, -inf past N) and compared with its row's current k-th best
+// with no branch; the few that pass go to the row's buffer in shared
+// memory, and a buffer that may not take another step's 16 is merged into
+// the row's sorted list by rank (merge_buffer).
+template <int SLOTS>
+__global__ void __launch_bounds__(288, 1) f32_topk_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap dmap, const float* __restrict__ bias,
+    const float* __restrict__ scale, float* __restrict__ part_g,
+    int* __restrict__ part_i, int B, int N, int D, int K, int splits,
+    int tiles_per_split, int stages) {
+  constexpr int TM = 8;                  // rows a thread: ty + TY i
+  constexpr int TY = F_TQ / TM;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  float* run_g = reinterpret_cast<float*>(smem + stages * F_STAGE);
+  int* run_i = reinterpret_cast<int*>(run_g + F_TQ * K);
+  float* buf_g = reinterpret_cast<float*>(run_i + F_TQ * K);
+  int* buf_i = reinterpret_cast<int*>(buf_g + F_TQ * W_CAP);
+  int* buf_n = buf_i + F_TQ * W_CAP;
+  uint64_t* full = reinterpret_cast<uint64_t*>(buf_n + F_TQ);
+  uint64_t* empty = full + stages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * F_TQ, split = blockIdx.y;
+  const int n_tiles = (N + F_TD - 1) / F_TD;
+  const int tile_begin = split * tiles_per_split;
+  const int tile_end = min(tile_begin + tiles_per_split, n_tiles);
+  const int chunks = (D + F_BK - 1) / F_BK;
+  const int total = max(0, tile_end - tile_begin) * chunks;
+
+  for (int e = tid; e < F_TQ * K; e += blockDim.x) {
+    run_g[e] = neg_inf();
+    run_i[e] = 0;
+  }
+  for (int e = tid; e < F_TQ; e += blockDim.x) buf_n[e] = 0;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&full[s], 1);    // the TMA's arrival
+      hopper::mbar_init(&empty[s], 8);   // one arrival a consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // ---- producer ----
+    if (lane == 0) {
+      hopper::prefetch_tmap(&qmap);
+      hopper::prefetch_tmap(&dmap);
+      for (int i = 0; i < total; ++i) {
+        const int s = i % stages;
+        unsigned char* st = smem + s * F_STAGE;
+        hopper::mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], F_STAGE);
+        const int k0 = (i % chunks) * F_BK;
+        hopper::tma_load_2d(st, &qmap, &full[s], k0, q0);
+        hopper::tma_load_2d(st + F_TILE, &dmap, &full[s], k0,
+                            (tile_begin + i / chunks) * F_TD);
+      }
+    }
+    return;
+  }
+
+  const int ty = 2 * warp + (lane >> 4), tx = lane & 15;
+  // a gain passes at its row's threshold: the row's k-th best, and at least
+  // the lowest finite gain (-inf never enters); rows past B take nothing
+  const float pinf = __int_as_float(0x7f800000), low = -FLT_MAX;
+  float thr[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) thr[i] = q0 + ty + TY * i < B ? low : pinf;
+  // the warp's 2 TM rows: lane l < 2 TM names row 2 warp + (l & 1) + TY
+  // (l >> 1)
+  const int my_row = 2 * warp + (lane & 1) + TY * ((lane >> 1) % TM);
+  auto row_of = [&](int l) { return 2 * warp + (l & 1) + TY * (l >> 1); };
+  auto merge_row = [&](int row) {
+    merge_buffer<SLOTS>(run_g + row * K, run_i + row * K, buf_g + row * W_CAP,
+                        buf_i + row * W_CAP, K, buf_n[row], lane);
+    if (lane == 0) buf_n[row] = 0;
+    __syncwarp();
+  };
+  float acc[TM][8];
+
+  for (int t = tile_begin, i = 0; t < tile_end; ++t) {
+    const int j0 = t * F_TD;
+    // the tile's bias and scale of this thread's docs, loaded under the
+    // products
+    float bs[8], sc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int doc = j0 + tx + 16 * j;
+      bs[j] = doc >= N ? neg_inf() : bias ? __ldg(bias + doc) : 0.0f;
+      sc[j] = scale && doc < N ? __ldg(scale + doc) : 1.0f;
+    }
+#pragma unroll
+    for (int a = 0; a < TM; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[a][b] = 0.0f;
+    for (int c = 0; c < chunks; ++c, ++i) {
+      const int s = i % stages;
+      const float* sq = reinterpret_cast<const float*>(smem + s * F_STAGE);
+      hopper::mbar_wait(&full[s], (i / stages) & 1);
+      f32tile::fma_nt<TM, TY, 16>(acc, sq, sq + F_TQ * F_BK, ty, tx);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+    // ---- fold the [128 x 128] gain tile, doc j of the thread's rows a step
+    // (a loop, not unrolled: the rarer merges below are one copy of code)
+    // the gains, formed with separate roundings as the plain version forms
+    // them
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float g = acc[r][j];
+        if (scale) g = __fmul_rn(g, sc[j]);
+        acc[r][j] = __fadd_rn(g, bs[j]);
+      }
+    for (int j = 0; j < 8; ++j) {
+      float x[TM];
+      unsigned m = 0;
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+        // picked by a select chain, not a runtime index, to stay in
+        // registers
+        float g = acc[r][0];
+#pragma unroll
+        for (int w = 1; w < 8; ++w) g = j == w ? acc[r][w] : g;
+        x[r] = g;
+        m |= g >= thr[r] ? 1u << r : 0u;
+      }
+      if (!__any_sync(FULL, m)) continue;
+      const int doc = j0 + tx + 16 * j;
+      for (; m; m &= m - 1) {
+        const int u = __ffs(m) - 1;
+        float g = x[0];
+#pragma unroll
+        for (int w = 1; w < TM; ++w) g = u == w ? x[w] : g;
+        const int row = ty + TY * u;
+        const int at = row * W_CAP + atomicAdd(&buf_n[row], 1);
+        buf_g[at] = g;
+        buf_i[at] = doc;
+      }
+      __syncwarp();
+      // a row takes at most 16 candidates a step (one from each of its 16
+      // lanes): buffers past their capacity less 16 are merged now
+      unsigned rows =
+          __ballot_sync(FULL, lane < 2 * TM && buf_n[my_row] > W_CAP - 16);
+      if (!rows) continue;
+      for (; rows; rows &= rows - 1) merge_row(row_of(__ffs(rows) - 1));
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+        const int row = ty + TY * r;
+        if (q0 + row < B) thr[r] = fmaxf(run_g[row * K + K - 1], low);
+      }
+    }
+  }
+  __syncwarp();
+  unsigned rows = __ballot_sync(FULL, lane < 2 * TM && buf_n[my_row] > 0);
+  for (; rows; rows &= rows - 1) merge_row(row_of(__ffs(rows) - 1));
+
+  // each warp writes out its own rows
+  for (int l = 0; l < 2 * TM; ++l) {
+    const int r = row_of(l), row = q0 + r;
+    if (row >= B) continue;
+    for (int c = lane; c < K; c += 32) {
+      const size_t o = ((size_t)row * splits + split) * K + c;
+      part_g[o] = run_g[r * K + c];
+      part_i[o] = run_i[r * K + c];
+    }
+  }
+}
+
 // ---- deep lists (k > KMAX): a doc chunk's gains in device memory ------------
 
 // One block a (query tile, doc tile) of the chunk [c0, c_end): the [TQ x TD]
@@ -1580,6 +1800,57 @@ extern "C" int fused_topk_fold_launch(const void* q, const void* docs,
     default: RAGROUTE_FOLD_LAUNCH(kI4G); break;
   }
 #undef RAGROUTE_FOLD_LAUNCH
+  if (err != cudaSuccess) return (int)err;
+  topk::merge_splits_kernel<long long>
+      <<<B, topk::MERGE_THREADS, splits * (int)sizeof(int), st>>>(
+          pg, pi, static_cast<float*>(out_g), static_cast<long long*>(out_i),
+          splits, K);
+  return (int)cudaGetLastError();
+}
+
+// f32 docs (doc_type kF32) and f32 queries [B, D] (16-byte aligned bases), k
+// <= KSHALLOW, through f32_topk_kernel (query tiles of 128, doc tiles of 128,
+// a ring of `stages`: ops/fused_topk.py::f32_stages), then
+// merge_splits_kernel. Arguments otherwise as fused_topk_launch.
+extern "C" int fused_topk_f32_launch(const void* q, const void* docs,
+                                     const void* bias, const void* scale,
+                                     void* part_g, void* part_i, void* out_g,
+                                     void* out_i, int B, int N, int D, int K,
+                                     int splits, int tiles_per_split,
+                                     int stages, void* stream) {
+  if (B < 1 || N < 1 || D < 16 || D % 16 != 0 || K < 1 ||
+      K > topk::KSHALLOW || splits < 1 || splits > 65535 ||
+      tiles_per_split < 1 || stages < 2 || stages > F_MAX_STAGES ||
+      reinterpret_cast<uintptr_t>(q) % 16 ||
+      reinterpret_cast<uintptr_t>(docs) % 16)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return (int)err;
+  const int smem = f_smem_bytes(stages, K);
+  if (smem > optin) return (int)cudaErrorInvalidValue;
+  CUtensorMap qmap, dmap;
+  err = hopper_host::make_tmap_2d(&qmap, q, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                                  B, D, D, F_TQ, F_BK);
+  if (err != cudaSuccess) return (int)err;
+  err = hopper_host::make_tmap_2d(&dmap, docs, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                  4, N, D, D, F_TD, F_BK);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* pg = static_cast<float*>(part_g);
+  int* pi = static_cast<int*>(part_i);
+  err = cudaFuncSetAttribute(f32_topk_kernel<topk::SLOTS_SHALLOW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  f32_topk_kernel<topk::SLOTS_SHALLOW>
+      <<<dim3((B + F_TQ - 1) / F_TQ, splits), 288, smem, st>>>(
+          qmap, dmap, static_cast<const float*>(bias),
+          static_cast<const float*>(scale), pg, pi, B, N, D, K, splits,
+          tiles_per_split, stages);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   topk::merge_splits_kernel<long long>
       <<<B, topk::MERGE_THREADS, splits * (int)sizeof(int), st>>>(

@@ -28,8 +28,10 @@ The int8 and int4 shapes of K1 and K4's path shape in turns (``--kernels
 734,003 x 768 shard in int8 and in int4 with per-doc and per-group scales
 (k = 32) and hostrefine's flat coarse slab (2,936,320 x 128 int8, k' =
 128), K4 at the probed scan's serving shape (512 queries x 512 probes of
-4,096 slabs of 128 x 1,584); CUDA events (median of 5) and the profiler's
-device time, each tree's own plan.
+4,096 slabs of 128 x 1,584), K3 at its path shape over bf16, int8 and
+int4 slabs (512 queries x 512 probes of 4,096 slabs of 768 x 256) and K1
+over the 734,003 x 768 shard in f32 (k = 32); CUDA events (median of 5)
+and the profiler's device time, each tree's own plan.
 
 ``--kernels`` times the streaming top-k (K2) and decode attention (K6) at
 the main path's shapes instead: K2 over [512, 131,072] (k = 32, the ivf
@@ -56,7 +58,11 @@ at the gate/up shape (the first kernel against the decode kernel below
 the deep launch over k (65 to 256) and the docs' width (128, 512, 768) for
 bf16 over 734,003 docs and at k' = 128 over 83,886 to 262,144, and for int8
 (hostrefine's flat coarse slab, the 768-wide shard) and int4 (per-doc
-scales, widths 128 and 768), the readings behind ``int4_matmul.M_SWITCH``,
+scales, widths 128 and 768), K1's f32 scan against its first design over
+B (8 to 512: the reading behind ``fused_topk.f32_scan_pays``) and N
+(104,857 and 734,003), K3's wgmma kernel against its
+first design at the small sources' slabs (1,024 clusters, S 104 and 160)
+and at B = 8, the readings behind ``int4_matmul.M_SWITCH``,
 ``fused_topk.FOLD_MIN_DOCS`` and the fold's range; with ``--parent DIR`` K5 at the two prefill shapes, K5 at
 Qwen3-8B's five decode shapes and K1's deep lists (the low-rank coarse
 scan at k' = 128 and 256, hostrefine's at k' = 256) join the turns, each
@@ -69,9 +75,11 @@ weights, int8 KV, 16 prompts of 2,048 tokens: the prefill, then 32 greedy
 decode steps), the host tiers' steps at B = 512 (routing ``ragroute``
 and ``all``: ``stream`` and ``hostrefine`` over the clustered coarse slab,
 over the world ``chip_smoke.py`` serves, half of ``--tiers``' under half
-its budget), the low-rank engine step at B = 512 and one Qwen3-8B decode
-step (host clock, device time, K5's share and launches), each in a process
-of its own.
+its budget), the low-rank engine step at B = 512, one Qwen3-8B decode
+step (host clock, device time, K5's share and launches), and the ivf step
+over the topical world and the exact step over the world in f32 (B = 512,
+routing ``all``; host clock, device time a step, K3's and K1's share), each
+in a process of its own.
 
 ``--tiers`` measures the host-RAM capacity tiers instead: the synthetic
 medrag world at eight times that size (8,388,600 docs x 768, 64 topics per
@@ -243,6 +251,45 @@ print(json.dumps(rows))
 """
 
 
+# K3 at its path shape over bf16, int8 and int4 slabs (int8 / int4: random
+# codes, a scale a slot, put in place of the bf16 case's slabs) and K1 over
+# the 734,003 x 768 f32 shard at k = 32, each tree's own plan; uses only
+# functions that every tree since the approximate modes has
+GROUPED_F32_TIMER = """
+import dataclasses, json, torch
+from ragroute_tpu_torch.ops import decoder_checks as dc, kernel_checks as kc
+from ragroute_tpu_torch.ops.fused_topk import fused_topk
+from ragroute_tpu_torch.ops.grouped_gains import grouped_gains
+dev, rows = torch.device("cuda"), []
+def row(name, f, wrapper, reps):
+    f()
+    rows.append({"name": name, "ms": kc.cuda_time_ms(f, reps=reps),
+                 "device_ms": dc.device_ms(f, wrapper, warmup=1, reps=reps),
+                 "library_ms": None})
+    torch.cuda.empty_cache()
+base = kc.grouped_path_case(dev)
+c, d, s = base.docs.shape
+g = torch.Generator(device=dev).manual_seed(5)
+scale = 0.005 + 0.005 * torch.rand((c, s), generator=g, device=dev)
+for slab in ("bf16", "int8", "int4"):
+    case = base
+    if slab != "bf16":
+        codes = torch.randint(-128, 128, (c, d // 2 if slab == "int4" else d,
+                                          s), generator=g, device=dev,
+                              dtype=torch.int16).to(torch.int8)
+        case = dataclasses.replace(base, docs=codes, scale=scale,
+                                   packed4=slab == "int4")
+    row(f"k3 B=512 P=512 C=4096 d=768 S=256 {slab}",
+        lambda: kc.run_grouped_kernel(case), grouped_gains, 10)
+    del case
+del base
+torch.cuda.empty_cache()
+f32 = kc.path_case(dev, dtype=torch.float32)
+row("k1 734003 x 768 f32 k=32", lambda: kc.run_kernel(f32), fused_topk, 3)
+print(json.dumps(rows))
+"""
+
+
 # this tree only: K5's kernels over M at the gate/up shape (the first
 # kernel against the decode kernel below M_SWITCH and the prefill kernel
 # from it), and K1's deep fold against the deep launch over k (past 64),
@@ -285,6 +332,36 @@ for n in (83_886, 104_857, 125_829, 262_144):
     for d in (128, 768):
         scan_against_deep(f"N={n} d={d} bf16", kc.path_case(dev, n=n, d=d,
                                                             seed=0), (128,))
+# the f32 scan against the first design over the batch and the shard's size
+# (the plan sends f32 lists up to 64 to the scan)
+for n in (104_857, 734_003):
+    for bsz in (8, 64, 128, 192, 512):
+        case = kc.path_case(dev, bsz=bsz, n=n, dtype=torch.float32, seed=1)
+        for k in (32, 64) if bsz == 512 else (32,):
+            case.k = k
+            for kernel in ("f32", "shallow"):
+                f = lambda: kc.run_kernel(case, kernel)
+                rows.append({"name": f"k1 B={bsz} N={n} d=768 f32 k={k}",
+                             "kernel": kernel,
+                             "ms": kc.cuda_time_ms(f, reps=3),
+                             "device_ms": dc.device_ms(f, fused_topk,
+                                                       warmup=1, reps=3)})
+        del case
+        torch.cuda.empty_cache()
+# K3's wgmma kernel against the first design at the small sources' shapes
+# (C = 1,024 clusters, S 104 to 160, 128 probes) and at B = 8 over pubmed's
+from ragroute_tpu_torch.ops.grouped_gains import grouped_gains
+for bsz, c, s, p in ((512, 1024, 104, 128), (512, 1024, 160, 128),
+                     (8, 4096, 256, 512), (512, 4096, 256, 512)):
+    case = kc.grouped_path_case(dev, bsz=bsz, c=c, s=s, nprobe=p)
+    for kernel in ("wgmma", "first"):
+        f = lambda: kc.run_grouped_kernel(case, kernel)
+        rows.append({"name": f"k3 B={bsz} P={p} C={c} d=768 S={s} bf16",
+                     "kernel": kernel, "ms": kc.cuda_time_ms(f, reps=5),
+                     "device_ms": dc.device_ms(f, grouped_gains, warmup=1,
+                                               reps=5)})
+    del case
+    torch.cuda.empty_cache()
 n_flat = 2_936_320
 for label, make, ks in (
         (f"N={n_flat} d=128 int8 (flat coarse)", lambda: kc.int8_path_case(
@@ -477,6 +554,51 @@ rows.append({"name": "qwen3-8b decode step B=16 S=2080 int4, int8 KV",
 print(json.dumps(rows))
 """
 
+# --turns: the ivf step over the topical world (1,048,575 docs x 768, 64
+# topics a source, bf16 with the balanced-IVF layouts, B = 512, routing all;
+# host clock around engine.search, median of 10 after 2 warm-ups) with the
+# device time of 10 steps and K3's share of it (profile_steps), then the
+# exact step over the same world in f32 (B = 512, routing all); both use
+# only functions that every tree since the approximate modes has
+IVF_F32_TIMER = """
+import gc, json, time, numpy as np, torch
+from ragroute_tpu_torch.engine import FederatedSearchEngine
+from ragroute_tpu_torch.index import ShardSet, make_synthetic_world
+from ragroute_tpu_torch.measure import profile_steps
+from ragroute_tpu_torch.router import CorpusRouter, RouterBank
+dev, rows = torch.device("cuda"), []
+syn = make_synthetic_world("medrag", docs_per_source_map={
+    "pubmed": 734_003, "statpearls": 104_857, "textbooks": 83_886,
+    "wikipedia": 125_829}, num_queries=512, seed=0, with_payloads=False,
+    subclusters=64)
+router = CorpusRouter.from_seed(syn.world.router_input_dim, 0, dev)
+bank = RouterBank.create(syn.world, syn.centroids, device=dev)
+for label, dtype, impl, build in (("ivf", torch.bfloat16, "ivf",
+                                   {"ivf_clusters": -1}),
+                                  ("f32 exact", torch.float32, "auto", {})):
+    ss = ShardSet.build(syn.world, syn.embeddings, dtype=dtype, device=dev,
+                        **build)
+    eng = FederatedSearchEngine(ss, router, bank, impl=impl)
+    times = []
+    for i in range(12):
+        t0 = time.perf_counter()
+        eng.search(syn.query_embs, strategy="all", staged=False,
+                   fetch_candidates=False)
+        times.append(1e3 * (time.perf_counter() - t0))
+    prof = profile_steps(eng, syn, 512, top=40)
+    k3 = sum(k["ms"] for k in prof["kernels"] if "grouped_" in k["name"])
+    k1 = sum(k["ms"] for k in prof["kernels"] if "topk_kernel" in k["name"])
+    rows.append({"name": f"{label} step all B=512",
+                 "ms": float(np.median(times[2:])),
+                 "device_ms": prof["device_ms"] / 10,
+                 "busy_share": prof["busy_share"], "k3_ms": k3 / 10,
+                 "k1_ms": k1 / 10})
+    del eng, ss
+    gc.collect()
+    torch.cuda.empty_cache()
+print(json.dumps(rows))
+"""
+
 LOCKSTEP_TIMER = """
 import json, time, numpy as np, torch
 from ragroute_tpu_torch.llm.model import decode_step, init_cache, prefill
@@ -523,7 +645,7 @@ def served_in_turns(parent: str, card: str, timers=None):
     for label, tree in (("parent", parent), ("change", here),
                         ("change", here), ("parent", parent)):
         for timer in timers or (STEP_TIMER, LOCKSTEP_TIMER, TIER_TIMER,
-                                LOWRANK_DECODE_TIMER):
+                                LOWRANK_DECODE_TIMER, IVF_F32_TIMER):
             proc = subprocess.run([sys.executable, "-c", timer], cwd=tree,
                                   capture_output=True, text=True,
                                   timeout=1200)
@@ -532,11 +654,16 @@ def served_in_turns(parent: str, card: str, timers=None):
             for row in json.loads(proc.stdout.strip().splitlines()[-1]):
                 extra = ("" if "tokens_per_s" not in row else
                          f", {row['tokens_per_s']:.1f} tokens/s")
-                if "device_ms" in row:
+                if "k5_ms" in row:
                     extra += (f", device {row['device_ms']:.3f} ms (K5 "
                               f"{row['k5_ms']:.3f} in "
                               f"{row['k5_launches']:.0f} launches), busy "
                               f"share {row['busy_share']:.3f}")
+                elif "k3_ms" in row:
+                    extra += (f", device {row['device_ms']:.3f} ms a step "
+                              f"(K3 {row['k3_ms']:.3f}, K1 "
+                              f"{row['k1_ms']:.3f}), busy share "
+                              f"{row['busy_share']:.3f}")
                 print(f"[turns] {label}: {row['name']}: {row['ms']:.3f} ms"
                       f"{extra} ({card})", flush=True)
                 out.append(dict(row, tree=label))
@@ -643,7 +770,8 @@ def kernels_in_turns(parent: Optional[str], card: str):
     turns = ((("parent", parent), ("change", here), ("change", here),
               ("parent", parent)) if parent else (("change", here),))
     for label, tree in turns:
-        for timer in (QUANT_TIMER, TURNS_TIMER, DECODE_DEEP_TIMER):
+        for timer in (QUANT_TIMER, TURNS_TIMER, DECODE_DEEP_TIMER,
+                      GROUPED_F32_TIMER):
             proc = subprocess.run([sys.executable, "-c", timer], cwd=tree,
                                   capture_output=True, text=True, timeout=900)
             if proc.returncode != 0:

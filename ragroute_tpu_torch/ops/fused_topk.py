@@ -28,10 +28,15 @@ shards of :data:`FOLD_MIN_DOCS` docs or more, the same scan with its deep
 fold (each row a lower bound on its k-th best in a register, candidates
 staged in shared memory and kept in device memory, cut by a warp's radix
 select; :func:`fold_takes`: up to ``deep_topk.FOLD_MAX_K``, its workspace
-under the cap); f32 docs, and int4
-docs whose packed rows are not a whole number of 16 bytes (d % 32, the
-TMA's row stride), take the first design (``partial_topk_kernel``, 64 query
-rows a block, doc tiles of 64), whose lists stop at :data:`MAX_SHALLOW_K`;
+under the cap); f32 docs up to :data:`SHALLOW_K` take the f32 scan from
+65 query rows (:func:`f32_scan_pays`; ``f32_topk_kernel``: full f32 FMA on
+the CUDA cores, ``csrc/f32_tile.cuh``'s product over 128 query rows and 128
+docs a tile, operands by TMA into a ring, the wgmma scan's fold); smaller
+f32 batches, deeper f32 lists up to :data:`MAX_SHALLOW_K`, and int4 docs
+whose packed rows are not a whole number of 16 bytes (d % 32, the TMA's
+row stride), take the first
+design (``partial_topk_kernel``, 64 query rows a block, doc tiles of 64),
+whose lists stop at :data:`MAX_SHALLOW_K`;
 a list the fold does not take past that, any ``k`` as the TPU kernel takes,
 runs the deep launch: the same product and epilogue write a chunk of docs'
 gains to a workspace in device memory, every run of 8,192 docs is cut to
@@ -91,6 +96,26 @@ FOLD_MIN_DOCS = 400_000
 W_TILE_Q = 128
 W_TILE_D = 192
 W_MAX_WAVES = 8
+# the f32 scan (csrc/fused_topk.cu F_*): 128 query rows and 128 docs a
+# tile, a ring of up to 6 stages of a [128 x 32] f32 query box and doc box
+# (TMA), beside the rows' lists and candidate buffers of 32; one block an
+# SM, so its splits are planned as the wgmma scan's
+F32_TILE_Q = 128
+F32_TILE_D = 128
+F32_MAX_STAGES = 6
+F32_STAGE_BYTES = 2 * 128 * 32 * 4
+F32_CAP = 32                      # a row's candidate buffer (W_CAP)
+def f32_scan_pays(bsz: int) -> bool:
+    """Whether the f32 scan beats the first design at ``bsz`` query rows:
+    past one first-design tile of 64 rows. A scan tile of 128 rows cost
+    about 1.36 first-design tiles on the card, so one half-empty scan tile
+    loses to one first-design tile, and from 65 rows the scan's tiles cost
+    less (device ms over 734,003 x 768 f32, k = 32, scan / first design:
+    B = 8 3.47 / 2.67, 64 3.65 / 3.24, 128 3.80 / 5.69, 192 7.19 / 8.21, 512
+    13.98 / 20.59; over 104,857 docs 64 rows already pay, 0.69 / 0.86;
+    ``measure.py --kernels``, PERF.md)."""
+    return bsz > TILE_Q
+SMEM_OPTIN = 232_448              # shared memory a block of an H100 may take
 _F32, _BF16, _I8 = 0, 1, 2
 _DOC_TYPES = {torch.float32: _F32, torch.bfloat16: _BF16, torch.int8: _I8}
 _INT4_PER_DOC, _INT4_PER_GROUP = 3, 4    # csrc DocType kI4, kI4G
@@ -104,6 +129,21 @@ def scan_takes(d: int, doc_type: int) -> bool:
     if doc_type in (_INT4_PER_DOC, _INT4_PER_GROUP):
         return d % 32 == 0
     return doc_type in (_BF16, _I8)
+
+
+def f32_smem_bytes(stages: int, k: int) -> int:
+    """Shared memory of the f32 scan (``f_smem_bytes`` in the source): the
+    ring, the 128 rows' lists of ``k``, their candidate buffers and counts,
+    the barriers, 1024 bytes to align the ring."""
+    return (stages * F32_STAGE_BYTES + F32_TILE_Q * ((k + F32_CAP) * 8 + 4)
+            + 2 * stages * 8 + 1024)
+
+
+def f32_stages(k: int) -> int:
+    """The f32 scan's ring at depth ``k``: as many stages as fit, at most
+    :data:`F32_MAX_STAGES` (5 at k <= 32, 4 at k = 64)."""
+    return max(n for n in range(2, F32_MAX_STAGES + 1)
+               if f32_smem_bytes(n, k) <= SMEM_OPTIN)
 
 
 def gain_form(queries: Tensor, docs: Tensor, *, mode: str,
@@ -173,14 +213,17 @@ def _lib():
         lib.fused_topk_wgmma_launch.restype = ci
         lib.fused_topk_fold_launch.argtypes = [vp] * 9 + [ci] * 9 + [vp]
         lib.fused_topk_fold_launch.restype = ci
+        lib.fused_topk_f32_launch.argtypes = [vp] * 8 + [ci] * 7 + [vp]
+        lib.fused_topk_f32_launch.restype = ci
         lib._argtypes_set = True
     return lib
 
 
 class Plan(NamedTuple):
     """How one call runs: ``kernel`` is ``"wgmma"`` (the scan),
-    ``"fold"`` (the scan with the deep fold), ``"shallow"`` (the first
-    design) or ``"deep"`` (the gains' round trip through device memory);
+    ``"fold"`` (the scan with the deep fold), ``"f32"`` (the f32 scan),
+    ``"shallow"`` (the first design) or ``"deep"`` (the gains' round trip
+    through device memory);
     ``splits`` doc splits of ``tiles_per_split`` tiles of ``tile_d`` docs
     (unused by the deep launch); the fold's ``cap`` candidate slots a
     (row, split)."""
@@ -234,17 +277,22 @@ def _plan(bsz: int, n_rows: int, d: int, k: int, doc_type: int, sms: int,
     fit raises. Lists past :data:`SHALLOW_K` take the deep fold where it
     takes them (:func:`fold_takes`) over :data:`FOLD_MIN_DOCS` docs or
     more, else the deep launch; shallower lists
-    take the wgmma scan where it takes the docs, else the first design. The
+    take the wgmma scan where it takes the docs, f32 docs the f32 scan up to
+    :data:`SHALLOW_K` from 65 query rows (:func:`f32_scan_pays`), else the
+    first
+    design. The
     doc splits fill the card at small and large batch alike: the first
-    design's blocks are small (several an SM); the wgmma launches' take a
-    whole SM (:func:`_wave_splits`), the fold's also no more than its
-    workspace allows."""
+    design's blocks are small (several an SM); the wgmma launches' and the
+    f32 scan's take a whole SM (:func:`_wave_splits`), the fold's also no
+    more than its workspace allows."""
     if kernel is None:
         if (k > SHALLOW_K and n_rows >= FOLD_MIN_DOCS
                 and fold_takes(bsz, d, k, doc_type, cap)):
             kernel = "fold"
         elif k > MAX_SHALLOW_K:
             kernel = "deep"
+        elif doc_type == _F32 and k <= SHALLOW_K and f32_scan_pays(bsz):
+            kernel = "f32"
         elif not scan_takes(d, doc_type):
             kernel = "shallow"
         elif k > SHALLOW_K:     # a small shard, or the fold's workspace
@@ -254,6 +302,9 @@ def _plan(bsz: int, n_rows: int, d: int, k: int, doc_type: int, sms: int,
     elif kernel == "wgmma" and (k > SHALLOW_K or not scan_takes(d, doc_type)):
         raise ValueError(f"fused_topk: the wgmma scan does not take k={k} "
                          f"over doc type {doc_type} at d={d}")
+    elif kernel == "f32" and (k > SHALLOW_K or doc_type != _F32):
+        raise ValueError(f"fused_topk: the f32 scan does not take k={k} "
+                         f"over doc type {doc_type}")
     elif kernel == "fold" and not fold_takes(bsz, d, k, doc_type, cap):
         raise ValueError(f"fused_topk: the deep fold does not take k={k} "
                          f"over doc type {doc_type} at d={d}, B={bsz}")
@@ -270,6 +321,10 @@ def _plan(bsz: int, n_rows: int, d: int, k: int, doc_type: int, sms: int,
         n_tiles = -(-n_rows // W_TILE_D)
         splits, per = _wave_splits(n_tiles, -(-bsz // W_TILE_Q), sms)
         return Plan("wgmma", splits, per, W_TILE_D)
+    if kernel == "f32":
+        n_tiles = -(-n_rows // F32_TILE_D)
+        splits, per = _wave_splits(n_tiles, -(-bsz // F32_TILE_Q), sms)
+        return Plan("f32", splits, per, F32_TILE_D)
     n_qtiles = -(-bsz // TILE_Q)
     n_tiles = -(-n_rows // TILE_D)
     per_sm = BLOCKS_PER_SM if k <= SHALLOW_K else DEEP_BLOCKS_PER_SM
@@ -355,6 +410,9 @@ def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
         err = _lib().fused_topk_wgmma_launch(*ptrs, bsz, n_rows, d, k,
                                              n_groups, splits, per, doc_type,
                                              stream)
+    elif plan.kernel == "f32":
+        err = _lib().fused_topk_f32_launch(*ptrs, bsz, n_rows, d, k, splits,
+                                           per, f32_stages(k), stream)
     else:
         err = _lib().fused_topk_launch(*ptrs, bsz, n_rows, d, k, n_groups,
                                        splits, per, doc_type, stream)
@@ -365,6 +423,7 @@ def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
                            f"{err}")
     fused_topk.launches += 1
     fused_topk.wgmma_launches += plan.kernel == "wgmma"
+    fused_topk.f32_launches += plan.kernel == "f32"
     return out_g, out_i
 
 
@@ -484,3 +543,4 @@ fused_topk.launches = 0   # kernel launches since the count was last reset
 fused_topk.deep_launches = 0   # of which deep launches
 fused_topk.wgmma_launches = 0  # of which the wgmma scan
 fused_topk.fold_launches = 0   # of which the scan with the deep fold
+fused_topk.f32_launches = 0    # of which the f32 scan

@@ -19,6 +19,10 @@ Fused top-k (:func:`fused_topk` against :func:`fused_topk_reference`):
   splits of several tiles; :func:`quant_exact_cases` the same for int8
   docs and int4 docs with no, per-doc and per-group scales (a packed row
   of 32, 48 and 96 bytes: raw boxes past the row, and its two halves).
+* :func:`f32_exact_cases`: the same kind of data through the f32 scan (f32
+  docs, k 1 to 64): a partial query tile, partial doc tiles, contraction
+  chunks past d, dot / l2 / cos, a -inf bias tail, ``valid_docs < N``,
+  per-doc scales and splits of several tiles.
 * :func:`deep_exact_cases`: the same kind of data past the shallow depth
   (k 161 to 1,100 over 20,000 docs, three select runs), through the deep
   launch, with chunks of docs and slices of query rows forced by a small
@@ -42,9 +46,12 @@ probed collect's sorted runs) and :func:`stream_path_case`; the kernel does no
 arithmetic, so both must come out equal.
 
 Grouped gains (:func:`grouped_gains` against :func:`grouped_gains_reference`):
-:func:`grouped_exact_cases` (integer data, every slab type, ``S`` not a
-multiple of 64, the row table and the real-block count) come out equal;
-:func:`grouped_path_case` is held within ``1e-3 * max|gain|``.
+:func:`grouped_exact_cases` (integer data, every slab type, ``S`` from 8 to
+328: one to four column tiles, ragged ones, two passes of the wgmma kernel;
+the row table and the real-block count) come out equal, through the plan
+and through each kernel by name (:func:`run_grouped_kernel`);
+:func:`grouped_path_case` (bf16, int8 or int4 slabs) is held within ``1e-3
+* max|gain|``.
 
 Grouped pair top-k (:func:`grouped_pair_topk` against
 :func:`grouped_pair_topk_reference`): :func:`pair_exact_cases` (integer
@@ -78,6 +85,7 @@ from ragroute_tpu_torch.ops.fused_topk import _plan as _fused_plan
 from ragroute_tpu_torch.ops.fused_topk import (TILE_D, fused_topk,
                                                fused_topk_reference,
                                                gain_form)
+from ragroute_tpu_torch.ops.grouped_gains import _plan as _grouped_plan
 from ragroute_tpu_torch.ops.grouped_gains import (GROUP_ROWS, grouped_gains,
                                                   grouped_gains_reference)
 from ragroute_tpu_torch.ops.grouped_topk import _launch as _pair_launch
@@ -167,6 +175,50 @@ def fold_exact_cases(device, *, bsz: int = 150, seed: int = 7
 
 
 DEEP_KS = (161, 256, 600, 1100)
+F32_KS = (1, 10, 32, 64)
+
+
+def f32_exact_cases(device, *, bsz: int = 200, seed: int = 9
+                    ) -> Iterator[Case]:
+    """Exact-arithmetic cases of the f32 scan (f32 docs, k in
+    :data:`F32_KS`): integer data in [-4, 4] (cos queries of norm 4,
+    power-of-two per-doc scales), so every sum is exact in any order; 200
+    query rows (a second, partial query tile of 128; the plan takes the scan
+    there); 845 docs (a partial
+    doc tile) at d 64, 80 (a contraction chunk past the columns) and 96;
+    duplicate rows on both sides of the tile boundaries; at every k: dot,
+    l2, cos, a -inf bias tail, ``valid_docs < N`` and a per-doc scale; and
+    20,000 docs at d = 64, where splits span several tiles."""
+    rng = np.random.default_rng(seed)
+    for d, rows in ((64, 845), (80, 845), (96, 845), (64, 20_000)):
+        docs = rng.integers(-4, 5, (rows, d)).astype(np.float32)
+        for src, dsts in ((7, (127, 128, 255, 256, 383, 384, rows - 1)),
+                          (11, (511, 512, 639, 640, 767, 768))):
+            docs[list(dsts)] = docs[src]
+        q_cos = np.zeros((bsz, d), np.float32)
+        for i in range(bsz):
+            q_cos[i, rng.choice(d, 16, replace=False)] = rng.choice(
+                [-1.0, 1.0], 16)
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        q = t(rng.integers(-4, 5, (bsz, d)).astype(np.float32))
+        f32 = t(docs)
+        scale = t((2.0 ** rng.integers(-3, 2, rows)).astype(np.float32))
+        tail = torch.zeros(rows, dtype=torch.float32, device=device)
+        tail[rows - 100:] = NEG_INF
+        for k in F32_KS:
+            name = f"f32-d{d}-n{rows}"
+            yield Case(f"{name}-dot-k{k}", q, f32, k, "dot")
+            if rows > 1000:
+                continue
+            yield Case(f"{name}-l2-k{k}", q, f32, k, "l2")
+            yield Case(f"{name}-cos-k{k}", t(q_cos), f32, k, "cos")
+            yield Case(f"{name}-inf-tail-k{k}", q, f32, k, "dot", bias=tail)
+            yield Case(f"{name}-valid-k{k}", q, f32, k, "dot",
+                       valid_docs=rows - 200)
+            yield Case(f"{name}-scale-k{k}", q, f32, k, "dot", scale=scale)
 
 
 def exact_cases(device, *, bsz: int = 37, n: int = 3 * TILE_D + 17,
@@ -357,7 +409,8 @@ def deep_exact_cases(device, *, bsz: int = 37, n: int = 20_000, d: int = 64,
 def run_kernel(case: Case, kernel: Optional[str] = None
                ) -> Tuple[Tensor, Tensor]:
     """The wrapper on CUDA tensors: launches the kernel. ``kernel`` names
-    the launch (``"wgmma"``, ``"fold"``, ``"shallow"``, ``"deep"``) in place of the
+    the launch (``"wgmma"``, ``"fold"``, ``"f32"``, ``"shallow"``,
+    ``"deep"``) in place of the
     wrapper's plan, to time the launches against each other at one
     shape."""
     if kernel is None:
@@ -631,10 +684,28 @@ class GroupedCase:
                              else min(g, int(self.n_real)))
 
 
-def run_grouped_kernel(case: GroupedCase) -> Tensor:
+def run_grouped_kernel(case: GroupedCase, kernel: Optional[str] = None
+                       ) -> Tensor:
+    """The wrapper on CUDA tensors; ``kernel`` names the launch
+    (``"wgmma"``, ``"f32"``, ``"first"``) in place of its plan."""
     return grouped_gains(case.q, case.docs, case.bias, case.scale,
                          case.blk_cluster, case.packed4, rows=case.rows,
-                         n_real=case.n_real)
+                         n_real=case.n_real, kernel=kernel)
+
+
+def grouped_plan_of(case: GroupedCase) -> str:
+    """The kernel the wrapper's plan takes for the case."""
+    _, _, s = case.docs.shape
+    doc_type = 3 if case.packed4 else {torch.float32: 0, torch.bfloat16: 1,
+                                       torch.int8: 2}[case.docs.dtype]
+    return _grouped_plan(case.blk_cluster.shape[0], case.q.shape[1], s,
+                         doc_type, 132).kernel
+
+
+def grouped_takes(case: GroupedCase, kernel: str) -> bool:
+    """Whether the named kernel takes the case's slab type."""
+    f32 = case.docs.dtype == torch.float32
+    return kernel == "first" or (kernel == "f32") == f32
 
 
 def run_grouped_plain(case: GroupedCase, n_blocks: Optional[int] = None
@@ -650,14 +721,28 @@ def run_grouped_plain(case: GroupedCase, n_blocks: Optional[int] = None
                                    case.blk_cluster[:g], case.packed4, rows)
 
 
-def grouped_exact_cases(device, *, c: int = 5, d: int = 64, s: int = 72,
-                        bsz: int = 23, seed: int = 0
+# (S, d) of the exact cases: one column tile; two, the second ragged; the
+# served 104 and 256; 328 (two passes of the wgmma kernel, three of the f32
+# kernel); depths of one to three 64-deep chunks, the last one partial
+GROUPED_SHAPES = ((8, 64), (72, 64), (104, 192), (256, 160), (328, 96))
+GROUPED_S = tuple(s for s, _ in GROUPED_SHAPES)
+
+
+def grouped_exact_cases(device, *, c: int = 5, bsz: int = 23, seed: int = 0
                         ) -> Iterator[GroupedCase]:
     """Integer data, so the product is exact in any order: f32 / bf16 /
-    int8 / int4 slabs of ``S = 72`` slots (two column tiles, the second
-    ragged), blocks that repeat and reorder clusters, power-of-two scales,
-    ``-inf`` bias on empty slots; each with pair rows given directly, with
-    the row table, and with a real-block count below the grid's."""
+    int8 / int4 slabs at every (S, d) of :data:`GROUPED_SHAPES` (int4 rows
+    of 32 to 96 bytes: its two halves in one chunk, or in several with a
+    partial last one), blocks that repeat and reorder clusters,
+    power-of-two scales, ``-inf`` bias on empty slots; each with pair rows
+    given directly, with the row table, and with a real-block count below
+    the grid's."""
+    for s, d in GROUPED_SHAPES:
+        yield from _grouped_exact(device, c, d, s, bsz, seed + s)
+
+
+def _grouped_exact(device, c: int, d: int, s: int, bsz: int, seed: int
+                   ) -> Iterator[GroupedCase]:
     rng = np.random.default_rng(seed)
     blk = np.array([3, 0, 0, 4, 1, 3, 2], np.int32)
     g = blk.shape[0]
@@ -684,25 +769,36 @@ def grouped_exact_cases(device, *, c: int = 5, d: int = 64, s: int = 72,
         qt = t(q).to(qdt)
         common = dict(docs=docs, bias=t(bias), scale=sc, blk_cluster=t(blk),
                       packed4=p4)
-        yield GroupedCase(f"grouped-{name}-direct", qt[t(rows).long()],
+        yield GroupedCase(f"grouped-{name}-s{s}-direct",
+                          qt[t(rows).long()], **common)
+        yield GroupedCase(f"grouped-{name}-s{s}-rows", qt, rows=t(rows),
                           **common)
-        yield GroupedCase(f"grouped-{name}-rows", qt, rows=t(rows), **common)
-        yield GroupedCase(f"grouped-{name}-rows-nreal", qt, rows=t(rows),
+        yield GroupedCase(f"grouped-{name}-s{s}-rows-nreal", qt, rows=t(rows),
                           n_real=torch.tensor([g - 2], dtype=torch.int32,
                                               device=device), **common)
 
 
 def grouped_path_case(device, *, bsz: int = 512, c: int = 4096,
                       d: int = 768, s: int = 256, nprobe: int = 512,
-                      seed: int = 3) -> GroupedCase:
+                      seed: int = 3, slab: str = "bf16") -> GroupedCase:
     """The scoring of the cluster-probed search at the medrag pubmed
-    defaults (4,096 clusters of 256 slots, 512 probes a query, bf16
-    slabs), with the search's own dispatch of a random probe list."""
+    defaults (4,096 clusters of 256 slots, 512 probes a query), with the
+    search's own dispatch of a random probe list; ``slab`` "bf16", "int8"
+    (random codes, a scale a slot) or "int4" (random packed bytes
+    ``[C, d/2, S]``, a scale a slot)."""
     from ragroute_tpu_torch.ops.ivf_topk import dispatch
 
     g = torch.Generator(device=device).manual_seed(seed)
-    docs = torch.randn((c, d, s), generator=g, device=device,
-                       dtype=torch.bfloat16)
+    scale = None
+    if slab == "bf16":
+        docs = torch.randn((c, d, s), generator=g, device=device,
+                           dtype=torch.bfloat16)
+    else:
+        rows_d = d // 2 if slab == "int4" else d
+        docs = torch.randint(-128, 128, (c, rows_d, s), generator=g,
+                             device=device, dtype=torch.int16).to(torch.int8)
+        scale = 0.005 + 0.005 * torch.rand((c, s), generator=g,
+                                           device=device)
     bias = torch.zeros((c, s), dtype=torch.float32, device=device)
     bias.masked_fill_(torch.rand((c, s), generator=g, device=device) < 0.2,
                       NEG_INF)
@@ -710,8 +806,9 @@ def grouped_path_case(device, *, bsz: int = 512, c: int = 4096,
     probe = torch.rand((bsz, c), generator=g, device=device).topk(
         nprobe, dim=1)[1]
     rows, blk_cluster, n_real, _ = dispatch(probe, c)
-    return GroupedCase("path-grouped-bf16", q, docs, bias, None, blk_cluster,
-                       rows=rows, n_real=n_real)
+    return GroupedCase(f"path-grouped-{slab}", q, docs, bias, scale,
+                       blk_cluster, packed4=slab == "int4", rows=rows,
+                       n_real=n_real)
 
 
 def compare_grouped(kernel: Tensor, plain: Tensor, *, rel: float = 1e-3

@@ -1,6 +1,7 @@
 """Card-only tests: the hand-written kernels (csrc/fused_topk.cu with its
-wgmma scan over bf16, int8 and int4 docs and its deep fold, csrc/stream_topk.cu,
-csrc/grouped_gains.cu, csrc/grouped_pair_topk.cu with its wgmma kernel,
+wgmma scan over bf16, int8 and int4 docs, its deep fold and its f32 scan,
+csrc/stream_topk.cu, csrc/grouped_gains.cu with its wgmma and f32 kernels,
+csrc/grouped_pair_topk.cu with its wgmma kernel,
 csrc/int4_matmul.cu with its prefill and decode kernels,
 csrc/decode_attention.cu) against their plain PyTorch versions, at test
 size, the host-RAM tiers' engine on the card against the same engine on the
@@ -345,6 +346,78 @@ def test_grouped_kernel_equals_plain(cuda):
         grouped_gains(case.q, case.docs, case.bias, None,
                       case.blk_cluster.long(), rows=case.rows)
     assert grouped_gains.launches == before + 1
+
+
+@pytest.mark.parametrize("kernel", [None, "wgmma", "f32", "first"])
+def test_grouped_named_kernel_exact_cases_equal_plain(cuda, kernel):
+    """Integer data over S = 8 to 328 (one to four column tiles, ragged
+    ones, two passes of the wgmma kernel), with and without the row table
+    and the real-block count: the plan (the wgmma kernel for bf16, int8 and
+    int4 slabs, the f32 kernel for f32 ones) and each kernel by name where
+    it takes the slab type, equal to the plain version."""
+    failed, launched = [], 0
+    for case in kc.grouped_exact_cases(cuda):
+        if kernel is not None and not kc.grouped_takes(case, kernel):
+            continue
+        real = case.real_rows
+        before = (grouped_gains.wgmma_launches, grouped_gains.f32_launches)
+        out = kc.run_grouped_kernel(case, kernel)
+        launched += 1
+        if not torch.equal(out[:real],
+                           kc.run_grouped_plain(case, real // kc.GROUP_ROWS)):
+            failed.append(case.name)
+        want = kernel or kc.grouped_plan_of(case)
+        after = (grouped_gains.wgmma_launches, grouped_gains.f32_launches)
+        assert after[0] - before[0] == (want == "wgmma")
+        assert after[1] - before[1] == (want == "f32")
+    assert launched and not failed, failed
+
+
+@pytest.mark.parametrize("slab", ["bf16", "int8", "int4"])
+def test_grouped_wgmma_matches_plain_within_tolerance(cuda, slab):
+    """Random slabs at a small probed shape (S = 200: four column tiles,
+    the last ragged), through the wgmma kernel: within 1e-3 * max|gain|."""
+    case = kc.grouped_path_case(cuda, bsz=33, c=64, d=128, s=200, nprobe=16,
+                                slab=slab)
+    assert kc.grouped_plan_of(case) == "wgmma"
+    real = case.real_rows
+    res = kc.compare_grouped(kc.run_grouped_kernel(case)[:real],
+                             kc.run_grouped_plain(case, real // 64))
+    assert res["ok"], res
+    with pytest.raises(ValueError, match="f32 kernel does not take"):
+        kc.run_grouped_kernel(case, "f32")
+
+
+@pytest.mark.parametrize("kernel", [None, "f32"])
+def test_f32_scan_exact_cases_equal_plain(cuda, kernel):
+    """f32 docs through the f32 scan (k 1 to 64; the plan takes it there):
+    a partial query tile, partial doc tiles, chunks past d, dot / l2 / cos,
+    a -inf tail, valid_docs < N, per-doc scales, splits of several tiles;
+    indices and scores equal the plain version."""
+    failed = []
+    for case in kc.f32_exact_cases(cuda):
+        assert kc.fused_plan_of(case) == "f32"
+        before = fused_topk.f32_launches
+        got = kc.run_kernel(case, kernel)
+        assert fused_topk.f32_launches == before + 1
+        want = kc.run_plain(case)
+        if not (torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])):
+            failed.append(case.name)
+    assert not failed, failed
+
+
+@pytest.mark.parametrize("bsz,n,k", [(300, 60_000, 32), (8, 100_003, 64),
+                                     (512, 20_000, 10)])
+def test_f32_scan_matches_plain_within_tolerance(cuda, bsz, n, k):
+    case = kc.path_case(cuda, bsz=bsz, n=n, d=768, k=k, seed=bsz + k,
+                        dtype=torch.float32)
+    kernel = kc.run_kernel(case, "f32")
+    res = kc.compare_tolerant(kernel, kc.run_plain(case), rel=1e-5)
+    assert res["ok"], res
+    assert res["recall"] >= 0.999, res
+    with pytest.raises(ValueError, match="f32 scan does not take"):
+        case.k = 65
+        kc.run_kernel(case, "f32")
 
 
 @pytest.mark.parametrize("impl,dtype,build", [

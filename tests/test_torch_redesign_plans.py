@@ -11,10 +11,22 @@ version on exact integer cases and stays within tolerance on random ones.
 K1 (``ops/fused_topk.py::_plan``) sends bf16, int8 and int4 docs to the
 wgmma scan up to k = 64 (the scan takes no deeper list, even when named)
 and past it to its deep fold over shards of ``FOLD_MIN_DOCS`` docs or more
-(smaller ones to the deep launch), and f32 docs and int4 rows off the
-16-byte grid to the first design, or past k = 160 to the deep launch. The wgmma launches' doc splits cover the shard without an
-empty split and fill the card at B = 8 as at B = 512. The kernels
-themselves run only on a card (``tests/test_torch_kernel.py``).
+(smaller ones to the deep launch); f32 docs to the f32 scan up to k = 64
+from 65 query rows (smaller batches to the first design), to the first
+design from k = 65 to 160 and to the deep launch past it; int4
+rows off the 16-byte grid to the first design, or past k = 160 to the deep
+launch. The wgmma launches' and the f32 scan's doc splits cover the shard
+without an empty split and fill the card at B = 8 as at B = 512; the f32
+scan's ring and lists fit an H100's shared memory at every depth it takes,
+and its threads' 8 x 8 tiles cover the 128 x 128 gain tile once, each warp
+owning 16 rows whole.
+K3 (``ops/grouped_gains.py::_plan``) sends bf16, int8 and int4 slabs to
+the wgmma kernel (f32 to the f32 kernel) with the deepest ring that fits,
+or to the first design where not even two stages fit; a torch model of the
+wgmma kernel's walk (persistent blocks over (pair block, pass) items, the
+query rows' and slab's chunks, int4's two walks of the packed rows) equals
+the plain version on exact integer cases. The kernels themselves run only
+on a card (``tests/test_torch_kernel.py``).
 """
 
 import numpy as np
@@ -24,6 +36,7 @@ from threadpoolctl import threadpool_limits
 
 from ragroute_tpu_torch.ops import deep_topk
 from ragroute_tpu_torch.ops import fused_topk as ft
+from ragroute_tpu_torch.ops import grouped_gains as gg
 from ragroute_tpu_torch.ops import int4_matmul as im
 from ragroute_tpu_torch.ops.decoder_checks import matmul_close
 
@@ -199,14 +212,16 @@ def test_fused_plan_for_bf16_docs(k, d, want):
     assert ft._plan(512, 734_003, d, k, BF16, SMS).kernel == want
 
 
-@pytest.mark.parametrize("doc_type,d", [(F32, 128), (F32, 768), (I4, 80),
-                                        (I4G, 80), (I4, 48)])
-@pytest.mark.parametrize("k,want", [(32, "shallow"), (160, "shallow"),
-                                    (161, "deep")])
+@pytest.mark.parametrize("k,want,doc_type,d", [
+    pytest.param(k, want, dt, d, id=f"{k}-{want}-{dt}-{d}")
+    for k, want in ((32, "shallow"), (160, "shallow"), (161, "deep"))
+    for dt, d in ((F32, 128), (F32, 768), (I4, 80), (I4G, 80), (I4, 48))
+    # f32 lists up to 64 take the f32 scan (test_fused_plan_for_f32_docs)
+    if not (dt == F32 and k <= 64)])
 def test_fused_plan_keeps_the_first_design_off_bf16(doc_type, d, k, want):
-    """f32 docs (TF32 would change their answers) and int4 rows that are
-    not a whole number of 16 bytes (d % 32: TMA's row stride) keep the
-    first design up to k = 160; the scan refuses them when named."""
+    """f32 docs past k = 64 (TF32 would change their answers) and int4 rows
+    that are not a whole number of 16 bytes (d % 32: TMA's row stride) keep
+    the first design up to k = 160; the scan refuses them when named."""
     assert ft._plan(512, 734_003, d, k, doc_type, SMS).kernel == want
     assert deep_topk.SHALLOW_MAX == ft.MAX_SHALLOW_K == 160
     with pytest.raises(ValueError, match="does not take"):
@@ -267,3 +282,363 @@ def test_fused_plan_names_a_kernel_for_measurements():
                     "fold").kernel == "fold"
     assert ft._plan(20_000, 104_857, 128, 128, BF16, SMS,
                     "deep").kernel == "deep"
+
+
+# ---- K1 over f32 docs: the f32 scan ------------------------------------------
+
+@pytest.mark.parametrize("k,want", [(1, "f32"), (10, "f32"), (32, "f32"),
+                                    (64, "f32"), (65, "shallow"),
+                                    (160, "shallow"), (161, "deep"),
+                                    (1100, "deep")])
+@pytest.mark.parametrize("d", [128, 768])
+def test_fused_plan_for_f32_docs(k, want, d):
+    """f32 lists up to 64 take the f32 scan (full f32 FMA: no TF32), deeper
+    ones the first design to 160 and the deep launch past it (f32 docs
+    never reach the wgmma scan or its fold); the scan takes f32 docs at
+    k <= 64 only, even when named."""
+    plan = ft._plan(512, 734_003, d, k, F32, SMS)
+    assert plan.kernel == want
+    if want == "f32":
+        assert plan.tile_d == ft.F32_TILE_D
+        assert ft._plan(512, 734_003, d, k, F32, SMS, "f32") == plan
+    else:
+        with pytest.raises(ValueError, match="f32 scan does not take"):
+            ft._plan(512, 734_003, d, k, F32, SMS, "f32")
+    with pytest.raises(ValueError, match="does not take"):
+        ft._plan(512, 734_003, d, k, F32, SMS, "wgmma")
+
+
+@pytest.mark.parametrize("doc_type", [BF16, I8, I4, I4G])
+def test_fused_f32_scan_refuses_other_docs(doc_type):
+    with pytest.raises(ValueError, match="f32 scan does not take"):
+        ft._plan(512, 734_003, 768, 32, doc_type, SMS, "f32")
+
+
+@pytest.mark.parametrize("bsz,want", [(1, "shallow"), (8, "shallow"),
+                                      (64, "shallow"), (65, "f32"),
+                                      (128, "f32"), (129, "f32"),
+                                      (192, "f32"), (193, "f32"),
+                                      (320, "f32"), (512, "f32"),
+                                      (2048, "f32")])
+def test_f32_plan_keeps_the_first_design_where_it_was_faster(bsz, want):
+    """The f32 scan's 128-row tile cost more than one of the first design's
+    64-row tiles and less than two on the card (PERF.md): batches of at
+    most 64 rows (one half-empty scan tile against one first-design tile)
+    keep the first design; the scan takes them by name."""
+    assert ft._plan(bsz, 734_003, 768, 32, F32, SMS).kernel == want
+    assert ft.f32_scan_pays(bsz) == (want == "f32")
+    assert ft._plan(bsz, 734_003, 768, 32, F32, SMS, "f32").kernel == "f32"
+
+
+@pytest.mark.parametrize("bsz", [1, 8, 130, 512, 2048])
+@pytest.mark.parametrize("n", [4_097, 104_857, 734_003])
+def test_f32_scan_splits_cover_the_shard_and_fill_the_card(bsz, n):
+    plan = ft._plan(bsz, n, 768, 32, F32, SMS, "f32")
+    assert plan.kernel == "f32"
+    n_tiles = -(-n // plan.tile_d)
+    assert (plan.splits - 1) * plan.tiles_per_split < n_tiles
+    assert plan.splits * plan.tiles_per_split >= n_tiles
+    blocks = -(-bsz // ft.F32_TILE_Q) * plan.splits
+    if n_tiles >= 4 * SMS:
+        waves = -(-blocks // SMS)
+        assert waves <= ft.W_MAX_WAVES
+        assert blocks >= waves * SMS * 5 // 6, (blocks, waves)
+
+
+@pytest.mark.parametrize("k", [1, 10, 32, 33, 64])
+def test_f32_scan_ring_fits_shared_memory(k):
+    """4 to 6 stages of a [128 x 32] f32 query box and doc box (TMA boxes of
+    128-byte rows in the 128-byte swizzle) beside the 128 rows' lists and
+    buffers: under an H100's 227 KB."""
+    stages = ft.f32_stages(k)
+    assert stages == {1: 6, 10: 5, 32: 5, 33: 5, 64: 4}[k]
+    assert ft.f32_smem_bytes(stages, k) <= ft.SMEM_OPTIN == 232_448
+    assert ft.f32_smem_bytes(stages + 1, k) > ft.SMEM_OPTIN or \
+        stages == ft.F32_MAX_STAGES
+    assert ft.F32_STAGE_BYTES == 2 * ft.F32_TILE_Q * 32 * 4
+    assert (32 * 4) == 128 and ft.F32_STAGE_BYTES % 1024 == 0
+
+
+def test_f32_scan_threads_cover_the_tile_once():
+    """Thread (ty, tx) = (2 warp + lane / 16, lane % 16) of 256 keeps rows
+    ty + 16 i and docs tx + 16 j (i, j < 8): every (row, doc) of the 128 x
+    128 tile once; a warp's 16 rows (lane l < 16 names row 2 warp + (l & 1)
+    + 16 (l >> 1)) are exactly its threads' rows, so it merges them alone;
+    K3's f32 kernel: thread (tid / 16, tid % 16) of 128 keeps rows ty + 8 i
+    and columns 4 tx + e, 64 + 4 tx + e: the 64 x 128 tile once."""
+    seen = np.zeros((128, 128), np.int32)
+    for tid in range(256):
+        warp, lane = tid // 32, tid % 32
+        ty, tx = 2 * warp + lane // 16, lane % 16
+        for i in range(8):
+            for j in range(8):
+                seen[ty + 16 * i, tx + 16 * j] += 1
+    assert (seen == 1).all()
+    for warp in range(8):
+        threads = {2 * warp + lane // 16 + 16 * i for lane in range(32)
+                   for i in range(8)}
+        named = {2 * warp + (lane & 1) + 16 * (lane >> 1)
+                 for lane in range(16)}
+        assert threads == named and len(named) == 16
+    seen = np.zeros((64, 128), np.int32)
+    for tid in range(128):
+        ty, tx = tid // 16, tid % 16
+        for i in range(8):
+            for e in range(4):
+                seen[ty + 8 * i, 4 * tx + e] += 1
+                seen[ty + 8 * i, 64 + 4 * tx + e] += 1
+    assert (seen == 1).all()
+
+
+# ---- K3: the grouped GEMM's plan ---------------------------------------------
+
+GF32, GBF16, GI8, GI4 = 0, 1, 2, 3
+
+
+@pytest.mark.parametrize("s", [8, 104, 128, 160, 256, 328, 1584])
+@pytest.mark.parametrize("doc_type", [GF32, GBF16, GI8, GI4])
+@pytest.mark.parametrize("d", [64, 768])
+def test_grouped_plan_over_slab_type_and_width(d, s, doc_type):
+    """bf16, int8 and int4 slabs take the wgmma kernel: B tiles of 64
+    columns, at most 4 a pass (the widest wgmma), the passes cover S, a
+    persistent grid of at most one block an SM, the deepest ring that fits;
+    f32 slabs take the f32 kernel (passes of 128 columns)."""
+    g = 6028 + 4096
+    plan = gg._plan(g, d, s, doc_type, SMS)
+    if doc_type == GF32:
+        assert plan.kernel == "f32"
+        assert plan.passes == -(-s // gg.GF_COLS) and plan.grid == g * \
+            plan.passes
+        with pytest.raises(ValueError, match="wgmma kernel does not take"):
+            gg._plan(g, d, s, doc_type, SMS, "wgmma")
+        return
+    assert plan.kernel == "wgmma"
+    assert plan.tiles == min(4, -(-s // 64))
+    assert (plan.passes - 1) * 64 * plan.tiles < s <= \
+        plan.passes * 64 * plan.tiles
+    assert plan.grid == min(g * plan.passes, SMS)
+    raw = doc_type != GBF16
+    assert plan.smem == gg.gw_smem_bytes(plan.tiles, plan.stages,
+                                         plan.staging)
+    assert 2 <= plan.stages <= gg.GW_MAX_STAGES
+    assert (2 <= plan.staging <= gg.GW_MAX_STAGING) if raw else \
+        plan.staging == 0
+    assert plan.smem <= gg.SMEM_OPTIN
+    if plan.stages < gg.GW_MAX_STAGES:
+        assert gg.gw_smem_bytes(plan.tiles, plan.stages + 1,
+                                plan.staging) > gg.SMEM_OPTIN
+    with pytest.raises(ValueError, match="f32 kernel does not take"):
+        gg._plan(g, d, s, doc_type, SMS, "f32")
+    assert gg._plan(g, d, s, doc_type, SMS, "first").kernel == "first"
+
+
+def _staging_reads_what_it_loaded(staging: int, chunks: int, items: int,
+                                  int4: bool) -> bool:
+    """The int8 / int4 staging ring's order (loads of chunks 0 ..
+    staging - 2, then per chunk i its publication, which reads chunk i's
+    slot and, for int4, the raw bytes in its even chunk's slot, and the
+    load of chunk i + staging - 1): every read finds the chunk it wants."""
+    total = chunks * items
+    held = {}
+    for j in range(min(staging - 1, total)):
+        held[j % staging] = j
+    for i in range(total):
+        if held.get(i % staging) != i:
+            return False
+        raw = i & ~1 if int4 else i
+        if held.get(raw % staging) != raw:
+            return False
+        if i + staging - 1 < total:
+            held[(i + staging - 1) % staging] = i + staging - 1
+    return True
+
+
+@pytest.mark.parametrize("doc_type,s,stages,staging", [
+    (GBF16, 256, 5, 0), (GI8, 256, 2, 5), (GI4, 256, 2, 5),   # pubmed's S
+    (GBF16, 104, 8, 0), (GI8, 104, 3, 8), (GI4, 160, 2, 7)])  # the others'
+def test_grouped_wgmma_ring_at_the_served_shapes(doc_type, s, stages,
+                                                 staging):
+    """The served widths (S 104 to 256): the ring's stages and the staging
+    ring's slots (int8 / int4: the copies in flight), the ring's tiles on
+    the 1024-byte swizzle grid, all under 227 KB; a staging slot is loaded
+    again only after its last read (an int4 raw chunk feeds two stages)."""
+    plan = gg._plan(8192, 768, s, doc_type, SMS)
+    assert (plan.stages, plan.staging) == (stages, staging)
+    assert plan.smem <= gg.SMEM_OPTIN
+    assert gg.gw_stage_bytes(plan.tiles) % 1024 == 0
+    assert gg.GW_COLS * 2 == 128          # a B tile row: the swizzle's span
+    if doc_type == GBF16:
+        # issuing chunk i + ahead waits for the stage the consumer frees
+        # after chunk i + ahead - stages + 1, which must be published by then
+        assert 0 <= gg.gw_ahead(plan.stages) <= plan.stages - 2
+    else:
+        assert gg.gw_staging_bytes(plan.tiles) % 16 == 0
+        for chunks in (1, 2, 12):
+            assert _staging_reads_what_it_loaded(
+                plan.staging, chunks if doc_type == GI8 else 2 * chunks, 5,
+                doc_type == GI4)
+
+
+def test_grouped_plan_keeps_the_first_design_where_the_ring_does_not_fit():
+    """The shared-memory fit: under a block budget that two wgmma stages do
+    not fit the plan takes the first design, and the wgmma kernel refuses
+    the shape when named; bad widths raise."""
+    small = gg.gw_smem_bytes(4, 2) - 1
+    assert gg._plan(100, 768, 256, GBF16, SMS, smem_optin=small).kernel == \
+        "first"
+    assert gg._plan(100, 768, 64, GBF16, SMS, smem_optin=small).kernel == \
+        "wgmma"
+    with pytest.raises(ValueError, match="wgmma kernel does not take"):
+        gg._plan(100, 768, 256, GBF16, SMS, "wgmma", smem_optin=small)
+    for d, s in ((40, 256), (768, 100), (768, 4)):
+        with pytest.raises(ValueError, match="d % 16 == 0"):
+            gg._plan(100, d, s, GBF16, SMS)
+    with pytest.raises(ValueError, match="no kernel named"):
+        gg._plan(100, 768, 256, GBF16, SMS, "tiles")
+
+
+def _model_grouped_wgmma(q, docs, bias, scale, blk_cluster, rows, n_real,
+                         packed4):
+    """grouped_wgmma_kernel's walk in torch (f64): persistent blocks over
+    (pair block, pass) items; per item the 64-deep chunks, each pairing the
+    query rows' columns with the slab rows the kernel loads (int4: chunk
+    2 p the low nibbles of byte rows 64 p .., against query columns 64 p ..;
+    2 p + 1 their high nibbles, against D/2 + 64 p ..), masked past the
+    slab's rows and S; then x scale + bias."""
+    c_n, ds, s = docs.shape
+    d = q.shape[1]
+    g = blk_cluster.shape[0]
+    plan = gg._plan(g, d, s, gg._INT4 if packed4 else
+                    gg._DOC_TYPES[docs.dtype], SMS)
+    n = 64 * plan.tiles
+    half = ds if packed4 else d
+    chunks = 2 * -(-ds // 64) if packed4 else -(-d // 64)
+    out = torch.full((g * 64, s), float("nan"), dtype=torch.float64)
+    items = min(g, int(n_real)) * plan.passes
+    done = []
+    for b in range(plan.grid):
+        for it in range(b, items, plan.grid):
+            blk, pas = divmod(it, plan.passes)
+            done.append(it)
+            n0 = pas * n
+            cl = min(max(int(blk_cluster[blk]), 0), c_n - 1)
+            qrows = q[rows[blk * 64:(blk + 1) * 64].long()].double()
+            acc = torch.zeros((64, n), dtype=torch.float64)
+            for c in range(chunks):
+                local0 = (c >> 1 if packed4 else c) * 64
+                qbase = ds if packed4 and c & 1 else 0
+                a = torch.zeros((64, 64), dtype=torch.float64)
+                w = min(64, half - local0)
+                a[:, :w] = qrows[:, qbase + local0:qbase + local0 + w]
+                bm = torch.zeros((64, n), dtype=torch.float64)
+                hr, hc = min(64, ds - local0), min(n, s - n0)
+                raw = docs[cl, local0:local0 + hr, n0:n0 + hc]
+                if packed4:
+                    x = raw.to(torch.int32)
+                    raw = (x >> 4) if c & 1 else ((x << 28) >> 28)
+                bm[:hr, :hc] = raw.double()
+                acc += a @ bm
+            cols = slice(n0, min(s, n0 + n))
+            w = cols.stop - n0
+            x = acc[:, :w].float()
+            if scale is not None:
+                x = x * scale[cl, cols]
+            out[blk * 64:(blk + 1) * 64, cols] = (x + bias[cl, cols]).double()
+    assert sorted(done) == list(range(items))     # every item once
+    return out.float()
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("d,s", [(64, 8), (96, 104), (64, 256), (160, 328)])
+def test_grouped_wgmma_walk_model_matches_the_plain_version(kind, d, s):
+    """Integer data: the model of the wgmma kernel's chunk walk equals
+    grouped_gains_reference on every real row (d = 96 and 160: a chunk
+    past the contraction's end; int4 d = 96: halves of 48 rows)."""
+    from ragroute_tpu_torch.index.shard import _pack_int4
+
+    rng = np.random.default_rng(d * 1000 + s)
+    c_n, g, bsz = 5, 7, 23
+    slab = rng.integers(-4, 5, (c_n, d, s)).astype(np.float32)
+    q = torch.from_numpy(rng.integers(-4, 5, (bsz, d)).astype(np.float32))
+    rows = torch.from_numpy(rng.integers(0, bsz, g * 64).astype(np.int32))
+    blk = torch.tensor([3, 0, 0, 4, 1, 3, 2], dtype=torch.int32)
+    bias = torch.from_numpy(rng.integers(-8, 9, (c_n, s)).astype(np.float32))
+    scale = torch.from_numpy((2.0 ** rng.integers(-3, 2, (c_n, s))
+                              ).astype(np.float32))
+    if kind == "bf16":
+        docs, sc = torch.from_numpy(slab).to(torch.bfloat16), None
+    elif kind == "int8":
+        docs, sc = torch.from_numpy(slab).to(torch.int8), scale
+    else:
+        packed = _pack_int4(slab.transpose(0, 2, 1).reshape(c_n * s, d)
+                            .astype(np.int8)).reshape(c_n, s, d // 2)
+        docs = torch.from_numpy(np.ascontiguousarray(
+            packed.transpose(0, 2, 1)))
+        sc = scale
+    qb = q.to(torch.bfloat16)
+    n_real = g - 2
+    got = _model_grouped_wgmma(qb, docs, bias, sc, blk, rows, n_real,
+                               kind == "int4")
+    want = gg.grouped_gains_reference(qb, docs, bias, sc, blk[:n_real],
+                                      kind == "int4", rows[:n_real * 64])
+    assert torch.equal(got[:n_real * 64], want)
+    assert torch.isnan(got[n_real * 64:]).all()    # padding blocks skipped
+
+
+def _ring_completes(stages: int, ahead: int, chunks: int, items: int) -> bool:
+    """The wgmma kernel's ring protocol as a state machine: the producer
+    issues chunk j once the stage of chunk j - stages is back (its own loop:
+    the first `ahead` issues, then per chunk i the issue of i + ahead and
+    the publication of i); the consumer takes chunk i once published and
+    frees the stage of chunk i - 1 after it (within an item), an item's
+    last chunk after the epilogue. True when both run to the end."""
+    total = chunks * items
+    prod = [("issue", j) for j in range(ahead)]
+    for i in range(total):
+        prod += [("issue", i + ahead), ("publish", i)]
+    published, released = set(), set()
+    p = c = 0
+    while p < len(prod) or c < total:
+        moved = False
+        while p < len(prod):
+            op, j = prod[p]
+            if op == "issue" and j < total and j >= stages and \
+                    j - stages not in released:
+                break
+            if op == "publish":
+                published.add(j)
+            p += 1
+            moved = True
+        while c < total and c in published:
+            if c % chunks:
+                released.add(c - 1)
+            if c % chunks == chunks - 1:
+                released.add(c)
+            c += 1
+            moved = True
+        if not moved:
+            return False
+    return True
+
+
+@pytest.mark.parametrize("raw", [False, True])
+@pytest.mark.parametrize("stages", range(2, gg.GW_MAX_STAGES + 1))
+@pytest.mark.parametrize("chunks", [1, 2, 12])
+def test_grouped_wgmma_ring_protocol_completes(raw, stages, chunks):
+    """The ring never deadlocks at the planned lookahead (bf16: at most
+    stages - 2; int8 / int4 wait for a stage only when they publish into
+    it: none), and would at stages - 1: the issue of chunk i + stages - 1
+    waits for a stage the consumer frees only after chunk i, which the
+    producer publishes after that issue."""
+    ahead = 0 if raw else gg.gw_ahead(stages)
+    assert _ring_completes(stages, ahead, chunks, 5)
+    if chunks > 1:
+        assert not _ring_completes(stages, stages - 1, chunks, 5)
+
+
+@pytest.mark.parametrize("staging", range(2, gg.GW_MAX_STAGING + 1))
+@pytest.mark.parametrize("int4", [False, True])
+def test_grouped_staging_ring_is_read_before_it_is_loaded_again(staging,
+                                                                int4):
+    for chunks in (2, 4, 12):
+        assert _staging_reads_what_it_loaded(staging, chunks, 4, int4)
