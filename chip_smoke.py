@@ -34,7 +34,12 @@ Phases, each of which fails the run when it fails:
      launches: one int8 slab of the stream tier (346,112 x 768, per-doc
      scale, k=32) and hostrefine's flat coarse scan (2,936,320 x 128 int8,
      per-doc scale, -inf bias on the padding rows) at k'=128 and 256
-     (the deep fold, with the deep launch's time beside it); each
+     (the deep fold, with the deep launch's time beside it); over live
+     shards (a capacity on the 512-row grid scanned whole, -inf bias holes
+     anywhere in it, 40 live rows under k) exact cases of every launch, the
+     wgmma scan, the f32 scan, the first design, the deep fold and the deep
+     launch, each by name and through the plan, and the live pubmed
+     shard's shape (738,304 rows, a free tail and scattered holes); each
      int8 / int4 row with the first design's time at the same shape beside
      it, the deep rows with the profiler's device time and a bound that
      counts the gains' round trip through device memory;
@@ -101,6 +106,27 @@ Phases, each of which fails the run when it fails:
    and low-rank: recall >= 0.99; ivf at its default nprobe C/8: recall
    >= 0.9). The hybrid engine on the ivf run's layouts must probe only
    the large shard and only at a small batch.
+   Then the rest of the serving surface over the same world: the exact
+   path's run times a burst of 1,024 GET /query over 64 connections from a
+   client process of its own through aiohttp; ``--workers 2`` (two
+   SO_REUSEPORT processes on one resolved port, each with its own copy of
+   the index on the card) takes the same burst, every answer 200 and both
+   workers' ``/stats`` counting queries; then the live index as ``--frontend
+   native --mutable --reserve-docs 4096`` builds it, its native loop in a
+   thread: the same burst (batches larger than one, K1's wgmma scan
+   launched), a 2 s ``/admin/profile`` during a burst whose trace must name
+   K1's kernel, ``/docs/delete`` of 1,024 build-time docs that the bursts
+   served (round after round of winners), ``/docs/add`` of 1,024 rows into
+   pubmed (64 twins of the check queries among them) and 256 into each
+   small source (into the freed slots first), ``/docs/delete`` of half of
+   them, ``engine.search`` on 64 queries against ``exact_oracle`` over the
+   live rows (recall >= 0.99, no deleted doc or free slot served, every
+   added doc the oracle ranks served) and the same queries over HTTP (no
+   deleted doc's payload shown, though its slot now holds another), K1's
+   four shard scans of a B=512 step over the live shards against the same
+   rows scanned as immutable shards, ``/admin/snapshot``, and a fresh
+   immutable aiohttp system loaded from it gives the live winner sets
+   (near-ties of the other centre's bf16 rounding excepted).
 4. A reduced topical world (4 x 32,768 docs) on the card: ivf with
    ``nprobe == C`` gives the exact path's winner sets (f32, through K3's
    f32 kernel); bf16 ivf at
@@ -108,7 +134,11 @@ Phases, each of which fails the run when it fails:
    the low-rank coarse scan >= 0.95, int4 ivf at full probe >= 0.98 of
    the flat int4 scan's winners (the gates of the JAX package's tests);
    a low-rank index of rank 20, off the kernel's 16-column grid, is served
-   through the kernel (recall reported).
+   through the kernel (recall reported). Then live rewrites on a world of
+   that size: int8 rows (per-doc scales) and packed int4 rows (per-group
+   scales) added (twins of the check queries among them) and deleted
+   through the Python API, held against ``exact_oracle`` over the live rows
+   at the JAX package's gates (0.95 int8, 0.90 int4).
 
 5. The host-RAM capacity tiers. On a reduced topical int8 world (4 x
    32,768 docs): ``tier="stream"`` with three slabs a source returns the flat
@@ -152,7 +182,10 @@ Phases, each of which fails the run when it fails:
    concurrent ``/query`` through ``--llm-serving batch`` and again through
    ``--llm-serving continuous --llm-prefix-cache --llm-spec-window 4``
    (``--llm-max-new 32``): every answer 200, K5 launched, tokens a second
-   printed. One decode step at B=16 over a 2,080-position cache is timed
+   printed; 4 concurrent ``stream=1`` requests through aiohttp on the
+   lockstep Qwen3-8B system, and 4 through the native front end on the
+   demo decoder, each ending in ``[DONE]`` with its deltas a prefix of the
+   answer. One decode step at B=16 over a 2,080-position cache is timed
    (every K5 call in it one kernel on the device, by the profiler)
    and profiled against its bound, and so is one prefill of the lockstep
    batch (16 prompts of 2,048 tokens). The 36-layer bf16 prefill logits through
@@ -162,7 +195,9 @@ Phases, each of which fails the run when it fails:
 
 ``python3 chip_smoke.py kernels`` stops after phase 2: a short first run
 after a kernel change. ``python3 chip_smoke.py tiers`` runs phases 1 and 5
-only; ``python3 chip_smoke.py llm`` phases 1, K5 / K6 of 2, and 6.
+only; ``python3 chip_smoke.py llm`` phases 1, K5 / K6 of 2, and 6;
+``python3 chip_smoke.py surface`` phases 1, K1's live cases of 2, the live
+rewrites of 4 and of 3 the exact path and the rest of the serving surface.
 
 The second-to-last line is one JSON object with every kernel's launches on
 the main paths (and, for the three top-k kernels, the deep launches among
@@ -186,6 +221,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.parse
 
 import numpy as np
 import torch
@@ -239,6 +275,8 @@ PATH_KERNELS = {"exact": ("fused_topk",),
                                       "grouped_pair_topk"),
                 "hostrefine_probed_deep": ("fused_topk", "stream_topk",
                                            "grouped_pair_topk"),
+                # the live index through the native front end
+                "live": ("fused_topk",),
                 # on-card generation, Qwen3-8B int4 (decode attention is
                 # wired to no engine, as in the JAX package)
                 "llm_batch": ("int4_matmul",),
@@ -247,6 +285,7 @@ PATH_KERNELS = {"exact": ("fused_topk",),
 # the kernels each served path must launch through their wgmma designs:
 # K1's scan (bf16, int8 and int4 docs), K3's grouped GEMM and K4's pair scan
 WGMMA_PATHS = {"exact": ("fused_topk",), "stream": ("fused_topk",),
+               "live": ("fused_topk",),
                "ivf": ("grouped_gains",),
                "hostrefine_probed": ("grouped_pair_topk",)}
 # the kernels each served path must launch through their f32 designs: K1's
@@ -290,6 +329,17 @@ SMOKE_TIER_BUDGET_GB = TIER_BUDGET_GB / 2
 TIER_GATES = {"stream": 0.95, "hostrefine": 0.95, "hostrefine_probed": 0.9,
               "hostrefine_deep": 0.95, "hostrefine_probed_deep": 0.9}
 STREAM_STORED_GATE = 0.995
+# the whole serving surface (phase 3's last runs and phase 4's live rewrites)
+SURFACE_BURST = 1024     # GET /query of each front end's timed burst
+SURFACE_CONNS = 64       # over this many client connections
+SURFACE_WIDE = (4096, 512)   # and a wider burst: requests, connections
+RESERVE_DOCS = 4096      # --reserve-docs of the live index
+LIVE_ADDS = {"pubmed": 1024, "statpearls": 256, "textbooks": 256,
+             "wikipedia": 256}
+LIVE_BUILD_DELETES = 1024    # build-time winners deleted from the live index
+LIVE_QUANT_GATES = {"int8": 0.95, "int4": 0.90}   # the JAX package's tests'
+SSE_REQUESTS = 4
+BURSTS = {}              # front end -> its timed burst (phase 3)
 
 
 def log(msg: str) -> None:
@@ -442,6 +492,37 @@ def _check_fused_path(case, label: str, reps: int = 10,
     return row
 
 
+def phase_fused_live(dev) -> dict:
+    """K1 over live shards: the exact cases of every launch with -inf
+    holes through the capacity, then the live pubmed shard's path shape."""
+    live = []
+    for case, route in kc.mutable_exact_cases(dev):
+        ps, pi = kc.run_plain(case)
+        for kernel in (None, route):
+            ks, ki = kc.run_kernel(case, kernel)
+            torch.cuda.synchronize()
+            if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+                raise AssertionError(f"fused_topk ({kernel or 'plan'}) != "
+                                     f"plain on live exact case {case.name}")
+        live.append(f"{case.name}:{route}")
+    log(f"[kernel] fused_topk {len(live)} exact cases over live shards "
+        f"(1,536 and 20,480 rows scanned whole, -inf holes scattered, in a "
+        f"run, on one copy of a duplicate and in a free tail; 40 live rows "
+        f"under k), through the plan and through the wgmma scan (bf16, "
+        f"int8, int4 per-doc / per-group), the f32 scan, the first design, "
+        f"the deep fold and the deep launch: indices and scores equal")
+    # the live index's pubmed shard: its capacity scanned whole, the
+    # reserve free and deleted rows as -inf holes
+    cap = -(-(MEDRAG_DOCS["pubmed"] + RESERVE_DOCS) // 512) * 512
+    live_case = kc.path_case(dev, n=cap)
+    live_case.bias = kc.live_bias(cap, holes=0.002,
+                                  free_tail=cap - MEDRAG_DOCS["pubmed"],
+                                  device=dev)
+    return {"live_k32": _check_fused_path(
+        live_case, f"live shard B=512 N={cap} d=768 bf16 dot k=32, -inf "
+        f"holes and a free tail", old="shallow")}
+
+
 def phase_fused(dev) -> dict:
     names = []
     for case in kc.exact_cases(dev):
@@ -529,7 +610,7 @@ def phase_fused(dev) -> dict:
     res = _check_fused_path(kc.path_case(dev),
                             "path shape B=512 N=734003 d=768 bf16 dot k=32",
                             old="shallow")
-    modes = {}
+    modes = phase_fused_live(dev)
     modes["int4_per_doc"] = _check_fused_path(
         kc.int4_path_case(dev, grouped=False),
         "B=512 N=734003 d=768 int4 per-doc scale k=32", reps=5, device=True,
@@ -1090,6 +1171,10 @@ async def _drive(system, syn, k: int, label: str, stop: bool = True) -> dict:
                            qs[i % len(qs)]["question"])
                 for i in range(BURST)])
             burst_s = time.perf_counter() - t0
+            timed = None
+            if label == "exact":    # the front ends' comparison
+                timed = await asyncio.get_running_loop().run_in_executor(
+                    None, surface_bursts, port, syn)
             async with s.get(f"http://127.0.0.1:{port}/stats") as r:
                 stats = await r.json()
         launches = read_counts()
@@ -1127,6 +1212,8 @@ async def _drive(system, syn, k: int, label: str, stop: bool = True) -> dict:
         raise AssertionError(f"bad /query answers: {bad[:5]}")
     if stats["batch_size"]["max"] <= 1:
         raise AssertionError("the batcher never formed a batch larger than 1")
+    if timed is not None:
+        report_bursts(f"serve:{label}", "aiohttp", timed)
     return launches
 
 
@@ -1215,21 +1302,25 @@ def serve_path(root: str, dev, syn, label: str, flags, recall_gate: float
     return {"launches": launches, "recall": recall}
 
 
-def phase_main_paths(dev) -> dict:
+def phase_main_paths(dev, surface_only: bool = False) -> dict:
     """Serve the synthetic medrag world through the port's ServingSystem:
-    exact, then low-rank, then cluster-probed over the topical world."""
+    exact, then low-rank, then the rest of the serving surface, then
+    cluster-probed over the topical world (``surface_only``: the exact path
+    and the rest of the surface)."""
     from ragroute_tpu_torch.index.synthetic import (make_synthetic_world,
                                                     save_world)
 
     n_docs = sum(MEDRAG_DOCS.values())
     out = {}
-    for topics, runs in ((1, (("exact", []),
-                              ("exact_f32", ["--dtype", "float32"]),
-                              ("lowrank", ["--impl", "lowrank"]),
-                              ("lowrank_deep", ["--impl", "lowrank",
-                                                "--refine-mult",
-                                                str(REFINE_MULT)]))),
-                         (IVF_TOPICS, (("ivf", ["--impl", "ivf"]),))):
+    worlds = ((1, (("exact", []),
+                   ("exact_f32", ["--dtype", "float32"]),
+                   ("lowrank", ["--impl", "lowrank"]),
+                   ("lowrank_deep", ["--impl", "lowrank", "--refine-mult",
+                                     str(REFINE_MULT)]))),
+              (IVF_TOPICS, (("ivf", ["--impl", "ivf"]),)))
+    if surface_only:
+        worlds = ((1, (("exact", []),)),)
+    for topics, runs in worlds:
         root = tempfile.mkdtemp(prefix="ragroute_smoke_")
         try:
             t0 = time.perf_counter()
@@ -1247,11 +1338,633 @@ def phase_main_paths(dev) -> dict:
                 if label in DEEP_PATHS:
                     check_deep(label, out[label]["launches"],
                                out[label]["recall"], out)
+            if topics == 1:     # the same world, served by the rest of
+                #                 the surface (it ends by overwriting it)
+                out.update(phase_surface(root, dev, syn))
         finally:
             shutil.rmtree(root, ignore_errors=True)
         del syn
         gc.collect()
     return out
+
+
+# ---- phase 3, last runs: the whole serving surface ---------------------------
+
+def start_load(port: int, syn, n: int = SURFACE_BURST,
+               conns: int = SURFACE_CONNS):
+    """A closed-loop burst of ``n`` GET /query over ``conns`` connections
+    from a process of its own (``python -m ragroute_tpu_torch.loadgen``,
+    no torch import), so that its work does not load the server's
+    process; returns ``(process, questions file)``."""
+    fd, path = tempfile.mkstemp(prefix="ragroute_questions_", suffix=".json")
+    with os.fdopen(fd, "w") as f:
+        json.dump([{"qid": q["qid"], "question": q["question"]}
+                   for q in syn.questions], f)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ragroute_tpu_torch.loadgen", "--port",
+         str(port), "--n", str(n), "--conns", str(conns), "--questions",
+         path], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, path
+
+
+def finish_load(load) -> dict:
+    """The burst's result; every answer must be 200."""
+    proc, path = load
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        os.unlink(path)
+    lines = out.strip().splitlines()
+    if not lines:
+        raise AssertionError(f"the load generator printed nothing: "
+                             f"{err[-2000:]}")
+    res = json.loads(lines[-1])
+    if res["n_bad"]:
+        raise AssertionError(f"{res['n_bad']} of {res['n']} answers were not "
+                             f"200: {res['bad']}")
+    return res
+
+
+def surface_burst(port: int, syn, n: int = SURFACE_BURST,
+                  conns: int = SURFACE_CONNS) -> dict:
+    return finish_load(start_load(port, syn, n, conns))
+
+
+def surface_bursts(port: int, syn) -> list:
+    """The timed burst, then the wider one."""
+    return [surface_burst(port, syn),
+            surface_burst(port, syn, *SURFACE_WIDE)]
+
+
+def report_bursts(tag: str, front: str, bursts: list) -> None:
+    for res in bursts:
+        log(f"[{tag}] {front}: {res['n']} GET /query closed-loop over "
+            f"{res['conns']} connections, all 200, in {res['wall_s']:.3f} "
+            f"s: {res['requests_per_s']:.1f} requests/s, p50 "
+            f"{res['p50_ms']:.3f} ms, p99 {res['p99_ms']:.3f} ms "
+            f"({os.cpu_count()} host cores)")
+        BURSTS[f"{front} x {res['conns']}"] = res
+
+
+def _http(port: int, method: str, path: str, body=None, timeout=600):
+    """One request on a fresh connection: ``(status, body bytes)``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        headers = {}
+        if body is not None and not isinstance(body, (bytes, str)):
+            body = json.dumps(body)
+            headers["Content-Type"] = "application/json"
+        conn.request(method, path, body=body, headers=headers)
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def _stats_by_worker(port: int, want: int, tries: int = 200) -> dict:
+    """``/stats`` of each SO_REUSEPORT worker on ``port``: fresh
+    connections until ``want`` distinct workers answered."""
+    seen = {}
+    for _ in range(tries):
+        status, body = _http(port, "GET", "/stats", timeout=60)
+        if status == 200:
+            st = json.loads(body)
+            seen[st["worker_pid"]] = st
+            if len(seen) >= want:
+                break
+    return seen
+
+
+def phase_workers(root: str, dev, syn) -> dict:
+    """``--workers 2`` (aiohttp, immutable, bf16) on one card: both workers
+    bind the one resolved port and both answer the timed burst."""
+    from ragroute_tpu_torch.main import parse_args
+    from ragroute_tpu_torch.system import Workers
+
+    t0 = time.perf_counter()
+    workers = Workers(parse_args([
+        "--dataset", "medrag", "--routing", "ragroute", "--disable-llm",
+        "--port", "0", "--workers", "2", "--data-root", root,
+        "--device", str(dev)]), 2)
+    try:
+        port = workers.start()
+        deadline = time.time() + 300
+        ready = {}
+        while len(ready) < 2 and time.time() < deadline:
+            if not all(p.is_alive() for p in workers.procs):
+                raise AssertionError("a worker died while starting")
+            try:
+                ready = _stats_by_worker(port, 2, tries=20)
+            except OSError:
+                time.sleep(1.0)
+        if len(ready) < 2:
+            raise AssertionError(f"only {len(ready)} of 2 workers answered")
+        log(f"[workers] 2 SO_REUSEPORT workers on port {port} (pids "
+            f"{sorted(ready)}) loaded the world and warmed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        report_bursts("workers", "aiohttp, 2 workers",
+                      surface_bursts(port, syn))
+        seen = _stats_by_worker(port, 2)
+        counts = {pid: st["num_queries"] for pid, st in seen.items()}
+        log(f"[workers] /stats num_queries by worker {counts}")
+        if len(seen) < 2 or min(counts.values()) <= 0:
+            raise AssertionError(f"not both workers served: {counts}")
+    finally:
+        workers.stop()
+    if any(p.is_alive() for p in workers.procs):
+        raise AssertionError("a worker outlived stop()")
+    return {}
+
+
+def _start_native(system):
+    """``system.run_native()`` (the native loop, as ``main`` runs it) in a
+    thread; returns the thread once the front end listens."""
+    import threading
+
+    thread = threading.Thread(target=system.run_native, daemon=True)
+    thread.start()
+    deadline = time.time() + 300
+    while (system.native is None or system.native.fe is None) \
+            and time.time() < deadline:
+        if not thread.is_alive():
+            raise AssertionError("the native loop ended while starting")
+        time.sleep(0.05)
+    if system.native is None or system.native.fe is None:
+        raise AssertionError("the native front end did not start")
+    return thread
+
+
+def _stop_native(system, thread) -> None:
+    native = system.native
+    native._running = False
+    if native.fe is not None:
+        native.fe.shutdown()
+    thread.join(60)
+    native.stop()
+    if thread.is_alive():
+        raise AssertionError("the native loop did not stop")
+
+
+def _twins(syn, name: str, n: int) -> np.ndarray:
+    """Rows that beat every doc of source ``name`` for the first ``n``
+    check queries: each query's direction at twice the source's largest
+    row norm (a dot score above any of the source's, by Cauchy-Schwarz)."""
+    src = next(s for s in syn.world.sources if s.name == name)
+    q = syn.query_embs[src.encoder][:n].astype(np.float32)
+    top = float(np.sqrt((syn.embeddings[name] ** 2).sum(axis=1).max()))
+    return q / np.linalg.norm(q, axis=1, keepdims=True) * (2.0 * top)
+
+
+def _live_rows(syn, rows: dict, name: str):
+    """A source's live rows in ascending slot order, and their slots."""
+    slots = sorted(rows[name])
+    base = syn.embeddings[name]
+    out = np.empty((len(slots), base.shape[1]), np.float32)
+    n0 = base.shape[0]
+    bs = [i for i, sl in enumerate(slots) if sl < n0 and rows[name][sl] is None]
+    out[bs] = base[[slots[i] for i in bs]]
+    for i, sl in enumerate(slots):
+        if rows[name][sl] is not None:
+            out[i] = rows[name][sl]
+    return out, slots
+
+
+def live_oracle(syn, rows: dict, q: dict, k: int, mask) -> list:
+    """``exact_oracle`` over the live rows, as (source, slot) sets."""
+    from ragroute_tpu_torch.oracle import exact_oracle
+
+    embs, slot_of = {}, {}
+    for src in syn.world.sources:
+        embs[src.name], slot_of[src.name] = _live_rows(syn, rows, src.name)
+    want = exact_oracle(syn.world, embs, q, k, mask=mask)
+    names = [s.name for s in syn.world.sources]
+    return [{(si, slot_of[names[si]][li]) for si, li in w} for w in want]
+
+
+def _winners(out, r: int) -> set:
+    return {(int(s), int(l)) for s, l in zip(out.merged_shard[r],
+                                             out.merged_local[r]) if s >= 0}
+
+
+def _scored_ids(out, r: int, tables: list) -> dict:
+    """One query's winners as ``{(source, doc id): natural score}``."""
+    return {(int(s), str(tables[s][int(l)])): float(sc)
+            for s, l, sc in zip(out.merged_shard[r], out.merged_local[r],
+                                out.merged_score[r]) if s >= 0}
+
+
+def same_winners(a: list, b: list, tol: float) -> int:
+    """Two runs' winners (``_scored_ids`` per query) agree: equal sets, or
+    sets that differ only in docs scoring within ``tol`` of their own
+    set's k-th score (a near-tie bf16 rounding may swap). Returns the
+    count of equal sets."""
+    same = 0
+    for r, (x, y) in enumerate(zip(a, b)):
+        if set(x) == set(y):
+            same += 1
+            continue
+        for mine, other in ((x, y), (y, x)):
+            kth = min(mine.values())
+            for key in set(mine) - set(other):
+                if mine[key] - kth > tol:
+                    raise AssertionError(f"query {r}: {key} scores "
+                                         f"{mine[key]} against a k-th of "
+                                         f"{kth} in one run only")
+    return same
+
+
+def _k1_step_ms(engine, q: dict, immutable: bool) -> float:
+    """Device time of K1's launches of one exact step at B=512 with every
+    source routed (the profiler's kernels over the four shard scans, the
+    queries' casts included): over the live shards as served (the whole
+    capacity, -inf holes) or, ``immutable``, over the same rows as an
+    immutable shard scans them (the build-time docs, no holes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ragroute_tpu_torch.ops.topk import shard_topk
+
+    calls = []
+    for src, sh in zip(engine.world.sources, engine.shard_set.shards):
+        bias, valid = sh.bias, sh.capacity
+        if immutable:
+            bias = torch.zeros_like(sh.bias)
+            bias[sh.n_docs:] = float("-inf")
+            valid = sh.n_docs
+        qq = torch.from_numpy(q[src.encoder]).to(engine.device)
+        calls.append((qq, sh, bias, valid, src.score_mode))
+
+    def step():
+        for qq, sh, bias, valid, mode in calls:
+            shard_topk(qq, sh.docs, engine.world.k, mode=mode,
+                       valid_docs=valid, bias=bias, scale=sh.scale,
+                       center=sh.center, packed4=sh.packed4)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    before = fused_topk.launches
+    reps = 5
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    if fused_topk.launches - before != reps * len(calls):
+        raise AssertionError("the profiled step did not launch K1 per shard")
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               ) / 1e3 / reps
+
+
+def phase_live(root: str, dev, syn) -> dict:
+    """The live index through the native front end (``--frontend native
+    --mutable --reserve-docs 4096``): the timed burst; ``/admin/profile``
+    during a burst (its trace must name K1's kernel); ``/docs/add`` of
+    rows made from the seed (twins of the check queries among them) and
+    ``/docs/delete`` of half of them and of build-time winners;
+    ``engine.search`` against ``exact_oracle`` over the live rows; K1's
+    step time over the live shards against the immutable scan; then
+    ``/admin/snapshot``, and an immutable aiohttp system reloaded from it
+    must give the same winners."""
+    from ragroute_tpu_torch.main import parse_args
+    from ragroute_tpu_torch.oracle import engine_recall
+    from ragroute_tpu_torch.system import ServingSystem
+
+    t0 = time.perf_counter()
+    argv = ["--dataset", "medrag", "--routing", "ragroute", "--disable-llm",
+            "--port", "0", "--data-root", root, "--device", str(dev)]
+    system = ServingSystem(parse_args(argv + [
+        "--frontend", "native", "--mutable", "--reserve-docs",
+        str(RESERVE_DOCS)]))
+    system.build()
+    engine = system.server.engine
+    ss = engine.shard_set
+    thread = _start_native(system)
+    port = system.native.bound_port
+    log(f"[live] mutable world on {dev} behind the native front end on port "
+        f"{port} in {time.perf_counter() - t0:.1f} s: capacities "
+        f"{[s.capacity for s in ss.shards]}, {ss.total_docs} live docs, "
+        f"{ss.index_bytes / 1e9:.3f} GB")
+    out = {}
+    try:
+        reset_counts()
+        bursts = surface_bursts(port, syn)
+        launches = read_counts()
+        report_bursts("live", "native", bursts)
+        # the native loop's two host-side knobs, as notes: one step in
+        # flight while the last one's answers are assembled, and no wait
+        # for a fuller pop (the JAX package's defaults were read on a TPU
+        # host at 512 clients)
+        native = system.native
+        for knobs in ({"pipeline": True}, {"fill_ms": 0},
+                      {"pipeline": True, "fill_ms": 0}):
+            saved = {k: getattr(native, k) for k in knobs}
+            for k, v in knobs.items():
+                setattr(native, k, v)
+            res = surface_burst(port, syn)
+            for k, v in saved.items():
+                setattr(native, k, v)
+            tag = ", ".join(f"{k}={v}" for k, v in knobs.items())
+            log(f"[live] note: native with {tag}: {res['n']} GET /query over "
+                f"{res['conns']} connections: {res['requests_per_s']:.1f} "
+                f"requests/s, p50 {res['p50_ms']:.3f} ms, p99 "
+                f"{res['p99_ms']:.3f} ms")
+        stats = json.loads(_http(port, "GET", "/stats")[1])
+        log(f"[live] /stats batch_size {stats['batch_size']} frontend "
+            f"{stats['frontend']}; launches {launches}")
+        if stats["batch_size"]["max"] <= 1:
+            raise AssertionError("the native loop never formed a batch > 1")
+        for name in PATH_KERNELS["live"]:
+            if launches[name] <= 0:
+                raise AssertionError(f"the live path never launched {name}")
+        check_wgmma("live", launches)
+        out["live"] = {"launches": launches}
+
+        # /admin/profile over a burst: the engine steps' kernels are in it
+        pdir = tempfile.mkdtemp(prefix="ragroute_profile_")
+        load = start_load(port, syn, n=4 * SURFACE_BURST)
+        time.sleep(1.0)             # the load is running
+        status, body = _http(port, "POST", "/admin/profile",
+                             {"seconds": 2.0, "dir": pdir})
+        finish_load(load)
+        if status != 200:
+            raise AssertionError(f"/admin/profile answered {status}: {body}")
+        with open(os.path.join(json.loads(body)["trace_dir"],
+                               "trace.json")) as f:
+            trace = json.load(f)["traceEvents"]
+        kern = {e["name"] for e in trace if e.get("cat") == "kernel"}
+        k1 = sorted(n for n in kern if "topk_kernel" in n)
+        log(f"[live] /admin/profile 2 s during a burst: "
+            f"{len(trace)} trace events, {len(kern)} distinct kernels, K1's: "
+            f"{[n[:60] for n in k1]}")
+        if not any("wgmma_topk_kernel" in n for n in k1):
+            raise AssertionError("the profile trace holds no K1 kernel")
+        shutil.rmtree(pdir, ignore_errors=True)
+
+        # the live rows by slot (None: the build-time row) and each live
+        # slot's payload id, kept here, apart from the server's tables
+        names = [s.name for s in syn.world.sources]
+        rows = {s.name: {i: None for i in range(s.n_docs)}
+                for s in ss.shards}
+        pid = {s.name: {i: f"{s.name}_{i}" for i in range(s.n_docs)}
+               for s in ss.shards}
+        deleted = set()         # payload ids of deleted docs
+
+        def delete(si: int, slots) -> None:
+            name = names[si]
+            status, reply = _http(port, "POST", "/docs/delete",
+                                  {"source": name, "slots": slots})
+            if status != 200:
+                raise AssertionError(f"/docs/delete {name}: {status} "
+                                     f"{reply[:200]}")
+            for sl in slots:
+                deleted.add(pid[name].pop(sl))
+                del rows[name][sl]
+
+        # /docs/delete of build-time winners, round after round: winners
+        # of the bursts' own queries and routing, so their payloads were
+        # served and cached, and the adds then recycle their slots
+        t1 = time.perf_counter()
+        rounds = n_victims = 0
+        while n_victims < LIVE_BUILD_DELETES:
+            wide = engine.search(syn.query_embs, strategy="ragroute")
+            new = list(dict.fromkeys(
+                w for r in range(wide.merged_shard.shape[0])
+                for w in sorted(_winners(wide, r))))
+            new = new[:LIVE_BUILD_DELETES - n_victims]
+            if not new:
+                raise AssertionError("no build-time winners left to delete")
+            for si in range(len(names)):
+                if any(s == si for s, _ in new):
+                    delete(si, [sl for s, sl in new if s == si])
+            n_victims += len(new)
+            rounds += 1
+        log(f"[live] /docs/delete of {n_victims} build-time winners of the "
+            f"{wide.merged_shard.shape[0]} queries in {rounds} "
+            f"rounds, {(time.perf_counter() - t1) * 1e3:.1f} ms with the "
+            f"searches")
+
+        # /docs/add: rows from the seed, twins of the check queries first
+        rng = np.random.default_rng(7)
+        added = {}
+        add_ms = {}
+        for src in syn.world.sources:
+            m = LIVE_ADDS[src.name]
+            emb = rng.standard_normal((m, src.embed_dim)).astype(np.float32)
+            emb *= float(syn.embeddings[src.name][:4096].std())
+            if src.name == "pubmed":
+                emb[:N_CHECK] = _twins(syn, src.name, N_CHECK)
+            docs = [{"embedding": e.tolist(), "id": f"live-{src.name}-{i}",
+                     "payload": {"id": f"live-{src.name}-{i}",
+                                 "title": f"live {i}",
+                                 "content": f"added at serve time {i}"}}
+                    for i, e in enumerate(emb)]
+            body = json.dumps({"source": src.name, "docs": docs})
+            t1 = time.perf_counter()
+            status, reply = _http(port, "POST", "/docs/add", body)
+            add_ms[src.name] = (time.perf_counter() - t1) * 1e3
+            if status != 200:
+                raise AssertionError(f"/docs/add {src.name}: {status} "
+                                     f"{reply[:200]}")
+            added[src.name] = json.loads(reply)["slots"]
+            for i, (sl, e) in enumerate(zip(added[src.name], emb)):
+                rows[src.name][sl] = e
+                pid[src.name][sl] = f"live-{src.name}-{i}"
+        recycled = sum(sl < s.n_docs for s in ss.shards
+                       for sl in added[s.name])
+        log(f"[live] /docs/add {LIVE_ADDS} rows (JSON over HTTP, one "
+            f"request a source; {recycled} into recycled slots): "
+            f"{add_ms['pubmed']:.1f} ms for pubmed's "
+            f"{LIVE_ADDS['pubmed']:,} rows")
+        t1 = time.perf_counter()
+        for si, name in enumerate(names):
+            delete(si, added[name][1::2])
+        log(f"[live] /docs/delete of half of the added docs in "
+            f"{(time.perf_counter() - t1) * 1e3:.1f} ms; {ss.total_docs} "
+            f"live docs, free slots {[ss.free_slots(n) for n in names]}")
+
+        q = {enc: e[:N_CHECK] for enc, e in syn.query_embs.items()}
+        reset_counts()
+        got = engine.search(q, strategy="ragroute")
+        launches = read_counts()
+        oracle = live_oracle(syn, rows, q, syn.world.k, got.mask)
+        recall = engine_recall(syn.world, got, oracle)
+        served_slots = set().union(*[_winners(got, r)
+                                     for r in range(N_CHECK)])
+        free = [w for w in served_slots if w[1] not in pid[names[w[0]]]]
+        served = {pid[names[si]][sl] for si, sl in served_slots
+                  if sl in pid[names[si]]}
+        ranked = {pid[names[si]][sl] for w in oracle for si, sl in w
+                  if pid[names[si]][sl].startswith("live-")}
+        # the served bodies: an added doc in a recycled slot shows its own
+        # payload, never the deleted doc's cached one
+        bodies = []
+        for r in range(N_CHECK):
+            qq = syn.questions[r]
+            path = (f"/query?q={urllib.parse.quote(qq['question'])}&qid="
+                    f"{qq['qid']}&choices=%7B%22A%22%3A%22a%22%7D")
+            status, body = _http(port, "GET", path)
+            if status != 200:
+                raise AssertionError(f"/query after the updates: {status}")
+            bodies.append(json.loads(body)["metadata"]["top_docs"])
+        shown = {d["id"] for b in bodies for d in b}
+        log(f"[live] engine.search on {N_CHECK} queries over the live rows: "
+            f"recall@{syn.world.k} vs exact_oracle {recall:.6f}; added docs "
+            f"the oracle ranks {len(ranked)}, of them served "
+            f"{len(ranked & served)}; deleted docs served "
+            f"{len(served & deleted)}, free slots served {len(free)}; "
+            f"GET /query shows {len(shown)} distinct payloads, "
+            f"{sum(i.startswith('live-') for i in shown)} added ones, "
+            f"{len(shown & deleted)} deleted ones; launches {launches}")
+        if recall < 0.99:
+            raise AssertionError(f"live recall {recall} < 0.99")
+        if served & deleted or free or shown & deleted:
+            raise AssertionError(
+                f"deleted docs served: {sorted(served & deleted)[:5]} "
+                f"{free[:5]} {sorted(shown & deleted)[:5]}")
+        if not ranked or ranked - served or not ranked & shown:
+            raise AssertionError(f"added docs the oracle ranks not served: "
+                                 f"{sorted(ranked - served)[:5]}")
+        out["live"]["recall"] = recall
+
+        # K1 over the live shards against the immutable scan, B=512 all
+        q512 = {enc: e[:512] for enc, e in syn.query_embs.items()}
+        k1 = {"mutable_ms": _k1_step_ms(engine, q512, False),
+              "immutable_ms": _k1_step_ms(engine, q512, True)}
+        log(f"[live] K1's four shard scans of a B=512 step, every source "
+            f"routed (profiler device time, queries' casts included): over "
+            f"the live shards {k1['mutable_ms']:.3f} ms, over the same rows "
+            f"as immutable shards {k1['immutable_ms']:.3f} ms")
+        out["live"]["k1_step"] = k1
+
+        # /admin/snapshot, then a fresh immutable system from it
+        t1 = time.perf_counter()
+        status, reply = _http(port, "POST", "/admin/snapshot")
+        snap_s = time.perf_counter() - t1
+        if status != 200:
+            raise AssertionError(f"/admin/snapshot: {status} {reply[:200]}")
+        log(f"[live] /admin/snapshot of {ss.total_docs} live docs "
+            f"(embeddings, ids, payloads) in {snap_s:.2f} s: "
+            f"{json.loads(reply)['sources']}")
+        out["live"]["snapshot_s"] = snap_s
+        out["live"]["add_ms"] = add_ms["pubmed"]
+        tables = [ss.doc_ids[n] for n in names]
+        live_ids = [_scored_ids(got, r, tables) for r in range(N_CHECK)]
+        tol = 1e-3 * float(np.nanmax(np.abs(got.merged_score)))
+    finally:
+        _stop_native(system, thread)
+    del system, engine, ss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    fresh = ServingSystem(parse_args(argv))
+    fresh.build()
+    eng = fresh.server.engine
+    new = eng.search(q, strategy="ragroute")
+    tables = [eng.shard_set.doc_ids[n] for n in names]
+    # bf16 rows centred on another mean (the snapshot's) may swap a
+    # near-tie at the k-th place, within 1e-3 x max|score|
+    same = same_winners(live_ids, [_scored_ids(new, r, tables)
+                                   for r in range(N_CHECK)], tol)
+    log(f"[live] an immutable aiohttp system reloaded from the snapshot in "
+        f"{time.perf_counter() - t0:.1f} s ({eng.shard_set.total_docs} docs) "
+        f"gives the live winner sets on {same} of {N_CHECK} queries, the "
+        f"rest near-ties at the k-th place")
+    out["live"]["reload_same"] = same
+    del fresh, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_surface(root: str, dev, syn) -> dict:
+    """The rest of the serving surface over phase 3's world: two
+    SO_REUSEPORT workers, then the live index (which ends by writing its
+    snapshot over the world)."""
+    out = phase_workers(root, dev, syn)
+    out.update(phase_live(root, dev, syn))
+    log("[surface] timed bursts: " + ", ".join(
+        f"{k} {v['requests_per_s']:.1f} req/s p50 {v['p50_ms']:.3f} ms p99 "
+        f"{v['p99_ms']:.3f} ms" for k, v in BURSTS.items()))
+    return out
+
+
+def phase_live_quant(dev) -> None:
+    """Live rewrites of int8 rows (per-doc scales) and packed int4 rows
+    (per-group scales at d=768) on a reduced world (4 x 32,768 docs):
+    adds (twins of the check queries among them) and deletes through the
+    Python API, then ``engine.search`` against ``exact_oracle`` over the
+    live rows at the JAX package's gates."""
+    from ragroute_tpu_torch.engine import FederatedSearchEngine
+    from ragroute_tpu_torch.index import ShardSet
+    from ragroute_tpu_torch.index.synthetic import make_synthetic_world
+    from ragroute_tpu_torch.oracle import engine_recall
+    from ragroute_tpu_torch.router import CorpusRouter, RouterBank
+
+    syn = make_synthetic_world("medrag", docs_per_source=REDUCED_DOCS,
+                               num_queries=N_CHECK, seed=5)
+    router = CorpusRouter.from_seed(syn.world.router_input_dim, 0, dev)
+    bank = RouterBank.create(syn.world, syn.centroids, device=dev)
+    q = syn.query_embs
+    names = [s.name for s in syn.world.sources]
+    for dtype, gate in LIVE_QUANT_GATES.items():
+        ss = ShardSet.build(syn.world, syn.embeddings, doc_ids=syn.doc_ids,
+                            dtype="int4" if dtype == "int4" else torch.int8,
+                            device=dev, mutable=True, reserve_docs=1024)
+        engine = FederatedSearchEngine(ss, router, bank)
+        before = engine.search(q, strategy="all")
+        victims = list(dict.fromkeys(
+            w for r in range(N_CHECK)
+            for w in sorted(_winners(before, r))))[:256]
+        rng = np.random.default_rng(3)
+        rows = {s.name: {i: None for i in range(s.n_docs)}
+                for s in ss.shards}
+        added = {}
+        for src in syn.world.sources:
+            emb = rng.standard_normal((512, src.embed_dim)).astype(
+                np.float32) * float(syn.embeddings[src.name].std())
+            if src.name == "pubmed":
+                emb[:N_CHECK] = _twins(syn, src.name, N_CHECK)
+            added[src.name] = engine.add_docs(
+                src.name, emb, [f"live-{i}" for i in range(512)])
+            for sl, e in zip(added[src.name], emb):
+                rows[src.name][sl] = e
+        deleted = set()
+        for si, name in enumerate(names):
+            slots = added[name][1::2] + [sl for s, sl in victims if s == si]
+            engine.delete_docs(name, slots=slots)
+            for sl in slots:
+                del rows[name][sl]
+                deleted.add((si, sl))
+        reset_counts()
+        got = engine.search(q, strategy="all")
+        launches = read_counts()
+        oracle = live_oracle(syn, rows, q, syn.world.k, got.mask)
+        recall = engine_recall(syn.world, got, oracle)
+        served = set().union(*[_winners(got, r) for r in range(N_CHECK)])
+        scales = [tuple(s.scale.shape) for s in ss.shards]
+        log(f"[live:{dtype}] 4 x {REDUCED_DOCS} docs, 512 added a source and "
+            f"half of them and {len(victims)} build-time winners deleted: "
+            f"recall@{syn.world.k} vs exact_oracle over the live rows "
+            f"{recall:.6f} (gate {gate}); deleted docs served "
+            f"{len(served & deleted)}; scales {scales}; wgmma launches "
+            f"{launches['wgmma']['fused_topk']}")
+        if recall < gate or served & deleted:
+            raise AssertionError(f"live {dtype}: recall {recall}, deleted "
+                                 f"served {len(served & deleted)}")
+        if dtype == "int4" and any(len(s) != 2 for s in scales):
+            raise AssertionError("int4 rows without per-group scales")
+        if launches["wgmma"]["fused_topk"] <= 0:
+            raise AssertionError(f"live {dtype}: K1's scan never launched")
+        del ss, engine, got, before
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # ---- phase 4: a reduced topical world -------------------------------------------
@@ -1801,11 +2514,46 @@ def cpu_copy(params):
     return copy.deepcopy(params).cpu()
 
 
-async def _drive_generation(system, syn, n: int) -> dict:
+def check_sse(bodies, k: int, label: str) -> None:
+    """SSE answers with generation on: each ends in ``[DONE]``, generated
+    (``generate_time`` > 0), its deltas joined are a prefix of the final
+    event's answer (one delta at least where the answer is not empty), and
+    the final event's ``top_docs`` has k entries where the router sent the
+    query somewhere."""
+    full = 0
+    for body in bodies:
+        events = [e[len("data: "):] for e in body.split("\n\n")
+                  if e.startswith("data: ")]
+        if events[-1] != "[DONE]":
+            raise AssertionError(f"{label}: an SSE stream without [DONE]")
+        final = json.loads(events[-2])
+        deltas = [json.loads(e)["delta"] for e in events[:-2]]
+        # random weights behind the byte tokenizer mostly draw ids past
+        # its 256 bytes, which decode to nothing: an answer may be empty
+        if (not final["answer"].startswith("".join(deltas))
+                or (final["answer"] and not deltas)
+                or not final["metadata"]["generate_time"] > 0):
+            raise AssertionError(f"{label}: deltas {deltas[:3]} against "
+                                 f"answer {final.get('answer')!r:.80}, "
+                                 f"generate_time "
+                                 f"{final['metadata']['generate_time']}")
+        n_docs = len(final["metadata"]["top_docs"])
+        if n_docs != (k if final["metadata"]["data_sources"] else 0):
+            raise AssertionError(f"{label}: {n_docs} top_docs")
+        full += n_docs == k
+    if not full:
+        raise AssertionError(f"{label}: no SSE answer carried docs")
+    log(f"[sse:{label}] {len(bodies)} concurrent stream=1 answers: each "
+        f"ends in [DONE] after generating, deltas joined a prefix of the "
+        f"final answer, {full} with {k} top_docs")
+
+
+async def _drive_generation(system, syn, n: int, sse: bool = False) -> dict:
     """``n`` concurrent GET /query with generation on. Every answer must be
     200 with a generated answer: the LLM client turns a failed or timed-out
     generation into an answer that starts with "Error generat" and a
-    ``generate_time`` of -1 or the time to the failure, so both are held."""
+    ``generate_time`` of -1 or the time to the failure, so both are held.
+    ``sse``: then :data:`SSE_REQUESTS` concurrent ``stream=1`` requests."""
     import aiohttp
 
     await system.start()
@@ -1824,6 +2572,17 @@ async def _drive_generation(system, syn, n: int) -> dict:
             launches = read_counts()
             async with s.get(f"http://127.0.0.1:{port}/stats") as r:
                 stats = await r.json()
+            if sse:
+                async def stream(i):
+                    params = {"q": qs[i]["question"], "qid": qs[i]["qid"],
+                              "choices": json.dumps({"A": "a", "B": "b"}),
+                              "stream": "1"}
+                    async with s.get(f"http://127.0.0.1:{port}/query",
+                                     params=params) as r:
+                        return await r.text()
+                check_sse(await asyncio.gather(*[
+                    stream(i) for i in range(SSE_REQUESTS)]),
+                    syn.world.k, "aiohttp")
     finally:
         await system.stop()
     bad = [a for a in answers if a[0] != 200
@@ -1839,7 +2598,7 @@ async def _drive_generation(system, syn, n: int) -> dict:
 
 
 def serve_generation(root: str, dev, syn, label: str, flags, n: int,
-                     max_new: int, weights=None) -> dict:
+                     max_new: int, weights=None, sse: bool = False) -> dict:
     """Build the ServingSystem as ``python -m ragroute_tpu_torch.main
     --dataset medrag --llm-backend jax --llm-max-new <max_new> ...`` does
     (``weights``: a decoder the caller holds on the card, served in place
@@ -1854,7 +2613,7 @@ def serve_generation(root: str, dev, syn, label: str, flags, n: int,
         "--dataset", "medrag", "--routing", "ragroute", "--llm-backend",
         "jax", "--port", "0", "--data-root", root, "--device", str(dev),
         "--llm-max-new", str(max_new), *flags]), llm_weights=weights)
-    res = asyncio.run(_drive_generation(system, syn, n))
+    res = asyncio.run(_drive_generation(system, syn, n, sse))
     tok_s = res["tokens"] / res["wall_s"]
     log(f"[llm:{label}] {n} concurrent GET /query with generation answered "
         f"200 in {res['wall_s']:.3f} s: {res['tokens']} tokens generated "
@@ -1869,6 +2628,48 @@ def serve_generation(root: str, dev, syn, label: str, flags, n: int,
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def native_sse(root: str, dev, syn) -> None:
+    """:data:`SSE_REQUESTS` concurrent ``stream=1`` requests through the
+    native front end (``--frontend native --llm-backend jax``, the demo
+    decoder): the deltas go out as chunked frames from the finisher loop."""
+    import threading
+
+    from ragroute_tpu_torch.main import parse_args
+    from ragroute_tpu_torch.system import ServingSystem
+
+    system = ServingSystem(parse_args([
+        "--dataset", "medrag", "--routing", "ragroute", "--llm-backend",
+        "jax", "--frontend", "native", "--port", "0", "--data-root", root,
+        "--device", str(dev), "--llm-max-new", str(GEN_MAX_NEW)]))
+    system.build()
+    thread = _start_native(system)
+    port = system.native.bound_port
+    bodies = [None] * SSE_REQUESTS
+    try:
+        def one(i):
+            q = syn.questions[i]
+            path = (f"/query?q={urllib.parse.quote(q['question'])}&qid="
+                    f"{q['qid']}&choices=%7B%22A%22%3A%22a%22%7D&stream=1")
+            status, body = _http(port, "GET", path)
+            bodies[i] = body.decode() if status == 200 else f"{status}"
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(SSE_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        check_sse(bodies, syn.world.k, "native")
+    finally:
+        asyncio.run_coroutine_threadsafe(
+            system.server.llm.service.stop(),
+            system.native._fin_loop).result(60)
+        _stop_native(system, thread)
+    del system
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _greedy_parity(params, cfg, dev, *, bsz: int = 4, p: int = 64) -> dict:
@@ -1961,6 +2762,7 @@ def phase_generation(dev, smi: str) -> dict:
                                 GEN_DEMO_REQUESTS, GEN_MAX_NEW)
         if not any(demo["answers"]):
             raise AssertionError("the demo decoder generated no text")
+        native_sse(root, dev, syn)
 
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
@@ -1978,7 +2780,8 @@ def phase_generation(dev, smi: str) -> dict:
                                     "--llm-prefix-cache",
                                     "--llm-spec-window", "4"])):
             res = serve_generation(root, dev, syn, label, common + flags,
-                                   GEN_REQUESTS, GEN_MAX_NEW, weights)
+                                   GEN_REQUESTS, GEN_MAX_NEW, weights,
+                                   sse=label == "llm_batch")
             if res["launches"]["int4_matmul"] <= 0:
                 raise AssertionError(f"{label} never launched int4_matmul")
             out[label] = res
@@ -2056,6 +2859,14 @@ def main() -> int:
         phase_tiers(dev)
         log(f"[time] host tiers done at {time.perf_counter() - t_start:.0f} s")
         return 0
+    if only == "surface":      # the live index, workers and SSE paths
+        phase_fused_live(dev)
+        phase_live_quant(dev)
+        paths = phase_main_paths(dev, surface_only=True)
+        log(f"[time] serving surface done at "
+            f"{time.perf_counter() - t_start:.0f} s")
+        report(smi, {}, paths)
+        return 0
     if only == "llm":          # the decoder's kernels and generation
         kres = phase_decoder_kernels(dev)
         log(f"[time] decoder kernels checked at "
@@ -2069,6 +2880,7 @@ def main() -> int:
     if only == "kernels":      # a short first run after a kernel change
         return 0
     phase_reduced(dev)
+    phase_live_quant(dev)
     phase_reduced_tiers(dev)
     log(f"[time] reduced worlds done at {time.perf_counter() - t_start:.0f} s")
     paths = phase_main_paths(dev)

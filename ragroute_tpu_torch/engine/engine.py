@@ -492,6 +492,8 @@ class FederatedSearchEngine(EngineBase):
         self._ivf = (shard_set.ivf_arrays()
                      if impl in ("ivf", "hybrid") else None)
         self._lr = shard_set.lr_arrays() if impl == "lowrank" else None
+        # the rows each scan covers: the doc count, or a mutable shard's
+        # whole capacity (its free slots carry a -inf bias)
         self._n_docs = tuple(s.scan_docs for s in shard_set.shards)
         self._packed = tuple(s.packed4 for s in shard_set.shards)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -557,3 +559,28 @@ class FederatedSearchEngine(EngineBase):
                 event.record()
         return PendingSearch(self, probs, mask, scored, event, t0=t0,
                              fetch_candidates=fetch_candidates)
+
+    # -- live updates ------------------------------------------------------
+
+    def add_docs(self, source: str, embeddings, doc_ids=None) -> List[int]:
+        """Insert documents into a mutable shard, ordered against the
+        steps by the step lock (see :meth:`ShardSet.add_docs`)."""
+        with self._step_lock:
+            return self.shard_set.add_docs(source, embeddings, doc_ids)
+
+    def delete_docs(self, source: str, *, doc_ids=None,
+                    slots=None) -> List[int]:
+        with self._step_lock:
+            return self.shard_set.delete_docs(
+                source, doc_ids=doc_ids, slots=slots)
+
+    @property
+    def update_lock(self):
+        """The lock that orders index updates against search steps. A step
+        takes it to launch its kernels and an update to queue its writes,
+        both on the device's current stream, so a step launched before an
+        update reads the old rows and one launched after it the new ones,
+        even while a launched step is still running on the card. A caller
+        that needs one consistent view across several reads (a snapshot
+        and its payload compaction) holds it throughout."""
+        return self._step_lock

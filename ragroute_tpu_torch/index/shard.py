@@ -1,4 +1,4 @@
-"""Device-resident corpus embedding shards (immutable).
+"""Device-resident corpus embedding shards, immutable or live.
 
 PyTorch port of :mod:`ragroute_tpu.index.shard`. A shard is a dense
 ``[n_pad, d]`` tensor of document embeddings on the serving device (bf16 by
@@ -18,8 +18,14 @@ with the host-RAM tiers (:mod:`ragroute_tpu_torch.index.streamed`).
 A shard may also carry a balanced-IVF layout (``ivf``,
 :mod:`ragroute_tpu_torch.index.ivf`) and a low-rank coarse index (``lr``,
 :mod:`ragroute_tpu_torch.index.lowrank`) for the approximate search modes;
-the flat layout is always kept. Live add/delete, snapshot and mesh builds
-are not ported yet (ROADMAP queue 1, items 9 and 14).
+the flat layout is always kept. A mutable shard set (``build(mutable=True,
+reserve_docs=)``) takes live adds and deletes: liveness rides the bias
+(``-inf`` on a free slot), the scoring kernels scan the whole capacity, and
+an update is an in-place write of exactly its rows into ``docs``, ``bias``
+and ``scale`` on the device's current stream, so a step queued before it
+reads the old rows and one queued after it the new. :meth:`ShardSet.snapshot`
+writes the live corpus back to the data root. Mesh builds are not ported
+yet (ROADMAP queue 1, item 14).
 
 On-disk layout (shared with the reference):
 
@@ -53,6 +59,29 @@ StorageDType = Union[torch.dtype, str]   # a torch dtype, or "int4"
 
 STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                   "int8": torch.int8, "int4": "int4"}
+
+
+def _atomic_np_save(path: str, arr: np.ndarray) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:  # a handle: np.save(str) appends .npy
+        np.save(f, arr)
+    os.replace(tmp, path)
+
+
+def _atomic_json_dump(path: str, obj) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def _id_key(d):
+    """Hashable key for a doc-id payload (payloads may be JSON objects)."""
+    try:
+        hash(d)
+        return d
+    except TypeError:
+        return json.dumps(d, sort_keys=True, default=str)
 
 
 def parse_storage_dtype(dtype) -> bool:
@@ -196,12 +225,19 @@ class DeviceShard:
     packed4: bool = False
     ivf: Optional[IVFData] = None      # balanced-IVF layout (approx mode)
     lr: Optional[LowRankData] = None   # low-rank coarse index, or refused
+    mutable: bool = False              # live adds / deletes (see ShardSet)
 
     @property
     def scan_docs(self) -> int:
-        """Rows handed to the scoring kernels (immutable: the build-time
-        doc count; rows past it are padding)."""
-        return self.n_docs
+        """Rows handed to the scoring kernels: the build-time doc count for
+        an immutable shard (rows past it are padding), the whole capacity
+        for a mutable one, whose liveness rides the bias alone (``-inf`` on
+        a free slot)."""
+        return self.docs.shape[0] if self.mutable else self.n_docs
+
+    @property
+    def capacity(self) -> int:
+        return self.docs.shape[0]
 
 
 @dataclasses.dataclass
@@ -215,6 +251,17 @@ class ShardSet:
     # still have lr=None where the build refused a flat spectrum: it falls
     # back to the exact scan at search time)
     lowrank_built: bool = False
+    # mutable-mode bookkeeping (build(mutable=True)): live doc counts and
+    # free slot stacks per source
+    _live: Optional[Dict[str, int]] = None
+    _free: Optional[Dict[str, List[int]]] = None
+    # snapshot(): the build-time rows (an mmap of embeddings.npy under
+    # load()) and the raw f32 rows of every live added doc by slot; the
+    # device rows are lossy, so a snapshot is written from these
+    _orig_emb: Optional[Dict[str, np.ndarray]] = None
+    _added_rows: Optional[Dict[str, Dict[int, np.ndarray]]] = None
+    # build()'s normalize_cos, applied to added rows as to the corpus
+    _norm_cos: bool = True
 
     @classmethod
     def build(cls, world: WorldConfig, embeddings: Mapping[str, np.ndarray],
@@ -224,7 +271,8 @@ class ShardSet:
               ivf_clusters: Optional[int] = None, ivf_seed: int = 0,
               ivf_cache_dirs: Optional[Mapping[str, str]] = None,
               lowrank: Optional[int] = None,
-              lowrank_energy: Optional[float] = None) -> "ShardSet":
+              lowrank_energy: Optional[float] = None,
+              mutable: bool = False, reserve_docs: int = 0) -> "ShardSet":
         """Build every source's shard from ``[n_docs, d]`` float arrays
         (native dims) and place it on ``device``.
 
@@ -245,7 +293,28 @@ class ShardSet:
         caches (both kinds). The file name carries every build parameter
         and the file a fingerprint of the source embeddings; the format is
         the JAX package's, so either package reads the other's caches.
+
+        ``mutable``: take live adds and deletes (:meth:`add_docs`,
+        :meth:`delete_docs`); ``reserve_docs`` free slots a shard beyond its
+        docs (capacity ``round_up(n + reserve_docs, 512)``). Refused with
+        an IVF or low-rank layout, which an update would leave stale.
         """
+        if mutable and str(device) == "host":
+            raise ValueError(
+                "device='host' (mesh staging) and mutable live updates "
+                "are incompatible: the updates are device writes")
+        if mutable and ivf_clusters:
+            raise ValueError(
+                "mutable shards cannot carry a balanced-IVF layout "
+                "(adds/deletes would leave the cluster slabs stale); "
+                "build with ivf_clusters=None and rebuild the IVF layout "
+                "offline when the corpus settles")
+        if mutable and lowrank:
+            raise ValueError(
+                "mutable shards cannot carry a low-rank coarse index "
+                "(adds/deletes would leave the projected slab stale); "
+                "build with lowrank=None and rebuild offline when the "
+                "corpus settles")
         packed4 = parse_storage_dtype(dtype)
         shards: List[DeviceShard] = []
         ids: Dict[str, Optional[list]] = {}
@@ -309,7 +378,8 @@ class ShardSet:
                         os.makedirs(cache_dir, exist_ok=True)
                         save_ivf(ivf, cache, fingerprint=fp)
             n = emb.shape[0]
-            n_pad = _round_up(max(n, SHARD_PAD_MULTIPLE), SHARD_PAD_MULTIPLE)
+            n_pad = _round_up(max(n + (reserve_docs if mutable else 0),
+                                  SHARD_PAD_MULTIPLE), SHARD_PAD_MULTIPLE)
             lr = None
             if lowrank:
                 energy = (LOWRANK_ENERGY if lowrank_energy is None
@@ -361,11 +431,20 @@ class ShardSet:
                 docs=docs, bias=_to_device(b_np, device), scale=scale,
                 center=center, n_docs=n, name=src.name,
                 score_mode=src.score_mode, packed4=packed4, ivf=ivf,
-                lr=lr))
+                lr=lr, mutable=mutable))
             ids[src.name] = (list(doc_ids[src.name])
                              if doc_ids and src.name in doc_ids else None)
-        return cls(world=world, shards=shards, doc_ids=ids,
-                   lowrank_built=bool(lowrank))
+        out = cls(world=world, shards=shards, doc_ids=ids,
+                  lowrank_built=bool(lowrank))
+        if mutable:
+            out._norm_cos = normalize_cos
+            out._live = {s.name: s.n_docs for s in shards}
+            out._free = {s.name: list(range(s.capacity - 1, s.n_docs - 1, -1))
+                         for s in shards}
+            # references only: under load() these are read-only mmaps
+            out._orig_emb = {s.name: embeddings[s.name] for s in shards}
+            out._added_rows = {s.name: {} for s in shards}
+        return out
 
     @property
     def device(self) -> torch.device:
@@ -373,6 +452,8 @@ class ShardSet:
 
     @property
     def total_docs(self) -> int:
+        if self._live is not None:
+            return sum(self._live.values())
         return sum(s.n_docs for s in self.shards)
 
     @property
@@ -400,6 +481,190 @@ class ShardSet:
         """Per-shard low-rank coarse indexes (None where not built or
         where the build refused a flat-spectrum corpus)."""
         return [s.lr for s in self.shards]
+
+
+    # -- live updates (mutable shards) --------------------------------------
+
+    @property
+    def mutable(self) -> bool:
+        return self._free is not None
+
+    def _mutable_index(self, source: str) -> int:
+        if self._free is None:
+            raise ValueError(
+                "live updates need ShardSet.build(mutable=True); this set "
+                "was built immutable")
+        for si, s in enumerate(self.shards):
+            if s.name == source:
+                return si
+        raise KeyError(f"unknown source {source!r}")
+
+    def live_docs(self, source: str) -> int:
+        """Current live doc count of a mutable shard."""
+        self._mutable_index(source)
+        return self._live[source]
+
+    def free_slots(self, source: str) -> int:
+        self._mutable_index(source)
+        return len(self._free[source])
+
+    def add_docs(self, source: str, embeddings: np.ndarray,
+                 doc_ids: Optional[Sequence] = None) -> List[int]:
+        """Insert documents into a live shard; returns their slots.
+
+        The rows get the build's treatment (:func:`encode_rows`: cos
+        normalization as built, the frozen build-time centre, the gain bias,
+        the int8 / int4 scales) and are written in place into free slots,
+        exactly ``m`` rows (``index_copy_``; no repeated slot, whose write
+        order on the card would be undefined). The next step sees them."""
+        si = self._mutable_index(source)
+        shard = self.shards[si]
+        src = self.world.sources[si]
+        emb = np.asarray(embeddings, dtype=np.float32)
+        if emb.ndim != 2 or emb.shape[1] != src.embed_dim:
+            raise ValueError(
+                f"{source}: add shape {emb.shape} != [m, {src.embed_dim}]")
+        m = emb.shape[0]
+        if doc_ids is not None and len(doc_ids) != m:
+            raise ValueError(
+                f"{source}: {len(doc_ids)} doc_ids for {m} embeddings")
+        free = self._free[source]
+        if m > len(free):
+            raise ValueError(
+                f"{source}: adding {m} docs but only {len(free)} free "
+                f"slots (capacity {shard.capacity}, live "
+                f"{self._live[source]}); build with a larger reserve_docs "
+                f"or delete first")
+        raw = emb.copy()   # the rows as given, kept for snapshot()
+        dtype = "int4" if shard.packed4 else shard.docs.dtype
+        stored, brows, srows = encode_rows(
+            emb, src.score_mode, dtype=dtype, packed4=shard.packed4,
+            center=(None if shard.center is None
+                    else shard.center.cpu().numpy()),
+            norm_cos=self._norm_cos)
+        slots = [free.pop() for _ in range(m)]
+        dev = shard.docs.device
+        idx = torch.tensor(slots, dtype=torch.int64, device=dev)
+        rows = (_bf16_from_bits(stored).to(dev)
+                if shard.docs.dtype == torch.bfloat16
+                else _to_device(stored, dev))
+        shard.docs.index_copy_(0, idx, rows)
+        shard.bias.index_copy_(0, idx, _to_device(brows, dev))
+        if shard.scale is not None:
+            shard.scale.index_copy_(0, idx, _to_device(srows, dev))
+        for i, sl in enumerate(slots):
+            self._added_rows[source][sl] = raw[i]
+
+        table = self.doc_ids.get(source)
+        if table is None and doc_ids is not None:
+            # docs so far were named by local index; a slot freed before
+            # the table existed stays None (its old index must not come
+            # back as an id), and an id-less add in the reserve area keeps
+            # its slot as its id
+            dead = set(free) | set(slots)
+            table = [None if s in dead else s for s in range(shard.n_docs)]
+            table.extend([None] * (shard.capacity - len(table)))
+            for s in self._added_rows[source]:
+                if s not in dead and s >= shard.n_docs:
+                    table[s] = s
+            self.doc_ids[source] = table
+        if table is not None:
+            if len(table) < shard.capacity:
+                table.extend([None] * (shard.capacity - len(table)))
+            for sl, did in zip(
+                    slots, doc_ids if doc_ids is not None else slots):
+                table[sl] = did
+        self._live[source] += m
+        return slots
+
+    def delete_docs(self, source: str, *,
+                    doc_ids: Optional[Sequence] = None,
+                    slots: Optional[Sequence[int]] = None) -> List[int]:
+        """Remove documents from a live shard (by id payload or by slot):
+        their bias becomes ``-inf`` in place, so no scan can select them,
+        and the slots return to the free list."""
+        si = self._mutable_index(source)
+        shard = self.shards[si]
+        table = self.doc_ids.get(source)
+        if (doc_ids is None) == (slots is None):
+            raise ValueError("pass exactly one of doc_ids= / slots=")
+        if doc_ids is not None:
+            if table is None:
+                raise ValueError(
+                    f"{source} has no doc-id table; delete by slots=")
+            pos = {_id_key(d): i for i, d in enumerate(table)
+                   if d is not None}
+            missing = [d for d in doc_ids if _id_key(d) not in pos]
+            if missing:
+                raise KeyError(f"{source}: unknown doc ids {missing[:5]}")
+            slots = [pos[_id_key(d)] for d in doc_ids]
+        slots = [int(s) for s in slots]
+        free_set = set(self._free[source])
+        bad = [s for s in slots
+               if s < 0 or s >= shard.capacity or s in free_set]
+        if bad or len(set(slots)) != len(slots):
+            raise ValueError(
+                f"{source}: invalid/free/duplicate slots in delete: "
+                f"{(bad or 'duplicates')!r:.80s}")
+        if slots:
+            idx = torch.tensor(slots, dtype=torch.int64,
+                               device=shard.bias.device)
+            shard.bias.index_fill_(0, idx, float("-inf"))
+        self._free[source].extend(slots)
+        if table is not None:
+            for sl in slots:
+                table[sl] = None
+        added = self._added_rows[source]
+        for sl in slots:
+            added.pop(sl, None)
+        self._live[source] -= len(slots)
+        return slots
+
+    def live_slots(self, source: str) -> List[int]:
+        """Ascending slots of every live document of a mutable shard (the
+        order :meth:`snapshot` compacts to)."""
+        si = self._mutable_index(source)
+        live = np.ones(self.shards[si].capacity, dtype=bool)
+        live[np.asarray(self._free[source], dtype=np.int64)] = False
+        return np.flatnonzero(live).tolist()
+
+    def snapshot(self, root: str) -> Dict[str, dict]:
+        """Write the live state of a mutable world back to the data root:
+        ``<root>/<world>/<source>/embeddings.npy`` (the f32 rows of every
+        live doc as they were given, in ascending slot order) and
+        ``doc_ids.json`` where an id table exists, each through a temporary
+        file and a rename, so the next :meth:`load` serves this corpus.
+        Returns ``{source: {"live_docs": n, "slots": [...]}}``, the old
+        slot of each new row, for compacting side tables alike."""
+        if self._free is None:
+            raise ValueError(
+                "snapshot() needs ShardSet.build(mutable=True); immutable "
+                "worlds are already durable in the data root")
+        report: Dict[str, dict] = {}
+        for si, shard in enumerate(self.shards):
+            name = shard.name
+            added = self._added_rows[name]
+            slots = self.live_slots(name)
+            rows = np.empty((len(slots), self.world.sources[si].embed_dim),
+                            np.float32)
+            slot_arr = np.asarray(slots, dtype=np.int64)
+            is_added = np.isin(slot_arr, np.fromiter(added, np.int64,
+                                                     len(added)))
+            build_pos = np.flatnonzero(~is_added)
+            if build_pos.size:
+                rows[build_pos] = np.asarray(
+                    self._orig_emb[name][slot_arr[build_pos]], np.float32)
+            for i in np.flatnonzero(is_added):
+                rows[i] = added[slots[i]]
+            d = self.source_dir(root, self.world.name, name)
+            os.makedirs(d, exist_ok=True)
+            _atomic_np_save(os.path.join(d, "embeddings.npy"), rows)
+            table = self.doc_ids.get(name)
+            if table is not None:
+                _atomic_json_dump(os.path.join(d, "doc_ids.json"),
+                                  [table[s] for s in slots])
+            report[name] = {"live_docs": len(slots), "slots": slots}
+        return report
 
     # -- persistence --------------------------------------------------------
 

@@ -1,9 +1,8 @@
 """CLI entry point: serve the federated search system with PyTorch.
 
 The same flags as the JAX package's ``main.py``, plus ``--device``. Values
-outside the ported slices (meshes, the dtype policy, live updates, live
-encoders, the native front-end, workers) fail at start-up naming their
-ROADMAP item. ``--llm-backend jax`` keeps the JAX package's value, so that one
+outside the ported slices (meshes, the dtype policy, live encoders) fail at
+start-up naming their ROADMAP item. ``--llm-backend jax`` keeps the JAX package's value, so that one
 command line drives both packages; here it means generation on the card by
 this package's decoder (``ragroute_tpu_torch.llm``).
 
@@ -20,6 +19,10 @@ Examples (on a CUDA card)::
     python -m ragroute_tpu_torch.main --dataset medrag --llm-backend jax \
         --llm-checkpoint DIR --llm-quant int4 --llm-kv-quant int8 \
         --llm-serving continuous --llm-prefix-cache --llm-spec-window 4
+    python -m ragroute_tpu_torch.main --dataset medrag --routing ragroute \
+        --disable-llm --frontend native --mutable --reserve-docs 4096
+    python -m ragroute_tpu_torch.main --dataset medrag --routing ragroute \
+        --disable-llm --workers 2
 """
 
 from __future__ import annotations
@@ -147,15 +150,25 @@ def parse_args(argv=None):
                         "default 1 8 32 128 512)")
     p.add_argument("--frontend", type=str, default="aiohttp",
                    choices=["aiohttp", "native"],
-                   help="HTTP front-end (native is not ported)")
+                   help="HTTP front end: aiohttp, or native = the C++ "
+                        "epoll front end (native/frontend.cpp, built with "
+                        "g++ at start-up) whose batch pull is the "
+                        "micro-batcher")
     p.add_argument("--workers", type=int, default=1,
-                   help="SO_REUSEPORT worker processes (not ported: 1)")
+                   help="Serving processes sharing the port through "
+                        "SO_REUSEPORT; on one card each holds its own copy "
+                        "of the index (not with --mutable)")
     p.add_argument("--mesh", type=str, default=None,
                    help="DPxIDX device mesh (not ported)")
     p.add_argument("--mutable", action="store_true",
-                   help="Live index updates (not ported)")
+                   help="Serve a live index: POST /docs/add and /docs/delete "
+                        "insert and remove documents at serve time (in-place "
+                        "writes on the card), POST /admin/snapshot persists "
+                        "them. Not with --impl ivf/hybrid/lowrank/stream/"
+                        "hostrefine or --workers")
     p.add_argument("--reserve-docs", type=int, default=0,
-                   help="(--mutable; not ported)")
+                   help="Extra free slots per shard for live adds (with "
+                        "--mutable)")
     p.add_argument("--embedder", type=str, default="auto",
                    choices=["auto", "precomputed", "hash", "zoo"],
                    help="Query-embedding provider: auto (precomputed table "
@@ -168,12 +181,20 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> None:
-    from ragroute_tpu_torch.system import ServingSystem
+    from ragroute_tpu_torch.system import ServingSystem, run_workers
 
     logging.basicConfig(level=logging.INFO)
-    system = ServingSystem(parse_args(argv))
+    args = parse_args(argv)
+    if args.workers > 1:
+        run_workers(args, args.workers)
+        logger.info("Exiting application")
+        return
+    system = ServingSystem(args)
     try:
-        asyncio.run(system.run_forever())
+        if system.frontend == "native":
+            system.run_native()
+        else:
+            asyncio.run(system.run_forever())
     except KeyboardInterrupt:
         pass
     logger.info("Exiting application")

@@ -94,6 +94,12 @@ def load(name: str) -> Tuple[ctypes.CDLL, BuildInfo]:
         return hit
 
 
+def kernel_sources() -> Tuple[str, ...]:
+    """The name of every kernel source, ``csrc/<name>.cu``."""
+    return tuple(sorted(os.path.splitext(os.path.basename(p))[0]
+                        for p in glob.glob(os.path.join(CSRC, "*.cu"))))
+
+
 def build_all(names: Sequence[str]) -> Dict[str, BuildInfo]:
     """Compile several sources at once (one ``nvcc`` process each, all
     started together) and load them; returns each one's build report."""

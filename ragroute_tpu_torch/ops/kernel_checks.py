@@ -33,6 +33,13 @@ Fused top-k (:func:`fused_topk` against :func:`fused_topk_reference`):
   a partial query block, partial doc tiles, splits of several tiles, one
   split forced by the workspace cap, lists longer than the valid rows, a
   -inf bias tail and ``valid_docs < N``.
+* :func:`mutable_exact_cases`: the same kind of data over a live shard's
+  rows (a capacity on the 512-row grid, every row scanned, ``-inf`` bias
+  holes anywhere: scattered, in runs, on one copy of a duplicated row, a
+  free tail, a shard with fewer live rows than k), each case named with
+  the launch it must be held on: the wgmma scan (bf16, int8, int4 per-doc
+  and per-group), the f32 scan, the first design, the deep fold and the
+  deep launch.
 * :func:`compare_tolerant`: the path's shapes (bf16 operands, different
   summation order): scores within ``1e-3 * max|score|``, winner-set recall,
   and every disagreement a near-tie at the k boundary.
@@ -404,6 +411,97 @@ def deep_exact_cases(device, *, bsz: int = 37, n: int = 20_000, d: int = 64,
     per_row = 4 * deep_topk.RUN + deep_topk.WORD * 4 * 600
     yield Case("deep-bf16-dot-k600-chunks-slices", q, bf16, 600, "dot",
                cap=10 * per_row)
+
+
+def live_bias(n: int, *, holes: float = 0.3, free_tail: int = 0,
+              seed: int = 0, device="cpu") -> Tensor:
+    """A live shard's ``[n]`` bias: 0 on live rows, ``-inf`` on a
+    ``holes`` share of the rows at random, on one run of rows in the
+    middle and on the last ``free_tail`` rows (the reserve)."""
+    rng = np.random.default_rng(seed)
+    b = np.where(rng.random(n) < holes, NEG_INF, 0.0).astype(np.float32)
+    b[n // 5:n // 5 + n // 8] = NEG_INF
+    if free_tail:
+        b[n - free_tail:] = NEG_INF
+    return torch.from_numpy(b).to(device)
+
+
+def mutable_exact_cases(device, *, bsz: int = 150, seed: int = 11
+                        ) -> Iterator[Tuple[Case, str]]:
+    """Exact-arithmetic cases over a mutable shard's rows: integer data in
+    [-4, 4], the whole capacity scanned (``valid_docs`` unset) and liveness
+    carried by ``-inf`` bias holes (:func:`live_bias`), duplicate rows with
+    one copy dead; each yielded with the launch it runs on
+    (``run_kernel``'s names): the wgmma scan over bf16 / int8 / int4
+    (per-doc and per-group), l2 holes over bf16, the f32 scan, the first
+    design, the deep fold and the deep launch, over 1,536 and 20,480 rows,
+    and a shard of 1,536 rows with 40 live at k past 40 (the -inf entries
+    carry index 0)."""
+    rng = np.random.default_rng(seed)
+    d = 64
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    q = t(rng.integers(-4, 5, (bsz, d)).astype(np.float32))
+    for n, tail in ((1536, 136), (20_480, 2_048)):
+        docs = rng.integers(-4, 5, (n, d)).astype(np.float32)
+        for src, dsts in ((5, (6, 300, 301, 700, 1023, 1024)),
+                          (9, (10, 11, 255, 256, 1400, n - 1))):
+            docs[list(dsts)] = docs[src]
+        bias = live_bias(n, free_tail=tail, seed=n, device=device)
+        bias[6] = NEG_INF                   # one copy of a duplicate dead
+        bias[10] = 0.0
+        scale = t((2.0 ** rng.integers(-3, 2, n)).astype(np.float32))
+        gscale = t((2.0 ** rng.integers(-3, 2, (n, d // 16))
+                    ).astype(np.float32))
+        f32 = t(docs)
+        bf16 = f32.to(torch.bfloat16)
+        int8 = t(docs.astype(np.int8))
+        packed = t(_pack_int4(docs.astype(np.int8)))
+        l2 = bias - t((docs * docs).sum(axis=1))
+        name = f"live-n{n}"
+        if n == 1536:
+            for k in WGMMA_KS:
+                yield Case(f"{name}-bf16-k{k}", q, bf16, k, "dot",
+                           bias=bias), "wgmma"
+            yield Case(f"{name}-bf16-l2-k32", q, bf16, 32, "dot",
+                       bias=l2), "wgmma"
+            yield Case(f"{name}-int8-k32", q, int8, 32, "dot", bias=bias,
+                       scale=scale), "wgmma"
+            yield Case(f"{name}-int4-doc-k32", q, packed, 32, "dot",
+                       bias=bias, scale=scale, packed4=True), "wgmma"
+            yield Case(f"{name}-int4-group-k64", q, packed, 64, "dot",
+                       bias=bias, scale=gscale, packed4=True), "wgmma"
+            for k in (32, 64):
+                yield Case(f"{name}-f32-k{k}", q, f32, k, "dot",
+                           bias=bias), "f32"
+            yield Case(f"{name}-f32-k32", q, f32, 32, "dot",
+                       bias=bias), "shallow"
+            yield Case(f"{name}-bf16-k128", q, bf16, 128, "dot",
+                       bias=bias), "shallow"
+            yield Case(f"{name}-int8-k100", q, int8, 100, "dot", bias=bias,
+                       scale=scale), "shallow"
+            few = torch.full_like(bias, NEG_INF)
+            few[torch.randperm(n, generator=torch.Generator().manual_seed(
+                seed))[:40].to(device)] = 0.0
+            for route, k in (("wgmma", 64), ("f32", 64), ("shallow", 100),
+                             ("fold", 128), ("deep", 200)):
+                docs_k = f32 if route == "f32" else bf16
+                yield Case(f"{name}-40-live-{route}-k{k}", q, docs_k, k,
+                           "dot", bias=few), route
+        else:
+            for k in (128, 256):
+                yield Case(f"{name}-bf16-k{k}", q, bf16, k, "dot",
+                           bias=bias), "fold"
+            yield Case(f"{name}-int8-k128", q, int8, 128, "dot", bias=bias,
+                       scale=scale), "fold"
+            yield Case(f"{name}-int4-group-k256", q, packed, 256, "dot",
+                       bias=bias, scale=gscale, packed4=True), "fold"
+            yield Case(f"{name}-bf16-k300", q, bf16, 300, "dot",
+                       bias=bias), "deep"
+            yield Case(f"{name}-f32-k200", q, f32, 200, "dot",
+                       bias=bias), "deep"
 
 
 def run_kernel(case: Case, kernel: Optional[str] = None

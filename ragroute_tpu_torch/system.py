@@ -3,12 +3,15 @@
 PyTorch port of :mod:`ragroute_tpu.system` for the single-device paths
 (exact search, the approximate device-resident modes ``--impl ivf | hybrid |
 lowrank``, ``--dtype int4``, the host-RAM capacity tiers ``--impl stream |
-hostrefine`` with ``--hbm-budget-gb``, and on-card generation ``--llm-backend
-jax``): load the world's artifacts (shards with their extra layouts,
-centroids, router checkpoint, query table, doc payloads) from the data root
-onto the chosen device, construct engine + batcher + generation service +
-HTTP server, restart the batcher worker if it ever dies, and stop cleanly on
-SIGINT/SIGTERM.
+hostrefine`` with ``--hbm-budget-gb``, the live index ``--mutable``, and
+on-card generation ``--llm-backend jax``): load the world's artifacts
+(shards with their extra layouts, centroids, router checkpoint, query
+table, doc payloads) from the data root onto the chosen device, construct
+engine + batcher + generation service + HTTP server, restart the batcher
+worker if it ever dies, and stop cleanly on SIGINT/SIGTERM. The server runs
+on aiohttp or on the native C++ front end (``--frontend native``,
+:meth:`ServingSystem.run_native`); ``--workers N`` runs N such processes on
+one port (:class:`Workers`).
 
 Every CLI value outside the ported slice fails at start-up with an error
 naming its ROADMAP item (:func:`check_ported`); none is silently ignored.
@@ -21,6 +24,7 @@ import json
 import logging
 import os
 import signal
+import time
 from typing import Optional
 
 import numpy as np
@@ -57,12 +61,8 @@ _UNPORTED = (
     ("coordinator", (None,), "queue 1, item 14 (multi-GPU)"),
     ("num_processes", (1,), "queue 1, item 14 (multi-GPU)"),
     ("process_id", (0,), "queue 1, item 14 (multi-GPU)"),
-    ("mutable", (False,), "queue 1, item 9 (live index)"),
-    ("reserve_docs", (0,), "queue 1, item 9 (live index)"),
     ("embedder", ("auto", "precomputed", "hash"),
      "queue 1, item 8 (live query encoders)"),
-    ("frontend", ("aiohttp",), "queue 1, item 6 (native front-end)"),
-    ("workers", (1,), "queue 1, item 6 (multi-process front-end)"),
     ("dtype", ("float32", "bfloat16", "int8", "int4"),
      "queue 1, item 10 (dtype policy)"),
 )
@@ -83,7 +83,8 @@ def load_world_artifacts(root: str, world: WorldConfig, *,
                          device="cpu", ivf_clusters=None, lowrank=None,
                          streamed_tier: Optional[str] = None,
                          hbm_budget_bytes: Optional[int] = None,
-                         row_sources=None):
+                         row_sources=None, mutable: bool = False,
+                         reserve_docs: int = 0):
     """Load shards / router / bank / query provider / doc store from the
     data root (layout of :func:`ragroute_tpu_torch.index.synthetic.
     save_world`). No router checkpoint: fresh params from a seeded
@@ -95,7 +96,9 @@ def load_world_artifacts(root: str, world: WorldConfig, *,
     ``hbm_budget_bytes``: rows stream from the ``embeddings.npy`` mmaps
     through the block encoder; ``row_sources`` (source name -> array or
     :class:`~ragroute_tpu_torch.index.streamed.RowSource`) overrides the
-    file of each source it names, for a caller that makes rows on demand."""
+    file of each source it names, for a caller that makes rows on demand.
+    ``mutable`` / ``reserve_docs`` build a live shard set
+    (:meth:`ShardSet.build`)."""
     wroot = os.path.join(root, world.name)
     if streamed_tier:
         shard_set = StreamedShardSet.load(
@@ -104,7 +107,8 @@ def load_world_artifacts(root: str, world: WorldConfig, *,
             row_sources=row_sources)
     else:
         shard_set = ShardSet.load(root, world, dtype=dtype, device=device,
-                                  ivf_clusters=ivf_clusters, lowrank=lowrank)
+                                  ivf_clusters=ivf_clusters, lowrank=lowrank,
+                                  mutable=mutable, reserve_docs=reserve_docs)
 
     cent_path = os.path.join(wroot, "centroids.json")
     if os.path.exists(cent_path):
@@ -201,6 +205,19 @@ class ServingSystem:
                 f"--impl {self.impl} with --mesh is not ported to "
                 "ragroute_tpu_torch yet (ROADMAP queue 1, item 14 "
                 "(multi-GPU))")
+        # --mutable: a live index (/docs/add, /docs/delete,
+        # /admin/snapshot); ShardSet.build refuses it with the IVF and
+        # low-rank layouts, which updates would leave stale
+        self.mutable: bool = getattr(args, "mutable", False)
+        self.reserve_docs: int = getattr(args, "reserve_docs", 0) or 0
+        if self.mutable and self.impl in STREAMED_IMPLS:
+            raise ValueError(
+                f"--impl {self.impl} serves an immutable host-tier corpus; "
+                "drop --mutable (rebuild to update)")
+        # SO_REUSEPORT: set for each worker of --workers N
+        self.reuse_port: bool = getattr(args, "reuse_port", False)
+        self.frontend: str = getattr(args, "frontend", None) or "aiohttp"
+        self.native = None     # NativeFederationServer with --frontend native
         # LLM backend: auto = reference behavior (echo when disabled or
         # simulated, otherwise ollama); jax = generation on this device
         self.llm_backend: str = getattr(args, "llm_backend", None) or "auto"
@@ -326,7 +343,9 @@ class ServingSystem:
                                            doc_ids=syn.doc_ids, dtype=dtype,
                                            device=self.device,
                                            ivf_clusters=ivf_clusters,
-                                           lowrank=lowrank)
+                                           lowrank=lowrank,
+                                           mutable=self.mutable,
+                                           reserve_docs=self.reserve_docs)
             router = CorpusRouter.from_seed(self.world.router_input_dim, 0,
                                             self.device)
             bank = RouterBank.create(self.world, syn.centroids,
@@ -341,7 +360,8 @@ class ServingSystem:
                 embedder=self.embedder, device=self.device,
                 ivf_clusters=ivf_clusters, lowrank=lowrank,
                 streamed_tier=self.impl if streamed else None,
-                hbm_budget_bytes=hbm_budget, row_sources=self.row_sources)
+                hbm_budget_bytes=hbm_budget, row_sources=self.row_sources,
+                mutable=self.mutable, reserve_docs=self.reserve_docs)
         if streamed:
             engine = StreamedSearchEngine(shard_set, router, bank,
                                           threshold=threshold,
@@ -367,7 +387,8 @@ class ServingSystem:
             disable_llm=self.disable_llm, simulate=self.simulate,
             relevance_data=relevance, port=self.port,
             batcher=QueryBatcher(engine, strategy=strategy,
-                                 buckets=self.buckets))
+                                 buckets=self.buckets),
+            reuse_port=self.reuse_port, data_root=self.data_root)
         return self.server
 
     async def start(self) -> None:
@@ -396,6 +417,40 @@ class ServingSystem:
                 logger.error("batch worker died (%s); restarting", exc)
                 await b.start()
 
+    def run_native(self) -> None:
+        """Serve through the native front end (``--frontend native``): the
+        C++ epoll thread owns the sockets and this thread runs the engine
+        loop, without asyncio. Blocks until SIGINT / SIGTERM."""
+        from ragroute_tpu_torch.engine.native_frontend import \
+            NativeFederationServer
+
+        if self.server is None:
+            self.build()
+        native = NativeFederationServer(self.server)
+        self.native = native
+        native.start()
+        logger.info("Starting ragroute_tpu_torch with dataset %s "
+                    "(routing=%s, device=%s, native front end)",
+                    self.dataset, self.routing, self.device)
+
+        def _sig(signum, frame):
+            logger.info("signal %s: shutting down the native front end",
+                        signum)
+            native._running = False
+            if native.fe is not None:
+                native.fe.shutdown()
+
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            try:
+                signal.signal(sig, _sig)
+            except ValueError:  # not the main thread
+                pass
+        try:
+            native.serve_forever()
+        except KeyboardInterrupt:
+            native.stop()
+        logger.info("Shutdown complete")
+
     async def run_forever(self) -> None:
         await self.start()
         while not self._stopping:
@@ -414,3 +469,127 @@ class ServingSystem:
             if service is not None:
                 await service.stop()
         logger.info("Shutdown complete")
+
+
+# ---------------------------------------------------------------------------
+# Multi-process front end (SO_REUSEPORT workers)
+# ---------------------------------------------------------------------------
+
+def free_port(host: str = cfg.HTTP_HOST) -> int:
+    """A port no socket on ``host`` holds now (the kernel's pick for port
+    0, released again)."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind((host, 0))
+        return s.getsockname()[1]
+
+
+def _worker_entry(args_dict: dict) -> None:
+    import argparse
+
+    system = ServingSystem(argparse.Namespace(**args_dict))
+    try:
+        if system.frontend == "native":
+            system.run_native()
+        else:
+            asyncio.run(system.run_forever())
+    except KeyboardInterrupt:
+        pass
+
+
+class Workers:
+    """N full serving processes on one HTTP port through SO_REUSEPORT (the
+    kernel balances connections), with the reference's child-process
+    discipline: spawn, a dead-child watchdog, terminate, join, kill.
+
+    On one CUDA card the N workers share it: each holds its own CUDA
+    context and its own copy of the index, so the card's memory must hold
+    N x (index + context), and their steps time-slice the same SMs. What
+    they add is host parallelism (HTTP parsing, assembly) in front of the
+    one card. Workers start by ``spawn`` (CUDA does not survive ``fork``),
+    and :meth:`start` builds every kernel once before spawning them, so N
+    processes do not each run ``nvcc`` on a cold cache.
+
+    ``--port 0`` is resolved here to one free port, which every worker
+    binds: :meth:`start` returns it and logs it. ``--mutable`` is refused:
+    each worker would hold an independent index, so an update would reach
+    only the worker the kernel sent it to."""
+
+    def __init__(self, args, n_workers: int):
+        if getattr(args, "mutable", False):
+            raise ValueError(
+                "--mutable is a single-process capability (SO_REUSEPORT "
+                "workers each hold an independent index copy, so live "
+                "updates would apply to only one worker); drop --workers "
+                "or --mutable")
+        check_ported(args)
+        self.args = args
+        self.n_workers = int(n_workers)
+        self.port: Optional[int] = None
+        self.procs = []
+
+    def start(self) -> int:
+        """Build the kernels, spawn the workers; returns the shared port."""
+        import multiprocessing as mp
+
+        d = dict(vars(self.args))
+        port = d.get("port")
+        if port is None:
+            port = cfg.HTTP_PORT
+        elif port == 0:
+            port = free_port()
+        d.update(port=port, reuse_port=True)
+        if resolve_device(d.get("device") or "cuda").type == "cuda":
+            from ragroute_tpu_torch.ops import _build
+
+            _build.build_all(_build.kernel_sources())
+        ctx = mp.get_context("spawn")
+        for _ in range(self.n_workers):
+            p = ctx.Process(target=_worker_entry, args=(d,))
+            p.start()
+            self.procs.append(p)
+        self.port = port
+        logger.info("started %d SO_REUSEPORT workers on port %d: %s",
+                    self.n_workers, port, [p.pid for p in self.procs])
+        return port
+
+    def supervise(self) -> None:
+        """Block while any worker lives, logging each one that dies."""
+        reported = set()
+        while any(p.is_alive() for p in self.procs):
+            time.sleep(WATCHDOG_POLL_S)
+            for p in self.procs:
+                if not p.is_alive() and p.pid not in reported:
+                    reported.add(p.pid)
+                    logger.error(
+                        "worker %s died (exit %s); capacity degraded to "
+                        "%d/%d workers", p.pid, p.exitcode,
+                        sum(q.is_alive() for q in self.procs),
+                        self.n_workers)
+
+    def stop(self) -> None:
+        for p in self.procs:
+            if p.is_alive():
+                p.terminate()
+        for p in self.procs:
+            p.join(2)
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join(1)
+
+
+def run_workers(args, n_workers: int) -> int:
+    """``--workers N``: start :class:`Workers`, supervise them until they
+    end or the parent is interrupted, stop them; returns the port they
+    served on."""
+    workers = Workers(args, n_workers)
+    port = workers.start()
+    try:
+        workers.supervise()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        workers.stop()
+    return port

@@ -49,6 +49,7 @@ def test_entry_points_import_no_jax():
         "import ragroute_tpu_torch.index.synthetic\n"
         "import ragroute_tpu_torch.oracle, ragroute_tpu_torch.benchmark\n"
         "from ragroute_tpu_torch.engine.server import FederationServer\n"
+        "import ragroute_tpu_torch.engine.native_frontend\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
         "                                    'ml_dtypes', 'ragroute_tpu')\n"
@@ -93,11 +94,13 @@ def test_cli_keeps_every_reference_flag_and_default():
 @pytest.mark.parametrize("argv", [
     ["--mesh", "2x4"], ["--impl", "stream", "--mesh", "1x2"],
     ["--impl", "hostrefine", "--mesh", "2x4"],
-    ["--mutable"], ["--reserve-docs", "8"], ["--embedder", "zoo"],
+    ["--mutable", "--mesh", "2x4"], ["--reserve-docs", "8", "--embedder",
+                                     "zoo"], ["--embedder", "zoo"],
     ["--llm-backend", "jax", "--mesh", "2x4"],
     ["--llm-quant", "int4", "--mesh", "1x2"],
-    ["--llm-serving", "continuous", "--workers", "2"], ["--frontend", "native"],
-    ["--workers", "2"], ["--dtype", "policy"],
+    ["--llm-serving", "continuous", "--workers", "2", "--mesh", "1x2"],
+    ["--frontend", "native", "--dtype", "policy"],
+    ["--workers", "2", "--coordinator", "10.0.0.1:1234"], ["--dtype", "policy"],
     ["--coordinator", "10.0.0.1:1234"], ["--num-processes", "2"],
     ["--hbm-budget-gb", "4", "--impl", "hostrefine", "--mesh", "1x4"],
 ])
@@ -183,6 +186,38 @@ def test_host_tier_flags_reach_the_engine(argv, tier, dtype, k_refine, nprobe):
             for e in world.encoders}
     out = engine.search(embs, strategy="all", fetch_candidates=False)
     assert out.merged_valid[0] == world.k
+
+
+@pytest.mark.parametrize("argv,refused", [
+    (["--mutable", "--reserve-docs", "600"], None),
+    (["--frontend", "native"], None),
+    (["--workers", "2"], None),
+    (["--mutable", "--impl", "ivf"], "balanced-IVF layout"),
+    (["--mutable", "--impl", "lowrank"], "low-rank coarse index"),
+    (["--mutable", "--impl", "hostrefine"], "immutable host-tier"),
+    (["--mutable", "--impl", "stream"], "immutable host-tier"),
+])
+def test_serving_surface_flags_reach_the_system(argv, refused):
+    """``--mutable`` / ``--reserve-docs``, ``--frontend native`` and
+    ``--workers`` are served; a live index is refused with the layouts and
+    tiers an update would leave stale (the tiers at construction, the
+    layouts by the shard build)."""
+    args = parse_args(["--dataset", "medrag", "--simulate", "--disable-llm",
+                       "--device", "cpu", "--dtype", "float32", *argv])
+    check_ported(args)
+    if refused:
+        with pytest.raises(ValueError, match=refused):
+            ServingSystem(args).build()
+        return
+    system = ServingSystem(args)
+    assert system.frontend == args.frontend
+    server = system.build()
+    ss = server.engine.shard_set
+    assert ss.mutable == server.mutable == args.mutable
+    if args.mutable:
+        assert [s.capacity for s in ss.shards] == [1536] * 4
+        assert server.engine._n_docs == (1536,) * 4
+        assert type(server.doc_store).__name__ == "OverlayDocStore"
 
 
 def test_slice_flags_pass_and_cuda_request_without_cuda_raises():

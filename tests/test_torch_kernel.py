@@ -50,6 +50,21 @@ def test_kernel_exact_cases_equal_plain(cuda):
     assert not failed, failed
 
 
+def test_mutable_exact_cases_equal_plain(cuda):
+    """Live shards (the capacity scanned whole, -inf bias holes anywhere,
+    fewer live rows than k): every launch, by name and through the plan,
+    equals the plain version exactly."""
+    failed = []
+    for case, route in kc.mutable_exact_cases(cuda):
+        ps, pi = kc.run_plain(case)
+        for kernel in (None, route):
+            ks, ki = kc.run_kernel(case, kernel)
+            torch.cuda.synchronize()
+            if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+                failed.append(f"{case.name}:{kernel or 'plan'}")
+    assert not failed, failed
+
+
 @pytest.mark.parametrize("bsz,n,valid", [(64, 20_000, 20_000),
                                          (8, 50_000, 49_990),
                                          (130, 4_160, 4_100)])

@@ -208,14 +208,19 @@ def test_stats_and_unported_stream():
                     assert len(body["metadata"]["top_docs"]) == syn.world.k
                 async with s.get(base + "/query",
                                  params=dict(params, stream="1")) as r:
-                    assert r.status == 501
-                    assert "ROADMAP" in await r.text()
+                    # SSE: the final event with the whole body, then [DONE]
+                    assert r.status == 200
+                    assert r.content_type == "text/event-stream"
+                    events = (await r.text()).split("\n\n")
+                    assert events[-2:] == ["data: [DONE]", ""]
+                    final = json.loads(events[-3][len("data: "):])
+                    assert len(final["metadata"]["top_docs"]) == syn.world.k
                 async with s.get(base + "/stats") as r:
                     return await r.json()
         finally:
             await tserver.stop()
 
     stats = asyncio.run(run())
-    assert stats["num_queries"] == 1
+    assert stats["num_queries"] == 2
     assert stats["batch_size"]["max"] == 1.0
     assert stats["device_memory"] is None       # CPU engine

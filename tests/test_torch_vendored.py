@@ -337,6 +337,38 @@ LLM_COPIES = {
 }
 
 
+def _same_host_helper(ref, ours):
+    name = ref.__name__
+    if name == "_parse_qs_first":
+        for qs in ("q=a+b&choices=%7B%22A%22%3A%22x%22%7D&qid=1",
+                   "q=first&q=second&&x", "a%20b=c%2Bd&stream=1",
+                   "q=%ZZbad&choices=&qid=", ""):
+            for seed in ({}, {"q": "form"}):
+                assert ours(qs, dict(seed)) == ref(qs, dict(seed))
+    elif name == "_unquote_cached":
+        for v in ("a%20b+c", "%E2%9C%93", "x" * 3000 + "%41", "%zz"):
+            assert ours(v) == ref(v)
+    elif name == "_id_key":
+        for v in ("id", 3, {"b": 1, "a": [2]}, ["x", {"y": 1}]):
+            assert ours(v) == ref(v)
+    else:
+        raise AssertionError(name)
+
+
+HOST_COPIES = ("engine.native_frontend._parse_qs_first",
+               "engine.native_frontend._unquote_cached",
+               "index.shard._id_key")
+
+
+@pytest.mark.parametrize("name", HOST_COPIES)
+def test_serving_slice_copy_behaves_as_the_original(name):
+    """The pure helpers of the native front end and the live index that the
+    port keeps as its own copies."""
+    ref, ours = _llm_pair(name)
+    assert ours.__module__.startswith("ragroute_tpu_torch")
+    _same_host_helper(ref, ours)
+
+
 @pytest.mark.parametrize("name", sorted(LLM_COPIES))
 def test_generation_slice_copy_behaves_as_the_original(name):
     ref, ours = _llm_pair(name)
