@@ -193,11 +193,36 @@ Phases, each of which fails the run when it fails:
    of Qwen3-8B at f32 give the plain path's greedy tokens for 16 steps
    (near-ties of the plain path's top two logits counted).
 
+7. The live query encoders (``--embedder zoo``): (a) every registry encoder
+   at its published width (BERT-base, BERT-large, XLM-R large, MPNet base,
+   the T5 encoder with its 2_Dense, GPT-J for SGPT-5.8B; each model built
+   once with seeded bf16 weights on the card, SGPT last, each freed before
+   the next) over a fixed batch of query texts (the port's WordPiece and BPE
+   tokenizers over vocabularies made in code; seeded token ids for XLM-R and
+   T5) at buckets 1, 8 and 32: ``[B, dim]``, finite, unit norm where the
+   spec normalizes, cosine >= 0.99 against an f32 forward of the same
+   weights, >= 0.999 between a text alone and inside the bucket of 32, with
+   each forward's CUDA-event and device time beside its bound; (b) inside
+   phase 3, over its medrag world (``encoders`` alone: a world made there),
+   a MedCPT checkpoint at BERT-base width written into a temporary hub cache
+   as ``model.safetensors``, served by ``--embedder zoo`` through aiohttp
+   and ``--frontend native``: the encoder on the card, a burst of 1,024 text
+   GET /query over 64 connections with qids the table lacks, the aiohttp
+   EmbeddingBatcher's mean batch > 1, K1 launched, recall@32 >= 0.99 of 256
+   served answers against the exact oracle over ``embed_many``'s
+   embeddings; the same weights as ``pytorch_model.bin`` load to the same
+   embeddings; (c) the feb4rag world at 262,144 docs (f32 rows) served
+   through ``FederationServer`` with its eight encoders (SGPT-5.8B among
+   them): 256 text queries at once, recall@10 >= 0.99 under feb4rag's merge,
+   requests/s and encoding's share (the same queries over bf16 rows as a
+   note).
+
 ``python3 chip_smoke.py kernels`` stops after phase 2: a short first run
 after a kernel change. ``python3 chip_smoke.py tiers`` runs phases 1 and 5
 only; ``python3 chip_smoke.py llm`` phases 1, K5 / K6 of 2, and 6;
 ``python3 chip_smoke.py surface`` phases 1, K1's live cases of 2, the live
-rewrites of 4 and of 3 the exact path and the rest of the serving surface.
+rewrites of 4 and of 3 the exact path and the rest of the serving surface;
+``python3 chip_smoke.py encoders`` phases 1 and 7.
 
 The second-to-last line is one JSON object with every kernel's launches on
 the main paths (and, for the three top-k kernels, the deep launches among
@@ -280,7 +305,12 @@ PATH_KERNELS = {"exact": ("fused_topk",),
                 # on-card generation, Qwen3-8B int4 (decode attention is
                 # wired to no engine, as in the JAX package)
                 "llm_batch": ("int4_matmul",),
-                "llm_continuous": ("int4_matmul",)}
+                "llm_continuous": ("int4_matmul",),
+                # --embedder zoo: the medrag world through both front ends
+                # and the feb4rag zoo (query encoders on the card)
+                "zoo_aiohttp": ("fused_topk",),
+                "zoo_native": ("fused_topk",),
+                "zoo_feb4rag": ("fused_topk",)}
 
 # the kernels each served path must launch through their wgmma designs:
 # K1's scan (bf16, int8 and int4 docs), K3's grouped GEMM and K4's pair scan
@@ -1302,11 +1332,13 @@ def serve_path(root: str, dev, syn, label: str, flags, recall_gate: float
     return {"launches": launches, "recall": recall}
 
 
-def phase_main_paths(dev, surface_only: bool = False) -> dict:
+def phase_main_paths(dev, surface_only: bool = False,
+                     zoo: bool = True) -> dict:
     """Serve the synthetic medrag world through the port's ServingSystem:
-    exact, then low-rank, then the rest of the serving surface, then
-    cluster-probed over the topical world (``surface_only``: the exact path
-    and the rest of the surface)."""
+    exact, then low-rank, then ``--embedder zoo`` (with ``zoo``: phase 7
+    (b)), then the rest of the serving surface, then cluster-probed over the
+    topical world (``surface_only``: the exact path and the rest of the
+    surface)."""
     from ragroute_tpu_torch.index.synthetic import (make_synthetic_world,
                                                     save_world)
 
@@ -1338,6 +1370,8 @@ def phase_main_paths(dev, surface_only: bool = False) -> dict:
                 if label in DEEP_PATHS:
                     check_deep(label, out[label]["launches"],
                                out[label]["recall"], out)
+            if topics == 1 and zoo:     # --embedder zoo over this world
+                out.update(phase_zoo_medrag(root, dev, syn))
             if topics == 1:     # the same world, served by the rest of
                 #                 the surface (it ends by overwriting it)
                 out.update(phase_surface(root, dev, syn))
@@ -1351,15 +1385,16 @@ def phase_main_paths(dev, surface_only: bool = False) -> dict:
 # ---- phase 3, last runs: the whole serving surface ---------------------------
 
 def start_load(port: int, syn, n: int = SURFACE_BURST,
-               conns: int = SURFACE_CONNS):
+               conns: int = SURFACE_CONNS, questions=None):
     """A closed-loop burst of ``n`` GET /query over ``conns`` connections
     from a process of its own (``python -m ragroute_tpu_torch.loadgen``,
     no torch import), so that its work does not load the server's
-    process; returns ``(process, questions file)``."""
+    process; returns ``(process, questions file)``. ``questions``: the
+    ``{"qid", "question"}`` list to send (default the world's)."""
     fd, path = tempfile.mkstemp(prefix="ragroute_questions_", suffix=".json")
     with os.fdopen(fd, "w") as f:
-        json.dump([{"qid": q["qid"], "question": q["question"]}
-                   for q in syn.questions], f)
+        json.dump(questions or [{"qid": q["qid"], "question": q["question"]}
+                                for q in syn.questions], f)
     proc = subprocess.Popen(
         [sys.executable, "-m", "ragroute_tpu_torch.loadgen", "--port",
          str(port), "--n", str(n), "--conns", str(conns), "--questions",
@@ -1390,8 +1425,8 @@ def finish_load(load) -> dict:
 
 
 def surface_burst(port: int, syn, n: int = SURFACE_BURST,
-                  conns: int = SURFACE_CONNS) -> dict:
-    return finish_load(start_load(port, syn, n, conns))
+                  conns: int = SURFACE_CONNS, questions=None) -> dict:
+    return finish_load(start_load(port, syn, n, conns, questions))
 
 
 def surface_bursts(port: int, syn) -> list:
@@ -2842,6 +2877,345 @@ def phase_generation(dev, smi: str) -> dict:
     return out
 
 
+# ---- phase 7: the live query encoders (--embedder zoo) ------------------------
+
+ZOO_ENCODER = "ncbi/MedCPT-Query-Encoder"
+ZOO_CHECK = 256          # served answers a front end held against the oracle
+ZOO_RECALL_GATE = 0.99
+FEB_DOCS = 262_144       # the feb4rag world's size (ROADMAP's feb4rag cell)
+FEB_REQUESTS = 256
+
+
+def _zoo_questions(syn) -> list:
+    """The world's question texts under qids its query table does not
+    hold, so that every request is encoded."""
+    return [{"qid": f"zoo-{i}", "question": q["question"]}
+            for i, q in enumerate(syn.questions)]
+
+
+def _bodies(port: int, questions: list) -> list:
+    """Every question through ``GET /query`` at once; the answers' bodies
+    (each must be 200)."""
+    import aiohttp
+
+    async def run():
+        async with aiohttp.ClientSession(connector=aiohttp.TCPConnector(
+                limit=len(questions))) as s:
+            return await asyncio.gather(*[
+                _get_query(s, port, q["qid"], q["question"])
+                for q in questions])
+
+    out = asyncio.run(run())
+    bad = [(st, b) for st, b in out if st != 200]
+    if bad:
+        raise AssertionError(f"{len(bad)} /query answers were not 200: "
+                             f"{bad[:3]}")
+    return [b for _, b in out]
+
+
+def _serve_aiohttp(server):
+    """Start an aiohttp ``server`` (or ``ServingSystem``) on an event loop
+    in a thread; returns ``stop()``."""
+    import threading
+
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+    asyncio.run_coroutine_threadsafe(server.start(), loop).result(900)
+
+    def stop():
+        asyncio.run_coroutine_threadsafe(server.stop(), loop).result(300)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(60)
+        loop.close()
+        if thread.is_alive():
+            raise AssertionError("the server's loop did not stop")
+    return stop
+
+
+def _embed_all(provider, texts: list, world) -> dict:
+    """``provider.embed_many`` over ``texts`` in chunks of the largest
+    encode bucket, stacked ``{encoder: [n, d]}``."""
+    rows = []
+    for i in range(0, len(texts), 32):
+        rows += provider.embed_many(texts[i:i + 32], [""] * len(
+            texts[i:i + 32]))
+    return {e: np.stack([r[e] for r in rows]) for e in world.encoders}
+
+
+def serve_zoo(root: str, dev, syn, front: str) -> dict:
+    """``--embedder zoo`` over the medrag world through one front end, as
+    ``python -m ragroute_tpu_torch.main`` builds it: the encoder read from
+    the hub cache by the port's reader must run on the card; the timed
+    burst of text queries; then ``ZOO_CHECK`` answers held against the
+    exact oracle over the embeddings ``provider.embed_many`` gives for the
+    same texts afterwards."""
+    from ragroute_tpu_torch.encoders import checks as EC
+    from ragroute_tpu_torch.main import parse_args
+    from ragroute_tpu_torch.system import ServingSystem
+
+    label = f"zoo_{front}"
+    t0 = time.perf_counter()
+    argv = ["--dataset", "medrag", "--routing", "ragroute", "--disable-llm",
+            "--port", "0", "--data-root", root, "--device", str(dev),
+            "--embedder", "zoo"]
+    system = ServingSystem(parse_args(
+        argv + (["--frontend", "native"] if front == "native" else [])))
+    system.build()
+    provider = system.server.provider
+    backends = provider.zoo.backends
+    log(f"[{label}] built in {time.perf_counter() - t0:.1f} s; encoder "
+        f"backends {backends}")
+    if backends != {ZOO_ENCODER: f"torch:{dev.type}"}:
+        raise AssertionError(f"{label}: the encoder is not on the card: "
+                             f"{backends}")
+    questions = _zoo_questions(syn)
+    if front == "native":
+        thread = _start_native(system)
+        port = system.native.bound_port
+        stop = lambda: _stop_native(system, thread)  # noqa: E731
+    else:
+        stop = _serve_aiohttp(system)
+        port = system.server.bound_port
+    try:
+        reset_counts()
+        burst = surface_burst(port, syn, questions=questions)
+        answers = _bodies(port, questions[:ZOO_CHECK])
+        launches = read_counts()
+        stats = json.loads(_http(port, "GET", "/stats")[1])
+    finally:
+        stop()
+    report_bursts(label, f"{front}, --embedder zoo", [burst])
+    base = BURSTS.get(f"aiohttp x {SURFACE_CONNS}")
+    log(f"[{label}] the same burst through aiohttp with precomputed "
+        f"embeddings: "
+        + (f"{base['requests_per_s']:.1f} requests/s, p50 "
+           f"{base['p50_ms']:.3f} ms, p99 {base['p99_ms']:.3f} ms (this run)"
+           if base else "not run in this run"))
+    t0 = time.perf_counter()
+    q = _embed_all(provider, [a["question"] for a in questions[:ZOO_CHECK]],
+                   syn.world)
+    lists = EC.oracle_lists(syn.world, syn.embeddings, q, syn.world.k)
+    recall = EC.served_recall(syn.world, answers, lists, syn.world.k)
+    emb = stats.get("embedding")
+    log(f"[{label}] recall@{syn.world.k} of {ZOO_CHECK} served answers "
+        f"against the exact oracle over embed_many's embeddings: "
+        f"{recall:.6f} (gate {ZOO_RECALL_GATE}; oracle in "
+        f"{time.perf_counter() - t0:.1f} s); /stats embedding {emb}, "
+        f"batch_size {stats['batch_size']}; launches {launches}")
+    if recall < ZOO_RECALL_GATE:
+        raise AssertionError(f"{label}: recall {recall} < {ZOO_RECALL_GATE}")
+    if front == "aiohttp" and not (emb and emb["mean_batch"] > 1):
+        raise AssertionError(f"{label}: the EmbeddingBatcher never batched: "
+                             f"{emb}")
+    for name in PATH_KERNELS[label]:
+        if launches[name] <= 0:
+            raise AssertionError(f"the {label} path never launched {name}")
+    del system, provider
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "recall": recall, "burst": burst}
+
+
+def phase_zoo_medrag(root: str, dev, syn) -> dict:
+    """Phase 7 (b): a MedCPT-Query-Encoder checkpoint at BERT-base width
+    (seeded f32 weights, a 30,522-entry vocabulary made in code with the
+    questions' words) written into a hub cache as ``model.safetensors``,
+    served through aiohttp and through the native front end; then the same
+    weights as ``pytorch_model.bin`` through a second run of the loader,
+    which must give the first load's embeddings."""
+    from ragroute_tpu_torch.encoders import checks as EC
+    from ragroute_tpu_torch.encoders import published as P
+    from ragroute_tpu_torch.encoders.registry import ENCODER_SPECS
+    from ragroute_tpu_torch.encoders.zoo import load_encoder
+
+    hub = tempfile.mkdtemp(prefix="ragroute_hub_")
+    saved = os.environ.get("HF_HUB_CACHE")
+    os.environ["HF_HUB_CACHE"] = hub
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        master = P.random_model("bert-base", dev, torch.float32, seed=1)
+        vocab = P.wordpiece_vocab(master.cfg.vocab_size, EC.words_of(
+            [q["question"] for q in syn.questions] + EC.QUERY_TEXTS))
+        P.write_hub_checkpoint(hub, ZOO_ENCODER, master, vocab)
+        log(f"[zoo] {ZOO_ENCODER} (BERT-base, {P.n_params(master) / 1e6:.1f}"
+            f" M parameters, f32) written as model.safetensors into a hub "
+            f"cache in {time.perf_counter() - t0:.1f} s")
+        for front in ("aiohttp", "native"):
+            out[f"zoo_{front}"] = serve_zoo(root, dev, syn, front)
+        spec = ENCODER_SPECS[ZOO_ENCODER]
+        first = load_encoder(spec, device=dev).encode(EC.QUERY_TEXTS)
+        P.write_hub_checkpoint(hub, ZOO_ENCODER, master, vocab, fmt="bin")
+        enc = load_encoder(spec, device=dev)
+        second = enc.encode(EC.QUERY_TEXTS)
+        diff = float(np.abs(first - second).max())
+        log(f"[zoo] the same weights as pytorch_model.bin: backend "
+            f"{enc.backend}, max |difference| {diff:.3g} over "
+            f"{len(EC.QUERY_TEXTS)} queries")
+        if enc.backend != f"torch:{dev.type}" or diff > 1e-5 * float(
+                np.abs(first).max()):
+            raise AssertionError("the .bin checkpoint loads differently")
+        del master, enc
+    finally:
+        if saved is None:
+            os.environ.pop("HF_HUB_CACHE", None)
+        else:
+            os.environ["HF_HUB_CACHE"] = saved
+        shutil.rmtree(hub, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_feb4rag(dev, smi: str) -> dict:
+    """Phase 7 (c): the synthetic feb4rag world at 262,144 docs (13
+    sources at 768, 1,024 and 4,096; f32 rows) served through
+    ``FederationServer``
+    with ``EncoderZooEmbeddings`` over the eight encoders of the world at
+    their published widths (SGPT-5.8B among them), held on the card, and
+    the EmbeddingBatcher: ``FEB_REQUESTS`` text queries at once, recall of
+    the served answers, requests/s and the share of the step spent
+    encoding."""
+    from ragroute_tpu_torch.encoders import EncoderZoo
+    from ragroute_tpu_torch.encoders import checks as EC
+    from ragroute_tpu_torch.encoders import published as P
+    from ragroute_tpu_torch.encoders.registry import ENCODER_SPECS
+    from ragroute_tpu_torch.engine import FederatedSearchEngine
+    from ragroute_tpu_torch.engine.embedding import EncoderZooEmbeddings
+    from ragroute_tpu_torch.engine.server import FederationServer
+    from ragroute_tpu_torch.index import ShardSet
+    from ragroute_tpu_torch.index.store import MemoryDocStore
+    from ragroute_tpu_torch.index.synthetic import make_synthetic_world
+    from ragroute_tpu_torch.router import CorpusRouter, RouterBank
+
+    t0 = time.perf_counter()
+    n_src = 13
+    syn = make_synthetic_world("feb4rag", docs_per_source=FEB_DOCS // n_src,
+                               num_queries=FEB_REQUESTS, seed=0)
+    world = syn.world
+    # f32 rows (the reference's flat f32 indexes): the encoders' random
+    # weights give queries at near-zero cosine to every doc, where bf16
+    # rows alone cost recall (the note below measures how much)
+    ss = ShardSet.build(world, syn.embeddings, doc_ids=syn.doc_ids,
+                        dtype=torch.float32, device=dev)
+    router = CorpusRouter.from_seed(world.router_input_dim, 0, dev)
+    bank = RouterBank.create(world, syn.centroids, device=dev)
+    engine = FederatedSearchEngine(ss, router, bank, impl="auto")
+    log(f"[zoo_feb4rag] {ss.total_docs} docs in {world.num_sources} sources "
+        f"(widths {sorted({s.embed_dim for s in world.sources})}) on the "
+        f"card in {time.perf_counter() - t0:.1f} s: {ss.index_bytes / 1e9:.3f}"
+        f" GB")
+    t0 = time.perf_counter()
+    words = EC.words_of([q["question"] for q in syn.questions]
+                        + EC.QUERY_TEXTS)
+    models, encs = {}, {}
+    for name in world.encoders:
+        key = P.SPEC_MODEL[name]
+        if key not in models:
+            models[key] = (P.random_model(key, dev, torch.bfloat16),
+                           P.tokenizer_for(key, words),
+                           P.random_dense(key, dev))
+        model, tok, dense = models[key]
+        encs[name] = P.encoder(ENCODER_SPECS[name], model, tok, dense)
+    zoo = EncoderZoo(world, encoders=encs)
+    provider = EncoderZooEmbeddings(world, zoo=zoo)
+    log(f"[zoo_feb4rag] {len(encs)} encoders over {len(models)} models "
+        f"({sorted(models)}) made on the card in "
+        f"{time.perf_counter() - t0:.1f} s; backends {zoo.backends}; "
+        f"parameters {sum(P.n_params(m[0]) for m in models.values()) / 1e9:.2f}"
+        f" G")
+    if set(zoo.backends.values()) != {f"torch:{dev.type}"}:
+        raise AssertionError(f"feb4rag zoo off the card: {zoo.backends}")
+    server = FederationServer(
+        engine, strategy="ragroute", embedding_provider=provider,
+        doc_store=MemoryDocStore.from_synthetic(syn), disable_llm=True,
+        port=0)
+    stop = _serve_aiohttp(server)
+    questions = _zoo_questions(syn)
+    try:
+        _bodies(server.bound_port, questions[:8])        # warm the encoders
+        reset_counts()
+        t0 = time.perf_counter()
+        answers = _bodies(server.bound_port, questions[:FEB_REQUESTS])
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        stats = json.loads(_http(server.bound_port, "GET", "/stats")[1])
+    finally:
+        stop()
+    md = [a["metadata"] for a in answers]
+    enc_share = (sum(m["embedding_time"] for m in md)
+                 / max(sum(m["e2e_time"] for m in md), 1e-12))
+    t0 = time.perf_counter()
+    q = _embed_all(provider, [x["question"] for x in questions[:FEB_REQUESTS]],
+                   world)
+    lists = EC.oracle_lists(world, syn.embeddings, q, world.k)
+    recall = EC.served_recall(world, answers, lists, world.k)
+    log(f"[zoo_feb4rag] {FEB_REQUESTS} text GET /query at once, all 200, in "
+        f"{wall:.3f} s: {FEB_REQUESTS / wall:.1f} requests/s; encoding "
+        f"{enc_share:.3f} of the summed request time; /stats embedding "
+        f"{stats.get('embedding')}; recall@{world.k} against the exact oracle"
+        f" (feb4rag's merge without qrels) {recall:.6f} (gate "
+        f"{ZOO_RECALL_GATE}; oracle in {time.perf_counter() - t0:.1f} s); "
+        f"launches {launches}; {smi}")
+    bf16 = FederatedSearchEngine(
+        ShardSet.build(world, syn.embeddings, dtype=torch.bfloat16,
+                       device=dev), router, bank, impl="auto")
+    log(f"[zoo_feb4rag] note: the same queries over bf16 rows: per-source "
+        f"recall@{world.k} {EC.source_recall(bf16.search(q), lists):.6f}, "
+        f"over the served f32 rows "
+        f"{EC.source_recall(engine.search(q), lists):.6f}")
+    if recall < ZOO_RECALL_GATE:
+        raise AssertionError(f"feb4rag zoo: recall {recall}")
+    for name in PATH_KERNELS["zoo_feb4rag"]:
+        if launches[name] <= 0:
+            raise AssertionError(f"the feb4rag zoo path never launched {name}")
+    del server, provider, zoo, encs, models, engine, bf16, ss, syn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"zoo_feb4rag": {"launches": launches, "recall": recall,
+                            "requests_per_s": FEB_REQUESTS / wall,
+                            "encode_share": enc_share}}
+
+
+def phase_encoders(dev, smi: str, medrag: bool = False) -> dict:
+    """Phase 7: (a) every registry encoder at its published width on the
+    card; with ``medrag`` (the ``encoders`` run alone) (b) over a medrag
+    world made here (the full run serves it inside phase 3); (c) the
+    feb4rag zoo."""
+    from ragroute_tpu_torch.encoders import checks as EC
+
+    t0 = time.perf_counter()
+    out = {}
+    if medrag:
+        from ragroute_tpu_torch.index.synthetic import (make_synthetic_world,
+                                                        save_world)
+
+        root = tempfile.mkdtemp(prefix="ragroute_smoke_")
+        try:
+            syn = make_synthetic_world(
+                "medrag", docs_per_source_map=MEDRAG_DOCS,
+                num_queries=NUM_QUERIES, seed=0)
+            save_world(syn, root)
+            log(f"[world] medrag {sum(MEDRAG_DOCS.values())} docs x 768 made "
+                f"and saved in {time.perf_counter() - t0:.1f} s")
+            out.update(phase_zoo_medrag(root, dev, syn))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        del syn
+        gc.collect()
+    rows = EC.check_published_models(dev, log, card=smi)
+    ENCODER_ROWS.extend(rows)
+    log(f"[time] encoders at their published widths checked in "
+        f"{time.perf_counter() - t0:.0f} s")
+    out.update(phase_zoo_feb4rag(dev, smi))
+    log(f"[time] encoders phase took {time.perf_counter() - t0:.0f} s")
+    return out
+
+
+ENCODER_ROWS = []        # (a)'s forwards: times and bounds
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2862,9 +3236,14 @@ def main() -> int:
     if only == "surface":      # the live index, workers and SSE paths
         phase_fused_live(dev)
         phase_live_quant(dev)
-        paths = phase_main_paths(dev, surface_only=True)
+        paths = phase_main_paths(dev, surface_only=True, zoo=False)
         log(f"[time] serving surface done at "
             f"{time.perf_counter() - t_start:.0f} s")
+        report(smi, {}, paths)
+        return 0
+    if only == "encoders":     # the live query encoders (phase 7)
+        paths = phase_encoders(dev, smi, medrag=True)
+        log(f"[time] encoders done at {time.perf_counter() - t_start:.0f} s")
         report(smi, {}, paths)
         return 0
     if only == "llm":          # the decoder's kernels and generation
@@ -2889,6 +3268,8 @@ def main() -> int:
     log(f"[time] host tiers done at {time.perf_counter() - t_start:.0f} s")
     paths.update(phase_generation(dev, smi))
     log(f"[time] generation done at {time.perf_counter() - t_start:.0f} s")
+    paths.update(phase_encoders(dev, smi))
+    log(f"[time] encoders done at {time.perf_counter() - t_start:.0f} s")
     report(smi, kres, paths)
     return 0
 

@@ -12,7 +12,8 @@ pluggable:
   the query text (the offline/simulation stand-in; unlike the reference's
   ``np.random`` embeddings these are reproducible).
 * :class:`EncoderZooEmbeddings` — real encoder models via
-  :mod:`ragroute_tpu_torch.encoders` (requires model weights).
+  :mod:`ragroute_tpu_torch.encoders`, on the engine's device (hash stubs
+  for the encoders without a local checkpoint).
 """
 
 from __future__ import annotations
@@ -102,12 +103,11 @@ class EncoderZooEmbeddings:
     # keeps running while a query encodes.
     blocking = True
 
-    def __init__(self, world: WorldConfig, zoo=None):
+    def __init__(self, world: WorldConfig, zoo=None, device=None):
         if zoo is None:
-            raise NotImplementedError(
-                "the live query-encoder zoo is not ported to "
-                "ragroute_tpu_torch yet (ROADMAP queue 1, item 8); pass a "
-                "zoo object or use the precomputed / hash providers")
+            from ragroute_tpu_torch.encoders import EncoderZoo
+
+            zoo = EncoderZoo(world, device=device)
         self.world = world
         self.zoo = zoo
 

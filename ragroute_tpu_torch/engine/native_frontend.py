@@ -338,6 +338,10 @@ class NativeFederationServer:
 
     def __init__(self, server: FederationServer, *,
                  window_ms: float = BATCH_WINDOW_MS):
+        if server.embed_batcher is not None:
+            # zoo providers still work: embed_many() is called synchronously
+            # per pop batch, which batches the encoder forward the same way
+            server.embed_batcher = None
         self.server = server
         self.engine = server.engine
         self.world = server.world

@@ -153,6 +153,16 @@ class FederationServer:
         self.world: WorldConfig = engine.world
         self.strategy = strategy
         self.provider = embedding_provider
+        # Live encoders (--embedder zoo) micro-batch through the device
+        # like the search step does: concurrent arrivals share ONE padded
+        # forward per encoder (EmbeddingBatcher) instead of each paying a
+        # full forward alone in the executor.
+        self.embed_batcher = None
+        if (getattr(embedding_provider, "blocking", False)
+                and hasattr(embedding_provider, "embed_many")):
+            from ragroute_tpu_torch.engine.embedding import EmbeddingBatcher
+
+            self.embed_batcher = EmbeddingBatcher(embedding_provider)
         self.doc_store = doc_store
         self.llm = llm or LLMClient(
             "echo", delay_s=LLM_DELAY if simulate else 0.0)
@@ -261,6 +271,8 @@ class FederationServer:
             await asyncio.get_running_loop().run_in_executor(
                 None, self._warmup)
         await self.batcher.start()
+        if self.embed_batcher is not None:
+            await self.embed_batcher.start()
         self._runner = web.AppRunner(self.app, access_log=None)
         await self._runner.setup()
         self._site = web.TCPSite(self._runner, self.host, self.port,
@@ -282,6 +294,8 @@ class FederationServer:
             await self._runner.cleanup()
             self._runner = None
         await self.batcher.stop()
+        if self.embed_batcher is not None:
+            await self.embed_batcher.stop()
         logger.info("Server stopped")
 
     # -- handlers ----------------------------------------------------------
@@ -308,6 +322,14 @@ class FederationServer:
             if steps:  # speculative decoding: mean tokens per verify step
                 gen["spec_mean_emit"] = round(svc.spec_emitted / steps, 3)
             snap["llm"] = {k: v for k, v in gen.items() if v is not None}
+        if self.embed_batcher is not None:
+            eb = self.embed_batcher
+            snap["embedding"] = {
+                "batches": eb.batches,
+                "batched_queries": eb.batched_queries,
+                "mean_batch": (round(eb.batched_queries / eb.batches, 2)
+                               if eb.batches else None),
+            }
         if self.reuse_port:     # which of the workers on the port answered
             snap["worker_pid"] = os.getpid()
         return self._web.json_response(snap)
@@ -659,6 +681,16 @@ class FederationServer:
                   and self._rows_provider is not None else None)
         if row_of is not None and (row := row_of(question_id)) is not None:
             embs = {"__row__": row}
+        elif self.embed_batcher is not None:
+            # live encoders: concurrent arrivals share one padded [B, L]
+            # forward per encoder (weight-bound at small B)
+            embs = await self.embed_batcher.submit(
+                formatted_query, question_id)
+        elif getattr(self.provider, "blocking", False):
+            # a blocking provider without batch support runs off the event
+            # loop, which would otherwise stall the batcher's collect loop
+            embs = await asyncio.get_running_loop().run_in_executor(
+                None, self.provider.embed, formatted_query, question_id)
         else:
             embs = self.provider.embed(formatted_query, question_id)
         embedding_time = time.time() - t0

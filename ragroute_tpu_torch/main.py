@@ -172,7 +172,9 @@ def parse_args(argv=None):
     p.add_argument("--embedder", type=str, default="auto",
                    choices=["auto", "precomputed", "hash", "zoo"],
                    help="Query-embedding provider: auto (precomputed table "
-                        "if present, else hash); zoo is not ported")
+                        "if present, else hash), or zoo = live encoder "
+                        "models per query on the engine's device (hash "
+                        "stubs for encoders without a local checkpoint)")
     p.add_argument("--coordinator", type=str, default=None,
                    help="Multi-host cluster (not ported)")
     p.add_argument("--num-processes", type=int, default=1)

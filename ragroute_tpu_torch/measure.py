@@ -4,6 +4,7 @@
     python -m ragroute_tpu_torch.measure --tiers
     python -m ragroute_tpu_torch.measure --kernels [--parent DIR]
     python -m ragroute_tpu_torch.measure --turns DIR
+    python -m ragroute_tpu_torch.measure --encoders
 
 Needs a card (fails without one). It makes the synthetic medrag world at
 the benchmark's size (1,048,575 docs x 768, bf16 on the card) with the
@@ -104,6 +105,17 @@ over a 2,080-position int8 KV cache): the step's host-clock time, its bound
 (the weights read once plus the valid K/V, over 3.35 TB/s) and a
 ``torch.profiler`` window of five steps (device time by kernel, busy share,
 K5 launches a step).
+
+``--encoders`` measures the query encoders instead (the port's counterpart of
+``scripts/bench_embed.py``): every distinct model of the registry at its
+published width (``encoders/published.py``: BERT-base, BERT-large, XLM-R
+large, MPNet base, the T5 encoder with its ``2_Dense`` and GPT-J; seeded
+random weights, bf16 on the card) over seeded token ids of ``ENC_SEQ`` = 128
+positions, a forward with its pooling and normalization: at B = 1, 8 and 32,
+B serial size-1 forwards against one forward of B rows, by CUDA events
+(median of 5), the profiler's device time and kernels a forward, each beside
+its bound (``encoders/checks.py::forward_bound``: the larger of the weight
+bytes over 3.35 TB/s and the operations over 989 TFLOP/s).
 
 Every line names the card and its power limit. The last line is one JSON
 object with everything printed.
@@ -1105,16 +1117,77 @@ def print_decode_breakdown(out: dict, card: str, label: str = "qwen3-8b"
               flush=True)
 
 
+ENC_SEQ = 128
+ENC_BUCKETS = (1, 8, 32)
+
+
+def measure_encoders(card: str, device="cuda") -> list:
+    """Serial size-1 forwards against one bucketed forward for every
+    published-width encoder (see the module's docstring)."""
+    from ragroute_tpu_torch.encoders import checks as EC
+    from ragroute_tpu_torch.encoders import published as P
+    from ragroute_tpu_torch.encoders.bert import pool
+
+    dev = torch.device(device)
+    out = []
+    for key, specs in P.distinct_models().items():
+        pub = P.MODELS[key]
+        model = P.random_model(key, dev, torch.bfloat16)
+        dense = P.random_dense(key, dev)
+        spec = specs[0]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        ids = torch.randint(3, pub.cfg.vocab_size, (max(ENC_BUCKETS), ENC_SEQ),
+                            generator=gen, device=dev)
+        mask = torch.ones_like(ids)
+
+        def forward(b, model=model, ids=ids, mask=mask, dense=dense,
+                    spec=spec):
+            with torch.inference_mode():
+                outs = model(ids[:b], mask[:b])
+                emb = pool(outs, mask[:b], "mean" if pub.family == "t5"
+                           else spec.pooling)
+                if dense is not None:
+                    emb = emb @ dense[0] + dense[1]
+                return emb.cpu()
+
+        for b in ENC_BUCKETS:
+            one = EC.event_ms(lambda: forward(b))
+            serial = EC.event_ms(lambda: [forward(1) for _ in range(b)])
+            dv = EC.device_ms(lambda: forward(b))
+            bd = EC.forward_bound(key, model, b, ENC_SEQ)
+            row = {"model": key, "source": pub.source, "batch": b,
+                   "seq": ENC_SEQ, "ms": one, "serial_ms": serial,
+                   **dv, **bd}
+            out.append(row)
+            print(f"[encoders] {key} B={b} x L={ENC_SEQ}: one forward "
+                  f"{one:.3f} ms by events, {dv['device_ms']:.3f} ms device "
+                  f"in {dv['kernels']:.0f} kernels; {b} serial size-1 "
+                  f"forwards {serial:.3f} ms ({serial / one:.2f}x); bound "
+                  f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                  f"({bd['bytes'] / 1e9:.3f} GB, {bd['flops'] / 1e12:.3f} "
+                  f"TFLOP) ({card})", flush=True)
+        del model, dense, ids, mask
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", default=None)
     ap.add_argument("--tiers", action="store_true")
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--turns", default=None, metavar="DIR")
+    ap.add_argument("--encoders", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure: needs a CUDA card", file=sys.stderr)
         return 2
+    if args.encoders:
+        card = _card()
+        print(f"[card] {card}; torch {torch.__version__}", flush=True)
+        print(json.dumps({"card": card, "encoders": measure_encoders(card)}))
+        return 0
     if args.turns:
         card = _card()
         print(f"[card] {card}; torch {torch.__version__}", flush=True)

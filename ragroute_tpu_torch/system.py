@@ -61,8 +61,6 @@ _UNPORTED = (
     ("coordinator", (None,), "queue 1, item 14 (multi-GPU)"),
     ("num_processes", (1,), "queue 1, item 14 (multi-GPU)"),
     ("process_id", (0,), "queue 1, item 14 (multi-GPU)"),
-    ("embedder", ("auto", "precomputed", "hash"),
-     "queue 1, item 8 (live query encoders)"),
     ("dtype", ("float32", "bfloat16", "int8", "int4"),
      "queue 1, item 10 (dtype policy)"),
 )
@@ -139,8 +137,14 @@ def load_world_artifacts(root: str, world: WorldConfig, *,
     bank = RouterBank.create(world, centroids, scaler, device=device)
 
     qdir = os.path.join(wroot, "queries")
-    if embedder == "hash":
+    if embedder == "zoo":
+        # the port's own forwards on the engine's device
+        provider = embedding.EncoderZooEmbeddings(world, device=device)
+    elif embedder == "hash":
         provider = embedding.HashEmbeddings(world)
+    elif embedder not in ("auto", "precomputed"):
+        raise ValueError(
+            f"unknown embedder {embedder!r} (auto|precomputed|hash|zoo)")
     elif os.path.exists(os.path.join(qdir, "encoders.json")):
         with open(os.path.join(qdir, "encoders.json")) as f:
             encoders = json.load(f)

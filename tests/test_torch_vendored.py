@@ -17,7 +17,8 @@ import pytest
 
 COPIES = ["config", "oracle", "benchmark", "engine.rerank", "engine.prompts",
           "engine.llm", "engine.metrics", "engine.embedding", "index.store",
-          "index.native_store", "index.synthetic", "utils.template"]
+          "index.native_store", "index.synthetic", "utils.template",
+          "encoders.registry"]
 
 # names of the original that the port leaves out on purpose, with the
 # ROADMAP item that brings them
@@ -375,3 +376,87 @@ def test_generation_slice_copy_behaves_as_the_original(name):
     assert getattr(ours, "__module__", "ragroute_tpu_torch").startswith(
         "ragroute_tpu_torch") or not callable(ours)
     LLM_COPIES[name](ref, ours)
+
+
+def test_encoder_registry_and_instruction_table_are_equal():
+    """The registry's specs are equal field by field, and the instruction
+    table is the original's file byte for byte."""
+    import os
+
+    ref, ours = _pair("encoders.registry")
+    assert _plain(ref.ENCODER_SPECS) == _plain(ours.ENCODER_SPECS)
+    spec = ours.ENCODER_SPECS["UAE-Large-V1"]
+    assert spec.format_query("q") == ref.ENCODER_SPECS[
+        "UAE-Large-V1"].format_query("q")
+    blobs = []
+    for pkg in ("ragroute_tpu", "ragroute_tpu_torch"):
+        mod = importlib.import_module(f"{pkg}.encoders")
+        path = os.path.join(os.path.dirname(mod.__file__),
+                            "instructor_instructions.json")
+        with open(path, "rb") as f:
+            blobs.append(f.read())
+    assert blobs[0] == blobs[1]
+
+
+def _encoder_tokenizer(with_eos):
+    from tests.test_encoders import _make_local_tokenizer
+
+    return _make_local_tokenizer(with_eos=with_eos)
+
+
+def _same_encoder_helper(ref, ours):
+    name = ref.__name__
+    rng = np.random.default_rng(5)
+    if name in ("weighted_mean_pool", "masked_mean_pool"):
+        hid = rng.standard_normal((3, 7, 4)).astype(np.float32)
+        mask = (rng.random((3, 7)) > 0.3).astype(np.int64)
+        mask[2] = 0
+        np.testing.assert_array_equal(ours(hid, mask), ref(hid, mask))
+    elif name == "instructor_instructions":
+        assert ours() == ref()
+    elif name == "instructor_instruction":
+        for args in (("hkunlp/instructor-large", "trec-covid", "query"),
+                     ("instructor-xl", "scifact", "corpus"),
+                     ("instructor-base", "nq", "query")):
+            assert ours(*args) == ref(*args)
+    elif name == "specb_bracket_ids":
+        tok = _encoder_tokenizer(False)
+        assert ours(tok) == ref(tok)
+    elif name == "specb_tokenize":
+        tok = _encoder_tokenizer(False)
+        texts = ["what is diabetes", "the [quick] {brown} fox", "x" * 40]
+        for kw in ({}, {"is_query": False}, {"pad_to": 16},
+                   {"max_length": 6}):
+            a, b = ours(tok, texts, **kw), ref(tok, texts, **kw)
+            assert a.keys() == b.keys()
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k])
+    elif name == "instructor_tokenize":
+        tok = _encoder_tokenizer(True)
+        for ins in ("represent the question for retrieving documents ",
+                    ""):
+            for kw in ({}, {"pad_to": 24}, {"max_length": 8}):
+                a = ours(tok, ins, ["what is diabetes", " fox "], **kw)
+                b = ref(tok, ins, ["what is diabetes", " fox "], **kw)
+                for k in b:
+                    np.testing.assert_array_equal(a[k], b[k])
+    else:
+        raise AssertionError(name)
+
+
+ENCODER_HELPERS = ("specb_bracket_ids", "specb_tokenize",
+                   "weighted_mean_pool", "instructor_tokenize",
+                   "masked_mean_pool", "instructor_instruction",
+                   "instructor_instructions")
+
+
+@pytest.mark.parametrize("name", ENCODER_HELPERS)
+def test_encoder_helper_copy_behaves_as_the_original(name):
+    """The numpy helpers of ``encoders/custom.py``, which the port keeps in
+    a module that also holds its torch encoder classes."""
+    ref = getattr(importlib.import_module("ragroute_tpu.encoders.custom"),
+                  name)
+    ours = getattr(importlib.import_module(
+        "ragroute_tpu_torch.encoders.custom"), name)
+    assert ours.__module__ == "ragroute_tpu_torch.encoders.custom"
+    _same_encoder_helper(ref, ours)
