@@ -32,7 +32,7 @@ Phases, each of which fails the run when it fails:
      k'=256 (--refine-mult 8), through the deep fold with the deep launch's
      time beside it; the host tiers'
      launches: one int8 slab of the stream tier (346,112 x 768, per-doc
-     scale, k=32) and hostrefine's flat coarse scan (2,936,320 x 128 int8,
+     scale, k=32) and hostrefine's flat coarse scan (734,208 x 128 int8,
      per-doc scale, -inf bias on the padding rows) at k'=128 and 256
      (the deep fold, with the deep launch's time beside it); over live
      shards (a capacity on the 512-row grid scanned whole, -inf bias holes
@@ -114,14 +114,15 @@ Phases, each of which fails the run when it fails:
    workers' ``/stats`` counting queries; then the live index as ``--frontend
    native --mutable --reserve-docs 4096`` builds it, its native loop in a
    thread: the same burst (batches larger than one, K1's wgmma scan
-   launched), a 2 s ``/admin/profile`` during a burst whose trace must name
-   K1's kernel, ``/docs/delete`` of 1,024 build-time docs that the bursts
-   served (round after round of winners), ``/docs/add`` of 1,024 rows into
-   pubmed (64 twins of the check queries among them) and 256 into each
-   small source (into the freed slots first), ``/docs/delete`` of half of
-   them, ``engine.search`` on 64 queries against ``exact_oracle`` over the
-   live rows (recall >= 0.99, no deleted doc or free slot served, every
-   added doc the oracle ranks served) and the same queries over HTTP (no
+   launched), three 2 s ``/admin/profile`` captures during a burst, each
+   trace naming K1's kernel, ``/docs/delete`` of 1,024 build-time docs
+   that the bursts served (round after round of winners), ``/docs/add`` of
+   1,024 rows into pubmed (64 twins of the check queries among them) and
+   256 into each small source (into the freed slots first),
+   ``/docs/delete`` of half of them, ``engine.search`` on 64 queries
+   against ``exact_oracle`` over the live rows (recall >= 0.99, no deleted
+   doc or free slot served, every added doc the oracle ranks served) and
+   the same queries over HTTP (no
    deleted doc's payload shown, though its slot now holds another), K1's
    four shard scans of a B=512 step over the live shards against the same
    rows scanned as immutable shards, ``/admin/snapshot``, and a fresh
@@ -148,11 +149,11 @@ Phases, each of which fails the run when it fails:
    ``kappa >= k' = 256`` (256 ranks a tile: the deep launches of the
    grouped pair top-k and of the collect) truly misses nothing of the flat
    coarse scan. Then at
-   size: the synthetic medrag world at four times the earlier size
-   (4,194,300 docs x 768, 64 topics per source, int8; half of what
+   size: the synthetic medrag world at the earlier size
+   (1,048,575 docs x 768, 64 topics per source, int8; an eighth of what
    ``measure.py --tiers`` serves), its rows made block by block from the
-   seed and never held whole, under ``--hbm-budget-gb 1.5``, which keeps
-   the three small sources resident and exact and sends pubmed (2,936,012
+   seed and never held whole, under ``--hbm-budget-gb 0.375``, which keeps
+   the three small sources resident and exact and sends pubmed (734,003
    docs) to the host tier. Served over HTTP five times
    as ``python -m ragroute_tpu_torch.main --impl stream | hostrefine``
    builds it (``--impl hostrefine`` with the flat coarse slab and with the
@@ -217,12 +218,39 @@ Phases, each of which fails the run when it fails:
    requests/s and encoding's share (the same queries over bf16 rows as a
    note).
 
+8. The offline path: a synthetic medrag world of 4 x 32,768 docs x 768
+   (64 topics a source) with MIRAGE's 7,663 questions (30,652 router
+   examples at width 1,540) written by ``scripts.make_synthetic_data``;
+   ``scripts.train_router`` on the card for 50 epochs (a third of the
+   reference's 150) at batch 256 (seconds an epoch, steps a second;
+   parameters and optimiser state on the card, best validation accuracy
+   over the base rate by 0.1,
+   AUC > 0.85, threshold in (0, 1)); the world served with the new
+   ``router.npz`` as ``python -m ragroute_tpu_torch.main --routing
+   ragroute --disable-llm`` builds it, 256 ``/query`` at once, each
+   answer's ``data_sources`` equal to a CPU forward of the same router
+   (pairs within 1e-4 of the threshold skipped and counted), recall@32
+   >= 0.99 against the exact oracle under each answer's routing;
+   ``OfflinePipeline.from_data_root`` on the card gives the served
+   ``data_sources`` and ``top_docs`` for 64 of those qids;
+   ``scripts.eval_recall`` at f32 (recall 1.0) and bf16 (>= 0.99) with
+   ``all / ragroute / random``, and with ``--impl ivf`` (printed; K2 and K3
+   launched); the world and its router written in the reference's layout
+   (FAISS ``IxFI`` files, metadatas, chunk files, ``best_model.pth``, a
+   ``preprocessed_data.pkl`` by the port's sklearn-layout writer) and
+   imported by ``scripts.import_real_data``, served with the routes of the
+   ``.pth`` and scaler loaded directly; ``--encode-from-jsonl`` over 4 x
+   2,048 docs through a MedCPT-Article-Encoder checkpoint at BERT-base
+   width (seeded weights in a temporary hub cache; 64 rows at cosine >=
+   0.99 against an f32 forward of the same weights; docs a second).
+
 ``python3 chip_smoke.py kernels`` stops after phase 2: a short first run
 after a kernel change. ``python3 chip_smoke.py tiers`` runs phases 1 and 5
 only; ``python3 chip_smoke.py llm`` phases 1, K5 / K6 of 2, and 6;
 ``python3 chip_smoke.py surface`` phases 1, K1's live cases of 2, the live
 rewrites of 4 and of 3 the exact path and the rest of the serving surface;
-``python3 chip_smoke.py encoders`` phases 1 and 7.
+``python3 chip_smoke.py encoders`` phases 1 and 7; ``python3
+chip_smoke.py offline`` phases 1 and 8.
 
 The second-to-last line is one JSON object with every kernel's launches on
 the main paths (and, for the three top-k kernels, the deep launches among
@@ -310,7 +338,16 @@ PATH_KERNELS = {"exact": ("fused_topk",),
                 # and the feb4rag zoo (query encoders on the card)
                 "zoo_aiohttp": ("fused_topk",),
                 "zoo_native": ("fused_topk",),
-                "zoo_feb4rag": ("fused_topk",)}
+                "zoo_feb4rag": ("fused_topk",),
+                # the offline path: serving with the trained router, the
+                # offline pipeline, eval_recall (exact at f32 and bf16, and
+                # ivf), the imported world served
+                "offline_served": ("fused_topk",),
+                "offline_pipeline": ("fused_topk",),
+                "offline_eval_float32": ("fused_topk",),
+                "offline_eval_bfloat16": ("fused_topk",),
+                "offline_ivf": ("stream_topk", "grouped_gains"),
+                "offline_imported": ("fused_topk",)}
 
 # the kernels each served path must launch through their wgmma designs:
 # K1's scan (bf16, int8 and int4 docs), K3's grouped GEMM and K4's pair scan
@@ -348,12 +385,17 @@ REDUCED_DOCS = 32_768    # docs per source of phase 4's world
 # 776 B an int8 row, on the 512-row grid)
 TIER_SLAB_ROWS = 346_112
 TIER_BURST = 1024        # concurrent requests of the pipelined burst
-# the host tiers' world of this run: half of each source of the world
-# ``measure.py --tiers`` serves, under half its budget, which again keeps
-# the three small sources resident and sends pubmed to the host tier (the
-# depth cut that keeps the whole run, generation included, in its time)
-SMOKE_TIER_DOCS = {name: n // 2 for name, n in TIER_DOCS.items()}
-SMOKE_TIER_BUDGET_GB = TIER_BUDGET_GB / 2
+# the host tiers' world of this run: an eighth of each source of the world
+# ``measure.py --tiers`` serves, under an eighth of its budget, which again
+# keeps the three small sources resident and sends pubmed (0.57 GB of int8
+# rows against the 0.13 GB the budget leaves it) to the host tier, in slabs
+# of TIER_SLAB_ROWS (the depth cut that keeps the whole run, the offline
+# phase included, in its time)
+SMOKE_TIER_DOCS = {name: n // 8 for name, n in TIER_DOCS.items()}
+SMOKE_TIER_BUDGET_GB = TIER_BUDGET_GB / 8
+# RAGROUTE_HOSTREFINE_CLUSTER_MIN_DOCS of the probed paths: pubmed's host
+# rows cluster, the small sources stay resident
+PROBED_CLUSTER_MIN = 500_000
 # recall@32 against the exact f32 oracle; the stream tier (int8 rows, the
 # int8 gate) is also held to 0.995 of the exact winners of its stored bytes
 TIER_GATES = {"stream": 0.95, "hostrefine": 0.95, "hostrefine_probed": 0.9,
@@ -361,6 +403,8 @@ TIER_GATES = {"stream": 0.95, "hostrefine": 0.95, "hostrefine_probed": 0.9,
 STREAM_STORED_GATE = 0.995
 # the whole serving surface (phase 3's last runs and phase 4's live rewrites)
 SURFACE_BURST = 1024     # GET /query of each front end's timed burst
+PROFILE_CAPTURES = 3     # 2 s /admin/profile captures during a burst
+PROFILE_LOAD_S = 16.0    # seconds of load around them
 SURFACE_CONNS = 64       # over this many client connections
 SURFACE_WIDE = (4096, 512)   # and a wider burst: requests, connections
 RESERVE_DOCS = 4096      # --reserve-docs of the live index
@@ -473,7 +517,7 @@ def phase_environment() -> str:
     return smi
 
 
-# ---- phase 2: kernels against their plain versions ---------------------------
+# ---- phase 2: kernels against their plain versions --------------------------
 
 def _check_fused_path(case, label: str, reps: int = 10,
                       q_chunk=None, device: bool = False,
@@ -1164,7 +1208,7 @@ def phase_decode_attention(dev) -> dict:
     out["modes"] = modes
     return out
 
-# ---- phase 3: the served paths at real size -----------------------------------
+# ---- phase 3: the served paths at real size ---------------------------------
 
 async def _get_query(session, port: int, qid: str, question: str):
     import aiohttp
@@ -1382,23 +1426,26 @@ def phase_main_paths(dev, surface_only: bool = False,
     return out
 
 
-# ---- phase 3, last runs: the whole serving surface ---------------------------
+# ---- phase 3, last runs: the whole serving surface --------------------------
 
 def start_load(port: int, syn, n: int = SURFACE_BURST,
-               conns: int = SURFACE_CONNS, questions=None):
+               conns: int = SURFACE_CONNS, questions=None,
+               seconds: float = None):
     """A closed-loop burst of ``n`` GET /query over ``conns`` connections
     from a process of its own (``python -m ragroute_tpu_torch.loadgen``,
     no torch import), so that its work does not load the server's
     process; returns ``(process, questions file)``. ``questions``: the
-    ``{"qid", "question"}`` list to send (default the world's)."""
+    ``{"qid", "question"}`` list to send (default the world's).
+    ``seconds``: send for that long instead of ``n`` requests."""
     fd, path = tempfile.mkstemp(prefix="ragroute_questions_", suffix=".json")
     with os.fdopen(fd, "w") as f:
         json.dump(questions or [{"qid": q["qid"], "question": q["question"]}
                                 for q in syn.questions], f)
+    size = ["--seconds", str(seconds)] if seconds else ["--n", str(n)]
     proc = subprocess.Popen(
         [sys.executable, "-m", "ragroute_tpu_torch.loadgen", "--port",
-         str(port), "--n", str(n), "--conns", str(conns), "--questions",
-         path], cwd=os.path.dirname(os.path.abspath(__file__)),
+         str(port), *size, "--conns", str(conns), "--questions", path],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return proc, path
 
@@ -1418,7 +1465,11 @@ def finish_load(load) -> dict:
         raise AssertionError(f"the load generator printed nothing: "
                              f"{err[-2000:]}")
     res = json.loads(lines[-1])
-    if res["n_bad"]:
+    if "errors" in res:             # a timed load
+        if res["errors"] or not res["ok"]:
+            raise AssertionError(f"{res['errors']} answers were not 200 and "
+                                 f"{res['ok']} were")
+    elif res["n_bad"]:
         raise AssertionError(f"{res['n_bad']} of {res['n']} answers were not "
                              f"200: {res['bad']}")
     return res
@@ -1720,26 +1771,39 @@ def phase_live(root: str, dev, syn) -> dict:
         check_wgmma("live", launches)
         out["live"] = {"launches": launches}
 
-        # /admin/profile over a burst: the engine steps' kernels are in it
-        pdir = tempfile.mkdtemp(prefix="ragroute_profile_")
-        load = start_load(port, syn, n=4 * SURFACE_BURST)
+        # /admin/profile over a burst, PROFILE_CAPTURES times: the engine
+        # steps' kernels are in each (captures on a helper thread lost
+        # them now and then). The load is timed so that it outlasts the
+        # captures: a burst of a fixed count can end before a window opens
+        load = start_load(port, syn, seconds=PROFILE_LOAD_S)
         time.sleep(1.0)             # the load is running
-        status, body = _http(port, "POST", "/admin/profile",
-                             {"seconds": 2.0, "dir": pdir})
-        finish_load(load)
-        if status != 200:
-            raise AssertionError(f"/admin/profile answered {status}: {body}")
-        with open(os.path.join(json.loads(body)["trace_dir"],
-                               "trace.json")) as f:
-            trace = json.load(f)["traceEvents"]
-        kern = {e["name"] for e in trace if e.get("cat") == "kernel"}
-        k1 = sorted(n for n in kern if "topk_kernel" in n)
-        log(f"[live] /admin/profile 2 s during a burst: "
-            f"{len(trace)} trace events, {len(kern)} distinct kernels, K1's: "
-            f"{[n[:60] for n in k1]}")
-        if not any("wgmma_topk_kernel" in n for n in k1):
-            raise AssertionError("the profile trace holds no K1 kernel")
-        shutil.rmtree(pdir, ignore_errors=True)
+        found = []
+        try:
+            for _ in range(PROFILE_CAPTURES):
+                pdir = tempfile.mkdtemp(prefix="ragroute_profile_")
+                status, body = _http(port, "POST", "/admin/profile",
+                                     {"seconds": 2.0, "dir": pdir})
+                if status != 200:
+                    raise AssertionError(
+                        f"/admin/profile answered {status}: {body}")
+                with open(os.path.join(json.loads(body)["trace_dir"],
+                                       "trace.json")) as f:
+                    trace = json.load(f)["traceEvents"]
+                shutil.rmtree(pdir, ignore_errors=True)
+                kern = {e["name"] for e in trace if e.get("cat") == "kernel"}
+                k1 = sorted(n for n in kern if "topk_kernel" in n)
+                found.append(any("wgmma_topk_kernel" in n for n in k1))
+                log(f"[live] /admin/profile 2 s during a burst: "
+                    f"{len(trace)} trace events, {len(kern)} distinct "
+                    f"kernels, K1's: {[n[:60] for n in k1]}")
+        finally:
+            profile_load = finish_load(load)
+        if not all(found):
+            raise AssertionError(
+                f"{found.count(False)} of {PROFILE_CAPTURES} profile traces "
+                f"hold no K1 kernel (the load around them: "
+                f"{profile_load['ok']} answers in "
+                f"{profile_load['wall_s']:.1f} s)")
 
         # the live rows by slot (None: the build-time row) and each live
         # slot's payload id, kept here, apart from the server's tables
@@ -2002,7 +2066,7 @@ def phase_live_quant(dev) -> None:
         torch.cuda.empty_cache()
 
 
-# ---- phase 4: a reduced topical world -------------------------------------------
+# ---- phase 4: a reduced topical world ---------------------------------------
 
 def _winner_sets(out):
     return [{(int(s), int(l)) for s, l in zip(out.merged_shard[r],
@@ -2485,7 +2549,7 @@ def serve_tier(root: str, dev, syn, label: str, impl: str,
 
 
 def phase_tiers(dev) -> dict:
-    """Serve the 4.2 M-doc world through the three host-tier paths."""
+    """Serve the 1.05 M-doc int8 world through the three host-tier paths."""
     from ragroute_tpu_torch.index.synthetic import make_streamed_world
 
     n_docs = sum(SMOKE_TIER_DOCS.values())
@@ -2517,8 +2581,9 @@ def phase_tiers(dev) -> dict:
                 ("stream", "stream", 0, ()),
                 ("hostrefine", "hostrefine", 0, ()),
                 ("hostrefine_deep", "hostrefine", 0, deep),
-                ("hostrefine_probed", "hostrefine", 1_000_000, ()),
-                ("hostrefine_probed_deep", "hostrefine", 1_000_000, deep)):
+                ("hostrefine_probed", "hostrefine", PROBED_CLUSTER_MIN, ()),
+                ("hostrefine_probed_deep", "hostrefine", PROBED_CLUSTER_MIN,
+                 deep)):
             out[label] = serve_tier(root, dev, syn, label, impl,
                                     cluster_min, oracle, flags)
             if label in DEEP_PATHS:
@@ -2529,7 +2594,7 @@ def phase_tiers(dev) -> dict:
     return out
 
 
-# ---- phase 6: on-card generation (--llm-backend jax) --------------------------
+# ---- phase 6: on-card generation (--llm-backend jax) ------------------------
 
 GEN_DOCS = 8_192         # docs per source of the world generation serves over
 GEN_REQUESTS = 16        # concurrent GET /query per served Qwen3-8B service
@@ -2877,7 +2942,7 @@ def phase_generation(dev, smi: str) -> dict:
     return out
 
 
-# ---- phase 7: the live query encoders (--embedder zoo) ------------------------
+# ---- phase 7: the live query encoders (--embedder zoo) ----------------------
 
 ZOO_ENCODER = "ncbi/MedCPT-Query-Encoder"
 ZOO_CHECK = 256          # served answers a front end held against the oracle
@@ -3213,6 +3278,462 @@ def phase_encoders(dev, smi: str, medrag: bool = False) -> dict:
     return out
 
 
+# ---- phase 8: the offline path (train, serve, evaluate, import) -------------
+
+# MIRAGE's questions, which the reference's medrag router trains on:
+# 1,089 + 1,273 + 4,183 + 500 + 618
+OFFLINE_QUESTIONS = 7_663
+# the reference trains 150 (train_router.NUM_EPOCHS, the script's default);
+# a third of them keeps the whole run in its time on a slow host (the
+# synthetic labels separate in the first epoch)
+OFFLINE_EPOCHS = 50
+OFFLINE_BURST = 256          # /query answers held against the CPU router
+OFFLINE_PIPELINE = 64        # qids the offline pipeline runs
+NEAR_THRESHOLD = 1e-4        # |p - threshold| under which a pair is skipped
+OFFLINE_RECALL_GATES = {"float32": 1.0, "bfloat16": 0.99}
+ARTICLE_ENCODER = "ncbi/MedCPT-Article-Encoder"
+ENCODE_DOCS = 2_048          # docs per source through --encode-from-jsonl
+ENCODE_CHECK = 64            # rows held against the f32 forward
+ENCODE_COS_GATE = 0.99
+
+
+def _offline_questions(wroot: str, n: int) -> list:
+    """The first ``n`` questions of the world's benchmark file."""
+    with open(os.path.join(wroot, "benchmark", "SYNTHETIC.json")) as f:
+        bank = json.load(f)["synthetic"]
+    return [{"qid": qid, **q} for qid, q in list(bank.items())[:n]]
+
+
+def _world_arrays(wroot: str, world) -> tuple:
+    """The saved world's rows (mmap) and its query table."""
+    emb = {s.name: np.load(os.path.join(wroot, s.name, "embeddings.npy"),
+                           mmap_mode="r") for s in world.sources}
+    qdir = os.path.join(wroot, "queries")
+    with open(os.path.join(qdir, "encoders.json")) as f:
+        encoders = json.load(f)
+    with open(os.path.join(qdir, "qids.json")) as f:
+        qids = json.load(f)
+    q = {e: np.load(os.path.join(qdir, f"enc_{i}.npy"))
+         for i, e in enumerate(encoders)}
+    return emb, q, qids
+
+
+def _cpu_routes(npz: str, wroot: str, world, q: dict) -> tuple:
+    """A CPU forward of the router in ``npz`` over the features of the
+    query rows ``q``: ``(probs [B, N], threshold)``."""
+    from ragroute_tpu_torch.router import RouterBank, build_features
+    from ragroute_tpu_torch.router.torch_import import load_router
+
+    router, thr, scaler = load_router(npz)
+    with open(os.path.join(wroot, "centroids.json")) as f:
+        cents = {k: np.asarray(v, np.float32) for k, v in json.load(f).items()}
+    bank = RouterBank.create(world, cents, scaler)
+    with torch.no_grad():
+        x = build_features(world, bank, {e: torch.from_numpy(v)
+                                         for e, v in q.items()})
+        probs = torch.sigmoid(router(x)).numpy()
+    return probs, world.router_threshold if thr is None else thr
+
+
+def _same_routes(label: str, world, served: list, probs: np.ndarray,
+                 thr: float) -> int:
+    """Each served ``data_sources`` against ``probs > thr``, pairs within
+    NEAR_THRESHOLD of the threshold skipped; returns the skipped count."""
+    names = [s.name for s in world.sources]
+    skipped = 0
+    for r, sources in enumerate(served):
+        for si, name in enumerate(names):
+            if abs(probs[r, si] - thr) <= NEAR_THRESHOLD:
+                skipped += 1
+                continue
+            if (name in sources) != bool(probs[r, si] > thr):
+                raise AssertionError(
+                    f"{label}: row {r} routes {sources}, the CPU router "
+                    f"{probs[r].tolist()} at threshold {thr}")
+    return skipped
+
+
+def _serve_offline(root: str, dev, questions: list) -> tuple:
+    """The world under ``root`` served as ``python -m
+    ragroute_tpu_torch.main --routing ragroute --disable-llm`` builds it:
+    every question through ``GET /query`` at once; ``(answers, launches,
+    requests a second)``."""
+    from ragroute_tpu_torch.main import parse_args
+    from ragroute_tpu_torch.system import ServingSystem
+
+    system = ServingSystem(parse_args([
+        "--dataset", "medrag", "--routing", "ragroute", "--disable-llm",
+        "--port", "0", "--data-root", root, "--device", str(dev)]))
+    system.build()
+    stop = _serve_aiohttp(system)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        answers = _bodies(system.server.bound_port, questions)
+        rate = len(questions) / (time.perf_counter() - t0)
+        launches = read_counts()
+    finally:
+        stop()
+    del system
+    gc.collect()
+    torch.cuda.empty_cache()
+    return answers, launches, rate
+
+
+def _doc_ids(docs: list) -> list:
+    return [d.get("id") for d in docs]
+
+
+def _train_step_profile(res, dev, reps: int = 50) -> dict:
+    """One training step at batch 256 with dropout, from the trained
+    parameters: device time, wall time and kernels a step by
+    ``torch.profiler``, and the step's bound (its f32 products at the
+    CUDA cores' 67 TFLOP/s: TF32 is off)."""
+    from ragroute_tpu_torch.encoders import checks as EC
+    from ragroute_tpu_torch.router import CorpusRouter
+    from ragroute_tpu_torch.train import train_router as T
+
+    d = res.params["fc1.weight"].shape[1]
+    model = CorpusRouter(d).to(dev)
+    model.load_state_dict(res.params)
+    opt, sched = T.make_optimizer(model, 95)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(256, d, device=dev, generator=gen)
+    y = (torch.rand(256, device=dev, generator=gen) < 0.5).float()
+    r = EC.device_ms(lambda: T.train_step(model, opt, sched, x, y, 1.0, gen),
+                     reps=reps)
+    flops = 3 * 2 * 256 * (d * 256 + 256 * 128 + 128)   # forward + backward
+    bound = flops / 67e12 * 1e3
+    log(f"[offline:train] one step at batch 256 ({reps} under the "
+        f"profiler): device {r['device_ms']:.4f} ms, wall {r['wall_ms']:.4f}"
+        f" ms (busy {r['device_ms'] / r['wall_ms']:.3f}), {r['kernels']:.0f}"
+        f" kernels a step; bound {bound:.4f} ms (operations)")
+    return {"step_device_ms": r["device_ms"], "step_wall_ms": r["wall_ms"],
+            "step_kernels": r["kernels"], "step_bound_ms": bound}
+
+
+def offline_train_serve(root: str, dev) -> dict:
+    """Steps 1 to 4: make the world, train its router on the card, serve
+    it, and run the offline pipeline over the served qids."""
+    from ragroute_tpu_torch.config import get_world
+    from ragroute_tpu_torch.encoders import checks as EC
+    from ragroute_tpu_torch.pipeline import OfflinePipeline
+    from ragroute_tpu_torch.scripts import make_synthetic_data, train_router
+
+    out = {}
+    t0 = time.perf_counter()
+    wroot = make_synthetic_data.main([
+        "--dataset", "medrag", "--docs-per-source", str(REDUCED_DOCS),
+        "--num-queries", str(OFFLINE_QUESTIONS), "--subclusters",
+        str(IVF_TOPICS), "--data-root", root, "--device", str(dev)])
+    log(f"[offline] world: medrag 4 x {REDUCED_DOCS} docs x 768, "
+        f"{IVF_TOPICS} topics a source, {OFFLINE_QUESTIONS} questions "
+        f"({OFFLINE_QUESTIONS * 4} router examples at width 1,540), made "
+        f"and saved in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    res, npz = train_router.main([
+        "--dataset", "medrag", "--data-root", root, "--epochs",
+        str(OFFLINE_EPOCHS), "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    labels = np.load(os.path.join(wroot, "relevant.npy")).reshape(-1)
+    base = max(labels.mean(), 1 - labels.mean())
+    train_s = sum(res.epoch_seconds)
+    m = res.metrics
+    log(f"[offline:train] {OFFLINE_EPOCHS} epochs, {res.steps} Adam steps at "
+        f"batch 256 in {train_s:.3f} s ({wall:.1f} s with features and "
+        f"split): {train_s / len(res.epoch_seconds):.4f} s an epoch "
+        f"(first {res.epoch_seconds[0]:.4f}, median "
+        f"{float(np.median(res.epoch_seconds)):.4f}), "
+        f"{res.steps / train_s:.1f} steps/s; parameters and optimiser state "
+        f"on {res.devices}; best val acc {m['best_val_acc']:.6f} against a "
+        f"base rate {base:.6f}, AUC {m['auc']:.6f}, threshold "
+        f"{res.threshold:.6f}")
+    if res.devices != [str(torch.empty(0, device=dev).device)]:
+        raise AssertionError(f"training state not on the card: {res.devices}")
+    if not (m["best_val_acc"] > base + 0.1 and m["auc"] > 0.85
+            and 0.0 < res.threshold < 1.0):
+        raise AssertionError(f"the trained router is not good enough: {m}, "
+                             f"threshold {res.threshold}, base {base}")
+    prof = _train_step_profile(res, dev)
+    out["offline_train"] = {"s_per_epoch": train_s / len(res.epoch_seconds),
+                            "steps_per_s": res.steps / train_s,
+                            "metrics": m, **prof}
+
+    world = get_world("medrag")
+    emb, q, qids = _world_arrays(wroot, world)
+    questions = _offline_questions(wroot, OFFLINE_BURST)
+    if [qq["qid"] for qq in questions] != qids[:OFFLINE_BURST]:
+        raise AssertionError("the benchmark's qids are not the table's")
+    t0 = time.perf_counter()
+    answers, launches, rate = _serve_offline(root, dev, questions)
+    serve_s = time.perf_counter() - t0
+    qb = {e: v[:OFFLINE_BURST] for e, v in q.items()}
+    probs, thr = _cpu_routes(npz, wroot, world, qb)
+    served = [a["metadata"]["data_sources"] for a in answers]
+    skipped = _same_routes("offline_served", world, served, probs, thr)
+    lists = EC.oracle_lists(world, emb, qb, world.k)
+    recall = EC.served_recall(world, answers, lists, world.k)
+    per_source = [sum(s.name in d for d in served) for s in world.sources]
+    log(f"[offline:serve] {OFFLINE_BURST} /query at once with the trained "
+        f"router: all 200, {rate:.1f} requests/s (build, burst and stop in "
+        f"{serve_s:.1f} s), routes per source {per_source}, "
+        f"equal to the CPU forward of router.npz ({skipped} pairs within "
+        f"{NEAR_THRESHOLD} of the threshold {thr:.6f} skipped); recall@"
+        f"{world.k} against the exact oracle under each answer's routing "
+        f"{recall:.6f} (gate 0.99); launches {launches}")
+    if recall < 0.99:
+        raise AssertionError(f"offline_served: recall {recall} < 0.99")
+    out["offline_served"] = {"launches": launches, "recall": recall,
+                             "skipped": skipped, "requests_per_s": rate}
+
+    t0 = time.perf_counter()
+    pipe = OfflinePipeline.from_data_root(root, "medrag", device=dev)
+    if pipe.engine.device.type != dev.type:
+        raise AssertionError(f"the offline pipeline is on "
+                             f"{pipe.engine.device}, not {dev}")
+    reset_counts()
+    same = near = 0
+    for qq, a, p in zip(questions[:OFFLINE_PIPELINE], answers, probs):
+        r = pipe.run(qq["question"], qq["options"], qid=qq["qid"])
+        if (np.abs(p - thr) <= NEAR_THRESHOLD).any():
+            near += 1
+            continue
+        md = a["metadata"]
+        if (r["data_sources"] != md["data_sources"]
+                or _doc_ids(r["top_docs"]) != _doc_ids(md["top_docs"])):
+            raise AssertionError(
+                f"offline pipeline on {qq['qid']}: {r['data_sources']} "
+                f"{_doc_ids(r['top_docs'])[:4]} against the served "
+                f"{md['data_sources']} {_doc_ids(md['top_docs'])[:4]}")
+        same += 1
+    launches = read_counts()
+    log(f"[offline:pipeline] OfflinePipeline.from_data_root on {dev}: "
+        f"{same} of {OFFLINE_PIPELINE} qids give the served data_sources "
+        f"and top_docs ({near} with a pair near the threshold left out) in "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    out["offline_pipeline"] = {"launches": launches}
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def offline_eval(root: str, dev) -> dict:
+    """Step 5: ``scripts.eval_recall`` on the card at f32 and bf16, then
+    with ``--impl ivf``."""
+    from ragroute_tpu_torch.scripts import eval_recall
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        reset_counts()
+        rep = eval_recall.main(["--dataset", "medrag", "--data-root", root,
+                                "--dtype", dtype, "--device", str(dev)])
+        launches = read_counts()
+        gate = OFFLINE_RECALL_GATES[dtype]
+        log(f"[offline:eval] eval_recall --dtype {dtype}: {rep['recall']} "
+            f"(gate {gate}) in {time.perf_counter() - t0:.1f} s; launches "
+            f"{launches}")
+        if min(rep["recall"].values()) < gate:
+            raise AssertionError(f"eval_recall {dtype}: {rep['recall']}")
+        out[f"offline_eval_{dtype}"] = {"launches": launches,
+                                        "recall": rep["recall"]}
+    t0 = time.perf_counter()
+    reset_counts()
+    rep = eval_recall.main(["--dataset", "medrag", "--data-root", root,
+                            "--impl", "ivf", "--device", str(dev)])
+    launches = read_counts()
+    log(f"[offline:eval] eval_recall --impl ivf: {rep['recall']}, layout "
+        f"{rep['ivf']['pubmed']} on pubmed, in {time.perf_counter() - t0:.1f}"
+        f" s; launches {launches}")
+    for name in PATH_KERNELS["offline_ivf"]:
+        if launches[name] <= 0:
+            raise AssertionError(f"eval_recall --impl ivf never launched "
+                                 f"{name}")
+    out["offline_ivf"] = {"launches": launches, "recall": rep["recall"]}
+    return out
+
+
+def offline_import(root: str, dev) -> dict:
+    """Step 6: the world and its router in the reference's layout (FAISS
+    files, metadatas, chunks, ``best_model.pth``, ``preprocessed_data.pkl``
+    by the port's writer), imported by ``scripts.import_real_data``, served;
+    its routes equal those of the ``.pth`` and scaler loaded directly."""
+    from ragroute_tpu_torch.config import get_world
+    from ragroute_tpu_torch.engine.engine import FederatedSearchEngine
+    from ragroute_tpu_torch.index.reference_layout import (
+        write_medrag_corpus, write_reference_router)
+    from ragroute_tpu_torch.router.torch_import import load_router
+    from ragroute_tpu_torch.scripts import import_real_data
+    from ragroute_tpu_torch.system import load_world_artifacts
+
+    world = get_world("medrag")
+    wroot = os.path.join(root, "medrag")
+    emb, q, _ = _world_arrays(wroot, world)
+    payloads = {}
+    for s in world.sources:
+        with open(os.path.join(wroot, "payloads", f"{s.name}.jsonl")) as f:
+            payloads[s.name] = [json.loads(line) for line in f]
+    t0 = time.perf_counter()
+    ref = os.path.join(root, "reference")
+    write_medrag_corpus(os.path.join(ref, "corpus"), emb, payloads,
+                        chunk_rows=4096, seed=3)
+    router, _, scaler = load_router(os.path.join(wroot, "router.npz"))
+    pth, pkl = write_reference_router(
+        os.path.join(ref, "routing"), router.state_dict(), scaler[0],
+        scaler[1], items=(np.zeros((4, 1540), np.float32), None,
+                          np.zeros(4, np.float32), None))
+    log(f"[offline:import] reference-layout tree (FAISS IxFI files, "
+        f"metadatas, chunk files, best_model.pth, preprocessed_data.pkl) "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    iroot = os.path.join(root, "imported")
+    import_real_data.main(["--dataset", "medrag", "--corpus-root",
+                           os.path.join(ref, "corpus"), "--router-ckpt", pth,
+                           "--scaler", pkl, "--data-root", iroot,
+                           "--device", str(dev)])
+    iw = os.path.join(iroot, "medrag")
+    for s in world.sources:
+        if not np.array_equal(np.load(os.path.join(iw, s.name,
+                                                   "embeddings.npy")),
+                              emb[s.name]):
+            raise AssertionError(f"import: {s.name}'s rows differ")
+        with open(os.path.join(iw, "payloads", f"{s.name}.jsonl")) as f:
+            if [json.loads(line) for line in f] != payloads[s.name]:
+                raise AssertionError(f"import: {s.name}'s payloads are not "
+                                     f"in row order")
+    shutil.copytree(os.path.join(wroot, "queries"),
+                    os.path.join(iw, "queries"))
+    log(f"[offline:import] imported in {time.perf_counter() - t0:.1f} s: "
+        f"rows and payloads in row order equal the world's")
+    questions = _offline_questions(wroot, OFFLINE_BURST)
+    answers, launches, _ = _serve_offline(iroot, dev, questions)
+    served = [a["metadata"]["data_sources"] for a in answers]
+
+    # the same world with the .pth and its scaler in place of router.npz
+    os.rename(os.path.join(iw, "router.npz"), os.path.join(root, "imp.npz"))
+    shutil.copy(pth, os.path.join(iw, "router.pth"))
+    shutil.copy(pkl, os.path.join(iw, "preprocessed_data.pkl"))
+    (shard_set, prouter, bank, _, _, _, thr) = load_world_artifacts(
+        iroot, world, device=dev)
+    engine = FederatedSearchEngine(shard_set, prouter, bank, threshold=thr)
+    direct = engine.search({e: v[:OFFLINE_BURST] for e, v in q.items()},
+                           strategy="ragroute", fetch_candidates=False)
+    probs, t = direct.probs, world.router_threshold
+    skipped = _same_routes("offline_imported", world, served, probs, t)
+    log(f"[offline:import] the imported world served {OFFLINE_BURST} /query "
+        f"(all 200) with the routes of the .pth and preprocessed_data.pkl "
+        f"loaded directly on the card ({skipped} pairs within "
+        f"{NEAR_THRESHOLD} of the threshold skipped); launches {launches}")
+    del shard_set, prouter, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"offline_imported": {"launches": launches, "skipped": skipped}}
+
+
+def offline_encode(root: str, dev) -> dict:
+    """Step 7: ``import_real_data --encode-from-jsonl`` over 4 x
+    ENCODE_DOCS medrag docs through a MedCPT-Article-Encoder checkpoint at
+    BERT-base width (seeded f32 weights in a temporary hub cache, served in
+    bf16); sampled rows against an f32 forward of the same weights."""
+    from ragroute_tpu_torch.config import get_world
+    from ragroute_tpu_torch import config as cfg
+    from ragroute_tpu_torch.encoders import checks as EC
+    from ragroute_tpu_torch.encoders import published as P
+    from ragroute_tpu_torch.encoders.registry import ENCODER_SPECS
+    from ragroute_tpu_torch.encoders.zoo import load_encoder
+    from ragroute_tpu_torch.scripts import import_real_data
+
+    world = get_world("medrag")
+    wroot = os.path.join(root, "medrag")
+    jsonl = os.path.join(root, "jsonl")
+    os.makedirs(jsonl)
+    texts = {}
+    for s in world.sources:
+        with open(os.path.join(wroot, "payloads", f"{s.name}.jsonl")) as f:
+            lines = [next(f) for _ in range(ENCODE_DOCS)]
+        with open(os.path.join(jsonl, f"{s.name}.jsonl"), "w") as f:
+            f.writelines(lines)
+        texts[s.name] = [import_real_data._doc_text("medrag", json.loads(x))
+                         for x in lines]
+    hub = tempfile.mkdtemp(prefix="ragroute_hub_")
+    saved = os.environ.get("HF_HUB_CACHE")
+    os.environ["HF_HUB_CACHE"] = hub
+    try:
+        master = P.random_model("bert-base", dev, torch.float32, seed=2)
+        vocab = P.wordpiece_vocab(master.cfg.vocab_size, EC.words_of(
+            [t for ts in texts.values() for t in ts[:256]]))
+        P.write_hub_checkpoint(hub, ARTICLE_ENCODER, master, vocab)
+        del master
+        eroot = os.path.join(root, "encoded")
+        timings = import_real_data.main([
+            "--dataset", "medrag", "--encode-from-jsonl", jsonl,
+            "--data-root", eroot, "--device", str(dev)])
+        backends = {v["backend"] for v in timings.values()}
+        docs = sum(v["docs"] for v in timings.values())
+        secs = sum(v["seconds"] for v in timings.values())
+        if backends != {f"torch:{dev.type}"}:
+            raise AssertionError(f"encode-from-jsonl not on the card: "
+                                 f"{backends}")
+        old = cfg.ENCODER_COMPUTE_DTYPE
+        cfg.ENCODER_COMPUTE_DTYPE = "float32"
+        try:
+            f32 = load_encoder(ENCODER_SPECS[ARTICLE_ENCODER], device=dev)
+        finally:
+            cfg.ENCODER_COMPUTE_DTYPE = old
+        rng = np.random.default_rng(0)
+        cos = []
+        for s in world.sources:
+            rows = np.sort(rng.choice(ENCODE_DOCS, ENCODE_CHECK // 4,
+                                      replace=False))
+            got = np.load(os.path.join(eroot, "medrag", s.name,
+                                       "embeddings.npy"))[rows]
+            want = f32.encode_corpus([texts[s.name][r] for r in rows])
+            cos.append(EC.cosine_rows(got, want))
+        cos = np.concatenate(cos)
+        per_source = {k: round(v["docs"] / v["seconds"], 1)
+                      for k, v in timings.items()}
+        log(f"[offline:encode] {docs} docs through {ARTICLE_ENCODER} "
+            f"(BERT-base, bf16 on the card) in {secs:.3f} s: "
+            f"{docs / secs:.1f} docs/s (per source {per_source}); "
+            f"{len(cos)} sampled rows against the f32 forward: cosine min "
+            f"{cos.min():.6f} (gate {ENCODE_COS_GATE})")
+        if cos.min() < ENCODE_COS_GATE:
+            raise AssertionError(f"encode-from-jsonl: cosine {cos.min()}")
+        del f32
+    finally:
+        if saved is None:
+            os.environ.pop("HF_HUB_CACHE", None)
+        else:
+            os.environ["HF_HUB_CACHE"] = saved
+        shutil.rmtree(hub, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"offline_encode": {"docs_per_s": docs / secs,
+                               "cos_min": float(cos.min())}}
+
+
+def phase_offline(dev) -> dict:
+    """Phase 8: the offline path on the card."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ragroute_offline_")
+    try:
+        out = offline_train_serve(root, dev)
+        out.update(offline_eval(root, dev))
+        out.update(offline_import(root, dev))
+        out.update(offline_encode(root, dev))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for label, res in out.items():
+        for name in PATH_KERNELS.get(label, ()):
+            if res["launches"][name] <= 0:
+                raise AssertionError(f"the {label} path never launched "
+                                     f"{name}")
+    log(f"[time] offline phase took {time.perf_counter() - t0:.0f} s")
+    return out
+
+
 ENCODER_ROWS = []        # (a)'s forwards: times and bounds
 
 
@@ -3246,6 +3767,12 @@ def main() -> int:
         log(f"[time] encoders done at {time.perf_counter() - t_start:.0f} s")
         report(smi, {}, paths)
         return 0
+    if only == "offline":      # the offline path (phase 8)
+        paths = phase_offline(dev)
+        log(f"[time] offline path done at {time.perf_counter() - t_start:.0f}"
+            f" s")
+        report(smi, {}, paths)
+        return 0
     if only == "llm":          # the decoder's kernels and generation
         kres = phase_decoder_kernels(dev)
         log(f"[time] decoder kernels checked at "
@@ -3270,6 +3797,8 @@ def main() -> int:
     log(f"[time] generation done at {time.perf_counter() - t_start:.0f} s")
     paths.update(phase_encoders(dev, smi))
     log(f"[time] encoders done at {time.perf_counter() - t_start:.0f} s")
+    paths.update(phase_offline(dev))
+    log(f"[time] offline path done at {time.perf_counter() - t_start:.0f} s")
     report(smi, kres, paths)
     return 0
 

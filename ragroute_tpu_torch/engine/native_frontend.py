@@ -371,6 +371,9 @@ class NativeFederationServer:
             self.pipeline = getattr(server.engine,
                                     "supports_pipelined_dispatch", False)
         self._pending = None  # (chunk, PendingSearch)
+        # the open /admin/profile capture: (rid, ProfileCapture, end time,
+        # seconds, dir)
+        self._capture = None
         self._fin_loop: Optional[asyncio.AbstractEventLoop] = None
         self._fin_thread: Optional[threading.Thread] = None
         self._needs_finisher = (not server.disable_llm) or server.simulate
@@ -427,14 +430,17 @@ class NativeFederationServer:
         last_n = 0
         try:
             while self._running:
+                if self._capture is not None:
+                    self._end_capture()
                 # the fill wait only under load: a lone request must not
                 # wait for company
                 fill = self.fill_ms if last_n >= 32 else 0
                 # with a step in flight, poll: no new work means go drain
-                # the pending step
+                # the pending step; an open capture is closed on time
                 pending = self._pending is not None
+                idle_ms = 50 if self._capture is not None else 200
                 reqs = self.fe.next(self.fe.max_pop,
-                                    first_timeout_ms=0 if pending else 200,
+                                    first_timeout_ms=0 if pending else idle_ms,
                                     window_ms=self.window_ms,
                                     fill_n=self.buckets[-1] if fill else 0,
                                     fill_ms=fill)
@@ -454,6 +460,10 @@ class NativeFederationServer:
                 last_n = len(reqs)
                 self._handle(reqs)
         finally:
+            if self._capture is not None:   # shut down mid-capture
+                self._capture[1].stop()
+                self._capture = None
+                self.server._profiling = False
             if self.fe is not None:
                 self.fe.close()
                 self.fe = None
@@ -602,9 +612,11 @@ class NativeFederationServer:
         return self._respond(rid, 200, _dumps(res))
 
     def _profile(self, rid: int, body: bytes) -> None:
-        """``POST /admin/profile``: the capture window runs on a helper
-        thread (the loop keeps serving meanwhile) that answers through the
-        thread-safe ``fe_respond``."""
+        """``POST /admin/profile``: the capture starts here and stops in
+        :meth:`_end_capture`, both on this loop's thread, the one that
+        launches the engine's steps (captures started and stopped on a
+        helper thread came back now and then without a kernel of the card,
+        read on an H100); the loop keeps serving meanwhile."""
         try:
             data = json.loads(body) if body else {}
         except (json.JSONDecodeError, UnicodeDecodeError):
@@ -616,17 +628,28 @@ class NativeFederationServer:
             return self._respond(rid, 409,
                                  "A profile capture is already running",
                                  ctype=TEXT)
+        try:
+            cap = ProfileCapture(self.engine.device, logdir)
+            cap.start()
+        except (RuntimeError, OSError) as e:
+            return self._respond(rid, 500, f"Profiler failed: {e}",
+                                 ctype=TEXT)
         self.server._profiling = True
+        self._capture = (rid, cap, time.monotonic() + seconds, seconds,
+                         logdir)
+
+    def _end_capture(self) -> None:
+        """Stop the open capture once its window has passed; a helper
+        thread writes the trace and answers through the thread-safe
+        ``fe_respond``."""
+        rid, cap, end, seconds, logdir = self._capture
+        if time.monotonic() < end:
+            return
+        self._capture = None
         fe = self.fe
 
-        def capture():
+        def export():
             try:
-                cap = ProfileCapture(self.engine.device, logdir)
-                cap.start()
-                try:
-                    time.sleep(seconds)
-                finally:
-                    cap.stop()
                 cap.export()
             except (RuntimeError, OSError) as e:
                 fe.respond(rid, 500, f"Profiler failed: {e}", ctype=TEXT)
@@ -636,7 +659,13 @@ class NativeFederationServer:
             fe.respond(rid, 200, _dumps({"trace_dir": logdir,
                                          "seconds": seconds}))
 
-        threading.Thread(target=capture, name="native-profile",
+        try:
+            cap.stop()
+        except RuntimeError as e:
+            self.server._profiling = False
+            fe.respond(rid, 500, f"Profiler failed: {e}", ctype=TEXT)
+            return
+        threading.Thread(target=export, name="native-profile",
                          daemon=True).start()
 
     # -- query execution -----------------------------------------------------

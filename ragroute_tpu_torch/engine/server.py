@@ -82,11 +82,12 @@ def profile_body(data) -> tuple:
 
 class ProfileCapture:
     """One ``torch.profiler`` capture of the serving process, written as
-    ``trace.json`` (Chrome trace format) under ``logdir``. On a CUDA device
-    it holds every kernel the process runs on the card (CUPTI collects the
-    device activity of all threads, so the engine steps of the batcher's or
-    the native loop's thread are in it); host ops are recorded for the
-    thread that started the capture only. :meth:`start` and :meth:`stop`
+    ``trace.json`` (Chrome trace format) under ``logdir``. Host ops are
+    recorded for the thread that started the capture only. On a CUDA device
+    the card's kernels are in it when that thread is the one that launches
+    them, as the native loop's captures are; captures started and stopped
+    on another thread held the runtime calls of every thread but, now and
+    then, no kernel (read on an H100). :meth:`start` and :meth:`stop`
     must run on one thread (a stop from another leaves the profiler's
     callbacks registered); :meth:`export` may run on any."""
 

@@ -43,10 +43,11 @@ from ragroute_tpu_torch.index.shard import STORAGE_DTYPES, ShardSet
 from ragroute_tpu_torch.index.store import MemoryDocStore
 from ragroute_tpu_torch.index.streamed import StreamedShardSet
 from ragroute_tpu_torch.index.synthetic import make_synthetic_world
-from ragroute_tpu_torch.router.checkpoint import (load_router_npz,
-                                                  params_from_jax)
 from ragroute_tpu_torch.router.features import RouterBank
 from ragroute_tpu_torch.router.mlp import CorpusRouter
+from ragroute_tpu_torch.router.torch_import import (load_router,
+                                                    load_sklearn_scaler,
+                                                    load_torch_router)
 from ragroute_tpu_torch.utils.precision import resolve_device
 
 logger = logging.getLogger("system")
@@ -85,8 +86,11 @@ def load_world_artifacts(root: str, world: WorldConfig, *,
                          reserve_docs: int = 0):
     """Load shards / router / bank / query provider / doc store from the
     data root (layout of :func:`ragroute_tpu_torch.index.synthetic.
-    save_world`). No router checkpoint: fresh params from a seeded
-    generator (warning); no query table: hash embeddings.
+    save_world`). The router is ``router.npz`` if present, else the
+    reference's ``router.pth`` with its pickled scaler (``scaler.pkl`` or
+    ``preprocessed_data.pkl``, required on ``uses_scaler`` worlds), else
+    fresh params from a seeded generator (warning); no query table: hash
+    embeddings.
     ``ivf_clusters`` / ``lowrank`` additionally build the layouts of the
     approximate modes (cached as ``.npz`` beside each source's
     embeddings, as :meth:`ShardSet.load` does). ``streamed_tier``
@@ -119,21 +123,37 @@ def load_world_artifacts(root: str, world: WorldConfig, *,
                      for s in world.sources}
 
     threshold, scaler = None, None
-    router = CorpusRouter(world.router_input_dim)
     npz_path = os.path.join(wroot, "router.npz")
+    pth_path = os.path.join(wroot, "router.pth")
     if os.path.exists(npz_path):
-        params, threshold, scaler = load_router_npz(npz_path)
-        router.load_state_dict(params_from_jax(params))
-        router = router.to(device).eval()
-    elif os.path.exists(os.path.join(wroot, "router.pth")):
-        raise NotImplementedError(
-            "reference torch router checkpoints (router.pth + sklearn "
-            "scaler) are not ported yet (ROADMAP queue 1, item 4); convert "
-            "to router.npz")
+        router, threshold, scaler = load_router(npz_path)
+    elif os.path.exists(pth_path):
+        router = load_torch_router(pth_path)
+        # Reference torch checkpoints carry only the MLP; the feature
+        # StandardScaler ships as a separate pickle (router.py:121-130).
+        # The MLP was trained on scaled features, so on uses_scaler worlds
+        # it routes only with its scaler: find it or refuse to start.
+        if world.uses_scaler:
+            for cand in ("scaler.pkl", "preprocessed_data.pkl"):
+                spath = os.path.join(wroot, cand)
+                if os.path.exists(spath):
+                    scaler = load_sklearn_scaler(spath)
+                    logger.info("loaded feature scaler from %s", spath)
+                    break
+        if scaler is None and world.uses_scaler:
+            raise FileNotFoundError(
+                f"{pth_path} is a reference torch router checkpoint and "
+                f"world {world.name!r} scales router features, but no "
+                f"scaler.pkl/preprocessed_data.pkl found under {wroot}; "
+                "routing would be silently wrong. Place the reference "
+                "scaler pickle next to the checkpoint or retrain with "
+                "python -m ragroute_tpu_torch.scripts.train_router (which "
+                "embeds the scaler in router.npz).")
     else:
         logger.warning("no router checkpoint under %s; initializing fresh "
                        "params from seed 0", wroot)
-        router = CorpusRouter.from_seed(world.router_input_dim, 0, device)
+        router = CorpusRouter.from_seed(world.router_input_dim, 0)
+    router = router.to(device).eval()
     bank = RouterBank.create(world, centroids, scaler, device=device)
 
     qdir = os.path.join(wroot, "queries")

@@ -3,7 +3,8 @@ refuses what it does not serve.
 
 ``ragroute_tpu_torch`` must run on a machine without jax: a fresh
 interpreter imports its entry points and no ``jax``, ``jaxlib`` or ``flax``
-module, and no module of ``ragroute_tpu``, may be loaded; no source file of
+module, no ``transformers`` or ``sklearn`` (the card's machine has
+neither), and no module of ``ragroute_tpu``, may be loaded; no source file of
 the port names the JAX package in an import. Every CLI value outside the
 ported slices fails at start-up naming its ROADMAP item; the values of the
 approximate modes are accepted and reach the engine.
@@ -52,10 +53,21 @@ def test_entry_points_import_no_jax():
         "import ragroute_tpu_torch.engine.native_frontend\n"
         "import ragroute_tpu_torch.encoders, ragroute_tpu_torch.encoders.zoo\n"
         "import ragroute_tpu_torch.encoders.published\n"
+        "import ragroute_tpu_torch.pipeline, ragroute_tpu_torch.eval_metrics\n"
+        "import ragroute_tpu_torch.train.train_router\n"
+        "import ragroute_tpu_torch.router.torch_import\n"
+        "import ragroute_tpu_torch.index.faiss_import\n"
+        "import ragroute_tpu_torch.index.reference_layout\n"
+        "import ragroute_tpu_torch.scripts.make_synthetic_data\n"
+        "import ragroute_tpu_torch.scripts.train_router\n"
+        "import ragroute_tpu_torch.scripts.eval_recall\n"
+        "import ragroute_tpu_torch.scripts.import_real_data\n"
+        "import ragroute_tpu_torch.scripts.profile_http\n"
+        "import ragroute_tpu_torch.scripts.profile_captures\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
         "                                    'ml_dtypes', 'ragroute_tpu',\n"
-        "                                    'transformers')\n"
+        "                                    'transformers', 'sklearn')\n"
         "             or m.startswith('ragroute_tpu_torch._ref_'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
@@ -73,6 +85,8 @@ def test_no_source_file_imports_the_jax_package():
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 30
     assert any(os.sep + "encoders" + os.sep in f for f in files)
+    for sub in ("train", "scripts"):
+        assert any(os.sep + sub + os.sep in f for f in files), sub
     pat = re.compile(r"(?:import|from)\s+ragroute_tpu(?!_torch)\b")
     # transformers only lazily (inside a function): never at module level
     top = re.compile(r"^(?:import|from)\s+transformers\b")

@@ -5,7 +5,8 @@ csrc/grouped_pair_topk.cu with its wgmma kernel,
 csrc/int4_matmul.cu with its prefill and decode kernels,
 csrc/decode_attention.cu) against their plain PyTorch versions, at test
 size, the host-RAM tiers' engine on the card against the same engine on the
-CPU, and the int4 decoder's greedy tokens on the card against the CPU's.
+CPU, the int4 decoder's greedy tokens on the card against the CPU's, and
+the router trainer's steps on the card against the CPU's.
 
 A CUDA kernel has no CPU mode, so every test here needs a card; the
 ``cuda`` fixture decides that (never at import) and skips otherwise. On the
@@ -873,3 +874,28 @@ def test_int4_decoder_on_the_card_matches_the_cpu_decoder(cuda):
         outs.append(toks.cpu())
     assert int4_matmul.launches > before
     assert torch.equal(outs[0], outs[1])
+
+
+def test_router_trainer_on_the_card_equals_the_cpu_trainer(cuda):
+    """Twenty clip + Adam steps of the router trainer, dropout off, from the
+    same seeded parameters on the same batches: the card's parameters
+    within atol 1e-4 of the CPU's (TF32 off: ``resolve_device``)."""
+    from ragroute_tpu_torch.router import CorpusRouter
+    from ragroute_tpu_torch.train import train_router as T
+
+    gen = torch.Generator().manual_seed(2)
+    batches = [(torch.randn(256, 1540, generator=gen),
+                (torch.rand(256, generator=gen) < 0.4).float())
+               for _ in range(20)]
+    states = []
+    for dev in ("cpu", cuda):
+        model = CorpusRouter.from_seed(1540, 0, dev)
+        opt, sched = T.make_optimizer(model, 95)
+        for x, y in batches:
+            T.train_step(model, opt, sched, x.to(dev), y.to(dev))
+        assert {p.device.type for p in model.parameters()} == {
+            torch.device(dev).type}
+        states.append({k: v.cpu() for k, v in model.state_dict().items()})
+    for key, want in states[0].items():
+        torch.testing.assert_close(states[1][key], want, rtol=0, atol=1e-4,
+                                   msg=key)

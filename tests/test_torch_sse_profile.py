@@ -177,6 +177,35 @@ def test_profile_route(syn_engines, tmp_path, front):
     assert not ts._profiling
 
 
+def test_native_capture_records_the_serving_loop(syn_engines, tmp_path):
+    """The native front end starts and stops a capture on its serving
+    loop's thread, the one that runs the engine's steps: the trace holds
+    that thread's ops (a capture on a helper thread of its own held none of
+    them, and on the card, now and then, no kernel)."""
+    syn, (jeng, teng) = syn_engines
+    _, ts = servers(syn, jeng, teng)
+    q = syn.questions[0]
+    with serving(ts, NativeFederationServer) as port:
+        res = [None]
+        cap = threading.Thread(target=_profile, args=(
+            port, {"seconds": 1.0, "dir": str(tmp_path / "trace")}, res, 0))
+        cap.start()
+        deadline = time.time() + 30
+        while not ts._profiling and time.time() < deadline:
+            time.sleep(0.01)
+        served = [request(port, "GET", query_path(
+            q["question"], q["options"], q["qid"]))[0] for _ in range(4)]
+        cap.join(60)
+        assert not cap.is_alive()
+    assert served == [200] * 4
+    assert res[0][0] == 200
+    with open(tmp_path / "trace" / "trace.json") as f:
+        trace = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" and e["name"].startswith("aten::")
+               for e in trace)
+    assert not ts._profiling
+
+
 def test_two_servers_share_one_port_with_reuse_port(syn_engines):
     syn, (jeng, teng) = syn_engines
     port = free_port()

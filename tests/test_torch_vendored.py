@@ -18,7 +18,7 @@ import pytest
 COPIES = ["config", "oracle", "benchmark", "engine.rerank", "engine.prompts",
           "engine.llm", "engine.metrics", "engine.embedding", "index.store",
           "index.native_store", "index.synthetic", "utils.template",
-          "encoders.registry"]
+          "encoders.registry", "eval_metrics", "index.faiss_import"]
 
 # names of the original that the port leaves out on purpose, with the
 # ROADMAP item that brings them
