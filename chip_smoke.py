@@ -89,9 +89,10 @@ Phases, each of which fails the run when it fails:
    --dataset medrag --routing ragroute --disable-llm --port 0`` builds it:
    first the exact path, then the exact path at ``--dtype float32`` (3.22
    GB on the card; recall >= 0.999: f32 docs are the oracle's own
-   arithmetic), then ``--impl lowrank``, then ``--impl lowrank
-   --refine-mult 8`` (k' = 256: the fused kernel's deep fold; recall at
-   least the default depth's), then ``--impl ivf``
+   arithmetic), then ``--impl lowrank`` and on its engine the depth
+   ``--refine-mult 8`` sets (k' = 256 through ``engine.search`` on 512 and
+   64 queries: the fused kernel's deep fold; recall at least the default
+   depth's), then ``--impl ivf``
    (bf16 each but the f32 run), the last over a world of the same size made with 64
    topics per source (cluster probing's serving regime; the world the
    other two serve is isotropic inside a source). In every run
@@ -154,13 +155,14 @@ Phases, each of which fails the run when it fails:
    ``measure.py --tiers`` serves), its rows made block by block from the
    seed and never held whole, under ``--hbm-budget-gb 0.375``, which keeps
    the three small sources resident and exact and sends pubmed (734,003
-   docs) to the host tier. Served over HTTP five times
+   docs) to the host tier. Served over HTTP three times
    as ``python -m ragroute_tpu_torch.main --impl stream | hostrefine``
    builds it (``--impl hostrefine`` with the flat coarse slab and with the
    clustered one, reached through
-   ``RAGROUTE_HOSTREFINE_CLUSTER_MIN_DOCS``, each at the default depth and
-   with ``--refine-mult 8``, whose recall must reach the default depth's
-   and whose K1 must take its deep fold and K2 its deep launch): every
+   ``RAGROUTE_HOSTREFINE_CLUSTER_MIN_DOCS``; each hostrefine engine then
+   also at the depth ``--refine-mult 8`` sets, through ``engine.search``,
+   whose recall must reach the default depth's and whose K1 must take its
+   deep fold and K2 its deep launch): every
    ``/query`` answers
    200, the path's kernels launch (the grouped pair top-k only on the
    probed path, through its wgmma kernel; the stream tier's slabs through
@@ -199,8 +201,9 @@ Phases, each of which fails the run when it fails:
    the T5 encoder with its 2_Dense, GPT-J for SGPT-5.8B; each model built
    once with seeded bf16 weights on the card, SGPT last, each freed before
    the next) over a fixed batch of query texts (the port's WordPiece and BPE
-   tokenizers over vocabularies made in code; seeded token ids for XLM-R and
-   T5) at buckets 1, 8 and 32: ``[B, dim]``, finite, unit norm where the
+   tokenizers over vocabularies made in code; its SentencePiece unigram
+   tokenizer for XLM-R and T5, over a ``tokenizer.json`` of the model's
+   vocabulary size the run writes) at buckets 1, 8 and 32: ``[B, dim]``, finite, unit norm where the
    spec normalizes, cosine >= 0.99 against an f32 forward of the same
    weights, >= 0.999 between a text alone and inside the bucket of 32, with
    each forward's CUDA-event and device time beside its bound; (b) inside
@@ -244,13 +247,48 @@ Phases, each of which fails the run when it fails:
    width (seeded weights in a temporary hub cache; 64 rows at cosine >=
    0.99 against an f32 forward of the same weights; docs a second).
 
+9. Meshes, the cluster and the dtype policy: (a) inside phase 3, over its
+   medrag world (1,048,575 x 768 bf16), ``ShardedSearch`` over a 2x2 mesh
+   of ``cuda:0`` named four times (each cell's row slice a view of the
+   card's shard; K1 per cell, then the gather and merge) at B=512, k=32,
+   routing ``ragroute`` and ``all``: the single-card engine's winner sets
+   (near-ties within 1e-3 x max|score| allowed), K1 launched twice a scored
+   (dp row, shard) by its counter and by the profiler, the step's
+   host-clock time beside the single card's, and under ``all`` recall@32
+   >= 0.99 against the exact oracle on 64 queries; the world under
+   ``--dtype policy`` (int8 everywhere: each shard held to the exact
+   winners of its stored rows at 0.99, its recall against the f32 rows
+   printed beside the int8 gate); (b) over a world of 4 x 16,384 docs
+   written for it, three 2 s aiohttp ``/admin/profile`` captures during a
+   timed burst, each holding K1's kernel, and ``--mesh 1x1`` through
+   aiohttp and the native front end: 64 answers equal the single-card
+   server's (query id, timings and batch size blanked);
+   (c) phase 4's reduced world (4 x 32,768) over a 1x4 mesh: IVF (K3 + K2),
+   low-rank, int8 and int4 through ``ShardedSearch`` and ``--impl
+   hostrefine`` through ``MeshStreamedEngine``, each against its
+   single-card engine; (d) a two-process cluster on the one card
+   (``--num-processes 2 --mesh 2x2``, two local devices a process, gloo;
+   over (b)'s world):
+   64 ``/query`` at once through the leader answer as the single-process
+   server does, the follower logs its steps, SIGTERM on the leader ends
+   both; (e) the feb4rag world at 262,144 docs under ``--dtype policy``:
+   each shard in its pick (int4 + low-rank ``trec-covid``, bfloat16 for nine
+   sources, int8 for three), served, its scan's kernel by the counters
+   (``trec-covid`` the low-rank coarse scan), each shard without a coarse
+   layout held to the exact winners of its stored rows (0.99) and
+   ``trec-covid`` to the f32 rows at its dtype's gate (0.95), every
+   shard's recall against the f32 rows printed beside its dtype's gate
+   (§2 of PERF.md: at k = 10 bf16 rounding alone takes some sources below
+   0.99), the picks and the index bytes printed.
+
 ``python3 chip_smoke.py kernels`` stops after phase 2: a short first run
 after a kernel change. ``python3 chip_smoke.py tiers`` runs phases 1 and 5
 only; ``python3 chip_smoke.py llm`` phases 1, K5 / K6 of 2, and 6;
 ``python3 chip_smoke.py surface`` phases 1, K1's live cases of 2, the live
 rewrites of 4 and of 3 the exact path and the rest of the serving surface;
 ``python3 chip_smoke.py encoders`` phases 1 and 7; ``python3
-chip_smoke.py offline`` phases 1 and 8.
+chip_smoke.py offline`` phases 1 and 8; ``python3 chip_smoke.py mesh``
+phases 1 and 9 (with a medrag world of its own).
 
 The second-to-last line is one JSON object with every kernel's launches on
 the main paths (and, for the three top-k kernels, the deep launches among
@@ -347,7 +385,21 @@ PATH_KERNELS = {"exact": ("fused_topk",),
                 "offline_eval_float32": ("fused_topk",),
                 "offline_eval_bfloat16": ("fused_topk",),
                 "offline_ivf": ("stream_topk", "grouped_gains"),
-                "offline_imported": ("fused_topk",)}
+                "offline_imported": ("fused_topk",),
+                # phase 9: the 2x2 virtual mesh over the medrag world (both
+                # routings), --mesh 1x1 over HTTP, the reduced world's
+                # layouts over a 1x4 mesh, --dtype policy
+                "mesh_ragroute": ("fused_topk",),
+                "mesh_all": ("fused_topk",),
+                "mesh_aiohttp": ("fused_topk",),
+                "mesh_native": ("fused_topk",),
+                "mesh_ivf": ("stream_topk", "grouped_gains"),
+                "mesh_lowrank": ("fused_topk",),
+                "mesh_int8": ("fused_topk",),
+                "mesh_int4": ("fused_topk",),
+                "mesh_hostrefine": ("fused_topk",),
+                "policy_medrag": ("fused_topk",),
+                "policy_feb4rag": ("fused_topk",)}
 
 # the kernels each served path must launch through their wgmma designs:
 # K1's scan (bf16, int8 and int4 docs), K3's grouped GEMM and K4's pair scan
@@ -715,7 +767,13 @@ def phase_fused(dev) -> dict:
     log(f"[kernel] fused_topk f32 path shape: note: torch.matmul [512 x 768] "
         f"@ [768 x 734003] f32 without TF32 (cuBLAS SGEMM, the product "
         f"alone) {modes['f32_k32']['sgemm_note_ms']:.3f} ms")
-    del f32
+    # the f32 run's batches of 64 query rows or fewer: the plan keeps PR 1's
+    # partial_topk_kernel there (fused_topk.f32_scan_pays)
+    small = dataclasses.replace(f32, queries=f32.queries[:64].contiguous())
+    modes["f32_b64_k32"] = _check_fused_path(
+        small, "B=64 N=734003 d=768 f32 dot k=32 (partial_topk_kernel)",
+        reps=5, device=True)
+    del f32, small
     torch.cuda.empty_cache()
     # the low-rank coarse scan's lists past 64 take the deep fold; the deep
     # launch (the gains' round trip) took them before
@@ -1315,12 +1373,70 @@ def _hybrid_check(engine, syn) -> None:
         raise AssertionError(f"hybrid chose the wrong scorers: {seen}")
 
 
-def serve_path(root: str, dev, syn, label: str, flags, recall_gate: float
-               ) -> dict:
+class OracleMemo:
+    """``exact_oracle`` over one world's first ``N_CHECK`` queries, computed
+    once a routing mask: the paths served over a world route alike, and
+    one computation over the 1,048,575 f32 rows takes seconds a query."""
+
+    def __init__(self, syn):
+        self.syn = syn
+        self.q = {e: v[:N_CHECK] for e, v in syn.query_embs.items()}
+        self._done = {}
+
+    def __call__(self, mask):
+        from ragroute_tpu_torch.oracle import exact_oracle
+
+        key = None if mask is None else np.asarray(mask).tobytes()
+        if key not in self._done:
+            t0 = time.perf_counter()
+            self._done[key] = exact_oracle(self.syn.world, self.syn.embeddings,
+                                           self.q, self.syn.world.k,
+                                           mask=mask)
+            log(f"[oracle] exact_oracle of {N_CHECK} queries over "
+                f"{sum(len(v) for v in self.syn.embeddings.values())} rows "
+                f"in {time.perf_counter() - t0:.1f} s (kept for the paths "
+                f"that route alike)")
+        return self._done[key]
+
+
+def deep_rerun(engine, syn, label: str, oracle) -> dict:
+    """A ``--refine-mult 8`` path on the engine its default-depth run built
+    (k' = 8 k set on the engine, which is what the flag sets; the world is
+    not built a second time): the full batch and the check queries through
+    ``engine.search``, their launches, and the check queries' recall against
+    ``oracle`` (one winner set a check query, or a function of the mask
+    giving them)."""
+    from ragroute_tpu_torch.oracle import engine_recall
+
+    k = syn.world.k
+    engine.k_refine = REFINE_MULT * k
+    reset_counts()
+    engine.search({e: v[:NUM_QUERIES] for e, v in syn.query_embs.items()},
+                  strategy="ragroute", fetch_candidates=False)
+    q = {e: v[:N_CHECK] for e, v in syn.query_embs.items()}
+    out = engine.search(q, strategy="ragroute", fetch_candidates=False)
+    launches = read_counts()
+    want = oracle(out.mask) if callable(oracle) else oracle
+    recall = engine_recall(syn.world, out, want)
+    log(f"[serve:{label}] k' = {engine.k_refine} on the default-depth run's "
+        f"engine: {NUM_QUERIES} + {N_CHECK} queries through engine.search, "
+        f"launches {launches}, recall@{k} {recall:.6f}")
+    for name in PATH_KERNELS[label]:
+        if launches[name] <= 0:
+            raise AssertionError(
+                f"the {label} path never launched the {name} kernel")
+    return {"launches": launches, "recall": recall}
+
+
+def serve_path(root: str, dev, syn, label: str, flags, recall_gate: float,
+               deep: str = None, oracles: OracleMemo = None) -> dict:
     """Build one ServingSystem from the CLI's flags, drive it over HTTP and
-    hold ``engine.search`` against the exact f32 oracle."""
+    hold ``engine.search`` against the exact f32 oracle. ``deep``: then run
+    that ``--refine-mult 8`` label on the same engine (:func:`deep_rerun`);
+    returns ``{label: result}`` for both. ``oracles``: the world's
+    :class:`OracleMemo`."""
     from ragroute_tpu_torch.main import parse_args
-    from ragroute_tpu_torch.oracle import engine_recall, exact_oracle
+    from ragroute_tpu_torch.oracle import engine_recall
     from ragroute_tpu_torch.system import ServingSystem
 
     torch.cuda.reset_peak_memory_stats()
@@ -1350,11 +1466,9 @@ def serve_path(root: str, dev, syn, label: str, flags, recall_gate: float
                 f"the {label} path never launched the {name} kernel")
     check_wgmma(label, launches)
 
-    q = {enc: e[:N_CHECK] for enc, e in syn.query_embs.items()}
-    out = engine.search(q, strategy="ragroute")
-    oracle = exact_oracle(syn.world, syn.embeddings, q, syn.world.k,
-                          mask=out.mask)
-    recall = engine_recall(syn.world, out, oracle)
+    oracles = oracles or OracleMemo(syn)
+    out = engine.search(oracles.q, strategy="ragroute")
+    recall = engine_recall(syn.world, out, oracles(out.mask))
     routed = out.mask.sum(axis=0).tolist()
     log(f"[oracle:{label}] engine.search on {N_CHECK} queries: routed per "
         f"source {routed}, recall@{syn.world.k} vs exact_oracle "
@@ -1370,14 +1484,17 @@ def serve_path(root: str, dev, syn, label: str, flags, recall_gate: float
             f"{label}: recall {recall} < {recall_gate} vs exact_oracle")
     if label == "ivf":
         _hybrid_check(engine, syn)
+    res = {label: {"launches": launches, "recall": recall}}
+    if deep:
+        res[deep] = deep_rerun(engine, syn, deep, oracles)
     del system, engine, ss, out
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "recall": recall}
+    return res
 
 
 def phase_main_paths(dev, surface_only: bool = False,
-                     zoo: bool = True) -> dict:
+                     zoo: bool = True, smi: str = "") -> dict:
     """Serve the synthetic medrag world through the port's ServingSystem:
     exact, then low-rank, then ``--embedder zoo`` (with ``zoo``: phase 7
     (b)), then the rest of the serving surface, then cluster-probed over the
@@ -1390,9 +1507,7 @@ def phase_main_paths(dev, surface_only: bool = False,
     out = {}
     worlds = ((1, (("exact", []),
                    ("exact_f32", ["--dtype", "float32"]),
-                   ("lowrank", ["--impl", "lowrank"]),
-                   ("lowrank_deep", ["--impl", "lowrank", "--refine-mult",
-                                     str(REFINE_MULT)]))),
+                   ("lowrank", ["--impl", "lowrank"]))),
               (IVF_TOPICS, (("ivf", ["--impl", "ivf"]),)))
     if surface_only:
         worlds = ((1, (("exact", []),)),)
@@ -1407,15 +1522,20 @@ def phase_main_paths(dev, surface_only: bool = False,
             log(f"[world] medrag {n_docs} docs x 768, {topics} topic(s) per "
                 f"source, {NUM_QUERIES} queries made and saved in "
                 f"{time.perf_counter() - t0:.1f} s")
+            oracles = OracleMemo(syn)
             for label, flags in runs:
-                out[label] = serve_path(
+                deep = "lowrank_deep" if label == "lowrank" else None
+                out.update(serve_path(
                     root, dev, syn, label, flags,
-                    recall_gate=RECALL_GATES.get(label, 0.99))
-                if label in DEEP_PATHS:
-                    check_deep(label, out[label]["launches"],
-                               out[label]["recall"], out)
+                    recall_gate=RECALL_GATES.get(label, 0.99), deep=deep,
+                    oracles=oracles))
+                if deep:
+                    check_deep(deep, out[deep]["launches"],
+                               out[deep]["recall"], out)
             if topics == 1 and zoo:     # --embedder zoo over this world
                 out.update(phase_zoo_medrag(root, dev, syn))
+            if topics == 1 and not surface_only:    # phase 9's mesh part
+                out.update(phase_mesh_medrag(root, dev, syn, smi, oracles))
             if topics == 1:     # the same world, served by the rest of
                 #                 the surface (it ends by overwriting it)
                 out.update(phase_surface(root, dev, syn))
@@ -2428,12 +2548,14 @@ async def _drive_tier(system, syn, k: int, label: str,
 
 
 def serve_tier(root: str, dev, syn, label: str, impl: str,
-               cluster_min_docs: int, oracle: dict, flags=()) -> dict:
+               cluster_min_docs: int, oracle: dict, deep: str = None) -> dict:
     """Build one host tier's ServingSystem from the CLI's flags (the rows
     come from the world's block generator), drive it over HTTP and hold
-    ``engine.search`` against the exact f32 oracle. A deep run (``flags``
-    with --refine-mult) skips the pipelined burst, which its default-depth
-    run has measured."""
+    ``engine.search`` against the exact f32 oracle. ``deep``: then run that
+    ``--refine-mult 8`` label on the same engine (:func:`deep_rerun`; its
+    pipelined burst is the default-depth run's). Returns ``{label:
+    result}`` for both."""
+    flags = ()
     from ragroute_tpu_torch import config as cfg
     from ragroute_tpu_torch.main import parse_args
     from ragroute_tpu_torch.oracle import engine_recall
@@ -2542,10 +2664,13 @@ def serve_tier(root: str, dev, syn, label: str, impl: str,
         if min(stored, rounded) < STREAM_STORED_GATE:
             raise AssertionError(
                 f"stream: recall {stored} / {rounded} vs its own bytes")
+    res = {label: {"launches": launches, "recall": recall}}
+    if deep:
+        res[deep] = deep_rerun(engine, syn, deep, oracle["winners"])
     del system, engine, ss, out
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "recall": recall}
+    return res
 
 
 def phase_tiers(dev) -> dict:
@@ -2576,19 +2701,16 @@ def phase_tiers(dev) -> dict:
         log(f"[world] medrag {n_docs} docs x 768, {IVF_TOPICS} topics per "
             f"source, rows made block by block from the seed; int8, "
             f"--hbm-budget-gb {SMOKE_TIER_BUDGET_GB}")
-        deep = ("--refine-mult", str(REFINE_MULT))
-        for label, impl, cluster_min, flags in (
-                ("stream", "stream", 0, ()),
-                ("hostrefine", "hostrefine", 0, ()),
-                ("hostrefine_deep", "hostrefine", 0, deep),
-                ("hostrefine_probed", "hostrefine", PROBED_CLUSTER_MIN, ()),
-                ("hostrefine_probed_deep", "hostrefine", PROBED_CLUSTER_MIN,
-                 deep)):
-            out[label] = serve_tier(root, dev, syn, label, impl,
-                                    cluster_min, oracle, flags)
-            if label in DEEP_PATHS:
-                check_deep(label, out[label]["launches"],
-                           out[label]["recall"], out)
+        for label, impl, cluster_min, deep in (
+                ("stream", "stream", 0, None),
+                ("hostrefine", "hostrefine", 0, "hostrefine_deep"),
+                ("hostrefine_probed", "hostrefine", PROBED_CLUSTER_MIN,
+                 "hostrefine_probed_deep")):
+            out.update(serve_tier(root, dev, syn, label, impl, cluster_min,
+                                  oracle, deep))
+            if deep:
+                check_deep(deep, out[deep]["launches"],
+                           out[deep]["recall"], out)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -3737,6 +3859,603 @@ def phase_offline(dev) -> dict:
 ENCODER_ROWS = []        # (a)'s forwards: times and bounds
 
 
+# ---- phase 9: meshes, the cluster, the dtype policy -------------------------
+
+MESH_SHAPE = (2, 2)      # the virtual mesh over the full medrag world
+MESH_REDUCED = (1, 4)    # the layouts' virtual mesh over phase 4's world
+MESH_STEPS = 3           # host-clock steps timed, each engine, each routing
+CLUSTER_QUESTIONS = 64   # /query through the cluster's leader at once
+CLUSTER_DOCS = 16_384    # docs a source of its world (8,192 rows a cell:
+#                          past 4,096, so each cell launches K1)
+# the storage dtypes' recall gates (§2 of PERF.md: the JAX tests' gates)
+DTYPE_GATES = {"float32": 0.999, "bfloat16": 0.99, "int8": 0.95,
+               "int4": 0.90, "int4+lowrank": 0.95}
+STORED_GATE = 0.99       # against the exact winners of a shard's own bytes
+K1_KERNELS = ("wgmma_topk_kernel", "partial_topk_kernel", "f32_topk_kernel")
+
+
+def _k1_kernel_count(prof) -> int:
+    """K1's scan kernels in a profile (one a launch)."""
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and any(n in e.key for n in K1_KERNELS))
+
+
+def _shallow_set(ss):
+    """A second view of a shard set (its own list of the same shards): a
+    mesh engine retires the entries of the list it is given, and the
+    single-card engine keeps serving the original."""
+    return dataclasses.replace(ss, shards=list(ss.shards))
+
+
+def _timed_steps(engine, q: dict, strategy: str) -> list:
+    times = []
+    for _ in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        engine.search(q, strategy=strategy)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _norm_body(b: dict) -> str:
+    """A /query body with the random query id, the timings and the batch
+    size blanked (the batch a query shares depends on when the concurrent
+    requests arrive)."""
+    b = dict(b, query_id="")
+    md = dict(b["metadata"])
+    for f in ("embedding_time", "selection_time", "doc_select_time",
+              "e2e_time", "generate_time", "batch_size"):
+        if f in md:
+            md[f] = 0.0
+    md["data_sources_stats"] = {n: dict(st, duration=0.0) for n, st in
+                                md.get("data_sources_stats", {}).items()}
+    b["metadata"] = md
+    return json.dumps(b, sort_keys=True)
+
+
+def _same_bodies(label: str, got: list, want: list) -> None:
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if _norm_body(a) != _norm_body(b)]
+    if bad or len(got) != len(want):
+        raise AssertionError(f"{label}: {len(bad)} of {len(want)} answers "
+                             f"differ from the single-card server's, first "
+                             f"{bad[:3]}")
+
+
+def _aiohttp_captures(port: int, syn, label: str) -> list:
+    """PROFILE_CAPTURES 2 s ``/admin/profile`` captures of the aiohttp
+    front end during a timed burst; whether each trace holds K1's scan."""
+    load = start_load(port, syn, seconds=PROFILE_LOAD_S)
+    time.sleep(1.0)
+    found = []
+    try:
+        for _ in range(PROFILE_CAPTURES):
+            pdir = tempfile.mkdtemp(prefix="ragroute_profile_")
+            status, body = _http(port, "POST", "/admin/profile",
+                                 {"seconds": 2.0, "dir": pdir})
+            if status != 200:
+                raise AssertionError(f"/admin/profile answered {status}")
+            with open(os.path.join(pdir, "trace.json")) as f:
+                trace = json.load(f)["traceEvents"]
+            shutil.rmtree(pdir, ignore_errors=True)
+            kern = {e["name"] for e in trace if e.get("cat") == "kernel"}
+            k1 = sorted(n for n in kern if any(m in n for m in K1_KERNELS))
+            found.append(bool(k1))
+            log(f"[{label}] aiohttp /admin/profile 2 s during a burst: "
+                f"{len(trace)} trace events, {len(kern)} distinct kernels, "
+                f"K1's: {[n[:60] for n in k1]}")
+    finally:
+        res = finish_load(load)
+    log(f"[{label}] aiohttp captures holding K1: {sum(found)} of "
+        f"{len(found)} (the load around them: {res['ok']} answers in "
+        f"{res['wall_s']:.1f} s)")
+    if not all(found):
+        raise AssertionError(f"{found.count(False)} of {PROFILE_CAPTURES} "
+                             f"aiohttp profile traces hold no K1 kernel")
+    return found
+
+
+def _serve_flags(root: str, dev, flags) -> "object":
+    from ragroute_tpu_torch.main import parse_args
+    from ragroute_tpu_torch.system import ServingSystem
+
+    return ServingSystem(parse_args([
+        "--dataset", "medrag", "--routing", "ragroute", "--disable-llm",
+        "--port", "0", "--data-root", root, "--device", str(dev), *flags]))
+
+
+def _source_recall(world, embeddings, q: dict, out, dev) -> list:
+    """Per source, the recall@k of its candidate list (``out.shard_ids``,
+    strategy "all") against the exact f32 top-k of that source alone."""
+    k = world.k
+    rec = []
+    for si, src in enumerate(world.sources):
+        d = torch.from_numpy(np.ascontiguousarray(
+            embeddings[src.name], np.float32)).to(dev)
+        qq = torch.from_numpy(np.asarray(q[src.encoder], np.float32)).to(dev)
+        if src.score_mode == "cos":
+            d = d / d.norm(dim=1, keepdim=True).clamp(min=1e-12)
+            qq = qq / qq.norm(dim=1, keepdim=True).clamp(min=1e-12)
+        if src.score_mode == "l2":
+            s = 2 * qq @ d.T - (d * d).sum(1)[None, :]
+        else:
+            s = qq @ d.T
+        want = torch.topk(s, k, dim=1).indices.cpu().numpy()
+        del d, s
+        got = out.shard_ids[:, si]
+        rec.append(float(np.mean([len(set(g.tolist()) & set(w.tolist())) / k
+                                  for g, w in zip(got, want)])))
+    return rec
+
+
+def _policy_check(label: str, engine, syn, dev, n: int) -> dict:
+    """``--dtype policy``: each shard's pick, its scan's kernel by the
+    counters (the low-rank shards' coarse scan, the bf16 / int8 / int4 wgmma
+    scans), its recall. A shard without a coarse layout is held to the
+    exact winners of its own stored rows (the plain path over the same
+    bytes, f32 arithmetic) at ``STORED_GATE``, and its recall against the
+    f32 rows is printed beside its dtype's gate (§2 of PERF.md): at k = 10
+    bf16 storage alone moves that recall below 0.99 on some sources of the
+    synthetic feb4rag world, where the scan still finds its bytes' winners.
+    A low-rank shard (coarse-authoritative int4) is held to the f32 rows at
+    its dtype's gate."""
+    from ragroute_tpu_torch.config import store_dtype_policy
+    from ragroute_tpu_torch.ops.lowrank_topk import lowrank_topk
+    from ragroute_tpu_torch.ops.topk import shard_topk
+
+    world, ss = syn.world, engine.shard_set
+    k = world.k
+    q = {e: v[:n] for e, v in syn.query_embs.items()}
+    out = engine.search(q, strategy="all", fetch_candidates=True)
+    rec = _source_recall(world, syn.embeddings, q, out, dev)
+    rows = []
+    for si, (src, sh) in enumerate(zip(world.sources, ss.shards)):
+        dt, lr = store_dtype_policy(src.embed_dim, src.score_mode)
+        stored = "int4" if sh.packed4 else str(sh.docs.dtype).split(".")[-1]
+        if stored != dt or (sh.lr is not None) != lr:
+            raise AssertionError(f"{label}: {src.name} stored {stored} "
+                                 f"(low-rank {sh.lr is not None}), picked "
+                                 f"{dt} (low-rank {lr})")
+        qq = torch.from_numpy(q[src.encoder]).to(dev)
+        args = dict(mode=src.score_mode, valid_docs=sh.n_docs, bias=sh.bias,
+                    scale=sh.scale, center=sh.center, packed4=sh.packed4)
+        reset_counts()
+        if sh.lr is not None:
+            lowrank_topk(qq, sh.lr, sh.docs, k, **args)
+        else:
+            shard_topk(qq, sh.docs, k, **args)
+        c = read_counts()
+        scan = ("low-rank coarse scan" if sh.lr is not None
+                else f"{dt} scan")
+        if c["fused_topk"] < 1 or (c["wgmma"]["fused_topk"]
+                                   + c["fold"]["fused_topk"]) < 1:
+            raise AssertionError(f"{label}: {src.name}'s {scan} did not "
+                                 f"launch K1's wgmma scan: {c}")
+        gate = DTYPE_GATES[dt + ("+lowrank" if lr else "")]
+        own = None
+        if sh.lr is None:
+            ref = shard_topk(qq, sh.docs, k, impl="chunked", **args)[1]
+            own = float(np.mean([
+                len(set(a.tolist()) & set(b.tolist())) / k
+                for a, b in zip(out.shard_ids[:, si], ref.cpu().numpy())]))
+        bytes_ = sh.docs.numel() * sh.docs.element_size()
+        log(f"[{label}] {src.name}: {src.embed_dim}-d {src.score_mode}, pick "
+            f"{dt}{' + low-rank' if lr else ''}, {bytes_ / 1e6:.1f} MB, "
+            f"{scan} (K1 wgmma scans {c['wgmma']['fused_topk']}, folds "
+            f"{c['fold']['fused_topk']}); recall@{k} against the f32 rows "
+            f"{rec[si]:.6f} (the dtype's gate {gate}), against its stored "
+            f"rows {'-' if own is None else f'{own:.6f}'} (gate "
+            f"{STORED_GATE})")
+        if (own is None and rec[si] < gate) or (own is not None
+                                                and own < STORED_GATE):
+            raise AssertionError(f"{label}: {src.name} recall {rec[si]} "
+                                 f"(stored rows: {own})")
+        rows.append({"source": src.name, "pick": dt, "lowrank": lr,
+                     "recall": rec[si], "recall_stored": own})
+    log(f"[{label}] index bytes {ss.index_bytes / 1e9:.4f} GB over "
+        f"{len(ss.shards)} mixed shards (+ {ss.aux_bytes / 1e9:.4f} GB "
+        f"low-rank layouts)")
+    return {"rows": rows, "index_bytes": ss.index_bytes}
+
+
+def phase_mesh_medrag(root: str, dev, syn, smi: str,
+                      oracles: OracleMemo = None) -> dict:
+    """Phase 9 (a) and (e) over phase 3's medrag world (1,048,575 docs,
+    bf16): :class:`ShardedSearch` over a 2x2 mesh of ``cuda:0`` named four
+    times against the single-card engine (both as ``ServingSystem`` builds
+    them); the world under ``--dtype policy``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ragroute_tpu_torch.oracle import engine_recall
+    from ragroute_tpu_torch.parallel import ShardedSearch, make_mesh
+
+    out = {}
+    t0 = time.perf_counter()
+    single_sys = _serve_flags(root, dev, [])
+    single_sys.build()
+    single = single_sys.server.engine
+    log(f"[mesh] single-card engine built in {time.perf_counter() - t0:.1f} "
+        f"s")
+    try:
+        # (a) the 2x2 virtual mesh: cells are views of the card's shards
+        dp, idx = MESH_SHAPE
+        mesh = ShardedSearch(_shallow_set(single.shard_set), single.router,
+                             single.bank,
+                             make_mesh(dp, idx, devices=[dev] * (dp * idx)))
+        q = {e: v[:NUM_QUERIES] for e, v in syn.query_embs.items()}
+        tables = [single.shard_set.doc_ids.get(s.name) or
+                  list(range(s.n_docs)) for s in single.shard_set.shards]
+        for strategy in ("ragroute", "all"):
+            for eng in (single, mesh):
+                eng.search(q, strategy=strategy)          # warm
+            torch.cuda.synchronize()
+            # a warm-up step under the profiler, then two recorded ones
+            # (the first kernels of a capture are where CUPTI has lost an
+            # event: 9 of 10 once)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=torch.profiler.schedule(
+                             wait=0, warmup=1, active=2, repeat=1),
+                         acc_events=True) as prof:
+                mesh.search(q, strategy=strategy)
+                torch.cuda.synchronize()
+                prof.step()
+                reset_counts()
+                for _ in range(2):
+                    got = mesh.search(q, strategy=strategy)
+                    torch.cuda.synchronize()
+                    prof.step()
+            launches = read_counts()
+            traced = _k1_kernel_count(prof)
+            want = single.search(q, strategy=strategy)
+            counts = got.mask.reshape(dp, -1, got.mask.shape[1]).sum(axis=1)
+            expect = 2 * int((counts > 0).sum()) * idx
+            same = same_winners(
+                [_scored_ids(got, r, tables) for r in range(NUM_QUERIES)],
+                [_scored_ids(want, r, tables) for r in range(NUM_QUERIES)],
+                tol=1e-3 * float(np.nanmax(np.abs(want.merged_score))))
+            if not (got.mask == want.mask).all():
+                raise AssertionError(f"mesh {strategy}: masks differ")
+            if launches["fused_topk"] != expect or traced != expect:
+                raise AssertionError(
+                    f"mesh {strategy}: K1 launched {launches['fused_topk']} "
+                    f"times in two steps (profiler {traced}), {idx} per "
+                    f"scored (row, shard) gives {expect}")
+            tm = _timed_steps(mesh, q, strategy)
+            ts = _timed_steps(single, q, strategy)
+            recall = None
+            if strategy == "all":       # every shard scored: one oracle
+                oracles = oracles or OracleMemo(syn)
+                oc = mesh.search(oracles.q, strategy=strategy)
+                recall = engine_recall(syn.world, oc, oracles(oc.mask))
+            log(f"[mesh] {dp}x{idx} over cuda:0 x {dp * idx}, B={NUM_QUERIES} "
+                f"k={syn.world.k} {strategy}: winner sets equal the "
+                f"single-card engine's on {same} of {NUM_QUERIES} (the rest "
+                f"near-ties); K1 launches in two steps {launches['fused_topk']}"
+                f" by the counter, {traced} by the profiler ({idx} per scored "
+                f"row and shard: {counts.tolist()} routed); step host-clock "
+                f"{np.median(tm):.2f} ms against the single card's "
+                f"{np.median(ts):.2f} ms (median of {MESH_STEPS}); recall@"
+                f"{syn.world.k} vs exact_oracle on {N_CHECK} queries "
+                f"{'-' if recall is None else f'{recall:.6f}'} ({smi})")
+            if recall is not None and recall < DTYPE_GATES["bfloat16"]:
+                raise AssertionError(f"mesh {strategy}: recall {recall}")
+            out[f"mesh_{strategy}"] = {"launches": launches,
+                                       "recall": recall}
+        del mesh
+        log(f"[time] the 2x2 mesh checks done {time.perf_counter() - t0:.0f}"
+            f" s after the single-card engine's build")
+    finally:
+        del single_sys, single
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (e) the medrag world under --dtype policy (int8 everywhere, exact)
+    sysm = _serve_flags(root, dev, ["--dtype", "policy"])
+    sysm.build()
+    reset_counts()
+    res = _policy_check("policy:medrag", sysm.server.engine, syn, dev,
+                        N_CHECK)
+    out["policy_medrag"] = {"launches": read_counts(), **res}
+    log(f"[time] the medrag world's part of phase 9 took "
+        f"{time.perf_counter() - t0:.0f} s")
+    del sysm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_reduced(dev) -> dict:
+    """Phase 9 (c): phase 4's reduced world (4 x 32,768) over a 1x4 mesh of
+    ``cuda:0``: IVF (K3 + K2), low-rank, int8 and int4 through
+    :class:`ShardedSearch`, and ``--impl hostrefine --mesh`` through
+    :class:`MeshStreamedEngine`, each against its single-card engine."""
+    from ragroute_tpu_torch.engine import FederatedSearchEngine
+    from ragroute_tpu_torch.engine.streamed import StreamedSearchEngine
+    from ragroute_tpu_torch.index import ShardSet, make_synthetic_world
+    from ragroute_tpu_torch.index.streamed import StreamedShardSet
+    from ragroute_tpu_torch.parallel import (MeshStreamedEngine,
+                                             ShardedSearch, make_mesh)
+    from ragroute_tpu_torch.router import CorpusRouter, RouterBank
+
+    syn = make_synthetic_world("medrag", docs_per_source=REDUCED_DOCS,
+                               num_queries=N_CHECK, seed=5,
+                               with_payloads=False, subclusters=64)
+    q = dict(syn.query_embs)
+    router = CorpusRouter.from_seed(syn.world.router_input_dim, 0, dev)
+    bank = RouterBank.create(syn.world, syn.centroids, device=dev)
+    dp, idx = MESH_REDUCED
+    devices = [dev] * (dp * idx)
+    tables = [list(range(REDUCED_DOCS))] * syn.world.num_sources
+    out = {}
+    cases = (("mesh_ivf", torch.bfloat16, "ivf", {"ivf_clusters": -1},
+              ("grouped_gains", "stream_topk")),
+             ("mesh_lowrank", torch.bfloat16, "lowrank", {"lowrank": -1},
+              ("fused_topk",)),
+             ("mesh_int8", torch.int8, "auto", {}, ("fused_topk",)),
+             ("mesh_int4", "int4", "auto", {}, ("fused_topk",)))
+    for label, dtype, impl, build, kernels in cases:
+        ss = ShardSet.build(syn.world, syn.embeddings, dtype=dtype,
+                            device=dev, **build)
+        single = FederatedSearchEngine(ss, router, bank, impl=impl)
+        want = single.search(q, strategy="all")
+        mesh = ShardedSearch(_shallow_set(ss), router, bank,
+                             make_mesh(dp, idx, devices=devices), impl=impl)
+        mesh.search(q, strategy="all")
+        reset_counts()
+        got = mesh.search(q, strategy="all")
+        launches = read_counts()
+        same = same_winners(
+            [_scored_ids(got, r, tables) for r in range(N_CHECK)],
+            [_scored_ids(want, r, tables) for r in range(N_CHECK)],
+            tol=1e-3 * float(np.nanmax(np.abs(want.merged_score))))
+        for name in kernels:
+            if launches[name] <= 0:
+                raise AssertionError(f"{label}: {name} never launched")
+        log(f"[mesh:reduced] {label} over {dp}x{idx} (4 x {REDUCED_DOCS}): "
+            f"winner sets equal the single-card engine's on {same} of "
+            f"{N_CHECK} (the rest near-ties); launches {launches}")
+        out[label] = {"launches": launches}
+        del ss, single, mesh
+        gc.collect()
+        torch.cuda.empty_cache()
+    # --impl hostrefine --mesh: a budget that keeps pubmed on the host
+    budget = 3 * REDUCED_DOCS * (768 + 8) + 4096
+    kw = dict(dtype="int8", tier="hostrefine", hbm_budget_bytes=budget,
+              cluster_coarse=False, device=dev)
+    a = StreamedShardSet.build(syn.world, syn.embeddings, **kw)
+    b = StreamedShardSet.build(syn.world, syn.embeddings, **kw)
+    if not any(s.coarse_docs is not None for s in a.sources):
+        raise AssertionError("the hostrefine world has no coarse slab")
+    single = StreamedSearchEngine(a, router, bank)
+    mesh = MeshStreamedEngine(b, router, bank,
+                              make_mesh(dp, idx, devices=devices))
+    for fetch in (False, True):
+        want = single.search(q, strategy="all", fetch_candidates=fetch)
+        reset_counts()
+        got = mesh.search(q, strategy="all", fetch_candidates=fetch)
+        launches = read_counts()
+        if not (np.array_equal(got.merged_shard, want.merged_shard)
+                and np.array_equal(got.merged_local, want.merged_local)):
+            raise AssertionError(f"hostrefine --mesh (fetch {fetch}) "
+                                 f"differs from the single-card tier")
+        if launches["fused_topk"] < idx:
+            raise AssertionError(f"hostrefine --mesh: K1 {launches}")
+    log(f"[mesh:reduced] mesh_hostrefine over {dp}x{idx}: winners equal the "
+        f"single-card tier's in both copy modes; launches {launches}")
+    out["mesh_hostrefine"] = {"launches": launches}
+    return out
+
+
+def _mesh_1x1_http(root: str, dev, questions: list, want: list) -> dict:
+    """``--mesh 1x1`` through aiohttp and the native front end: the
+    single-card server's answers (``want``) to the same questions."""
+    out = {}
+    for front in ("aiohttp", "native"):
+        sysm = _serve_flags(root, dev, ["--mesh", "1x1", "--frontend",
+                                        front])
+        sysm.build()
+        if type(sysm.server.engine).__name__ != "ShardedSearch":
+            raise AssertionError("--mesh 1x1 did not build ShardedSearch")
+        if front == "native":
+            thread = _start_native(sysm)
+            port = sysm.native.bound_port
+        else:
+            stop = _serve_aiohttp(sysm)
+            port = sysm.server.bound_port
+        try:
+            reset_counts()
+            got = _bodies(port, questions)
+            launches = read_counts()
+        finally:
+            if front == "native":
+                _stop_native(sysm, thread)
+            else:
+                stop()
+        _same_bodies(f"--mesh 1x1 {front}", got, want)
+        log(f"[mesh] --mesh 1x1 through {front}: {len(got)} answers equal "
+            f"the single-card server's; launches {launches}")
+        out[f"mesh_{front}"] = {"launches": launches}
+        del sysm
+    return out
+
+
+def phase_cluster(dev) -> dict:
+    """Phase 9 (b) and (d) over a world of 4 x 16,384 docs written for
+    them: the single-card server's answers and three aiohttp
+    ``/admin/profile`` captures under load; ``--mesh 1x1`` through both
+    front ends (:func:`_mesh_1x1_http`); then a two-process cluster on the
+    one card (``--num-processes 2 --mesh 2x2``, each process naming
+    ``cuda:0`` twice, gloo between them): a burst through the leader
+    answers as the single-process server does; the follower logs its
+    steps; SIGTERM on the leader ends both."""
+    import signal
+
+    from ragroute_tpu_torch.index import make_synthetic_world
+    from ragroute_tpu_torch.index.synthetic import save_world
+    from ragroute_tpu_torch.system import free_port
+
+    root = tempfile.mkdtemp(prefix="ragroute_cluster_")
+    procs = []
+    out = {}
+    try:
+        syn = make_synthetic_world("medrag", docs_per_source=CLUSTER_DOCS,
+                                   num_queries=CLUSTER_QUESTIONS, seed=6)
+        save_world(syn, root)
+        questions = [{"qid": q["qid"], "question": q["question"]}
+                     for q in syn.questions]
+        single = _serve_flags(root, dev, [])
+        single.build()
+        stop = _serve_aiohttp(single)
+        try:
+            want = _bodies(single.server.bound_port, questions)
+            _aiohttp_captures(single.server.bound_port, syn, "mesh")
+        finally:
+            stop()
+        del single
+        out.update(_mesh_1x1_http(root, dev, questions, want))
+        gc.collect()
+        torch.cuda.empty_cache()
+        http, coord = free_port(), free_port()
+        env = dict(os.environ, RAGROUTE_LOCAL_DEVICES="2")
+        t0 = time.perf_counter()
+        for pid in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "ragroute_tpu_torch.main",
+                 "--dataset", "medrag", "--routing", "ragroute",
+                 "--disable-llm", "--data-root", root, "--device", str(dev),
+                 "--mesh", "2x2", "--num-processes", "2", "--process-id",
+                 str(pid), "--coordinator", f"127.0.0.1:{coord}", "--port",
+                 str(http)],
+                cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        deadline = time.time() + 300
+        while time.time() < deadline:
+            if any(p.poll() is not None for p in procs):
+                raise AssertionError("a cluster process ended early")
+            try:
+                if _http(http, "GET", "/healthz", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.5)
+        up = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = _bodies(http, questions)
+        burst = time.perf_counter() - t0
+        procs[0].send_signal(signal.SIGTERM)
+        logs = [p.communicate(timeout=120)[0] for p in procs]
+        rcs = [p.returncode for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    steps = [line for line in logs[1].splitlines() if "process 1: step" in line]
+    log(f"[cluster] 2 processes x cuda:0 x 2, --mesh 2x2: up in {up:.1f} s; "
+        f"{len(got)} GET /query at once through the leader in {burst:.3f} s; "
+        f"the follower logged {len(steps)} steps (last: "
+        f"{steps[-1].strip() if steps else None}); exit codes {rcs}")
+    if rcs != [0, 0] or not steps:
+        raise AssertionError(f"cluster: exit codes {rcs}; leader log "
+                             f"{logs[0][-2000:]}\nfollower log "
+                             f"{logs[1][-2000:]}")
+    _same_bodies("the cluster's leader", got, want)
+    return out
+
+
+def phase_policy_feb4rag(dev) -> dict:
+    """Phase 9 (e): phase 7's feb4rag world (262,144 docs, 13 sources)
+    under ``--dtype policy``: the system's picks (``ServingSystem``'s own
+    policy step), each shard built in its pick, the picks and the index
+    bytes, each shard's recall at its gate and the scan K1 runs for it;
+    served over HTTP. The world stays in memory (``FederationServer`` over
+    it, as phase 7 serves it): writing its 262,144 rows and payloads to a
+    data root would take longer than the rest of the phase."""
+    from ragroute_tpu_torch.engine import FederatedSearchEngine
+    from ragroute_tpu_torch.engine.embedding import PrecomputedEmbeddings
+    from ragroute_tpu_torch.engine.server import FederationServer
+    from ragroute_tpu_torch.index import ShardSet, make_synthetic_world
+    from ragroute_tpu_torch.index.store import MemoryDocStore
+    from ragroute_tpu_torch.main import parse_args
+    from ragroute_tpu_torch.router import CorpusRouter, RouterBank
+    from ragroute_tpu_torch.system import ServingSystem
+
+    t0 = time.perf_counter()
+    syn = make_synthetic_world("feb4rag", docs_per_source=FEB_DOCS // 13,
+                               num_queries=N_CHECK, seed=0)
+    world = syn.world
+    system = ServingSystem(parse_args([
+        "--dataset", "feb4rag", "--routing", "all", "--disable-llm",
+        "--port", "0", "--device", str(dev), "--dtype", "policy"]))
+    dtype, lowrank = system._storage()
+    ss = ShardSet.build(world, syn.embeddings, doc_ids=syn.doc_ids,
+                        dtype=dtype, lowrank=lowrank, device=dev)
+    engine = FederatedSearchEngine(
+        ss, CorpusRouter.from_seed(world.router_input_dim, 0, dev),
+        RouterBank.create(world, syn.centroids, device=dev),
+        impl=system.impl)
+    log(f"[policy:feb4rag] {ss.total_docs} docs built under --dtype policy "
+        f"in {time.perf_counter() - t0:.1f} s (impl {system.impl})")
+    server = FederationServer(
+        engine, strategy="all",
+        embedding_provider=PrecomputedEmbeddings.from_synthetic(syn),
+        doc_store=MemoryDocStore.from_synthetic(syn), disable_llm=True,
+        port=0)
+    stop = _serve_aiohttp(server)
+    try:
+        reset_counts()
+        bodies = _bodies(server.bound_port, [
+            {"qid": q["qid"], "question": q["question"]}
+            for q in syn.questions[:16]])
+        served = read_counts()
+    finally:
+        stop()
+    if not all(len(b["metadata"]["top_docs"]) for b in bodies):
+        raise AssertionError("policy:feb4rag: an answer without docs")
+    res = _policy_check("policy:feb4rag", engine, syn, dev, N_CHECK)
+    del server, engine, ss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"policy_feb4rag": {"launches": served, **res}}
+
+
+def phase_mesh(dev, smi: str, medrag: bool = False) -> dict:
+    """Phase 9 alone (``python3 chip_smoke.py mesh``) or its parts after
+    phase 3 (``medrag``: the medrag world made here)."""
+    from ragroute_tpu_torch.index.synthetic import (make_synthetic_world,
+                                                    save_world)
+
+    t_start = time.perf_counter()
+    out = {}
+    if medrag:
+        root = tempfile.mkdtemp(prefix="ragroute_smoke_")
+        try:
+            syn = make_synthetic_world(
+                "medrag", docs_per_source_map=MEDRAG_DOCS,
+                num_queries=NUM_QUERIES, seed=0)
+            save_world(syn, root)
+            out.update(phase_mesh_medrag(root, dev, syn, smi))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        del syn
+        gc.collect()
+    t0 = time.perf_counter()
+    out.update(phase_mesh_reduced(dev))
+    log(f"[time] mesh layouts over the reduced world took "
+        f"{time.perf_counter() - t0:.0f} s")
+    t0 = time.perf_counter()
+    out.update(phase_cluster(dev))
+    log(f"[time] --mesh 1x1 over HTTP, the aiohttp captures and the cluster "
+        f"took {time.perf_counter() - t0:.0f} s")
+    t0 = time.perf_counter()
+    out.update(phase_policy_feb4rag(dev))
+    log(f"[time] the feb4rag policy took {time.perf_counter() - t0:.0f} s")
+    log(f"[time] phase 9 (without the medrag world's part: "
+        f"{not medrag}) took {time.perf_counter() - t_start:.0f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3773,6 +4492,11 @@ def main() -> int:
             f" s")
         report(smi, {}, paths)
         return 0
+    if only == "mesh":         # meshes, the cluster, the policy (phase 9)
+        paths = phase_mesh(dev, smi, medrag=True)
+        log(f"[time] mesh phase done at {time.perf_counter() - t_start:.0f} s")
+        report(smi, {}, paths)
+        return 0
     if only == "llm":          # the decoder's kernels and generation
         kres = phase_decoder_kernels(dev)
         log(f"[time] decoder kernels checked at "
@@ -3789,7 +4513,7 @@ def main() -> int:
     phase_live_quant(dev)
     phase_reduced_tiers(dev)
     log(f"[time] reduced worlds done at {time.perf_counter() - t_start:.0f} s")
-    paths = phase_main_paths(dev)
+    paths = phase_main_paths(dev, smi=smi)
     log(f"[time] served paths done at {time.perf_counter() - t_start:.0f} s")
     paths.update(phase_tiers(dev))
     log(f"[time] host tiers done at {time.perf_counter() - t_start:.0f} s")
@@ -3799,6 +4523,8 @@ def main() -> int:
     log(f"[time] encoders done at {time.perf_counter() - t_start:.0f} s")
     paths.update(phase_offline(dev))
     log(f"[time] offline path done at {time.perf_counter() - t_start:.0f} s")
+    paths.update(phase_mesh(dev, smi))
+    log(f"[time] mesh phase done at {time.perf_counter() - t_start:.0f} s")
     report(smi, kres, paths)
     return 0
 

@@ -170,9 +170,7 @@ def check_published_models(device, log: Callable[[str], None],
         dense = P.random_dense(key, device, seed)
         wide = L.cast_(copy.deepcopy(model), torch.float32)
         shapes = _shapes(model)
-        how = ("seeded token ids (no SentencePiece tokenizer on this "
-               "machine)" if pub.tokenizer == "seeded"
-               else f"the port's {pub.tokenizer} tokenizer")
+        how = f"the port's {pub.tokenizer} tokenizer"
         log(f"[encoders:{key}] {P.n_params(model) / 1e6:.1f} M parameters "
             f"made on the card in {built:.2f} s (bf16; {pub.source}); "
             f"{len(specs)} spec(s); texts through {how}")

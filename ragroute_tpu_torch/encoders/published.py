@@ -3,7 +3,9 @@
 No checkpoint of the zoo is in the repository, and the card's machine has no
 network, so the chip smoke and ``measure.py --encoders`` build every
 registry encoder at its published width from a seed, on the card, in the
-serving dtype; the vocabularies the port's tokenizers read are made in code.
+serving dtype; the vocabularies the port's tokenizers read are made in code
+(XLM-R's and T5's as a SentencePiece unigram ``tokenizer.json`` written at
+run time, :func:`write_unigram_checkpoint`).
 Each architecture and shape is built once (:data:`SPEC_MODEL` maps the 13
 registry specs onto :data:`MODELS`).
 
@@ -18,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import zlib
+import tempfile
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -33,8 +35,8 @@ from ragroute_tpu_torch.encoders import t5 as _t5
 from ragroute_tpu_torch.encoders.registry import ENCODER_SPECS, EncoderSpec
 from ragroute_tpu_torch.encoders.tokenize import (ByteLevelBPETokenizer,
                                                   WordPieceTokenizer,
-                                                  _Tokenizer,
-                                                  bytes_to_unicode)
+                                                  bytes_to_unicode,
+                                                  load_tokenizer)
 from ragroute_tpu_torch.encoders.zoo import encoder_from_model
 
 
@@ -43,7 +45,7 @@ class Published:
     family: str          # bert | mpnet | gptj | t5
     cfg: object
     source: str          # the public config.json the widths come from
-    tokenizer: str       # wordpiece | mpnet | bpe | seeded
+    tokenizer: str       # wordpiece | mpnet | bpe | unigram
     dense_out: Optional[int] = None    # instructor's 2_Dense width
 
 
@@ -62,7 +64,7 @@ MODELS: Dict[str, Published] = {
             intermediate_size=4096, max_position_embeddings=514,
             type_vocab_size=1, model_type="xlm-roberta",
             layer_norm_eps=1e-5, pad_token_id=1),
-        _HF.format("intfloat/multilingual-e5-large"), "seeded"),
+        _HF.format("intfloat/multilingual-e5-large"), "unigram"),
     "mpnet-base": Published(
         "mpnet", _mpnet.MPNetConfig(),
         _HF.format("sentence-transformers/all-mpnet-base-v2"), "mpnet"),
@@ -72,7 +74,7 @@ MODELS: Dict[str, Published] = {
         "bpe"),
     "t5-large-encoder": Published(
         "t5", _t5.T5Config(), _HF.format("hkunlp/instructor-large"),
-        "seeded", dense_out=768),
+        "unigram", dense_out=768),
 }
 SPEC_MODEL = {
     "ncbi/MedCPT-Query-Encoder": "bert-base",
@@ -241,23 +243,69 @@ def bpe_tokenizer(words: Sequence[str] = ()) -> ByteLevelBPETokenizer:
                                  unk_token="<|endoftext|>")
 
 
-class SeededTokenizer(_Tokenizer):
-    """Token ids from a hash of each word, for the models whose SentencePiece
-    tokenizer the card's machine cannot build (XLM-R, T5). ``kind``
-    "xlm-r": ``<s> x </s>``, pad 1; "t5": ``x </s>``, pad 0."""
-
-    def __init__(self, vocab_size: int, kind: str):
-        self.vocab_size = vocab_size
-        self.kind = kind
-        self.pad_token_id = 1 if kind == "xlm-r" else 0
-        self.n_specials = 2 if kind == "xlm-r" else 1
-
-    def _ids(self, text: str) -> List[int]:
-        return [3 + zlib.crc32(w.encode()) % (self.vocab_size - 3)
-                for w in text.split()]
-
-    def _wrap(self, ids: List[int]) -> List[int]:
-        return [0] + ids + [2] if self.kind == "xlm-r" else ids + [1]
+def write_unigram_checkpoint(path: str, kind: str, vocab_size: int,
+                             words: Sequence[str] = ()) -> str:
+    """A SentencePiece unigram ``tokenizer.json`` of ``vocab_size`` ids under
+    ``path``, with the layout of ``kind``'s checkpoints: "xlm-roberta"
+    (``<s>`` 0, ``<pad>`` 1, ``</s>`` 2, ``<unk>`` 3, ``<mask>`` last;
+    ``<s> … </s>``) or "t5" (``<pad>`` 0, ``</s>`` 1, ``<unk>`` 2, 100
+    ``<extra_id_*>`` last; ``… </s>``). Its pieces: ``▁``, every character
+    of ``words`` and of the ASCII letters and digits (alone and after
+    ``▁``), each word whole after ``▁`` (scored above its characters), then
+    filler pieces up to the size."""
+    os.makedirs(path, exist_ok=True)
+    meta = "\u2581"
+    if kind == "xlm-roberta":
+        head = ["<s>", "<pad>", "</s>", "<unk>"]
+        tail = ["<mask>"]
+        unk, template = 3, [("<s>", 0), None, ("</s>", 2)]
+    else:
+        head = ["<pad>", "</s>", "<unk>"]
+        tail = [f"<extra_id_{i}>" for i in range(99, -1, -1)]
+        unk, template = 2, [None, ("</s>", 1)]
+    chars = sorted(set("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
+                       "0123456789.,?!'-").union(*map(set, words)))
+    pieces = [(meta, -2.0)]
+    pieces += [(c, -8.0) for c in chars] + [(meta + c, -7.0) for c in chars]
+    pieces += [(meta + w, -3.0) for w in sorted(set(words))]
+    seen = {p for p, _ in pieces} | set(head) | set(tail)
+    n_fill = vocab_size - len(head) - len(tail) - len(pieces)
+    if n_fill < 0:
+        raise ValueError(f"vocab_size {vocab_size} too small")
+    i = 0
+    while n_fill:
+        piece = f"{meta}q{i}"
+        i += 1
+        if piece not in seen:
+            pieces.append((piece, -20.0))
+            n_fill -= 1
+    vocab = [[t, 0.0] for t in head] + [list(p) for p in pieces] + \
+        [[t, 0.0] for t in tail]
+    single = [{"Sequence": {"id": "A", "type_id": 0}} if t is None else
+              {"SpecialToken": {"id": t[0], "type_id": 0}} for t in template]
+    spec = {
+        "version": "1.0",
+        "added_tokens": [{"id": vocab.index([t, 0.0]) if t in head
+                          else len(vocab) - len(tail) + tail.index(t),
+                          "content": t, "special": True, "normalized": False,
+                          "single_word": False, "lstrip": False,
+                          "rstrip": False} for t in head + tail],
+        "normalizer": {"type": "Replace", "pattern": {"Regex": " {2,}"},
+                       "content": " "},
+        "pre_tokenizer": {"type": "Metaspace", "replacement": meta,
+                          "prepend_scheme": "always", "split": True},
+        "post_processor": {
+            "type": "TemplateProcessing", "single": single, "pair": single,
+            "special_tokens": {t[0]: {"id": t[0], "ids": [t[1]],
+                                      "tokens": [t[0]]}
+                               for t in template if t is not None}},
+        "model": {"type": "Unigram", "unk_id": unk, "vocab": vocab,
+                  "byte_fallback": False},
+    }
+    with open(os.path.join(path, "tokenizer.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    return path
 
 
 def tokenizer_for(key: str, words: Sequence[str] = ()):
@@ -268,8 +316,12 @@ def tokenizer_for(key: str, words: Sequence[str] = ()):
         return wordpiece_tokenizer(words, "mpnet", pub.cfg.vocab_size)
     if pub.tokenizer == "bpe":
         return bpe_tokenizer(words)
-    return SeededTokenizer(pub.cfg.vocab_size,
-                           "t5" if pub.family == "t5" else "xlm-r")
+    # SentencePiece unigram: a tokenizer.json written here, read back by
+    # the port's own reader
+    kind = "t5" if pub.family == "t5" else "xlm-roberta"
+    with tempfile.TemporaryDirectory() as d:
+        write_unigram_checkpoint(d, kind, pub.cfg.vocab_size, words)
+        return load_tokenizer(d, kind)
 
 
 def encoder(spec: EncoderSpec, model: nn.Module, tokenizer, dense=None):

@@ -6,6 +6,12 @@ bucket fills), pads the batch to a bucket size, runs ONE engine step in an
 executor thread and resolves the per-query futures. For an engine with a
 dispatch/complete split (the hostrefine capacity tier) the worker is
 pipelined: batch t's host rescore runs while batch t+1's device step runs.
+
+Every step (and every dispatch of the pipelined loop) runs on ONE thread,
+the batcher's step thread (:attr:`QueryBatcher.step_executor`): the thread
+that launches the kernels. ``/admin/profile`` starts and stops its capture
+there, since a capture started on another thread records, now and then, no
+kernel of the card.
 """
 
 from __future__ import annotations
@@ -13,7 +19,9 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import os
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -95,6 +103,10 @@ class QueryBatcher:
         self.queue: asyncio.Queue = asyncio.Queue(maxsize=max_queue)
         self._task: Optional[asyncio.Task] = None
         self._running = False
+        # the one thread that launches the steps' kernels
+        self.step_executor = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="ragroute-step")
+        self.last_step_thread: Optional[int] = None
 
     # -- lifecycle -------------------------------------------------------
 
@@ -162,6 +174,7 @@ class QueryBatcher:
                 break
 
     def _run_batch(self, batch) -> Tuple[SearchOutput, int]:
+        self.last_step_thread = threading.get_ident()
         rows = [qe.get("__row__") for qe, _ in batch]
         denses = [None if "__row__" in qe else qe for qe, _ in batch]
         embs = pack_query_embs(self.engine, rows, denses,
@@ -203,7 +216,7 @@ class QueryBatcher:
                 try:
                     # engine.search waits on the device: keep the loop live
                     out, n = await loop.run_in_executor(
-                        None, self._run_batch, batch)
+                        self.step_executor, self._run_batch, batch)
                     self._demux(out, batch, n)
                 except Exception as e:  # deliver failures to every waiter
                     for _, fut in batch:
@@ -218,6 +231,7 @@ class QueryBatcher:
     # -- pipelined worker (hostrefine capacity tier) ---------------------
 
     def _dispatch_batch(self, batch):
+        self.last_step_thread = threading.get_ident()
         rows = [qe.get("__row__") for qe, _ in batch]
         denses = [None if "__row__" in qe else qe for qe, _ in batch]
         embs = pack_query_embs(self.engine, rows, denses,
@@ -253,7 +267,7 @@ class QueryBatcher:
                 await self._collect(batch)
                 try:
                     handle = await loop.run_in_executor(
-                        None, self._dispatch_batch, batch)
+                        self.step_executor, self._dispatch_batch, batch)
                 except Exception as e:
                     for _, fut in batch:
                         if not fut.done():

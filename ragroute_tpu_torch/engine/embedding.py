@@ -142,12 +142,16 @@ class EmbeddingBatcher:
     """
 
     def __init__(self, provider, *, window_ms: float = EMBED_WINDOW_MS,
-                 buckets: Tuple[int, ...] = EMBED_BATCH_BUCKETS):
+                 buckets: Tuple[int, ...] = EMBED_BATCH_BUCKETS,
+                 executor=None):
         if not hasattr(provider, "embed_many"):
             raise ValueError(
                 f"{type(provider).__name__} has no embed_many(); "
                 "EmbeddingBatcher needs a batch-capable provider")
         self.provider = provider
+        # the thread the forwards launch on (None: the loop's default
+        # executor); the server passes its search batcher's step thread
+        self.executor = executor
         self.window_s = window_ms / 1000.0
         self.buckets = tuple(sorted(int(b) for b in buckets))
         self.queue: asyncio.Queue = asyncio.Queue()
@@ -224,7 +228,7 @@ class EmbeddingBatcher:
                 await self._collect(batch)
                 try:
                     rows = await loop.run_in_executor(
-                        None, self._run_batch, batch)
+                        self.executor, self._run_batch, batch)
                     self.batches += 1
                     self.batched_queries += len(batch)
                     for row, (_, _, fut) in zip(rows, batch):

@@ -134,6 +134,19 @@ class PendingSearch:
         return out
 
 
+class DoneSearch:
+    """An already finished search behind the ``search_submit`` contract
+    (engines whose step completes inline)."""
+
+    __slots__ = ("_out",)
+
+    def __init__(self, out: SearchOutput):
+        self._out = out
+
+    def wait(self) -> SearchOutput:
+        return self._out
+
+
 def _route_fn(world: WorldConfig, strategy: str, router: CorpusRouter,
               bank: RouterBank, query_embs: Dict[str, Tensor],
               generator: Optional[torch.Generator],
@@ -476,9 +489,9 @@ class FederatedSearchEngine(EngineBase):
             refused = [s.name for s in shard_set.shards if s.lr is None]
             if refused:
                 logger.warning(
-                    "lowrank: shards %s have no coarse index (flat "
-                    "spectrum at build); they fall back to the exact "
-                    "exhaustive scan", refused)
+                    "lowrank: shards %s have no coarse index (a flat "
+                    "spectrum at build, or a --dtype policy pick without "
+                    "one); they take the exact exhaustive scan", refused)
         self.world: WorldConfig = shard_set.world
         self.shard_set = shard_set
         self.device = shard_set.device

@@ -154,16 +154,6 @@ class FederationServer:
         self.world: WorldConfig = engine.world
         self.strategy = strategy
         self.provider = embedding_provider
-        # Live encoders (--embedder zoo) micro-batch through the device
-        # like the search step does: concurrent arrivals share ONE padded
-        # forward per encoder (EmbeddingBatcher) instead of each paying a
-        # full forward alone in the executor.
-        self.embed_batcher = None
-        if (getattr(embedding_provider, "blocking", False)
-                and hasattr(embedding_provider, "embed_many")):
-            from ragroute_tpu_torch.engine.embedding import EmbeddingBatcher
-
-            self.embed_batcher = EmbeddingBatcher(embedding_provider)
         self.doc_store = doc_store
         self.llm = llm or LLMClient(
             "echo", delay_s=LLM_DELAY if simulate else 0.0)
@@ -172,6 +162,19 @@ class FederationServer:
         self.simulate = simulate
         self.relevance_data = relevance_data or {}
         self.batcher = batcher or QueryBatcher(engine, strategy=strategy)
+        # Live encoders (--embedder zoo) micro-batch through the device
+        # like the search step does: concurrent arrivals share ONE padded
+        # forward per encoder (EmbeddingBatcher) instead of each paying a
+        # full forward alone. The forwards launch kernels too, so they run
+        # on the batcher's step thread, the one a /admin/profile capture
+        # records.
+        self.embed_batcher = None
+        if (getattr(embedding_provider, "blocking", False)
+                and hasattr(embedding_provider, "embed_many")):
+            from ragroute_tpu_torch.engine.embedding import EmbeddingBatcher
+
+            self.embed_batcher = EmbeddingBatcher(
+                embedding_provider, executor=self.batcher.step_executor)
         # a table-backed provider uploads its whole table once; known qids
         # then cross to the device as row indices
         self._rows_wired = False
@@ -352,15 +355,19 @@ class FederationServer:
             return web.Response(
                 text="A profile capture is already running", status=409)
         self._profiling = True
+        # start and stop on the step thread, the one that launches the
+        # kernels (a capture from the loop's thread held no kernel of the
+        # card now and then)
+        loop = asyncio.get_running_loop()
+        step = self.batcher.step_executor
         try:
             cap = ProfileCapture(self.engine.device, logdir)
-            cap.start()
+            await loop.run_in_executor(step, cap.start)
             try:
                 await asyncio.sleep(seconds)
             finally:
-                cap.stop()
-            await asyncio.get_running_loop().run_in_executor(None,
-                                                             cap.export)
+                await loop.run_in_executor(step, cap.stop)
+            await loop.run_in_executor(None, cap.export)
         except (RuntimeError, OSError) as e:
             return web.Response(text=f"Profiler failed: {e}", status=500)
         finally:
@@ -691,7 +698,8 @@ class FederationServer:
             # a blocking provider without batch support runs off the event
             # loop, which would otherwise stall the batcher's collect loop
             embs = await asyncio.get_running_loop().run_in_executor(
-                None, self.provider.embed, formatted_query, question_id)
+                self.batcher.step_executor, self.provider.embed,
+                formatted_query, question_id)
         else:
             embs = self.provider.embed(formatted_query, question_id)
         embedding_time = time.time() - t0

@@ -56,7 +56,8 @@ from ragroute_tpu_torch.config import (HOSTREFINE_KAPPA,
                                        HOSTREFINE_NPROBE_DIVISOR,
                                        HOSTREFINE_REFINE_MULT, STREAM_PREFETCH,
                                        WorldConfig)
-from ragroute_tpu_torch.engine.engine import (EngineBase, SearchOutput,
+from ragroute_tpu_torch.engine.engine import (DoneSearch, EngineBase,
+                                              SearchOutput,
                                               _pack, _unpack, gate_and_merge,
                                               payload_base)
 from ragroute_tpu_torch.index.streamed import StreamedShardSet
@@ -133,18 +134,6 @@ class _PendingStreamed:
         out = self._engine.complete_hostrefine(self._handle)
         self._handle = None
         return out
-
-
-class _DoneStreamed:
-    """Already-finished search behind the search_submit contract."""
-
-    __slots__ = ("_out",)
-
-    def __init__(self, out):
-        self._out = out
-
-    def wait(self) -> SearchOutput:
-        return self._out
 
 
 class _StagingBuffer:
@@ -239,12 +228,25 @@ class StreamedSearchEngine(EngineBase):
                 per_id.append(torch.zeros((bsz, k), dtype=torch.int64,
                                           device=self.device))
                 continue
-            s, idx = shard_topk(q, st.res_docs, k, mode=self._modes[i],
-                                bias=st.res_bias, scale=st.res_scale,
-                                packed4=self.shard_set.packed4)
+            s, idx = self._resident_topk(i, q, k)
             per_key.append(_key_form(s, self._modes[i]))
             per_id.append(idx)
         return per_key, per_id, per_q
+
+    def _resident_topk(self, i: int, q: Tensor, k: int):
+        """Exact top-k of source ``i``'s resident rows (natural scores)."""
+        st = self.shard_set.sources[i]
+        return shard_topk(q, st.res_docs, k, mode=self._modes[i],
+                          bias=st.res_bias, scale=st.res_scale,
+                          packed4=self.shard_set.packed4)
+
+    def _coarse_topk(self, i: int, qt: Tensor, kp: int):
+        """Top-``kp`` of source ``i``'s flat coarse slab, clamped to the
+        slab height (gain-form dot with its stored bias)."""
+        st = self.shard_set.sources[i]
+        return shard_topk(qt, st.coarse_docs, min(kp, st.coarse_docs.shape[0]),
+                          mode="dot", bias=st.coarse_bias,
+                          scale=st.coarse_scale)
 
     def _finalize(self, mask: Tensor, per_key, per_id, embs):
         """Per-shard key lists to natural form (with the dot centring
@@ -326,10 +328,8 @@ class StreamedSearchEngine(EngineBase):
                 # clamp to the slab height (a small source with a large
                 # --refine-mult), then pad back to kp with never-wins
                 # sentinels for the fixed-width concat
-                kp_i = min(kp, st.coarse_docs.shape[0])
-                cs, ci = shard_topk(qt[i], st.coarse_docs, kp_i, mode="dot",
-                                    bias=st.coarse_bias,
-                                    scale=st.coarse_scale)
+                cs, ci = self._coarse_topk(i, qt[i], kp)
+                kp_i = cs.shape[1]
                 if kp_i < kp:
                     pad = (0, kp - kp_i)
                     cs = torch.nn.functional.pad(cs, pad, value=float("nan"))
@@ -568,7 +568,7 @@ class StreamedSearchEngine(EngineBase):
             return _PendingStreamed(self, self.dispatch_hostrefine(
                 query_embs, strategy=strategy,
                 fetch_candidates=fetch_candidates))
-        return _DoneStreamed(self.search(
+        return DoneSearch(self.search(
             query_embs, strategy=strategy, staged=staged,
             fetch_candidates=fetch_candidates))
 

@@ -17,9 +17,15 @@ capacity-greedy assignment is a small host pass over the top-R cluster
 preferences; the slab is laid out on the target device by pure data
 movement, so its bytes equal a host build's.
 
+With ``mesh=`` (:func:`build_ivf`), the k-means and the preference
+ranking run sharded over every cell of a
+:class:`~ragroute_tpu_torch.parallel.Mesh`: the corpus chunks are split over
+the cells, each cell accumulates the Lloyd sums of its own chunks, and the
+cells' sums are added (in cell order) into the next centroids, so the corpus
+never lands whole on one card.
+
 The ``.npz`` cache format is the JAX package's: either package reads the
-other's files. Builds sharded over a device mesh are not ported yet (ROADMAP
-queue 1, item 14).
+other's files.
 """
 
 from __future__ import annotations
@@ -84,13 +90,14 @@ def default_n_clusters(n: int) -> int:
     return 1 << (c.bit_length() - 1)  # round the cap down to a power of 2
 
 
-def _upload_chunks(emb: np.ndarray, chunk: int, device):
+def _upload_chunks(emb: np.ndarray, chunk: int, device, cells: int = 1):
     """The corpus once on the device as bf16 ``[n_chunks, chunk, d]`` plus
     row weights (0 on the zero rows that pad the last chunk). One upload
     feeds both the Lloyd iterations and the preference ranking; every
-    reduction over it accumulates in f32."""
+    reduction over it accumulates in f32. ``cells``: pad the chunk count to
+    a multiple of it (a mesh build's cells)."""
     n, d = emb.shape
-    n_pad = -(-n // chunk) * chunk
+    n_pad = -(-n // (chunk * cells)) * chunk * cells
     x = torch.zeros((n_pad, d), dtype=torch.bfloat16)
     for off in range(0, n, chunk):     # np.array: a read-only memmap copies
         end = min(off + chunk, n)
@@ -108,28 +115,43 @@ def _chunk_scores(xb: torch.Tensor, cent: torch.Tensor) -> torch.Tensor:
     return xb.to(torch.float32) @ cent.to(torch.bfloat16).to(torch.float32).T
 
 
-@torch.no_grad()
-def _kmeans_device(xc: torch.Tensor, wc: torch.Tensor, emb: np.ndarray,
-                   n_clusters: int, iters: int, seed: int) -> np.ndarray:
-    """Lloyd iterations on the device of ``xc``; returns ``[C, d]`` float32
-    centroids. Assignment is chunked over documents, so peak memory is
-    ``[chunk, C]`` scores instead of ``[n, C]``."""
-    d = emb.shape[1]
+def _lloyd_sums(xc: torch.Tensor, wc: torch.Tensor, cent: torch.Tensor):
+    """One Lloyd pass's per-cluster sums and counts over the chunks of
+    ``xc`` (on their device)."""
+    n_clusters, d = cent.shape
     dev = xc.device
+    sums = torch.zeros((n_clusters, d), dtype=torch.float32, device=dev)
+    counts = torch.zeros((n_clusters,), dtype=torch.float32, device=dev)
+    half_sq = 0.5 * (cent * cent).sum(dim=1)
+    for xb, wb in zip(xc, wc):
+        # nearest centroid in l2 == argmax of x.c - |c|^2/2
+        a = torch.argmax(_chunk_scores(xb, cent) - half_sq[None, :], dim=1)
+        sums.index_add_(0, a, xb.to(torch.float32) * wb[:, None])
+        counts.index_add_(0, a, wb)
+    return sums, counts
+
+
+@torch.no_grad()
+def _kmeans_device(xc, wc, emb: np.ndarray, n_clusters: int, iters: int,
+                   seed: int) -> np.ndarray:
+    """Lloyd iterations; returns ``[C, d]`` float32 centroids. Assignment
+    is chunked over documents, so peak memory is ``[chunk, C]`` scores
+    instead of ``[n, C]``. ``xc`` / ``wc``: the chunks on one device, or
+    lists of the chunk slices of a mesh's cells, whose sums are added on
+    the first cell's device."""
+    cells = (list(zip(xc, wc)) if isinstance(xc, (list, tuple))
+             else [(xc, wc)])
+    dev = cells[0][0].device
     rng = np.random.default_rng(seed)
     cent = torch.from_numpy(np.asarray(
         emb[rng.choice(emb.shape[0], n_clusters, replace=False)],
         np.float32)).to(dev)
     for _ in range(iters):
-        sums = torch.zeros((n_clusters, d), dtype=torch.float32, device=dev)
-        counts = torch.zeros((n_clusters,), dtype=torch.float32, device=dev)
-        half_sq = 0.5 * (cent * cent).sum(dim=1)
-        for xb, wb in zip(xc, wc):
-            # nearest centroid in l2 == argmax of x.c - |c|^2/2
-            a = torch.argmax(_chunk_scores(xb, cent) - half_sq[None, :],
-                             dim=1)
-            sums.index_add_(0, a, xb.to(torch.float32) * wb[:, None])
-            counts.index_add_(0, a, wb)
+        parts = [_lloyd_sums(x, w, cent.to(x.device)) for x, w in cells]
+        sums, counts = parts[0]
+        for s_c, c_c in parts[1:]:
+            sums = sums + s_c.to(dev)
+            counts = counts + c_c.to(dev)
         cent = torch.where(counts[:, None] > 0,
                            sums / counts.clamp(min=1.0)[:, None], cent)
     return cent.cpu().numpy().astype(np.float32)
@@ -148,14 +170,29 @@ def _chunk_top_r(xb: torch.Tensor, c: torch.Tensor, cb: torch.Tensor,
 
 
 @torch.no_grad()
-def _top_r_choices(xc: torch.Tensor, n: int, cent: np.ndarray,
-                   r: int) -> np.ndarray:
+def _top_r_choices(xc, n: int, cent: np.ndarray, r: int) -> np.ndarray:
     """``[n, r]`` cluster-preference ranking per doc (nearest first, ties
-    to the lower cluster), on the device of ``xc``."""
-    c = torch.from_numpy(np.asarray(cent, np.float32)).to(xc.device)
-    cb = -0.5 * (c * c).sum(dim=1)
-    tops = [_chunk_top_r(xb, c, cb, r) for xb in xc]
-    return torch.cat(tops).cpu().numpy()[:n]
+    to the lower cluster), on the device of ``xc`` (or of each cell's
+    chunk slice, reassembled in doc order on the host)."""
+    tops = []
+    for x in (xc if isinstance(xc, (list, tuple)) else [xc]):
+        c = torch.from_numpy(np.asarray(cent, np.float32)).to(x.device)
+        cb = -0.5 * (c * c).sum(dim=1)
+        tops += [_chunk_top_r(xb, c, cb, r).cpu() for xb in x]
+    return torch.cat(tops).numpy()[:n]
+
+
+def _mesh_chunks(emb: np.ndarray, mesh):
+    """The corpus chunks split over a mesh's cells (row-major): per cell
+    its chunk slice and weights on its device."""
+    if mesh.multiprocess:
+        raise ValueError("a mesh build of an IVF layout runs in one "
+                         "process")
+    cells = [dev for row in mesh.devices for dev in row]
+    x, w, _ = _upload_chunks(emb, KMEANS_CHUNK, "cpu", cells=len(cells))
+    per = x.shape[0] // len(cells)
+    return ([x[j * per:(j + 1) * per].to(dev) for j, dev in enumerate(cells)],
+            [w[j * per:(j + 1) * per].to(dev) for j, dev in enumerate(cells)])
 
 
 def _balanced_assign(choices: np.ndarray, n_clusters: int,
@@ -219,6 +256,7 @@ def build_ivf(
     device="cpu",
     packed_rows: Optional[np.ndarray] = None,
     row_scales: Optional[np.ndarray] = None,
+    mesh=None,
 ) -> IVFData:
     """Build a balanced-IVF layout for one shard on ``device``.
 
@@ -239,6 +277,9 @@ def build_ivf(
         ``_pack_int4``). When given with ``dtype="int4"`` the slab reuses
         these codes instead of re-running the quantizer over the slot
         matrix: ``ShardSet.build`` passes its flat-shard codes here.
+      mesh: run the k-means and the preference ranking sharded over the
+        cells of this :class:`~ragroute_tpu_torch.parallel.Mesh` (see the
+        module docstring); the slabs are laid out on ``device``.
     """
     from ragroute_tpu_torch.index.shard import (_pack_int4, _quantize_sym,
                                                 parse_storage_dtype)
@@ -265,7 +306,10 @@ def build_ivf(
         cent = emb.mean(axis=0, keepdims=True)
         assign = np.zeros(n, np.int32)
     else:
-        xc, wc, _ = _upload_chunks(emb, KMEANS_CHUNK, dev)
+        if mesh is not None:
+            xc, wc = _mesh_chunks(emb, mesh)
+        else:
+            xc, wc, _ = _upload_chunks(emb, KMEANS_CHUNK, dev)
         cent = _kmeans_device(xc, wc, emb, c, kmeans_iters, seed)
         choices = _top_r_choices(xc, n, cent, min(kmeans_rank, c))
         del xc, wc

@@ -24,8 +24,14 @@ reserve_docs=)``) takes live adds and deletes: liveness rides the bias
 an update is an in-place write of exactly its rows into ``docs``, ``bias``
 and ``scale`` on the device's current stream, so a step queued before it
 reads the old rows and one queued after it the new. :meth:`ShardSet.snapshot`
-writes the live corpus back to the data root. Mesh builds are not ported
-yet (ROADMAP queue 1, item 14).
+writes the live corpus back to the data root.
+
+A shard set may mix storage dtypes: ``dtype`` and ``lowrank`` take one value
+or a mapping from source name to value (the per-shard picks of
+``--dtype policy``, :func:`ragroute_tpu_torch.config.store_dtype_policy`).
+``device="host"`` stages the shards as CPU tensors for
+:class:`ragroute_tpu_torch.parallel.ShardedSearch`, which places each
+cell's row slice on its device, so a corpus never lands whole on one card.
 
 On-disk layout (shared with the reference):
 
@@ -204,6 +210,23 @@ def encode_rows(emb: np.ndarray, score_mode: str, *, dtype: StorageDType,
     return stored, bias.astype(np.float32), scale
 
 
+def _per_source(value, name: str):
+    """One build argument for one source: the mapping's entry (``None`` for
+    a source it does not name), or the value itself."""
+    if isinstance(value, Mapping):
+        return value.get(name)
+    return value
+
+
+def _storage_dtype(dtype) -> StorageDType:
+    """A torch dtype, ``"int4"``, or a name of :data:`STORAGE_DTYPES`."""
+    if isinstance(dtype, str) and dtype != "int4":
+        if dtype not in STORAGE_DTYPES:
+            raise ValueError(f"unknown dtype string {dtype!r}")
+        return STORAGE_DTYPES[dtype]
+    return dtype
+
+
 def _to_device(arr: np.ndarray, device) -> torch.Tensor:
     arr = np.ascontiguousarray(arr)
     if not arr.flags.writeable:      # a read-only mmap of embeddings.npy
@@ -266,17 +289,19 @@ class ShardSet:
     @classmethod
     def build(cls, world: WorldConfig, embeddings: Mapping[str, np.ndarray],
               *, doc_ids: Optional[Mapping[str, Sequence]] = None,
-              dtype: StorageDType = torch.bfloat16,
+              dtype=torch.bfloat16,
               normalize_cos: bool = True, device="cpu",
               ivf_clusters: Optional[int] = None, ivf_seed: int = 0,
               ivf_cache_dirs: Optional[Mapping[str, str]] = None,
-              lowrank: Optional[int] = None,
+              lowrank=None,
               lowrank_energy: Optional[float] = None,
               mutable: bool = False, reserve_docs: int = 0) -> "ShardSet":
         """Build every source's shard from ``[n_docs, d]`` float arrays
         (native dims) and place it on ``device``.
 
-        ``dtype``: torch.float32 | torch.bfloat16 | torch.int8 | "int4".
+        ``dtype``: torch.float32 | torch.bfloat16 | torch.int8 | "int4", or
+        a mapping from source name to one of them (a mixed set).
+        ``device="host"``: CPU tensors, staged for a mesh engine.
 
         ``ivf_clusters``: also build a balanced-IVF layout per shard for
         ``impl="ivf"`` / ``"hybrid"``. ``0`` / ``None`` skips it; ``-1``
@@ -286,8 +311,9 @@ class ShardSet:
         ``lowrank``: also build a rank-``r`` coarse projection per shard
         for ``impl="lowrank"``. ``0`` / ``None`` skips it; ``-1`` picks the
         rank by spectral energy (``lowrank_energy``, default
-        ``config.LOWRANK_ENERGY``); a positive value is the rank. A shard
-        whose spectrum is too flat gets ``lr=None``.
+        ``config.LOWRANK_ENERGY``); a positive value is the rank; a mapping
+        from source name to one of these builds only the sources it names
+        with a value. A shard whose spectrum is too flat gets ``lr=None``.
 
         ``ivf_cache_dirs``: source name -> directory of ``.npz`` layout
         caches (both kinds). The file name carries every build parameter
@@ -303,6 +329,8 @@ class ShardSet:
             raise ValueError(
                 "device='host' (mesh staging) and mutable live updates "
                 "are incompatible: the updates are device writes")
+        if str(device) == "host":
+            device = "cpu"
         if mutable and ivf_clusters:
             raise ValueError(
                 "mutable shards cannot carry a balanced-IVF layout "
@@ -315,10 +343,15 @@ class ShardSet:
                 "(adds/deletes would leave the projected slab stale); "
                 "build with lowrank=None and rebuild offline when the "
                 "corpus settles")
-        packed4 = parse_storage_dtype(dtype)
         shards: List[DeviceShard] = []
         ids: Dict[str, Optional[list]] = {}
+        all_dtype, all_lowrank = dtype, lowrank
         for src in world.sources:
+            dtype = _storage_dtype(_per_source(all_dtype, src.name))
+            if dtype is None:
+                raise KeyError(f"no storage dtype for source {src.name!r}")
+            lowrank = _per_source(all_lowrank, src.name)
+            packed4 = parse_storage_dtype(dtype)
             if src.name not in embeddings:
                 raise KeyError(f"missing embeddings for source {src.name!r}")
             emb = np.asarray(embeddings[src.name], dtype=np.float32)
@@ -434,8 +467,11 @@ class ShardSet:
                 lr=lr, mutable=mutable))
             ids[src.name] = (list(doc_ids[src.name])
                              if doc_ids and src.name in doc_ids else None)
+        lowrank_built = (any(all_lowrank.values())
+                         if isinstance(all_lowrank, Mapping)
+                         else bool(all_lowrank))
         out = cls(world=world, shards=shards, doc_ids=ids,
-                  lowrank_built=bool(lowrank))
+                  lowrank_built=lowrank_built)
         if mutable:
             out._norm_cos = normalize_cos
             out._live = {s.name: s.n_docs for s in shards}
@@ -686,7 +722,7 @@ class ShardSet:
 
     @classmethod
     def load(cls, root: str, world: WorldConfig, *,
-             dtype: StorageDType = torch.bfloat16, **kw) -> "ShardSet":
+             dtype=torch.bfloat16, **kw) -> "ShardSet":
         """Load every source of a world from ``<root>/<world>/<source>/``
         (IVF / low-rank layouts are cached there as ``.npz``)."""
         embeddings = {}

@@ -1,8 +1,8 @@
 """CLI entry point: serve the federated search system with PyTorch.
 
-The same flags as the JAX package's ``main.py``, plus ``--device``. Values
-outside the ported slices (meshes, the dtype policy, live encoders) fail at
-start-up naming their ROADMAP item. ``--llm-backend jax`` keeps the JAX package's value, so that one
+The same flags as the JAX package's ``main.py``, plus ``--device``; the
+combinations the JAX package refuses are refused with its messages.
+``--llm-backend jax`` keeps the JAX package's value, so that one
 command line drives both packages; here it means generation on the card by
 this package's decoder (``ragroute_tpu_torch.llm``).
 
@@ -23,6 +23,14 @@ Examples (on a CUDA card)::
         --disable-llm --frontend native --mutable --reserve-docs 4096
     python -m ragroute_tpu_torch.main --dataset medrag --routing ragroute \
         --disable-llm --workers 2
+    python -m ragroute_tpu_torch.main --dataset feb4rag --routing ragroute \
+        --disable-llm --dtype policy
+    RAGROUTE_LOCAL_DEVICES=4 python -m ragroute_tpu_torch.main \
+        --dataset medrag --disable-llm --mesh 2x2
+    # a two-process cluster on one card (run once per --process-id)
+    RAGROUTE_LOCAL_DEVICES=2 python -m ragroute_tpu_torch.main \
+        --dataset medrag --disable-llm --mesh 2x2 --num-processes 2 \
+        --process-id 0 --coordinator 127.0.0.1:29500
 """
 
 from __future__ import annotations
@@ -115,7 +123,9 @@ def parse_args(argv=None):
                    choices=["bfloat16", "float32", "int8", "int4", "policy"],
                    help="On-device index dtype (int8: per-doc symmetric "
                         "quantization; int4: two 4-bit codes per byte; "
-                        "policy is not ported)")
+                        "policy: each shard in its own pick, int4 + "
+                        "low-rank for high-dim cos sources, int8 for "
+                        "low-dim dot / l2 ones, bfloat16 elsewhere)")
     p.add_argument("--impl", type=str, default="auto",
                    choices=["auto", "pallas", "chunked", "exact", "ivf",
                             "hybrid", "lowrank", "stream", "hostrefine"],
@@ -159,7 +169,12 @@ def parse_args(argv=None):
                         "SO_REUSEPORT; on one card each holds its own copy "
                         "of the index (not with --mutable)")
     p.add_argument("--mesh", type=str, default=None,
-                   help="DPxIDX device mesh (not ported)")
+                   help="Serve over a DPxIDX device mesh (e.g. 2x4): "
+                        "corpus doc axes shard over idx, the query batch "
+                        "over dp. Needs dp*idx devices: the visible cards, "
+                        "or this process's device named "
+                        "$RAGROUTE_LOCAL_DEVICES times (--device cpu with "
+                        "RAGROUTE_LOCAL_DEVICES=8 for CPU runs)")
     p.add_argument("--mutable", action="store_true",
                    help="Serve a live index: POST /docs/add and /docs/delete "
                         "insert and remove documents at serve time (in-place "
@@ -176,7 +191,12 @@ def parse_args(argv=None):
                         "models per query on the engine's device (hash "
                         "stubs for encoders without a local checkpoint)")
     p.add_argument("--coordinator", type=str, default=None,
-                   help="Multi-host cluster (not ported)")
+                   help="host:port of process 0: serve over a cluster of "
+                        "--num-processes processes (torch.distributed). "
+                        "Launch the same command with each --process-id; "
+                        "process 0 owns the HTTP front end and broadcasts "
+                        "each batch, the others follow in lockstep. --mesh "
+                        "then spans the cluster's devices, process-major")
     p.add_argument("--num-processes", type=int, default=1)
     p.add_argument("--process-id", type=int, default=0)
     return p.parse_args(argv)
@@ -187,6 +207,17 @@ def main(argv=None) -> None:
 
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
+    if args.num_processes > 1:
+        if not args.coordinator:
+            raise SystemExit("--num-processes > 1 requires --coordinator")
+        import os
+
+        from ragroute_tpu_torch.parallel import initialize_multihost
+
+        n = os.environ.get("RAGROUTE_LOCAL_DEVICES")
+        initialize_multihost(args.coordinator, args.num_processes,
+                             args.process_id, device=args.device,
+                             local_device_count=int(n) if n else None)
     if args.workers > 1:
         run_workers(args, args.workers)
         logger.info("Exiting application")
@@ -199,6 +230,11 @@ def main(argv=None) -> None:
             asyncio.run(system.run_forever())
     except KeyboardInterrupt:
         pass
+    if args.num_processes > 1:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
     logger.info("Exiting application")
 
 

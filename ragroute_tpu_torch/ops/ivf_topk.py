@@ -52,13 +52,16 @@ def probe_clusters(queries: Tensor, q_gain: Tensor, ivf: IVFData, p: int,
     return topk_stable(cg, p)[1]
 
 
-def dispatch(probe: Tensor, n_clusters: int):
+def dispatch(probe: Tensor, n_clusters: int,
+             real_clusters: Optional[int] = None):
     """Block-aligned layout of the (query, probe) pairs sorted by cluster.
 
     Returns ``(rows [Ep] i32, blk_cluster [G] i32, n_real [1] i32,
     row_of [B, p] i64)``: the query of every padded pair row (padding rows
     name query 0), each block's cluster, the number of real blocks, and
-    where pair ``(b, j)`` landed."""
+    where pair ``(b, j)`` landed. ``real_clusters``: only the blocks of
+    clusters below it count as real (the mesh path sorts the pairs a cell
+    does not own into one last cluster, whose blocks the kernel skips)."""
     bsz, p = probe.shape
     dev = probe.device
     e = bsz * p
@@ -82,7 +85,8 @@ def dispatch(probe: Tensor, n_clusters: int):
     rows[pad_pos] = (order // p).to(torch.int32)             # unique indices
     row_of = torch.empty(e, dtype=torch.int64, device=dev)
     row_of[order] = pad_pos
-    return (rows, blk_cluster, blk_hi[-1:].to(torch.int32),
+    last = n_clusters if real_clusters is None else real_clusters
+    return (rows, blk_cluster, blk_hi[last - 1:last].to(torch.int32),
             row_of.reshape(bsz, p))
 
 

@@ -56,6 +56,10 @@ class RouterBank:
         return cls(*(torch.from_numpy(a).to(device)
                      for a in (cent, oh, mean, scale)))
 
+    def to(self, device) -> "RouterBank":
+        return RouterBank(*(getattr(self, f.name).to(device)
+                            for f in dataclasses.fields(self)))
+
 
 def build_features(world: WorldConfig, bank: RouterBank,
                    query_embs: Dict[str, torch.Tensor]) -> torch.Tensor:

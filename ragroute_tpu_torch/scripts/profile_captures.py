@@ -1,7 +1,7 @@
-"""How often ``POST /admin/profile`` of the native front end holds the
-card's kernels, under load.
+"""How often ``POST /admin/profile`` holds the card's kernels, under load.
 
-Builds ``--frontend native --mutable`` over a synthetic medrag world at the
+Builds ``--frontend native --mutable`` (``--front aiohttp``: the default
+aiohttp server over an immutable index) over a synthetic medrag world at the
 reference benchmark's size on ``--device`` (default the card), drives it
 with :mod:`ragroute_tpu_torch.loadgen` in a process of its own, takes
 ``--captures`` captures of 2 s one after another, and prints for each the
@@ -11,10 +11,14 @@ JSON line: the captures without K1.
 ``--thread loop`` (the front end's design) starts and stops each capture on
 the serving loop's thread, the one that launches the engine's steps;
 ``--thread helper`` swaps in the earlier design for comparison, a capture
-started and stopped on a helper thread of its own.
+started and stopped on a helper thread of its own. ``--front aiohttp``
+takes the captures as the installed package's aiohttp server takes them
+(the thread option does not apply); run the file with an earlier tree first
+on ``PYTHONPATH`` to read that tree's design in the same call.
 
     python -m ragroute_tpu_torch.scripts.profile_captures \\
-        [--thread loop|helper] [--captures 8] [--device cuda]
+        [--front native|aiohttp] [--thread loop|helper] [--captures 8] \\
+        [--device cuda]
 """
 
 import argparse
@@ -65,6 +69,8 @@ def helper_thread_profile(self, rid: int, body: bytes) -> None:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--front", choices=("native", "aiohttp"),
+                   default="native")
     p.add_argument("--thread", choices=("loop", "helper"), default="loop")
     p.add_argument("--captures", type=int, default=8)
     p.add_argument("--seconds", type=float, default=2.0)
@@ -88,18 +94,30 @@ def main(argv=None) -> int:
     if args.thread == "helper":
         native_frontend.NativeFederationServer._profile = \
             helper_thread_profile
+    flags = (["--frontend", "native", "--mutable", "--reserve-docs", "4096"]
+             if args.front == "native" else [])
     system = ServingSystem(parse_args([
         "--dataset", "medrag", "--routing", "ragroute", "--disable-llm",
         "--port", "0", "--data-root", root, "--device", args.device,
-        "--frontend", "native", "--mutable", "--reserve-docs", "4096"]))
+        *flags]))
     system.build()
-    loop = threading.Thread(target=system.run_native, daemon=True)
-    loop.start()
-    while system.native is None or system.native.fe is None:
-        if not loop.is_alive():
-            raise RuntimeError("the native loop ended while starting")
-        time.sleep(0.05)
-    port = system.native.bound_port
+    if args.front == "native":
+        loop = threading.Thread(target=system.run_native, daemon=True)
+        loop.start()
+        while system.native is None or system.native.fe is None:
+            if not loop.is_alive():
+                raise RuntimeError("the native loop ended while starting")
+            time.sleep(0.05)
+        port = system.native.bound_port
+    else:
+        import asyncio
+
+        aloop = asyncio.new_event_loop()
+        loop = threading.Thread(target=aloop.run_forever, daemon=True)
+        loop.start()
+        asyncio.run_coroutine_threadsafe(system.start(), aloop).result(900)
+        port = system.server.bound_port
+    label = args.thread if args.front == "native" else "aiohttp"
     qpath = os.path.join(root, "questions.json")
     with open(qpath, "w") as f:
         json.dump([{"qid": q["qid"], "question": q["question"]}
@@ -130,18 +148,23 @@ def main(argv=None) -> int:
             if load.poll() is not None:
                 raise RuntimeError("the load ended before the captures")
             missing += not k1
-            print(f"[{args.thread}] capture {i}: {len(trace)} events, K1 "
+            print(f"[{label}] capture {i}: {len(trace)} events, K1 "
                   f"{k1}, by category {dict(cats)}", flush=True)
     finally:
         load.kill()
         load.wait()
-        native = system.native
-        native._running = False
-        native.fe.shutdown()
-        loop.join(60)
-        native.stop()
-    print(json.dumps({"thread": args.thread, "captures": args.captures,
-                      "without_k1": missing}))
+        if args.front == "native":
+            native = system.native
+            native._running = False
+            native.fe.shutdown()
+            loop.join(60)
+            native.stop()
+        else:
+            asyncio.run_coroutine_threadsafe(system.stop(), aloop).result(300)
+            aloop.call_soon_threadsafe(aloop.stop)
+            loop.join(60)
+    print(json.dumps({"front": args.front, "thread": label,
+                      "captures": args.captures, "without_k1": missing}))
     return 0
 
 

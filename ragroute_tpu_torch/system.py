@@ -1,20 +1,28 @@
 """System orchestration: build, serve, watch, shut down.
 
-PyTorch port of :mod:`ragroute_tpu.system` for the single-device paths
-(exact search, the approximate device-resident modes ``--impl ivf | hybrid |
-lowrank``, ``--dtype int4``, the host-RAM capacity tiers ``--impl stream |
-hostrefine`` with ``--hbm-budget-gb``, the live index ``--mutable``, and
-on-card generation ``--llm-backend jax``): load the world's artifacts
+PyTorch port of :mod:`ragroute_tpu.system`: load the world's artifacts
 (shards with their extra layouts, centroids, router checkpoint, query
 table, doc payloads) from the data root onto the chosen device, construct
 engine + batcher + generation service + HTTP server, restart the batcher
-worker if it ever dies, and stop cleanly on SIGINT/SIGTERM. The server runs
-on aiohttp or on the native C++ front end (``--frontend native``,
+worker if it ever dies, and stop cleanly on SIGINT/SIGTERM. Every path of
+the JAX CLI is served: exact search, the approximate device-resident modes
+``--impl ivf | hybrid | lowrank``, ``--dtype int4`` and ``--dtype policy``
+(each shard in its own pick), the host-RAM capacity tiers ``--impl stream |
+hostrefine`` with ``--hbm-budget-gb``, the live index ``--mutable``, on-card
+generation ``--llm-backend jax``, meshes (``--mesh DPxIDX``:
+:class:`~ragroute_tpu_torch.parallel.ShardedSearch`, or
+:class:`~ragroute_tpu_torch.parallel.MeshStreamedEngine` with ``--impl
+hostrefine``) and clusters (``--num-processes``: process 0 serves and
+broadcasts each batch, the others follow in lockstep). The server runs on
+aiohttp or on the native C++ front end (``--frontend native``,
 :meth:`ServingSystem.run_native`); ``--workers N`` runs N such processes on
-one port (:class:`Workers`).
+one port (:class:`Workers`). The combinations the JAX package refuses are
+refused with its messages (:func:`check_args`).
 
-Every CLI value outside the ported slice fails at start-up with an error
-naming its ROADMAP item (:func:`check_ported`); none is silently ignored.
+A mesh's devices are the visible cards, or, with ``RAGROUTE_LOCAL_DEVICES=N``
+set, this process's device named N times (``--device cpu`` with N=8 stands
+in for the JAX package's eight forced host devices; ``cuda:0`` named four
+times runs a 2x2 mesh on one card).
 """
 
 from __future__ import annotations
@@ -55,26 +63,46 @@ logger = logging.getLogger("system")
 WATCHDOG_POLL_S = 1.0
 STREAMED_IMPLS = ("stream", "hostrefine")
 
-# (argument, values the slice serves, ROADMAP item that ports the rest)
-_UNPORTED = (
-    ("mesh", (None,), "queue 1, item 14 (multi-GPU: sharded search, and "
-     "the tensor-parallel decoder of llm/sharding.py)"),
-    ("coordinator", (None,), "queue 1, item 14 (multi-GPU)"),
-    ("num_processes", (1,), "queue 1, item 14 (multi-GPU)"),
-    ("process_id", (0,), "queue 1, item 14 (multi-GPU)"),
-    ("dtype", ("float32", "bfloat16", "int8", "int4"),
-     "queue 1, item 10 (dtype policy)"),
-)
+def check_args(args) -> None:
+    """Raise on a combination of CLI values the JAX package refuses too,
+    with its message (an argument the namespace lacks counts as its
+    default)."""
+    impl = getattr(args, "impl", "auto")
+    mesh = getattr(args, "mesh", None)
+    if impl == "stream" and mesh:
+        raise ValueError(
+            "--impl stream is the SINGLE-chip capacity tier (the "
+            "per-batch slab upload targets one chip); use --impl "
+            "hostrefine with --mesh to compose host-RAM capacity "
+            "with a device mesh")
+    if (impl == "hostrefine" and mesh
+            and (getattr(args, "num_processes", 1) or 1) > 1):
+        raise ValueError(
+            "--impl hostrefine --mesh serves single-process "
+            "meshes (one host, many chips); multi-host needs "
+            "per-host refine over partitioned host rows")
+    if getattr(args, "mutable", False) and impl in STREAMED_IMPLS:
+        raise ValueError(
+            f"--impl {impl} serves an immutable host-tier corpus; drop "
+            "--mutable (rebuild to update)")
+    if getattr(args, "mutable", False) and mesh:
+        raise ValueError(
+            "--mutable is a single-chip capability (the mesh engine "
+            "serves sharded copies; live scatters would not reach "
+            "them) — drop --mesh or --mutable")
 
 
-def check_ported(args) -> None:
-    """Raise on any CLI value the port does not serve yet (an argument the
-    namespace lacks counts as its default)."""
-    for name, allowed, item in _UNPORTED:
-        if hasattr(args, name) and getattr(args, name) not in allowed:
-            raise ValueError(
-                f"--{name.replace('_', '-')} {getattr(args, name)!r} is not "
-                f"ported to ragroute_tpu_torch yet (ROADMAP {item})")
+def local_mesh_devices(device: torch.device):
+    """The devices a mesh of this process may use: its device named
+    ``RAGROUTE_LOCAL_DEVICES`` times where that is set, else every visible
+    card (the CPU once for ``--device cpu``)."""
+    n = os.environ.get("RAGROUTE_LOCAL_DEVICES")
+    if n:
+        return [device] * int(n)
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 def load_world_artifacts(root: str, world: WorldConfig, *,
@@ -83,7 +111,7 @@ def load_world_artifacts(root: str, world: WorldConfig, *,
                          streamed_tier: Optional[str] = None,
                          hbm_budget_bytes: Optional[int] = None,
                          row_sources=None, mutable: bool = False,
-                         reserve_docs: int = 0):
+                         reserve_docs: int = 0, cluster_coarse=None):
     """Load shards / router / bank / query provider / doc store from the
     data root (layout of :func:`ragroute_tpu_torch.index.synthetic.
     save_world`). The router is ``router.npz`` if present, else the
@@ -100,13 +128,16 @@ def load_world_artifacts(root: str, world: WorldConfig, *,
     :class:`~ragroute_tpu_torch.index.streamed.RowSource`) overrides the
     file of each source it names, for a caller that makes rows on demand.
     ``mutable`` / ``reserve_docs`` build a live shard set
-    (:meth:`ShardSet.build`)."""
+    (:meth:`ShardSet.build`). ``dtype`` / ``lowrank`` may map each source
+    to its own value (``--dtype policy``); ``device="host"`` stages the
+    shards for a mesh engine; ``cluster_coarse=False`` keeps the hostrefine
+    coarse slabs flat (a mesh scans flat slices)."""
     wroot = os.path.join(root, world.name)
     if streamed_tier:
         shard_set = StreamedShardSet.load(
             root, world, dtype=dtype, tier=streamed_tier,
             hbm_budget_bytes=hbm_budget_bytes, device=device,
-            row_sources=row_sources)
+            row_sources=row_sources, cluster_coarse=cluster_coarse)
     else:
         shard_set = ShardSet.load(root, world, dtype=dtype, device=device,
                                   ivf_clusters=ivf_clusters, lowrank=lowrank,
@@ -153,6 +184,8 @@ def load_world_artifacts(root: str, world: WorldConfig, *,
         logger.warning("no router checkpoint under %s; initializing fresh "
                        "params from seed 0", wroot)
         router = CorpusRouter.from_seed(world.router_input_dim, 0)
+    if str(device) == "host":
+        device = "cpu"
     router = router.to(device).eval()
     bank = RouterBank.create(world, centroids, scaler, device=device)
 
@@ -196,7 +229,7 @@ class ServingSystem:
     """One-stop construction + lifecycle for the serving stack."""
 
     def __init__(self, args, *, row_sources=None, llm_weights=None):
-        check_ported(args)
+        check_args(args)
         # rows of the host-RAM tiers made on demand (in place of the data
         # root's embeddings.npy): a corpus that never exists whole in f32
         self.row_sources = row_sources
@@ -224,20 +257,18 @@ class ServingSystem:
         refine_mult = getattr(args, "refine_mult", None)
         self.k_refine = (refine_mult * self.world.k) if refine_mult else None
         self.hbm_budget_gb = getattr(args, "hbm_budget_gb", None)
-        if self.impl in STREAMED_IMPLS and getattr(args, "mesh", None):
-            raise ValueError(
-                f"--impl {self.impl} with --mesh is not ported to "
-                "ragroute_tpu_torch yet (ROADMAP queue 1, item 14 "
-                "(multi-GPU))")
         # --mutable: a live index (/docs/add, /docs/delete,
         # /admin/snapshot); ShardSet.build refuses it with the IVF and
         # low-rank layouts, which updates would leave stale
         self.mutable: bool = getattr(args, "mutable", False)
         self.reserve_docs: int = getattr(args, "reserve_docs", 0) or 0
-        if self.mutable and self.impl in STREAMED_IMPLS:
-            raise ValueError(
-                f"--impl {self.impl} serves an immutable host-tier corpus; "
-                "drop --mutable (rebuild to update)")
+        # --mesh DPxIDX: corpora sharded over idx, the batch over dp; with
+        # --num-processes > 1 the mesh spans the cluster's devices, process
+        # 0 serves HTTP and the others follow its broadcast batches
+        self.mesh_spec = getattr(args, "mesh", None)
+        self.num_processes: int = getattr(args, "num_processes", 1) or 1
+        self.process_id: int = getattr(args, "process_id", 0) or 0
+        self.dtype_picks = None    # --dtype policy: source -> (dtype, lr)
         # SO_REUSEPORT: set for each worker of --workers N
         self.reuse_port: bool = getattr(args, "reuse_port", False)
         self.frontend: str = getattr(args, "frontend", None) or "aiohttp"
@@ -343,14 +374,78 @@ class ServingSystem:
             top_p=service.top_p, eos_id=service.eos_id,
             pad_id=service.pad_id, spec_window=spec, prefix_ids=prefix)
 
+    def _storage(self):
+        """``(dtype, lowrank)`` build arguments: one value each, or, under
+        ``--dtype policy``, each source's own pick
+        (:func:`config.store_dtype_policy`): int4 + low-rank for high-dim
+        cos sources, int8 for low-dim dot / l2 ones, bfloat16 elsewhere.
+        ``--impl auto`` then serves the shards with a coarse layout through
+        the low-rank search and the others exact. The host-RAM tiers take
+        one dtype for the world, the JAX package's rule (int4 where any
+        source picks low-rank, else int8)."""
+        lowrank = self.lowrank_rank if self.impl == "lowrank" else None
+        if self.dtype_name != "policy":
+            return STORAGE_DTYPES[self.dtype_name], lowrank
+        picks = {s.name: cfg.store_dtype_policy(s.embed_dim, s.score_mode)
+                 for s in self.world.sources}
+        self.dtype_picks = picks
+        for name, (dt, lr) in picks.items():
+            logger.info("dtype policy: %s -> %s%s", name, dt,
+                        " + low-rank" if lr else "")
+        if self.impl in STREAMED_IMPLS:
+            any_lr = any(lr for _, lr in picks.values())
+            return STORAGE_DTYPES["int4" if any_lr else "int8"], None
+        if self.impl == "auto" and any(lr for _, lr in picks.values()):
+            self.impl = "lowrank"
+            lowrank = {n: (self.lowrank_rank if lr else None)
+                       for n, (_, lr) in picks.items()}
+        return {n: STORAGE_DTYPES[dt] for n, (dt, _) in picks.items()}, lowrank
+
+    def _make_mesh(self):
+        """The ``--mesh`` mesh: over this process's devices, or over the
+        cluster's with ``--num-processes`` > 1 (JAX's device-count
+        errors). Rounds the batch buckets up to multiples of ``dp``."""
+        from ragroute_tpu_torch.parallel import (make_mesh,
+                                                 make_multihost_mesh,
+                                                 parse_mesh_spec)
+        from ragroute_tpu_torch.parallel import multihost
+
+        dp, idx = parse_mesh_spec(self.mesh_spec)
+        n = dp * idx
+        if self.num_processes > 1:
+            have = multihost.device_count()
+            if have != n:
+                raise ValueError(
+                    f"--mesh {self.mesh_spec} needs exactly {n} global "
+                    f"devices across the cluster, have {have}")
+            mesh = make_multihost_mesh(dp=dp, idx=idx)
+        else:
+            devs = local_mesh_devices(self.device)
+            if len(devs) < n:
+                raise ValueError(
+                    f"--mesh {self.mesh_spec} needs {n} devices, have "
+                    f"{len(devs)} (for CPU dev runs name the CPU {n} times: "
+                    f"--device cpu with RAGROUTE_LOCAL_DEVICES={n}, the "
+                    f"device list [torch.device('cpu')] * {n})")
+            mesh = make_mesh(dp, idx, devices=devs[:n])
+        # the batch axis splits evenly over dp: round each bucket up
+        self.buckets = sorted({max(b, dp) + (-max(b, dp)) % dp
+                               for b in self.buckets})
+        return mesh
+
     def build(self) -> FederationServer:
-        dtype = STORAGE_DTYPES[self.dtype_name]
+        dtype, lowrank = self._storage()
         ivf_clusters = (self.ivf_clusters if self.impl in ("ivf", "hybrid")
                         else None)
-        lowrank = self.lowrank_rank if self.impl == "lowrank" else None
         streamed = self.impl in STREAMED_IMPLS
         hbm_budget = (int(self.hbm_budget_gb * 1e9)
                       if self.hbm_budget_gb else None)
+        mesh = self._make_mesh() if self.mesh_spec else None
+        # mesh serving stages the corpora on the host; the mesh engine
+        # places each cell's slice (the host tiers keep their own split)
+        shard_device = "host" if mesh is not None and not streamed \
+            else self.device
+        cluster_coarse = False if mesh is not None else None
         if self.simulate:
             # reference --simulate: tiny in-memory synthetic world, hash
             # embeddings, all sources, stage delays
@@ -361,11 +456,12 @@ class ServingSystem:
                 shard_set = StreamedShardSet.build(
                     syn.world, syn.embeddings, doc_ids=syn.doc_ids,
                     dtype=dtype, tier=self.impl,
-                    hbm_budget_bytes=hbm_budget, device=self.device)
+                    hbm_budget_bytes=hbm_budget, device=self.device,
+                    cluster_coarse=cluster_coarse)
             else:
                 shard_set = ShardSet.build(syn.world, syn.embeddings,
                                            doc_ids=syn.doc_ids, dtype=dtype,
-                                           device=self.device,
+                                           device=shard_device,
                                            ivf_clusters=ivf_clusters,
                                            lowrank=lowrank,
                                            mutable=self.mutable,
@@ -381,12 +477,31 @@ class ServingSystem:
             (shard_set, router, bank, provider, doc_store, relevance,
              threshold) = load_world_artifacts(
                 self.data_root, self.world, dtype=dtype,
-                embedder=self.embedder, device=self.device,
+                embedder=self.embedder, device=shard_device,
                 ivf_clusters=ivf_clusters, lowrank=lowrank,
                 streamed_tier=self.impl if streamed else None,
                 hbm_budget_bytes=hbm_budget, row_sources=self.row_sources,
-                mutable=self.mutable, reserve_docs=self.reserve_docs)
-        if streamed:
+                mutable=self.mutable, reserve_docs=self.reserve_docs,
+                cluster_coarse=cluster_coarse)
+            router, bank = router.to(self.device), bank.to(self.device)
+        if mesh is not None:
+            from ragroute_tpu_torch.parallel import (LockstepEngine,
+                                                     MeshStreamedEngine,
+                                                     ShardedSearch)
+
+            if streamed:
+                engine = MeshStreamedEngine(shard_set, router, bank, mesh,
+                                            threshold=threshold,
+                                            k_refine=self.k_refine)
+            else:
+                engine = ShardedSearch(shard_set, router, bank, mesh,
+                                       impl=self.impl, threshold=threshold,
+                                       nprobe=self.nprobe,
+                                       k_refine=self.k_refine)
+            if self.num_processes > 1:
+                engine = LockstepEngine(engine, self.buckets,
+                                        leader=self.process_id == 0)
+        elif streamed:
             engine = StreamedSearchEngine(shard_set, router, bank,
                                           threshold=threshold,
                                           k_refine=self.k_refine,
@@ -448,6 +563,9 @@ class ServingSystem:
         from ragroute_tpu_torch.engine.native_frontend import \
             NativeFederationServer
 
+        if self.follower:
+            self.follow()
+            return
         if self.server is None:
             self.build()
         native = NativeFederationServer(self.server)
@@ -473,9 +591,34 @@ class ServingSystem:
             native.serve_forever()
         except KeyboardInterrupt:
             native.stop()
+        self.release_followers()
         logger.info("Shutdown complete")
 
+    @property
+    def follower(self) -> bool:
+        """A process of a cluster other than process 0: it runs the
+        leader's broadcast steps instead of serving HTTP."""
+        return self.num_processes > 1 and self.process_id > 0
+
+    def follow(self) -> None:
+        """Follower processes: build, then run the lockstep step loop until
+        the leader's stop flag."""
+        if self.server is None:
+            self.build()
+        logger.info("process %d following the lockstep feed",
+                    self.process_id)
+        self.server.engine.follow()
+
+    def release_followers(self) -> None:
+        """Process 0 of a cluster, at shutdown: end the followers' loops."""
+        if (self.num_processes > 1 and self.process_id == 0
+                and self.server is not None):
+            self.server.engine.stop()
+
     async def run_forever(self) -> None:
+        if self.follower:
+            await asyncio.to_thread(self.follow)
+            return
         await self.start()
         while not self._stopping:
             await asyncio.sleep(1.0)
@@ -492,6 +635,7 @@ class ServingSystem:
             service = getattr(self.server.llm, "service", None)
             if service is not None:
                 await service.stop()
+            self.release_followers()
         logger.info("Shutdown complete")
 
 
@@ -547,7 +691,7 @@ class Workers:
                 "workers each hold an independent index copy, so live "
                 "updates would apply to only one worker); drop --workers "
                 "or --mutable")
-        check_ported(args)
+        check_args(args)
         self.args = args
         self.n_workers = int(n_workers)
         self.port: Optional[int] = None

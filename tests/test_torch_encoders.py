@@ -14,9 +14,14 @@ Tiny models (2 layers, hidden 32, vocab <= 128) built in process with
 * R6: the port's XLM-R path against ``transformers.XLMRobertaModel``, and
   the JAX package's ``bert_encode``, which runs that checkpoint as BERT,
   away from it;
-* the port's WordPiece against ``BertTokenizer`` / ``MPNetTokenizer`` and
-  its byte-level BPE against ``GPT2Tokenizer`` (fixed strings and a
-  ``hypothesis`` strategy over short unicode strings);
+* the port's WordPiece against ``BertTokenizer`` / ``MPNetTokenizer``, its
+  byte-level BPE against ``GPT2Tokenizer`` and its SentencePiece unigram
+  against ``XLMRobertaTokenizerFast`` / ``T5TokenizerFast`` over
+  ``tokenizer.json`` files built in code with ``tokenizers`` (fixed strings
+  and ``hypothesis`` strategies over short unicode strings), the unigram's
+  ``.model`` protobuf route against its ``tokenizer.json`` route, and its
+  precompiled charsmap against ``tokenizers.normalizers.Precompiled`` on a
+  charsmap built here;
 * the checkpoint reader (safetensors, ``.bin``, sharded, hub-cache layout)
   against ``from_pretrained``, and ``load_encoder`` against the JAX
   package's ``_load_jax_bert`` at f32 and at bf16 (cosine > 0.999), with
@@ -448,11 +453,245 @@ def test_bpe_matches_gpt2_tokenizer_on_unicode(bpe_dir, text):
         text, add_special_tokens=False)
 
 
-def test_sentencepiece_checkpoint_without_transformers_raises(tmp_path,
-                                                              monkeypatch):
+def test_sentencepiece_checkpoint_without_transformers_raises(
+        tmp_path, monkeypatch, sp_dirs):
+    """With ``transformers`` hidden, a SentencePiece checkpoint is read by
+    the port's own unigram tokenizer; a directory without its files
+    raises, naming them."""
     monkeypatch.setitem(sys.modules, "transformers", None)
-    with pytest.raises(RuntimeError, match="SentencePiece.*item 8"):
+    ours = tk.load_tokenizer(sp_dirs["xlm-roberta"], "xlm-roberta")
+    assert isinstance(ours, tk.UnigramTokenizer)
+    assert ours.encode("the fox")[0] == 0
+    with pytest.raises(FileNotFoundError, match="SentencePiece.*spiece"):
         tk.load_tokenizer(str(tmp_path), "xlm-roberta")
+
+
+# ---- SentencePiece unigram ---------------------------------------------------
+
+def build_charsmap(mapping) -> bytes:
+    """A SentencePiece precompiled charsmap for ``mapping`` (source string
+    -> normalised string): a darts-clone double array over the UTF-8 keys
+    (each node's children at ``base ^ label``, its value unit at ``base``,
+    bases on 256-aligned blocks), then the 0-ended normalised strings."""
+    import struct
+
+    blob, vals = b"", {}
+    for k, v in mapping.items():
+        vals[k.encode()] = len(blob)
+        blob += v.encode() + b"\0"
+    trie = {}
+    for key, val in vals.items():
+        node = trie
+        for c in key:
+            node = node.setdefault(c, {})
+        node[None] = val
+    units, used, stack = {}, {0}, [(0, trie)]
+    while stack:
+        pos, node = stack.pop()
+        labels = sorted(c for c in node if c is not None)
+        lab = labels + ([0] if None in node else [])
+        base = 256
+        while any((base ^ c) in used for c in lab):
+            base += 256
+        used.update(base ^ c for c in lab)
+        units[pos] = units.get(pos, 0) | ((pos ^ base) << 10)
+        if None in node:
+            units[base] = node[None] | (1 << 31)
+        for c in labels:
+            units[base ^ c] = c | ((1 << 8) if None in node[c] else 0)
+            stack.append((base ^ c, node[c]))
+    size = -(-(max(units) + 1) // 256) * 256
+    arr = struct.pack(f"<{size}I", *[units.get(i, 0) for i in range(size)])
+    return struct.pack("<I", len(arr)) + arr + blob
+
+
+# full-width forms, a ligature, a decomposed accent, an ideographic space,
+# an enclosed digit, half-width katakana, a roman numeral, a two-mark
+# cluster
+CHARSMAP = {"\uff21": "A", "\uff41": "a", "\ufb01": "fi", "e\u0301": "\u00e9",
+            "\u3000": " ", "\u2460": "1", "\uff76": "\u30ab", "\u00a0": " ",
+            "\u2163": "IV", "\uff10": "0", "\u1e9b\u0323": "\u1e69"}
+SP_TEXTS = [
+    "The quick brown fox jumps over the lazy dog.",
+    "caf\u00e9 and cafe\u0301  double   spaces", "\uff21\uff41 \ufb01ne \u2460 \uff76\uff76",
+    "unknown \u2603\u2603 chars \u4e2d\u6587!", "  leading and trailing  ", "",
+    "a" * 50 + " fox" * 40, "<s> literal </s> <unk> x", "IV \u2163 \u1e9b\u0323",
+    "\u00fcber na\u00efve r\u00e9sum\u00e9"]
+
+
+def _sp_pieces(seed):
+    """Pieces with float32 scores (the protobuf stores float32)."""
+    rng = np.random.default_rng(seed)
+    chars = (list("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
+                  "0123456789.,!?'-") + ["\u00e9", "\u00fc", "\u30ab", "\u1e69"])
+    words = ["the", "quick", "brown", "fox", "jump", "jumps", "over", "lazy",
+             "dog", "caf", "caf\u00e9", "fi", "fin", "fine", "\u30ab\u30ab", "IV",
+             "ing", "er", "un", "known", "qu", "ick", "re", "sum"]
+    out = [("\u2581", -2.0)]
+    for c in chars:
+        out += [(c, float(np.float32(-rng.uniform(6, 10)))),
+                ("\u2581" + c, float(np.float32(-rng.uniform(5, 9))))]
+    for w in words:
+        out += [("\u2581" + w, float(np.float32(-rng.uniform(2, 6)))),
+                (w, float(np.float32(-rng.uniform(3, 7))))]
+    return out
+
+
+def _pb(num, wire, payload):
+    def varint(v):
+        out = b""
+        while True:
+            b, v = v & 0x7F, v >> 7
+            if not v:
+                return out + bytes([b])
+            out += bytes([b | 0x80])
+    key = varint((num << 3) | wire)
+    if wire == 0:
+        return key + varint(payload)
+    return key + (varint(len(payload)) + payload if wire == 2 else payload)
+
+
+def _model_proto(pieces, charsmap) -> bytes:
+    """A SentencePiece ``ModelProto``, written by hand: ``pieces`` (field
+    1: piece 1, score 2 as float32, type 3) and ``normalizer_spec`` (field
+    3: name 1, precompiled_charsmap 2)."""
+    import struct
+
+    buf = b""
+    for p, sc, t in pieces:
+        buf += _pb(1, 2, _pb(1, 2, p.encode()) + _pb(2, 5, struct.pack(
+            "<f", sc)) + _pb(3, 0, t))
+    return buf + _pb(3, 2, _pb(1, 2, b"nmt_nfkc") + _pb(2, 2, charsmap))
+
+
+@pytest.fixture(scope="module")
+def sp_dirs(tmp_path_factory):
+    """XLM-R- and T5-style checkpoints made in code: a ``tokenizer.json``
+    (``tokenizers``' Unigram with the Precompiled + Replace normaliser, the
+    Metaspace pre-tokenizer and the model's template) and, in a second
+    directory each, the ``.model`` protobuf of the same vocabulary."""
+    from tokenizers import (AddedToken, Regex, Tokenizer, models,
+                            normalizers, pre_tokenizers, processors)
+
+    cmap = build_charsmap(CHARSMAP)
+    out = {}
+    for kind, seed in (("xlm-roberta", 0), ("t5", 1)):
+        pieces = _sp_pieces(seed)
+        if kind == "xlm-roberta":
+            head = [("<s>", 0.0), ("<pad>", 0.0), ("</s>", 0.0),
+                    ("<unk>", 0.0)]
+            tail = [("<mask>", 0.0)]
+            unk, single, specials = 3, "<s> $A </s>", [("<s>", 0),
+                                                       ("</s>", 2)]
+            sp = ([("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+                  + [(p, s, 1) for p, s in pieces])
+            fname = "sentencepiece.bpe.model"
+        else:
+            head = [("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0)]
+            tail = [(f"<extra_id_{i}>", 0.0) for i in range(9, -1, -1)]
+            unk, single, specials = 2, "$A </s>", [("</s>", 1)]
+            sp = ([("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2)]
+                  + [(p, s, 1) for p, s in pieces])
+            fname = "spiece.model"
+        vocab = head + pieces + tail
+        tok = Tokenizer(models.Unigram(vocab, unk_id=unk,
+                                       byte_fallback=False))
+        tok.normalizer = normalizers.Sequence([
+            normalizers.Precompiled(cmap),
+            normalizers.Replace(Regex(" {2,}"), " ")])
+        tok.pre_tokenizer = pre_tokenizers.Metaspace(
+            replacement="\u2581", prepend_scheme="always")
+        tok.post_processor = processors.TemplateProcessing(
+            single=single, special_tokens=specials)
+        tok.add_special_tokens([AddedToken(t, special=True, normalized=False)
+                                for t, _ in head + tail])
+        d = tmp_path_factory.mktemp(kind)
+        tok.save(str(d / "tokenizer.json"))
+        m = tmp_path_factory.mktemp(kind + "_model")
+        (m / fname).write_bytes(_model_proto(sp, cmap))
+        out[kind], out[kind + ".model"] = str(d), str(m)
+    return out
+
+
+def _sp_reference(sp_dirs, kind):
+    from transformers import T5TokenizerFast, XLMRobertaTokenizerFast
+
+    path = os.path.join(sp_dirs[kind], "tokenizer.json")
+    if kind == "t5":
+        return T5TokenizerFast(tokenizer_file=path, extra_ids=10)
+    return XLMRobertaTokenizerFast(tokenizer_file=path)
+
+
+def test_precompiled_charsmap_matches_tokenizers():
+    """The double-array read and the grapheme rule of ``spm_precompiled``,
+    held against ``tokenizers.normalizers.Precompiled`` on a charsmap built
+    here (no download)."""
+    from tokenizers import normalizers
+
+    cmap = build_charsmap(CHARSMAP)
+    ref = normalizers.Precompiled(cmap)
+    ours = tk.PrecompiledCharsmap(cmap)
+    for text in SP_TEXTS + ["e\u0301\u0301", "\uff21\uff10\u2163", "\ud55c\uae00 \u1100\u1161\u11a8"]:
+        assert ours.normalize(text) == ref.normalize_str(text), text
+
+
+@pytest.mark.parametrize("kind", ["xlm-roberta", "t5"])
+def test_unigram_matches_the_fast_tokenizer(sp_dirs, kind):
+    """``tokenizer.json`` through ``load_tokenizer`` against
+    ``XLMRobertaTokenizerFast`` / ``T5TokenizerFast`` over the same file:
+    ids with and without specials, truncation, padded batches."""
+    ref = _sp_reference(sp_dirs, kind)
+    ours = tk.load_tokenizer(sp_dirs[kind], kind)
+    assert isinstance(ours, tk.UnigramTokenizer)
+    texts = SP_TEXTS + (["fox <extra_id_0> dog <extra_id_3>."]
+                        if kind == "t5" else [])
+    for t in texts:
+        assert ours.encode(t) == ref.encode(t), t
+        assert ours.encode(t, add_special_tokens=False) == ref.encode(
+            t, add_special_tokens=False), t
+        assert ours.encode(t, truncation=True, max_length=16) == ref.encode(
+            t, truncation=True, max_length=16), t
+    _same_batch(ours, ref, texts, padding=True, truncation=True,
+                max_length=24)
+    _same_batch(ours, ref, texts[:4], padding="max_length", truncation=True,
+                max_length=40)
+    assert ours.pad_token_id == ref.pad_token_id
+
+
+@pytest.mark.parametrize("kind", ["xlm-roberta", "t5"])
+def test_model_protobuf_route_equals_tokenizer_json(sp_dirs, kind):
+    """The ``.model`` protobuf (written by hand) gives the ids of the
+    ``tokenizer.json`` of the same vocabulary: XLM-R's fairseq offset, T5's
+    ``<extra_id_*>`` tokens."""
+    via_json = tk.load_tokenizer(sp_dirs[kind], kind)
+    if kind == "t5":
+        via_model = tk.UnigramTokenizer.from_sentencepiece(
+            os.path.join(sp_dirs["t5.model"], "spiece.model"), "t5",
+            extra_ids=10)
+    else:
+        via_model = tk.load_tokenizer(sp_dirs[kind + ".model"], kind)
+    assert via_model.vocab == via_json.vocab
+    assert via_model.unk_id == via_json.unk_id
+    texts = SP_TEXTS + ["x <extra_id_0> y" if kind == "t5" else "<mask> x"]
+    for t in texts:
+        assert via_model.encode(t) == via_json.encode(t), t
+    if kind == "xlm-roberta":
+        assert via_json.encode("<s>x")[:2] == [0, 0]
+        assert via_json.vocab[4][0] == "\u2581"   # SentencePiece id 3 + 1
+
+
+@settings(max_examples=100, deadline=None, database=None)
+@given(st.text(alphabet=st.characters(
+    whitelist_categories=("Lu", "Ll", "Lo", "Mn", "Nd", "No", "Po", "Zs",
+                          "So"),
+    whitelist_characters=" \uff21\uff41\ufb01\u3000\u2460\uff76\u2163\u0301"),
+    max_size=24))
+def test_unigram_matches_xlmr_tokenizer_on_unicode(sp_dirs, text):
+    ref = _hyp_cache.setdefault("xlmr", _sp_reference(sp_dirs,
+                                                      "xlm-roberta"))
+    ours = _hyp_cache.setdefault("uni", tk.load_tokenizer(
+        sp_dirs["xlm-roberta"], "xlm-roberta"))
+    assert ours.encode(text) == ref.encode(text)
 
 
 # ---- the checkpoint reader and load_encoder ------------------------------------

@@ -5,9 +5,10 @@ refuses what it does not serve.
 interpreter imports its entry points and no ``jax``, ``jaxlib`` or ``flax``
 module, no ``transformers`` or ``sklearn`` (the card's machine has
 neither), and no module of ``ragroute_tpu``, may be loaded; no source file of
-the port names the JAX package in an import. Every CLI value outside the
-ported slices fails at start-up naming its ROADMAP item; the values of the
-approximate modes are accepted and reach the engine.
+the port names the JAX package in an import. Every value of the JAX CLI
+reaches the port's system, and the combinations the JAX package refuses are
+refused with its messages; the values of the approximate modes are
+accepted and reach the engine.
 """
 
 import glob
@@ -21,7 +22,7 @@ import torch
 from threadpoolctl import threadpool_limits
 
 from ragroute_tpu_torch.main import parse_args
-from ragroute_tpu_torch.system import ServingSystem, check_ported
+from ragroute_tpu_torch.system import ServingSystem, check_args
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -64,6 +65,11 @@ def test_entry_points_import_no_jax():
         "import ragroute_tpu_torch.scripts.import_real_data\n"
         "import ragroute_tpu_torch.scripts.profile_http\n"
         "import ragroute_tpu_torch.scripts.profile_captures\n"
+        "import ragroute_tpu_torch.parallel, ragroute_tpu_torch.parallel.mesh\n"
+        "import ragroute_tpu_torch.parallel.sharded\n"
+        "import ragroute_tpu_torch.parallel.streamed_mesh\n"
+        "import ragroute_tpu_torch.parallel.multihost\n"
+        "import ragroute_tpu_torch.encoders.tokenize\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
         "                                    'ml_dtypes', 'ragroute_tpu',\n"
@@ -85,7 +91,7 @@ def test_no_source_file_imports_the_jax_package():
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 30
     assert any(os.sep + "encoders" + os.sep in f for f in files)
-    for sub in ("train", "scripts"):
+    for sub in ("train", "scripts", "parallel"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
     pat = re.compile(r"(?:import|from)\s+ragroute_tpu(?!_torch)\b")
     # transformers only lazily (inside a function): never at module level
@@ -112,26 +118,62 @@ def test_cli_keeps_every_reference_flag_and_default():
     assert ours["device"] == "cuda"
 
 
-@pytest.mark.parametrize("argv", [
-    ["--mesh", "2x4"], ["--impl", "stream", "--mesh", "1x2"],
-    ["--impl", "hostrefine", "--mesh", "2x4"],
-    ["--mutable", "--mesh", "2x4"], ["--reserve-docs", "8", "--embedder",
-                                     "zoo", "--dtype", "policy"],
-    ["--embedder", "zoo", "--mesh", "2x4"],
-    ["--llm-backend", "jax", "--mesh", "2x4"],
-    ["--llm-quant", "int4", "--mesh", "1x2"],
-    ["--llm-serving", "continuous", "--workers", "2", "--mesh", "1x2"],
-    ["--frontend", "native", "--dtype", "policy"],
-    ["--workers", "2", "--coordinator", "10.0.0.1:1234"], ["--dtype", "policy"],
-    ["--coordinator", "10.0.0.1:1234"], ["--num-processes", "2"],
-    ["--hbm-budget-gb", "4", "--impl", "hostrefine", "--mesh", "1x4"],
+@pytest.mark.parametrize("argv,refused", [
+    (["--mesh", "2x4"], None),
+    (["--impl", "stream", "--mesh", "1x2"], "SINGLE-chip capacity tier"),
+    (["--impl", "hostrefine", "--mesh", "2x4"], None),
+    (["--mutable", "--mesh", "2x4"], "--mutable is a single-chip"),
+    (["--reserve-docs", "8", "--embedder", "zoo", "--dtype", "policy"],
+     None),
+    (["--embedder", "zoo", "--mesh", "2x4"], None),
+    (["--llm-backend", "jax", "--mesh", "2x4"], None),
+    (["--llm-quant", "int4", "--mesh", "1x2"], None),
+    (["--llm-serving", "continuous", "--workers", "2", "--mesh", "1x2"],
+     None),
+    (["--frontend", "native", "--dtype", "policy"], None),
+    (["--workers", "2", "--coordinator", "10.0.0.1:1234"], None),
+    (["--dtype", "policy"], None),
+    (["--coordinator", "10.0.0.1:1234"], None),
+    (["--num-processes", "2"], "requires --coordinator"),
+    (["--hbm-budget-gb", "4", "--impl", "hostrefine", "--mesh", "1x4"],
+     None),
+    (["--impl", "hostrefine", "--mesh", "2x4", "--num-processes", "2",
+      "--coordinator", "10.0.0.1:1234"], "serves single-process"),
 ])
-def test_unported_flag_values_fail_naming_roadmap(argv):
+def test_unported_flag_values_fail_naming_roadmap(argv, refused):
+    """No value of the JAX CLI is unported any more: every combination the
+    JAX package serves reaches the port's system (its values on the
+    system), and the ones it refuses are refused with its message, at the
+    same place (``--num-processes`` without ``--coordinator`` in
+    ``main``, the rest when the system is constructed)."""
+    import main as jmain
+    from ragroute_tpu.system import ServingSystem as JSystem
+    from ragroute_tpu_torch import main as tmain
+
     args = parse_args(["--dataset", "medrag", "--device", "cpu", *argv])
-    with pytest.raises(ValueError, match="ROADMAP"):
-        check_ported(args)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ServingSystem(args)
+    if refused == "requires --coordinator":
+        errs = []
+        for m in (tmain, jmain):
+            with pytest.raises(SystemExit, match=refused) as e:
+                m.main(["--dataset", "medrag", "--device", "cpu", *argv]
+                       if m is tmain else ["--dataset", "medrag", *argv])
+            errs.append(str(e.value))
+        assert errs[0] == errs[1]
+        return
+    if refused:
+        with pytest.raises(ValueError, match=refused) as ours:
+            ServingSystem(args)
+        with pytest.raises(ValueError) as theirs:
+            JSystem(args)
+        assert str(ours.value) == str(theirs.value)
+        return
+    check_args(args)
+    system = ServingSystem(args)
+    assert system.mesh_spec == args.mesh
+    assert system.dtype_name == args.dtype
+    assert system.num_processes == args.num_processes
+    assert system.impl == args.impl
+    JSystem(args)             # the JAX package accepts it too
 
 
 @pytest.mark.parametrize("argv,impl,dtype,nprobe,lowrank", [
@@ -152,7 +194,7 @@ def test_approximate_mode_flags_reach_the_engine(argv, impl, dtype, nprobe,
     if "--dtype" not in argv:
         base += ["--dtype", "float32"]
     args = parse_args(base + argv)
-    check_ported(args)
+    check_args(args)
     server = ServingSystem(args).build()
     engine = server.engine
     shards = engine.shard_set.shards
@@ -190,7 +232,7 @@ def test_host_tier_flags_reach_the_engine(argv, tier, dtype, k_refine, nprobe):
     if "--dtype" not in argv:
         base += ["--dtype", "int8"]
     args = parse_args(base + argv)
-    check_ported(args)
+    check_args(args)
     server = ServingSystem(args).build()
     engine = server.engine
     assert isinstance(engine, StreamedSearchEngine)
@@ -226,11 +268,11 @@ def test_serving_surface_flags_reach_the_system(argv, refused):
     layouts by the shard build)."""
     args = parse_args(["--dataset", "medrag", "--simulate", "--disable-llm",
                        "--device", "cpu", "--dtype", "float32", *argv])
-    check_ported(args)
     if refused:
         with pytest.raises(ValueError, match=refused):
             ServingSystem(args).build()
         return
+    check_args(args)
     system = ServingSystem(args)
     assert system.frontend == args.frontend
     server = system.build()
@@ -305,7 +347,7 @@ def test_llm_flags_reach_the_generation_service(monkeypatch, argv, want):
                         staticmethod(from_checkpoint))
     args = parse_args(["--dataset", "medrag", "--device", "cpu",
                        "--llm-backend", "jax", *argv])
-    check_ported(args)
+    check_args(args)
     system = ServingSystem(args)
     svc = system._generation_service()
     want = dict(want)
@@ -328,10 +370,15 @@ def test_llm_flags_reach_the_generation_service(monkeypatch, argv, want):
 
 
 def test_llm_refusals_name_their_roadmap_item():
+    """Generation beside a mesh is served as in the JAX package (its
+    decoder on one device: the tensor-parallel decoder of
+    ``llm/sharding.py`` is wired to no engine there either); a degenerate
+    sampling value is refused."""
     args = parse_args(["--dataset", "medrag", "--device", "cpu",
                        "--llm-backend", "jax", "--mesh", "2x4"])
-    with pytest.raises(ValueError, match="item 14.*tensor-parallel decoder"):
-        check_ported(args)
+    check_args(args)
+    system = ServingSystem(args)
+    assert system.llm_backend == "jax" and system.mesh_spec == "2x4"
     args = parse_args(["--dataset", "medrag", "--device", "cpu",
                        "--llm-backend", "jax", "--llm-top-p", "0"])
     with pytest.raises(ValueError, match="top_p"):

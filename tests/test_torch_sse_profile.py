@@ -206,6 +206,44 @@ def test_native_capture_records_the_serving_loop(syn_engines, tmp_path):
     assert not ts._profiling
 
 
+def test_aiohttp_capture_runs_on_the_step_thread(syn_engines, tmp_path,
+                                                monkeypatch):
+    """The aiohttp ``/admin/profile`` starts and stops its capture on the
+    batcher's step thread, the one that launches every step (a capture
+    started on the event loop's thread held, on the card, no kernel now
+    and then): start, stop and the last step share one thread, and it is
+    not the loop's."""
+    from ragroute_tpu_torch.engine.server import ProfileCapture
+
+    syn, (jeng, teng) = syn_engines
+    _, ts = servers(syn, jeng, teng)
+    seen = {}
+    for name in ("start", "stop"):
+        orig = getattr(ProfileCapture, name)
+
+        def wrapped(self, _orig=orig, _name=name):
+            seen[_name] = threading.get_ident()
+            return _orig(self)
+        monkeypatch.setattr(ProfileCapture, name, wrapped)
+    q = syn.questions[0]
+    with serving(ts) as port:
+        res = [None]
+        cap = threading.Thread(target=_profile, args=(
+            port, {"seconds": 1.0, "dir": str(tmp_path / "trace")}, res, 0))
+        cap.start()
+        deadline = time.time() + 30
+        while not ts._profiling and time.time() < deadline:
+            time.sleep(0.01)
+        served = [request(port, "GET", query_path(
+            q["question"], q["options"], q["qid"]))[0] for _ in range(3)]
+        cap.join(60)
+        loop_thread = ts._site._server._loop._thread_id
+    assert served == [200] * 3 and res[0][0] == 200
+    step = ts.batcher.last_step_thread
+    assert step is not None and step != loop_thread
+    assert seen == {"start": step, "stop": step}
+
+
 def test_two_servers_share_one_port_with_reuse_port(syn_engines):
     syn, (jeng, teng) = syn_engines
     port = free_port()

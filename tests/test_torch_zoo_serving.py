@@ -10,7 +10,7 @@
   timings blanked); with a tiny real BERT checkpoint at f32 on both sides the
   served ``top_docs`` are the same. The native front end drops the batcher
   and still encodes through ``embed_many``.
-* ``check_ported`` accepts ``--embedder zoo``; ``load_world_artifacts``
+* ``check_args`` accepts ``--embedder zoo``; ``load_world_artifacts``
   returns the zoo provider, and refuses an unknown embedder with the JAX
   package's words.
 * A checkpoint that is present but corrupt raises, and so does one that
@@ -217,9 +217,9 @@ def test_check_ported_and_load_world_artifacts_take_zoo(tmp_path):
     from ragroute_tpu_torch.index.synthetic import (make_synthetic_world,
                                                     save_world)
     from ragroute_tpu_torch.main import parse_args
-    from ragroute_tpu_torch.system import check_ported, load_world_artifacts
+    from ragroute_tpu_torch.system import check_args, load_world_artifacts
 
-    check_ported(parse_args(["--dataset", "medrag", "--embedder", "zoo"]))
+    check_args(parse_args(["--dataset", "medrag", "--embedder", "zoo"]))
     syn = make_synthetic_world("medrag", docs_per_source=256, num_queries=4,
                                seed=0)
     root = str(tmp_path / "data")
