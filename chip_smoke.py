@@ -191,8 +191,9 @@ Phases, each of which fails the run when it fails:
    answer. One decode step at B=16 over a 2,080-position cache is timed
    (every K5 call in it one kernel on the device, by the profiler)
    and profiled against its bound, and so is one prefill of the lockstep
-   batch (16 prompts of 2,048 tokens). The 36-layer bf16 prefill logits through
-   K5 stay within 0.05 x max|logit| of the plain version's, and two layers
+   batch (16 prompts of 2,048 tokens). The 36-layer bf16 prefill logits of
+   2 prompts of 64 tokens through K5 (its prefill kernel) stay within 0.05
+   x max|logit| of the plain version's on a host copy, and two layers
    of Qwen3-8B at f32 give the plain path's greedy tokens for 16 steps
    (near-ties of the plain path's top two logits counted).
 
@@ -224,7 +225,7 @@ Phases, each of which fails the run when it fails:
 8. The offline path: a synthetic medrag world of 4 x 32,768 docs x 768
    (64 topics a source) with MIRAGE's 7,663 questions (30,652 router
    examples at width 1,540) written by ``scripts.make_synthetic_data``;
-   ``scripts.train_router`` on the card for 50 epochs (a third of the
+   ``scripts.train_router`` on the card for 20 epochs (a seventh of the
    reference's 150) at batch 256 (seconds an epoch, steps a second;
    parameters and optimiser state on the card, best validation accuracy
    over the base rate by 0.1,
@@ -254,8 +255,8 @@ Phases, each of which fails the run when it fails:
    routing ``ragroute`` and ``all``: the single-card engine's winner sets
    (near-ties within 1e-3 x max|score| allowed), K1 launched twice a scored
    (dp row, shard) by its counter and by the profiler, the step's
-   host-clock time beside the single card's, and under ``all`` recall@32
-   >= 0.99 against the exact oracle on 64 queries; the world under
+   host-clock time beside the single card's, and under ``ragroute`` recall@32
+   >= 0.99 against phase 3's exact oracle on 64 queries; the world under
    ``--dtype policy`` (int8 everywhere: each shard held to the exact
    winners of its stored rows at 0.99, its recall against the f32 rows
    printed beside the int8 gate); (b) over a world of 4 x 16,384 docs
@@ -281,6 +282,21 @@ Phases, each of which fails the run when it fails:
    (§2 of PERF.md: at k = 10 bf16 rounding alone takes some sources below
    0.99), the picks and the index bytes printed.
 
+10. The tensor-parallel decoder and the mesh dry run: (a)
+   ``dryrun_multichip(8)`` over a 2x4 mesh of ``cuda:0`` named eight times
+   (routers trained by the dp-sharded step on five worlds, each served by
+   ``ShardedSearch``, hostrefine, low-rank and IVF over the mesh, one
+   ``/query`` over HTTP, TP generation), with K1, K2 and K3's launches by
+   their counters; (b) the TP decoder at Qwen3-8B's published widths, all
+   36 layers, over 2x4 of the card (each cell's slices views of the card's
+   weights): random f32 weights give the single card's greedy tokens for
+   16 steps at B=4, then in bf16 the prefill logits within
+   ``TP_BF16_LOGIT_TOL`` of the single card's and the decode step at B=16
+   over 2,080 positions, TP against the single card (host clock, device
+   time and busy share by the profiler, weight bytes a cell); (c)
+   ``ContinuousGenerationService`` over the f32 TP weights (two slots, a
+   shared prefix, 16 greedy tokens) answers as over the single card's.
+
 ``python3 chip_smoke.py kernels`` stops after phase 2: a short first run
 after a kernel change. ``python3 chip_smoke.py tiers`` runs phases 1 and 5
 only; ``python3 chip_smoke.py llm`` phases 1, K5 / K6 of 2, and 6;
@@ -288,7 +304,8 @@ only; ``python3 chip_smoke.py llm`` phases 1, K5 / K6 of 2, and 6;
 rewrites of 4 and of 3 the exact path and the rest of the serving surface;
 ``python3 chip_smoke.py encoders`` phases 1 and 7; ``python3
 chip_smoke.py offline`` phases 1 and 8; ``python3 chip_smoke.py mesh``
-phases 1 and 9 (with a medrag world of its own).
+phases 1 and 9 (with a medrag world of its own); ``python3 chip_smoke.py
+tp`` phases 1 and 10.
 
 The second-to-last line is one JSON object with every kernel's launches on
 the main paths (and, for the three top-k kernels, the deep launches among
@@ -399,7 +416,15 @@ PATH_KERNELS = {"exact": ("fused_topk",),
                 "mesh_int4": ("fused_topk",),
                 "mesh_hostrefine": ("fused_topk",),
                 "policy_medrag": ("fused_topk",),
-                "policy_feb4rag": ("fused_topk",)}
+                "policy_feb4rag": ("fused_topk",),
+                # phase 10: the dry run over 2x4, through sharded IVF (K1
+                # probes the centroids, K3 scores the probed slabs, K2 cuts
+                # each pair's list; its exact, low-rank and hostrefine
+                # scans cover 256 rows a cell, which the plain exact scan
+                # takes, as in the JAX package: K1 scans from 4,097 rows).
+                # The TP decoder runs float weights through no hand-written
+                # kernel.
+                "tp_dryrun": ("fused_topk", "stream_topk", "grouped_gains")}
 
 # the kernels each served path must launch through their wgmma designs:
 # K1's scan (bf16, int8 and int4 docs), K3's grouped GEMM and K4's pair scan
@@ -2728,6 +2753,11 @@ NEAR_TIE = 1e-5          # plain top-two logits this close (relative) may swap
 # activations are rounded after each of the 253 products, so one rounding
 # that lands the other way moves every later layer
 PREFILL_LOGIT_TOL = 0.05  # of max |logit|
+# its prompts: B x P = 256 rows take K5's prefill kernel (from M_SWITCH =
+# 64 rows) over two of its 128-token M tiles (the main path's 16 x 2048
+# runs 256); the plain version on the host copy costs about its row count
+# (4 x 128 took 65 s of the smoke: the depth cut for phase 10)
+PREFILL_CHECK_SHAPE = (2, 128)
 
 
 def cpu_copy(params):
@@ -2939,7 +2969,8 @@ def _greedy_parity(params, cfg, dev, *, bsz: int = 4, p: int = 64) -> dict:
     return {"same": same, "near_ties": near, "max_logit_err": err}
 
 
-def _prefill_logits(params, cfg, dev, *, bsz: int = 4, p: int = 128):
+def _prefill_logits(params, cfg, dev, *, bsz: int = PREFILL_CHECK_SHAPE[0],
+                    p: int = PREFILL_CHECK_SHAPE[1]):
     """Last-position prefill logits through the kernel on the card and
     through the plain version on a host copy, on the same random prompts."""
     from ragroute_tpu_torch.llm.model import init_cache, prefill
@@ -2985,6 +3016,8 @@ def phase_generation(dev, smi: str) -> dict:
         if not any(demo["answers"]):
             raise AssertionError("the demo decoder generated no text")
         native_sse(root, dev, syn)
+        log(f"[time] the demo decoder served, SSE checked, at "
+            f"{time.perf_counter() - t0:.0f} s into phase 6")
 
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
@@ -3007,8 +3040,12 @@ def phase_generation(dev, smi: str) -> dict:
             if res["launches"]["int4_matmul"] <= 0:
                 raise AssertionError(f"{label} never launched int4_matmul")
             out[label] = res
+        log(f"[time] Qwen3-8B served through both services at "
+            f"{time.perf_counter() - t0:.0f} s")
         step = decode_step_breakdown(params, QWEN3_8B, dev)
         print_decode_breakdown(step, smi)
+        log(f"[time] the decode step measured at "
+            f"{time.perf_counter() - t0:.0f} s")
         # every K5 call of a decode step is one kernel on the device: no
         # more K5 kernels than calls (the profiler may miss a few at its
         # window's edges), none of them a separate sum of split partials
@@ -3031,14 +3068,18 @@ def phase_generation(dev, smi: str) -> dict:
                 f"calls  {k['name']}")
         out["prefill"] = pre
 
+        t0 = time.perf_counter()
         kern, plain = _prefill_logits(params, QWEN3_8B, dev)
+        log(f"[time] the 36-layer prefill logits, card and host copy, took "
+            f"{time.perf_counter() - t0:.0f} s")
         scale = float(plain.abs().max())
         rel = float((kern - plain).abs().max()) / scale
         agree = int((kern.argmax(-1) == plain.argmax(-1)).sum())
-        log(f"[llm] Qwen3-8B 36-layer bf16 prefill (B=4, P=128) logits, K5 "
-            f"against its plain version: max |diff| {rel:.3e} of max |logit| "
-            f"{scale:.3f} (gate {PREFILL_LOGIT_TOL}); argmax equal on "
-            f"{agree} of 4 rows")
+        log(f"[llm] Qwen3-8B 36-layer bf16 prefill (B, P = "
+            f"{PREFILL_CHECK_SHAPE}) logits, K5 against its plain version: "
+            f"max |diff| {rel:.3e} of max |logit| {scale:.3f} (gate "
+            f"{PREFILL_LOGIT_TOL}); argmax equal on {agree} of "
+            f"{PREFILL_CHECK_SHAPE[0]} rows")
         if not rel <= PREFILL_LOGIT_TOL:
             raise AssertionError(f"36-layer prefill logits differ by {rel}")
         out["prefill_rel_err"] = rel
@@ -3049,7 +3090,10 @@ def phase_generation(dev, smi: str) -> dict:
         cfg2 = dataclasses.replace(QWEN3_8B, num_layers=2)
         p2 = quantized_from_masters(cfg2, 4, dev, seed=1,
                                     dtype=torch.float32)
+        t0 = time.perf_counter()
         par = _greedy_parity(p2, cfg2, dev)
+        log(f"[time] the two-layer greedy parity took "
+            f"{time.perf_counter() - t0:.0f} s")
         log(f"[llm] Qwen3-8B widths, 2 layers, f32, int4 weights: kernel "
             f"against plain path over {PARITY_STEPS} greedy steps x 4 rows: "
             f"{par['same']} tokens equal, {par['near_ties']} near-ties "
@@ -3406,9 +3450,9 @@ def phase_encoders(dev, smi: str, medrag: bool = False) -> dict:
 # 1,089 + 1,273 + 4,183 + 500 + 618
 OFFLINE_QUESTIONS = 7_663
 # the reference trains 150 (train_router.NUM_EPOCHS, the script's default);
-# a third of them keeps the whole run in its time on a slow host (the
+# a seventh of them keeps the whole run in its time on a slow host (the
 # synthetic labels separate in the first epoch)
-OFFLINE_EPOCHS = 50
+OFFLINE_EPOCHS = 20
 OFFLINE_BURST = 256          # /query answers held against the CPU router
 OFFLINE_PIPELINE = 64        # qids the offline pipeline runs
 NEAR_THRESHOLD = 1e-4        # |p - threshold| under which a pair is skipped
@@ -4124,7 +4168,8 @@ def phase_mesh_medrag(root: str, dev, syn, smi: str,
             tm = _timed_steps(mesh, q, strategy)
             ts = _timed_steps(single, q, strategy)
             recall = None
-            if strategy == "all":       # every shard scored: one oracle
+            if strategy == "ragroute":  # the served paths' routing: the
+                #                           oracle phase 3 already computed
                 oracles = oracles or OracleMemo(syn)
                 oc = mesh.search(oracles.q, strategy=strategy)
                 recall = engine_recall(syn.world, oc, oracles(oc.mask))
@@ -4456,6 +4501,233 @@ def phase_mesh(dev, smi: str, medrag: bool = False) -> dict:
     return out
 
 
+# ---- phase 10: the tensor-parallel decoder and the mesh dry run -------------
+
+TP_MESH = (2, 4)          # dp x idx, cuda:0 named eight times
+TP_PARITY_STEPS = 16      # greedy steps of the f32 parity, B=4, P=64
+TP_CONT_NEW = 16          # new tokens of each continuous answer
+# decode steps timed (after two) and profiled, each: the profiler's
+# summary of five TP steps (about 80,000 events a step) took 86 s
+TP_PROFILE_STEPS = 2
+# the 36-layer bf16 prefill's logits, TP against the single card: each
+# cell's wo / down partial is rounded to bf16 before the row's sum, where
+# the single card rounds the whole product once (phase 6's gate for a
+# product computed another way)
+TP_BF16_LOGIT_TOL = PREFILL_LOGIT_TOL
+TP_SYSTEM = "Answer the medical question from the retrieved documents."
+TP_QUESTIONS = ("Which organ makes insulin?", "What does the liver do?",
+                "Name a symptom of anaemia.")
+
+
+def _tp_prompts(cfg, dev, bsz: int, p: int, seed: int):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (bsz, p), generator=gen,
+                        device=dev, dtype=torch.int32)
+    mask = torch.ones_like(ids)
+    mask[1, :p // 2] = 0                      # one left-padded row
+    return ids, mask
+
+
+def _tp_continuous(params, cfg) -> tuple:
+    """Three chats through ``ContinuousGenerationService`` with two slots
+    (one waits for a slot), a shared prefix, greedy, no EOS: each answer's
+    token ids, and the seconds it took."""
+    from ragroute_tpu_torch.llm.continuous import (ContinuousGenerationService,
+                                                   shared_prefix_ids)
+    from ragroute_tpu_torch.llm.service import ByteTokenizer
+
+    class IdTokenizer(ByteTokenizer):
+        """Byte prompts; answers as their token ids (random weights emit
+        ids past the 256 bytes, which a byte decode drops)."""
+
+        def decode(self, ids):
+            return " ".join(str(int(i)) for i in ids)
+
+    tok = IdTokenizer()
+
+    async def run():
+        svc = ContinuousGenerationService(
+            params, cfg, tok, slots=2, cache_len=256,
+            max_new_tokens=TP_CONT_NEW, prompt_buckets=(128,),
+            chunk_steps=8, cache_dtype=torch.float32, eos_id=-1,
+            pad_id=tok.pad_id, prefix_ids=shared_prefix_ids(tok, TP_SYSTEM))
+        try:
+            return await asyncio.gather(*[svc.chat(
+                [{"role": "system", "content": TP_SYSTEM},
+                 {"role": "user", "content": q}]) for q in TP_QUESTIONS])
+        finally:
+            await svc.stop()
+
+    t0 = time.perf_counter()
+    answers = asyncio.run(run())
+    return answers, time.perf_counter() - t0
+
+
+def _tp_dryrun(dev) -> dict:
+    from ragroute_tpu_torch.dryrun import dryrun_multichip
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = dryrun_multichip(TP_MESH[0] * TP_MESH[1], device=dev)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"[tp:dryrun] dryrun_multichip({TP_MESH[0] * TP_MESH[1]}) over "
+        f"{res['mesh']}, {dev} named {TP_MESH[0] * TP_MESH[1]} times, in "
+        f"{time.perf_counter() - t0:.1f} s; kernel launches by the wrappers' "
+        f"counters: K1 {launches['fused_topk']}, K2 "
+        f"{launches['stream_topk']}, K3 {launches['grouped_gains']} (wgmma "
+        f"{launches['wgmma']}, deep {launches['deep']})")
+    for name in PATH_KERNELS["tp_dryrun"]:
+        if launches[name] <= 0:
+            raise AssertionError(f"the dry run never launched {name}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, **res}
+
+
+def phase_tp(dev, smi: str) -> dict:
+    """Phase 10: (a) the dry run over a 2x4 mesh of the card; (b) the TP
+    decoder at Qwen3-8B's widths over 2x4: f32 greedy tokens equal the
+    single card's, then the bf16 prefill logits and the decode step, TP
+    against the single card; (c) the continuous service over the TP weights
+    answers as over the single card's (f32)."""
+    from ragroute_tpu_torch.llm.model import (Decoder, DecoderLayer,
+                                              generate, init_cache,
+                                              init_decoder_params,
+                                              make_generator, prefill)
+    from ragroute_tpu_torch.llm.shapes import QWEN3_8B
+    from ragroute_tpu_torch.llm.sharding import shard_decoder_params
+    from ragroute_tpu_torch.measure import (LLM_BATCH, LLM_NEW, LLM_PROMPT,
+                                            decode_step_breakdown,
+                                            decoder_bytes)
+    from ragroute_tpu_torch.parallel.mesh import make_mesh
+
+    t_start = time.perf_counter()
+    out = {"tp_dryrun": _tp_dryrun(dev)}
+    cfg = QWEN3_8B
+    mesh = make_mesh(*TP_MESH, devices=[dev] * (TP_MESH[0] * TP_MESH[1]))
+
+    # (b) f32: the greedy tokens
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_decoder_params(make_generator(dev, 0), cfg,
+                                 dtype=torch.float32, device=dev)
+    whole = torch.cuda.memory_allocated()
+    tp = shard_decoder_params(params, cfg, mesh)
+    added = torch.cuda.memory_allocated() - whole
+    cell_bytes = decoder_bytes(tp.cells[0][0])
+    log(f"[tp] Qwen3-8B f32 weights ({whole / 1e9:.2f} GB) drawn on the card "
+        f"and laid out over {TP_MESH[0]}x{TP_MESH[1]} of {dev} in "
+        f"{time.perf_counter() - t0:.1f} s: {added} bytes added (each "
+        f"cell's slices are views); weights a decode step reads: "
+        f"{cell_bytes / 1e9:.3f} GB a cell, {decoder_bytes(params) / 1e9:.3f}"
+        f" GB on one card")
+    if added > (1 << 20):
+        raise AssertionError(f"the TP layout copied {added} bytes")
+    ids, mask = _tp_prompts(cfg, dev, 4, 64, seed=3)
+    times = {}
+    with torch.no_grad():
+        for label, p in (("single", params), ("tp", tp)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks, _ = generate(p, cfg, ids, mask, TP_PARITY_STEPS, eos_id=-1)
+            torch.cuda.synchronize()
+            times[label] = (toks, time.perf_counter() - t0)
+    want, got = times["single"][0], times["tp"][0]
+    same = int((got == want).sum())
+    log(f"[tp] Qwen3-8B, {cfg.num_layers} layers, f32, B=4 P=64: TP greedy "
+        f"tokens equal the single card's on {same} of {want.numel()} "
+        f"({TP_PARITY_STEPS} steps; generate {times['single'][1]:.2f} s on "
+        f"one card, {times['tp'][1]:.2f} s over the mesh)")
+    if not torch.equal(got, want):
+        raise AssertionError(f"TP greedy tokens differ: {same} of "
+                             f"{want.numel()} equal")
+    out["tp_parity"] = {"same": same, "of": want.numel()}
+
+    log(f"[time] phase 10's f32 parity done at "
+        f"{time.perf_counter() - t_start:.0f} s")
+    # (c) the continuous service over the same weights
+    ref, ref_s = _tp_continuous(params, cfg)
+    ans, ans_s = _tp_continuous(tp, cfg)
+    log(f"[tp:continuous] Qwen3-8B f32, 2 slots, shared prefix, "
+        f"{len(TP_QUESTIONS)} chats, {TP_CONT_NEW} greedy tokens each: TP "
+        f"answers equal the single card's on "
+        f"{sum(a == b for a, b in zip(ans, ref))} of {len(ref)} "
+        f"({ans_s:.2f} s over the mesh, {ref_s:.2f} s on one card); first "
+        f"answer {ref[0]}")
+    if ans != ref or any(len(a.split()) != TP_CONT_NEW for a in ref):
+        raise AssertionError(f"TP continuous answers {ans} != {ref}")
+    out["tp_continuous"] = {"answers": len(ref), "tp_s": ans_s,
+                            "single_s": ref_s}
+
+    # (b) bf16: the prefill logits and the decode step
+    del tp
+    bf = Decoder({k: v.to(torch.bfloat16) for k, v in params.items()},
+                 [DecoderLayer({k: v.to(torch.bfloat16)
+                                for k, v in layer.items()})
+                  for layer in params.layers])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = shard_decoder_params(bf, cfg, mesh)
+    ids, mask = _tp_prompts(cfg, dev, 4, 128, seed=5)
+    with torch.no_grad():
+        ls, _ = prefill(bf, cfg, ids, mask,
+                        init_cache(cfg, 4, 128, torch.bfloat16, dev))
+        lt, _ = prefill(tp, cfg, ids, mask,
+                        tp.init_cache(cfg, 4, 128, torch.bfloat16))
+    scale = float(ls.abs().max())
+    rel = float((lt - ls).abs().max()) / scale
+    agree = int((lt.argmax(-1) == ls.argmax(-1)).sum())
+    log(f"[tp] Qwen3-8B {cfg.num_layers}-layer bf16 prefill (B=4, P=128, bf16 "
+        f"cache) logits, TP against the single card: max |diff| {rel:.3e} "
+        f"of max |logit| {scale:.3f} (gate {TP_BF16_LOGIT_TOL}); argmax "
+        f"equal on {agree} of 4 rows")
+    if not rel <= TP_BF16_LOGIT_TOL:
+        raise AssertionError(f"TP bf16 prefill logits differ by {rel}")
+    out["tp_prefill_rel_err"] = rel
+    log(f"[time] phase 10's bf16 logits done at "
+        f"{time.perf_counter() - t_start:.0f} s")
+    steps = {}
+    for label, p in (("single", bf), ("tp", tp)):
+        t0 = time.perf_counter()
+        st = decode_step_breakdown(p, cfg, dev, cache_dtype=torch.bfloat16,
+                                   steps=TP_PROFILE_STEPS)
+        log(f"[time] the {label} decode step measured in "
+            f"{time.perf_counter() - t0:.0f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[tp:decode] {label}: Qwen3-8B B={LLM_BATCH} "
+            f"S={LLM_PROMPT + LLM_NEW} bf16 weights and cache: step "
+            f"{st['step_ms']:.3f} ms (median of {TP_PROFILE_STEPS}, host "
+            f"clock), bound "
+            f"{st['bound_ms']:.3f} ms; profiler: wall "
+            f"{st['profile_wall_ms']:.3f} ms, device "
+            f"{st['profile_device_ms']:.3f} ms a step, busy share "
+            f"{st['busy_share']:.3f}; weights read a step "
+            f"{st['weight_bytes'] / 1e9:.3f} GB ({smi})")
+        for k in st["kernels"][:6]:
+            log(f"[tp:decode]   {label} {k['ms_per_step']:8.3f} ms "
+                f"{k['calls_per_step']:7.1f} calls a step  {k['name']}")
+        steps[label] = st
+    log(f"[tp:decode] TP over {TP_MESH[0]}x{TP_MESH[1]} of one card against "
+        f"the single card: {steps['tp']['step_ms']:.3f} / "
+        f"{steps['single']['step_ms']:.3f} ms a step (host clock), busy "
+        f"share {steps['tp']['busy_share']:.3f} / "
+        f"{steps['single']['busy_share']:.3f}; weight bytes a cell "
+        f"{decoder_bytes(tp.cells[0][0]) / 1e9:.3f} GB of "
+        f"{decoder_bytes(bf) / 1e9:.3f} GB")
+    out["tp_decode"] = {k: {f: v[f] for f in ("step_ms", "bound_ms",
+                                              "profile_device_ms",
+                                              "busy_share", "weight_bytes")}
+                        for k, v in steps.items()}
+    del tp, bf
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[time] phase 10 took {time.perf_counter() - t_start:.0f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4497,6 +4769,11 @@ def main() -> int:
         log(f"[time] mesh phase done at {time.perf_counter() - t_start:.0f} s")
         report(smi, {}, paths)
         return 0
+    if only == "tp":           # the TP decoder and the dry run (phase 10)
+        paths = phase_tp(dev, smi)
+        log(f"[time] tp phase done at {time.perf_counter() - t_start:.0f} s")
+        report(smi, {}, paths)
+        return 0
     if only == "llm":          # the decoder's kernels and generation
         kres = phase_decoder_kernels(dev)
         log(f"[time] decoder kernels checked at "
@@ -4525,6 +4802,8 @@ def main() -> int:
     log(f"[time] offline path done at {time.perf_counter() - t_start:.0f} s")
     paths.update(phase_mesh(dev, smi))
     log(f"[time] mesh phase done at {time.perf_counter() - t_start:.0f} s")
+    paths.update(phase_tp(dev, smi))
+    log(f"[time] tp phase done at {time.perf_counter() - t_start:.0f} s")
     report(smi, kres, paths)
     return 0
 

@@ -114,9 +114,12 @@ def _quantize_sym(emb: np.ndarray, levels: int,
                         -levels, levels).astype(np.int8)
         return codes, s_row
     best_err = best_codes = best_s = None
+    # each row's magnitudes sorted once: a percentile and the max depend
+    # only on a row's values, and selection in sorted rows is cheap
+    mags = np.sort(np.abs(emb), axis=1)
     for pct in (90.0, 95.0, 97.0, 99.0, 99.9, None):
-        amax = (np.abs(emb).max(axis=1) if pct is None
-                else np.percentile(np.abs(emb), pct, axis=1))
+        amax = (mags[:, -1] if pct is None
+                else np.percentile(mags, pct, axis=1))
         s = np.maximum(amax / float(levels), 1e-12).astype(np.float32)
         codes = np.clip(np.round(emb / s[:, None]),
                         -levels, levels).astype(np.int8)

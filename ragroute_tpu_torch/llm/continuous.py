@@ -33,11 +33,9 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ragroute_tpu_torch.llm.model import (DecoderConfig, _embed_lookup,
-                                          _logits, cache_write, decode_layers,
-                                          init_cache, inv_freq_tensor,
-                                          make_generator, prefill_layers,
-                                          sample_token)
+from ragroute_tpu_torch.llm.model import (DecoderConfig, cache_write,
+                                          inv_freq_tensor, make_generator,
+                                          sample_token, stack_layers)
 from ragroute_tpu_torch.llm.service import (_render_prompt, clamp_budget,
                                             encode_prompt, params_device,
                                             pick_bucket, resolve_special_id,
@@ -94,13 +92,14 @@ def prefill_rows(params, cfg: DecoderConfig, ids: Tensor, lens: Tensor,
     valid = iota[None, :] < lens[:, None]                     # [n, P]
     kmask = (torch.tril(torch.ones((p, p), dtype=torch.bool, device=dev))
              [None] & valid[:, None, :])                      # [n, P, P]
-    h = _embed_lookup(params, ids)
-    h, ks, vs = prefill_layers(params, cfg, h, positions, kmask,
-                               inv_freq=inv_freq, prefix_kv=prefix_kv)
+    h = params.embed_lookup(ids)
+    h, ks, vs = params.prefill_layers(cfg, h, positions, kmask,
+                                      inv_freq=inv_freq, prefix_kv=prefix_kv)
     # each row's last hidden BEFORE the vocab product (P x cheaper)
     h_last = torch.gather(
         h, 1, (lens.long() - 1)[:, None, None].expand(n, 1, h.shape[-1]))
-    return _logits(params, cfg, h_last)[:, 0], torch.stack(ks), torch.stack(vs)
+    return (params.logits(cfg, h_last)[:, 0], stack_layers(ks),
+            stack_layers(vs))
 
 
 def admit(params, cfg: DecoderConfig, state, ids: Tensor, lens: Tensor,
@@ -114,10 +113,7 @@ def admit(params, cfg: DecoderConfig, state, ids: Tensor, lens: Tensor,
                                         prefix_kv=prefix_kv, pos0=pos0)
     p = ids.shape[1]
     sl = slots.long()
-
-    def at_rows(plane, payload):
-        plane[:, sl, :p] = payload
-
+    at_rows = (slice(None), sl, slice(None, p))
     cache_write(cache, "k", k_new, at_rows)
     cache_write(cache, "v", v_new, at_rows)
     gen = (make_generator(ids.device, seed) if temperature > 0.0 else None)
@@ -160,16 +156,14 @@ def decode_chunk(params, cfg: DecoderConfig, state, steps: int,
         # per-row write at each slot's own position; inactive rows rewrite
         # their current (masked out, overwritten at the next admit) slot
         def write(cache, li, k, v):
-            def at_count(plane, payload):
-                plane[li, rows, cl] = payload
-
+            at_count = (li, rows, cl)
             cache_write(cache, "k", k[:, 0], at_count)
             cache_write(cache, "v", v[:, 0], at_count)
 
-        h = _embed_lookup(params, tok)[:, None]
-        h = decode_layers(params, cfg, h, positions, kmask, cache, write,
-                          inv_freq=inv_freq, prefix_kv=prefix_kv)
-        logits = _logits(params, cfg, h)[:, 0]
+        h = params.embed_lookup(tok)[:, None]
+        h = params.decode_layers(cfg, h, positions, kmask, cache, write,
+                                 inv_freq=inv_freq, prefix_kv=prefix_kv)
+        logits = params.logits(cfg, h)[:, 0]
         nxt = sample_token(logits, gen, temperature, top_k, top_p)
         nxt = torch.where(active, nxt, pad_id).to(torch.int32)
         act = active.to(torch.int32)
@@ -267,8 +261,8 @@ class ContinuousGenerationService:
         what the worker rebuilds after a failed step, whose in-place writes
         may have left the old state half updated."""
         dev, n = self.device, self.slots
-        cache = init_cache(self.cfg, n, self.cache_len, self.cache_dtype,
-                           device=dev)
+        cache = self.params.init_cache(self.cfg, n, self.cache_len,
+                                       self.cache_dtype)
 
         def zeros(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=dev)

@@ -147,6 +147,29 @@ class Decoder(_Weights):
         super().__init__(weights)
         self.layers = nn.ModuleList(layers)
 
+    # The engines reach the weights through these five methods only;
+    # ``llm/sharding.TPDecoder`` implements them over a mesh's cells.
+
+    def embed_lookup(self, ids: Tensor) -> Tensor:
+        return _embed_lookup(self, ids)
+
+    def logits(self, cfg: DecoderConfig, h: Tensor) -> Tensor:
+        return _logits(self, cfg, h)
+
+    def init_cache(self, cfg: DecoderConfig, batch: int, max_len: int,
+                   dtype) -> Dict[str, Tensor]:
+        return init_cache(cfg, batch, max_len, dtype, device=self.ln_f.device)
+
+    def prefill_layers(self, cfg, h, positions, kmask, *, inv_freq,
+                       prefix_kv=None):
+        return prefill_layers(self, cfg, h, positions, kmask,
+                              inv_freq=inv_freq, prefix_kv=prefix_kv)
+
+    def decode_layers(self, cfg, h, positions, kmask, cache, write, *,
+                      inv_freq, prefix_kv=None) -> Tensor:
+        return decode_layers(self, cfg, h, positions, kmask, cache, write,
+                             inv_freq=inv_freq, prefix_kv=prefix_kv)
+
 
 def _int4_group(in_dim: int, group: int = 128) -> int:
     """Largest group size <= ``group`` dividing in_dim/2."""
@@ -390,17 +413,23 @@ def quant_kv(x: Tensor) -> Tuple[Tensor, Tensor]:
 
 
 def cache_write(cache: Dict[str, Tensor], name: str, val: Tensor,
-                put) -> None:
-    """The one quantize-aware KV-cache write of every engine. ``put(plane,
-    payload)`` writes a payload into one cache plane in place at the
-    caller's indices (leading axes only, so the same indices serve the code
-    plane ``[..., Dh]`` and the scale plane ``[...]``)."""
+                index: tuple) -> None:
+    """The one quantize-aware KV-cache write of every engine: ``val`` goes
+    to ``plane[index]`` of the ``name`` plane (and its scales to the
+    ``name + "s"`` plane of an int8 cache). ``index`` names leading axes
+    only, ``(layer, batch rows, positions)``, so the same index serves the
+    code plane ``[..., Dh]`` and the scale plane ``[...]``. A tensor-parallel
+    decoder's head-split K/V (``llm/sharding.Split``) write themselves into
+    its cells' caches."""
+    if not isinstance(val, Tensor):
+        val.write_into(cache, name, index)
+        return
     if name + "s" in cache:
         q, s = quant_kv(val)
-        put(cache[name], q)
-        put(cache[name + "s"], s)
+        cache[name][index] = q
+        cache[name + "s"][index] = s
     else:
-        put(cache[name], val.to(cache[name].dtype))
+        cache[name][index] = val.to(cache[name].dtype)
 
 
 def cache_read(cache: Dict[str, Tensor], name: str, li: int):
@@ -408,6 +437,14 @@ def cache_read(cache: Dict[str, Tensor], name: str, li: int):
     float cache); ``_attend`` folds the scales into the scores."""
     s = cache.get(name + "s")
     return cache[name][li], (None if s is None else s[li])
+
+
+def stack_layers(kv: List[Tensor]) -> Tensor:
+    """Per-layer K or V ``[n, P, Hkv, Dh]`` stacked as ``[L, n, P, Hkv,
+    Dh]`` (a tensor-parallel decoder's head-split ones stack cell by cell)."""
+    if isinstance(kv[0], Tensor):
+        return torch.stack(kv)
+    return type(kv[0]).stack(kv)
 
 
 # ---------------------------------------------------------------------------
@@ -465,16 +502,14 @@ def prefill(params: Decoder, cfg: DecoderConfig, input_ids: Tensor,
     causal = torch.tril(torch.ones((p, p), dtype=torch.bool, device=dev))
     kmask = causal[None] & (mask[:, None, :] > 0)
 
-    h = _embed_lookup(params, input_ids)
-    h, new_k, new_v = prefill_layers(params, cfg, h, positions, kmask,
-                                     inv_freq=inv_freq)
+    h = params.embed_lookup(input_ids)
+    h, new_k, new_v = params.prefill_layers(cfg, h, positions, kmask,
+                                            inv_freq=inv_freq)
     for li in range(cfg.num_layers):
-        def at_origin(plane, payload, li=li):
-            plane[li, :b, :p] = payload
-
+        at_origin = (li, slice(None, b), slice(None, p))
         cache_write(cache, "k", new_k[li], at_origin)
         cache_write(cache, "v", new_v[li], at_origin)
-    return _logits(params, cfg, h[:, -1:])[:, 0], cache
+    return params.logits(cfg, h[:, -1:])[:, 0], cache
 
 
 def decode_step(params: Decoder, cfg: DecoderConfig, cache, token: Tensor,
@@ -494,16 +529,14 @@ def decode_step(params: Decoder, cfg: DecoderConfig, cache, token: Tensor,
              & (iota[None, :] <= slot))[:, None, :]  # [B, 1, S]
 
     def write(cache, li, k, v):
-        def at_slot(plane, payload):
-            plane[li, :, slot:slot + 1] = payload
-
+        at_slot = (li, slice(None), slice(slot, slot + 1))
         cache_write(cache, "k", k, at_slot)
         cache_write(cache, "v", v, at_slot)
 
-    h = _embed_lookup(params, token)[:, None]     # [B, 1, D]
-    h = decode_layers(params, cfg, h, positions, kmask, cache, write,
-                      inv_freq=inv_freq)
-    return _logits(params, cfg, h)[:, 0], cache
+    h = params.embed_lookup(token)[:, None]       # [B, 1, D]
+    h = params.decode_layers(cfg, h, positions, kmask, cache, write,
+                             inv_freq=inv_freq)
+    return params.logits(cfg, h)[:, 0], cache
 
 
 def sample_token(logits: Tensor, generator: Optional[torch.Generator],
@@ -556,7 +589,7 @@ def generate(params: Decoder, cfg: DecoderConfig, input_ids: Tensor,
     if budgets is None:
         budgets = torch.full((b,), max_new, dtype=torch.int32, device=dev)
     if cache is None:
-        cache = init_cache(cfg, b, p + max_new, cache_dtype, device=dev)
+        cache = params.init_cache(cfg, b, p + max_new, cache_dtype)
     logits0, cache = prefill(params, cfg, input_ids, attention_mask, cache)
     gen = make_generator(dev, rng_seed) if temperature > 0.0 else None
     tok0 = (first_token if first_token is not None

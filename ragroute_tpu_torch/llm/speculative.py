@@ -23,8 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from ragroute_tpu_torch.llm.model import (DecoderConfig, _embed_lookup,
-                                          _logits, cache_write, decode_layers,
+from ragroute_tpu_torch.llm.model import (DecoderConfig, cache_write,
                                           inv_freq_tensor)
 
 Tensor = torch.Tensor
@@ -87,16 +86,14 @@ def spec_decode_chunk(params, cfg: DecoderConfig, state, steps: int,
         slot_pos = slot_positions.clamp(0, s_max - 1).long()
 
         def write(cache, li, k, v):
-            def at_window(plane, payload):
-                plane[li, rows[:, None], slot_pos] = payload
-
+            at_window = (li, rows[:, None], slot_pos)
             cache_write(cache, "k", k, at_window)
             cache_write(cache, "v", v, at_window)
 
-        h = _embed_lookup(params, fed)                         # [B, w, D]
-        h = decode_layers(params, cfg, h, positions, kmask, cache, write,
-                          inv_freq=inv_freq, prefix_kv=prefix_kv)
-        logits = _logits(params, cfg, h)                       # [B, w, V]
+        h = params.embed_lookup(fed)                           # [B, w, D]
+        h = params.decode_layers(cfg, h, positions, kmask, cache, write,
+                                 inv_freq=inv_freq, prefix_kv=prefix_kv)
+        logits = params.logits(cfg, h)                         # [B, w, V]
         greedy = torch.argmax(logits, dim=-1).to(torch.int32)
 
         # accept the longest prefix of drafts matching the greedy chain

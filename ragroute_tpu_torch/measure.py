@@ -965,7 +965,12 @@ LLM_BATCH, LLM_PROMPT, LLM_NEW = 16, 2048, 32
 def decoder_bytes(params) -> int:
     """Bytes of every weight a decode step reads: each matrix (codes and
     scales), the norms and the head; the embedding table counts only as
-    the head when it is tied (a lookup reads B columns)."""
+    the head when it is tied (a lookup reads B columns). A tensor-parallel
+    decoder's: every cell's (the replicated norms once a cell)."""
+    from ragroute_tpu_torch.llm.sharding import TPDecoder
+
+    if isinstance(params, TPDecoder):
+        return sum(decoder_bytes(c) for row in params.cells for c in row)
     total = 0
     for module in [params, *params.layers]:
         for name, w in module.items():
@@ -989,11 +994,11 @@ def decode_step_breakdown(params, cfg, device, *, bsz: int = LLM_BATCH,
     step)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ragroute_tpu_torch.llm.model import decode_step, init_cache
+    from ragroute_tpu_torch.llm.model import decode_step
     from ragroute_tpu_torch.ops.int4_matmul import int4_matmul
     from ragroute_tpu_torch.ops.kernel_checks import HBM_BYTES_PER_S
 
-    cache = init_cache(cfg, bsz, prompt + new, cache_dtype, device=device)
+    cache = params.init_cache(cfg, bsz, prompt + new, cache_dtype)
     lengths = torch.full((bsz,), prompt, dtype=torch.int32, device=device)
     tok = torch.arange(bsz, dtype=torch.int32, device=device)
     times, t = [], 0
@@ -1032,9 +1037,11 @@ def decode_step_breakdown(params, cfg, device, *, bsz: int = LLM_BATCH,
     # the valid K/V a step reads (codes and, for an int8 cache, scales),
     # at the mean valid length of the timed steps
     s_valid = prompt + 2 + (steps + 1) / 2
+    code_bytes = torch.tensor(
+        [], dtype=torch.int8 if cache_dtype == "int8" else cache_dtype
+    ).element_size()
     per_pos = 2 * cfg.num_layers * bsz * cfg.num_kv_heads * (
-        cfg.head_dim * cache["k"].element_size()
-        + (4 if "ks" in cache else 0))
+        cfg.head_dim * code_bytes + (4 if "ks" in cache else 0))
     wbytes = decoder_bytes(params)
     kv_bytes = per_pos * s_valid
     return {"step_ms": float(np.median(times)),

@@ -20,7 +20,7 @@ view, not a copy.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -76,6 +76,18 @@ class Mesh:
     def __repr__(self) -> str:
         return (f"Mesh(dp={self.shape['dp']}, idx={self.shape['idx']}, "
                 f"devices={[[str(d) for d in r] for r in self.devices]})")
+
+
+def batch_rows(batch: int, parts: int) -> List[Tuple[int, int]]:
+    """``[start, stop)`` of each of ``parts`` blocks of a batch, as
+    ``np.array_split`` (and a ``PartitionSpec`` over uneven rows) cuts
+    it: the first ``batch % parts`` blocks one row larger."""
+    out, lo = [], 0
+    for d in range(parts):
+        hi = lo + batch // parts + (1 if d < batch % parts else 0)
+        out.append((lo, hi))
+        lo = hi
+    return out
 
 
 def default_devices() -> Tuple[torch.device, ...]:

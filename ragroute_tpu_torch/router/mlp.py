@@ -25,13 +25,24 @@ LN_EPS = 1e-5
 DROPOUT_RATE = 0.4      # reference router.py:42,46
 
 
-def dropout(h: torch.Tensor, generator: torch.Generator,
-            rate: float = DROPOUT_RATE) -> torch.Tensor:
-    """Inverted dropout: keep each entry with probability ``1 - rate``
-    (``rand < keep``), scaled by ``1 / keep``; zero the rest."""
-    keep = 1.0 - rate
-    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
-    return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype,
+KEEP = 1.0 - DROPOUT_RATE
+
+
+def dropout_masks(batch_shape, generator: torch.Generator, device):
+    """The keep masks ``forward_train`` draws from ``generator``, in its
+    order: ``[*batch_shape, 256]`` after the first ReLU, then ``[...,
+    128]`` after the second, each entry kept with probability ``KEEP``
+    (``rand < KEEP``). Drawn for a whole batch, their row slices serve its
+    parts (the dp-sharded training step)."""
+    return tuple(torch.rand((*batch_shape, width), generator=generator,
+                            device=device) < KEEP
+                 for width in (HIDDEN1, HIDDEN2))
+
+
+def dropout(h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Inverted dropout under a keep mask of ``dropout_masks``: the kept
+    entries scaled by ``1 / KEEP``, the rest zero."""
+    return torch.where(mask, h / KEEP, torch.zeros((), dtype=h.dtype,
                                                    device=h.device))
 
 
@@ -46,18 +57,22 @@ class CorpusRouter(nn.Module):
         self.ln2 = nn.LayerNorm(HIDDEN2, eps=LN_EPS)
         self.fc3 = nn.Linear(HIDDEN2, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, masks=None) -> torch.Tensor:
+        """Eval forward; with ``masks`` (``dropout_masks``) the train-mode
+        forward under those dropout masks."""
         h = torch.relu(self.ln1(self.fc1(x)))
+        if masks is not None:
+            h = dropout(h, masks[0])
         h = torch.relu(self.ln2(self.fc2(h)))
+        if masks is not None:
+            h = dropout(h, masks[1])
         return self.fc3(h)[..., 0]
 
     def forward_train(self, x: torch.Tensor,
                       generator: torch.Generator) -> torch.Tensor:
         """Train-mode forward: dropout(0.4) after each ReLU, its masks drawn
         from ``generator`` (on ``x``'s device)."""
-        h = dropout(torch.relu(self.ln1(self.fc1(x))), generator)
-        h = dropout(torch.relu(self.ln2(self.fc2(h))), generator)
-        return self.fc3(h)[..., 0]
+        return self(x, dropout_masks(x.shape[:-1], generator, x.device))
 
     @classmethod
     def from_seed(cls, input_dim: int, seed: int = 0,

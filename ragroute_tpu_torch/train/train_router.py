@@ -40,7 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ragroute_tpu_torch.router.mlp import CorpusRouter
+from ragroute_tpu_torch.router.mlp import CorpusRouter, dropout_masks
 from ragroute_tpu_torch.utils.precision import resolve_device
 
 # reference hyperparameters (train_medrag_router.py:394-414)
@@ -123,6 +123,60 @@ def train_step(model: CorpusRouter, opt, sched, x: torch.Tensor,
     opt.step()
     sched.step()
     return loss.detach()
+
+
+def dp_train_step(model: CorpusRouter, opt, sched, x: torch.Tensor,
+                  y: torch.Tensor, mesh, pos_weight=1.0,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """``train_step`` with the batch split over every ``(dp, idx)`` cell of
+    ``mesh`` (dp-major, ``P(("dp", "idx"), None)``'s blocks; ``model``,
+    ``x`` and ``y`` on ``mesh.primary``).
+
+    Each cell's replica of the parameters, on the cell's device, takes the
+    gradients of its rows' loss weighted by their share of the batch (so an
+    uneven split weights each cell by its row count); the gradients are
+    summed on the primary, where the clip and the Adam step run once, and
+    the next step's replicas are copies of the updated parameters. Dropout
+    masks are drawn for the whole batch from ``generator`` on the primary,
+    in ``train_step``'s order, and sliced per cell: the step equals
+    ``train_step`` on the whole batch up to the order of the sums. Returns
+    the loss on the primary (no sync)."""
+    from ragroute_tpu_torch.parallel.mesh import batch_rows
+
+    cells = [dev for row in mesh.devices for dev in row]
+    b = x.shape[0]
+    masks = (None if generator is None
+             else dropout_masks((b,), generator, x.device))
+    if not torch.is_tensor(pos_weight):
+        pos_weight = torch.tensor(pos_weight, dtype=x.dtype, device=x.device)
+    named = dict(model.named_parameters())
+    grads = {name: None for name in named}
+    loss = None
+    for dev, (lo, hi) in zip(cells, batch_rows(b, len(cells))):
+        if hi == lo:
+            continue
+        replica = {name: p.detach().to(dev).requires_grad_()
+                   for name, p in named.items()}
+        cm = (None if masks is None
+              else tuple(m[lo:hi].to(dev) for m in masks))
+        logits = torch.func.functional_call(
+            model, replica, (x[lo:hi].to(dev),), {"masks": cm})
+        part = bce_with_logits(logits, y[lo:hi].to(dev),
+                               pos_weight.to(dev)) * ((hi - lo) / b)
+        cell_grads = torch.autograd.grad(part, list(replica.values()))
+        for name, g in zip(replica, cell_grads):
+            g = g.to(x.device)
+            grads[name] = g if grads[name] is None else grads[name] + g
+        part = part.detach().to(x.device)
+        loss = part if loss is None else loss + part
+    opt.zero_grad(set_to_none=True)
+    for name, p in named.items():
+        p.grad = grads[name]
+    clip_by_global_norm(model.parameters(), GRAD_CLIP)
+    opt.step()
+    sched.step()
+    return loss
 
 
 def find_optimal_threshold(

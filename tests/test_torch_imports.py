@@ -70,6 +70,7 @@ def test_entry_points_import_no_jax():
         "import ragroute_tpu_torch.parallel.streamed_mesh\n"
         "import ragroute_tpu_torch.parallel.multihost\n"
         "import ragroute_tpu_torch.encoders.tokenize\n"
+        "import ragroute_tpu_torch.llm.sharding, ragroute_tpu_torch.dryrun\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
         "                                    'ml_dtypes', 'ragroute_tpu',\n"

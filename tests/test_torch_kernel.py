@@ -899,3 +899,33 @@ def test_router_trainer_on_the_card_equals_the_cpu_trainer(cuda):
     for key, want in states[0].items():
         torch.testing.assert_close(states[1][key], want, rtol=0, atol=1e-4,
                                    msg=key)
+
+
+def test_tp_decoder_on_the_card_gives_the_single_cards_tokens(cuda):
+    """The tensor-parallel decoder over a 2x4 mesh of the card (its slices
+    views of the card's weights): the single card's greedy tokens with an
+    f32 and an int8 cache, qk-norm, a left-padded row and an uneven batch
+    (3 rows over dp=2)."""
+    from ragroute_tpu_torch.llm import model as tm
+    from ragroute_tpu_torch.llm.sharding import shard_decoder_params
+    from ragroute_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = tm.DecoderConfig(vocab_size=512, hidden_size=256, num_layers=4,
+                           num_heads=8, num_kv_heads=4, head_dim=32,
+                           intermediate_size=512, qk_norm=True)
+    params = tm.init_decoder_params(0, cfg, device=cuda)
+    tp = shard_decoder_params(params, cfg, make_mesh(2, 4,
+                                                     devices=[cuda] * 8))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for bsz in (6, 3):
+        ids = torch.randint(1, cfg.vocab_size, (bsz, 16), generator=gen,
+                            device=cuda, dtype=torch.int32)
+        mask = torch.ones_like(ids)
+        mask[1, :5] = 0
+        for cache_dtype in (torch.float32, "int8"):
+            with torch.no_grad():
+                want, _ = tm.generate(params, cfg, ids, mask, 12, eos_id=-1,
+                                      cache_dtype=cache_dtype)
+                got, _ = tm.generate(tp, cfg, ids, mask, 12, eos_id=-1,
+                                     cache_dtype=cache_dtype)
+            assert torch.equal(got, want), (bsz, cache_dtype)

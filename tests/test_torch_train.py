@@ -38,7 +38,8 @@ from ragroute_tpu_torch.index.synthetic import (contribution_labels,
 from ragroute_tpu_torch.router import (CorpusRouter, RouterBank,
                                        build_features, params_from_jax,
                                        params_to_jax, save_router_npz)
-from ragroute_tpu_torch.router.mlp import DROPOUT_RATE, dropout
+from ragroute_tpu_torch.router.mlp import (DROPOUT_RATE, dropout,
+                                          dropout_masks)
 from ragroute_tpu_torch.router.torch_import import load_router
 from ragroute_tpu_torch.train import train_router as T
 
@@ -102,14 +103,22 @@ def test_threshold_scaler_and_metrics_equal_jax():
 
 
 def test_dropout_keeps_six_tenths_scaled_and_repeats_with_its_seed():
-    h = torch.full((1_000_000,), 2.0)
-    out = dropout(h, torch.Generator().manual_seed(3))
-    kept = out != 0
+    def masks(seed):
+        return dropout_masks((4000,), torch.Generator().manual_seed(seed),
+                             "cpu")
+
+    m1, m2 = masks(3)
+    assert (m1.shape, m2.shape) == ((4000, 256), (4000, 128))
     keep = 1.0 - DROPOUT_RATE
-    assert abs(kept.float().mean().item() - keep) < 0.01
-    assert torch.equal(out[kept], torch.full_like(out[kept], 2.0 / keep))
-    assert torch.equal(out, dropout(h, torch.Generator().manual_seed(3)))
-    assert not torch.equal(out, dropout(h, torch.Generator().manual_seed(4)))
+    for m in (m1, m2):
+        h = torch.full(m.shape, 2.0)
+        out = dropout(h, m)
+        kept = out != 0
+        assert torch.equal(kept, m)
+        assert abs(kept.float().mean().item() - keep) < 0.01
+        assert torch.equal(out[kept], torch.full_like(out[kept], 2.0 / keep))
+    assert all(torch.equal(a, b) for a, b in zip((m1, m2), masks(3)))
+    assert not any(torch.equal(a, b) for a, b in zip((m1, m2), masks(4)))
     # the train-mode forward draws from the generator it is given; the
     # serving forward draws nothing
     model = CorpusRouter.from_seed(16, 1)
