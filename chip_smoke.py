@@ -27,7 +27,11 @@ Phases, each of which fails the run when it fails:
      shard, k=32 (1e-3 x max|score|, winner-set recall >= 0.999); the same
      shard int4-packed with per-doc and with per-group scales, in int8 and
      in f32 (the f32 scan: its exact cases at k 1 to 64 through the plan
-     and by name first; cuBLAS's SGEMM of the product as a note); the
+     and by name first; cuBLAS's SGEMM of the product as a note), and in
+     f32 at B = 1, 8, 32 and 64 (the small-batch f32 scan: its exact cases
+     at each B through the plan and by name first; each with the first
+     design's time and device time beside it, the bound's share and the
+     SGEMM note); the
      low-rank coarse scan (734,003 x 128 bf16) at k'=128 and
      k'=256 (--refine-mult 8), through the deep fold with the deep launch's
      time beside it; the host tiers'
@@ -37,16 +41,19 @@ Phases, each of which fails the run when it fails:
      (the deep fold, with the deep launch's time beside it); over live
      shards (a capacity on the 512-row grid scanned whole, -inf bias holes
      anywhere in it, 40 live rows under k) exact cases of every launch, the
-     wgmma scan, the f32 scan, the first design, the deep fold and the deep
-     launch, each by name and through the plan, and the live pubmed
+     wgmma scan, the f32 scan, the small-batch f32 scan, the first design,
+     the deep fold and the deep launch, each by name and through the plan,
+     and the live pubmed
      shard's shape (738,304 rows, a free tail and scattered holes); each
      int8 / int4 row with the first design's time at the same shape beside
      it, the deep rows with the profiler's device time and a bound that
      counts the gains' round trip through device memory;
-   * streaming top-k: exact cases over both of its paths (the radix select
-     a block, the warp-streaming path, runs merged across splits) and the
+   * streaming top-k: exact cases over both of its planned paths (the
+     radix select a block, runs merged across splits; the collect, its
+     split lists merged in the launch, rows off the 16-byte grid) and the
      deep launch (k 161 to M, one run and runs merged, rows in slices),
-     then [512, 131,072] stored gains, k=32, and the probed coarse scan's
+     then [512, 131,072] stored gains, k=32 (the collect), and the probed
+     coarse scan's
      collect, [512, 4,096] with -inf entries, k'=128 and 256, random and as
      sorted runs of 8 with ties (equal; CUDA-event and profiler device
      times);
@@ -83,6 +90,10 @@ Phases, each of which fails the run when it fails:
      int8 cache and the JAX package's measured shape, each against the
      plain version and the engines' ``_attend``, with SDPA (GQA) as the
      library time for the bf16 cache.
+
+   A profiler device time under its row's bound (a window that missed
+   the kernel's launches) is read again, and fails the run after three
+   such readings.
 3. The main paths at real size: the synthetic medrag world of 1,048,575
    docs x 768 is written to a temporary data root and served by the port's
    ``ServingSystem`` exactly as ``python -m ragroute_tpu_torch.main
@@ -101,8 +112,9 @@ Phases, each of which fails the run when it fails:
    somewhere (and none for a query it sends nowhere, as in the reference),
    the batcher must form a batch larger than one, and the path's kernels
    must have launched between the warm-up and the last answer (the exact
-   path through K1's wgmma scan, the f32 one through its f32 scan, ivf
-   through K3's wgmma kernel); then
+   path through K1's wgmma scan, the f32 one through its f32 scan and its
+   small-batch f32 scan, ivf through K3's wgmma kernel and K2's collect);
+   then
    ``engine.search`` on 64 queries is held against ``exact_oracle`` (exact
    and low-rank: recall >= 0.99; ivf at its default nprobe C/8: recall
    >= 0.9). The hybrid engine on the ivf run's layouts must probe only
@@ -433,8 +445,11 @@ WGMMA_PATHS = {"exact": ("fused_topk",), "stream": ("fused_topk",),
                "ivf": ("grouped_gains",),
                "hostrefine_probed": ("grouped_pair_topk",)}
 # the kernels each served path must launch through their f32 designs: K1's
-# f32 scan on the exact path over f32 docs
+# f32 scan and its small-batch scan on the exact path over f32 docs
 F32_PATHS = {"exact_f32": ("fused_topk",)}
+F32_SMALL_PATHS = {"exact_f32": ("fused_topk",)}
+# and through K2's collect: the ivf path's collect of its probed gains
+COLLECT_PATHS = {"ivf": ("stream_topk",)}
 
 # the paths served at --refine-mult 8 (k' = 256 at medrag's k = 32), the
 # kernels that must take the launch that serves that depth there, named by
@@ -497,11 +512,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+COUNTERS = ("deep", "wgmma", "fold", "f32", "f32_small", "collect")
+
+
 def reset_counts() -> None:
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
         for extra in ("deep_launches", "wgmma_launches", "fold_launches",
-                      "f32_launches"):
+                      "f32_launches", "f32_small_launches",
+                      "collect_launches"):
             if hasattr(wrapper, extra):
                 setattr(wrapper, extra, 0)
 
@@ -512,9 +531,10 @@ def read_counts() -> dict:
     ``wgmma``, those of K1's scan (lists up to 64), K3's wgmma kernel and
     K4's wgmma kernel; under ``fold``, those of K1's scan with the deep fold
     (lists past 64); under ``f32``, those of K1's f32 scan and K3's f32
-    kernel."""
+    kernel; under ``f32_small``, those of K1's small-batch f32 scan; under
+    ``collect``, those of K2's collect."""
     out = {name: k[0].launches for name, k in KERNELS.items()}
-    for extra in ("deep", "wgmma", "fold", "f32"):
+    for extra in COUNTERS:
         out[extra] = {name: getattr(k[0], f"{extra}_launches")
                       for name, k in KERNELS.items()
                       if hasattr(k[0], f"{extra}_launches")}
@@ -522,9 +542,11 @@ def read_counts() -> dict:
 
 
 def check_wgmma(label: str, launches: dict) -> None:
-    """The path's kernels that must have run their wgmma (or f32) design
-    did."""
-    for counter, paths in (("wgmma", WGMMA_PATHS), ("f32", F32_PATHS)):
+    """The path's kernels that must have run their wgmma (or f32, or
+    collect) design did."""
+    for counter, paths in (("wgmma", WGMMA_PATHS), ("f32", F32_PATHS),
+                           ("f32_small", F32_SMALL_PATHS),
+                           ("collect", COLLECT_PATHS)):
         for name in paths.get(label, ()):
             if launches[counter][name] <= 0:
                 raise AssertionError(f"the {label} path never launched the "
@@ -559,6 +581,22 @@ def h2d_rate_gbs(nbytes: int = 256 << 20) -> float:
     ms = kc.cuda_time_ms(lambda: dev.copy_(host, non_blocking=True),
                          warmup=2, reps=5)
     return nbytes / ms / 1e6
+
+
+def bounded_device_ms(fn, wrapper, bound_ms: float, label: str,
+                      **kw) -> float:
+    """``dc.device_ms`` of ``fn``, read again while it comes in under
+    ``bound_ms``, the least time the card could take for the work: such a
+    reading is a profiler window that missed the kernel's launches. Fails
+    the smoke after three readings under the bound."""
+    for _ in range(3):
+        ms = dc.device_ms(fn, wrapper, **kw)
+        if ms >= bound_ms:
+            return ms
+        log(f"[kernel] {label}: device {ms:.6f} ms under its bound "
+            f"{bound_ms:.6f} ms (the profiler missed launches): read again")
+    raise AssertionError(f"{label}: device time {ms} ms stays under its "
+                         f"bound {bound_ms} ms")
 
 
 def phase_environment() -> str:
@@ -598,11 +636,12 @@ def phase_environment() -> str:
 
 def _check_fused_path(case, label: str, reps: int = 10,
                       q_chunk=None, device: bool = False,
-                      old: str = None) -> dict:
+                      old: str = None, old_device: bool = False) -> dict:
     """Kernel against plain version at a path shape, with CUDA-event times,
     the bound, and with ``old`` (the launch the wrapper's plan took before
-    the wgmma scan took the shape, named to ``kernel_checks.run_kernel``)
-    that launch's time as ``old_ms``."""
+    the shape's redesign, named to ``kernel_checks.run_kernel``) that
+    launch's time as ``old_ms`` (and its device time as ``old_device_ms``
+    with ``old_device``)."""
     kernel, plain = kc.run_pair(case, q_chunk)
     res = kc.compare_tolerant(kernel, plain)
     plan = kc.fused_plan_of(case)
@@ -622,24 +661,49 @@ def _check_fused_path(case, label: str, reps: int = 10,
            "bound_by": bound["bound_by"], "library_ms": None}
     note = floor = ""
     if device:   # every launch of the call (the deep launch makes many)
-        row["device_ms"] = dc.device_ms(lambda: kc.run_kernel(case),
-                                        fused_topk, warmup=1, reps=3)
+        row["device_ms"] = bounded_device_ms(
+            lambda: kc.run_kernel(case), fused_topk, bound["bound_ms"],
+            f"fused_topk {label}", warmup=1, reps=3)
         note = f" (device {row['device_ms']:.3f})"
     if old:
         row["old_ms"] = kc.cuda_time_ms(lambda: kc.run_kernel(case, old),
                                         reps=reps)
         row["old_kernel"] = old
-        note += f" (the {old} launch before: {row['old_ms']:.3f})"
+        note += f" (the {old} launch before: {row['old_ms']:.3f}"
+        if old_device:
+            row["old_device_ms"] = bounded_device_ms(
+                lambda: kc.run_kernel(case, old), fused_topk,
+                bound["bound_ms"], f"fused_topk {label} ({old})", warmup=1,
+                reps=3)
+            note += f", device {row['old_device_ms']:.3f}"
+        note += ")"
     if "workspace_bytes" in bound:   # the deep launch's gains' round trip
         row["workspace_bytes"] = bound["workspace_bytes"]
         row["design_floor_ms"] = bound["design_floor_ms"]
         floor = (f"; with the gains' round trip "
                  f"({bound['workspace_bytes'] / 1e9:.3f} GB) "
                  f"{bound['design_floor_ms']:.3f} ms")
+    share = (f", {bound['bound_ms'] / row['device_ms']:.2f} of the bound"
+             if device else "")
     log(f"[kernel] fused_topk {label}: kernel {ms:.3f} ms{note}, plain "
         f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
-        f"({bound['bound_by']}){floor}")
+        f"({bound['bound_by']}){floor}{share}")
     torch.cuda.empty_cache()
+    return row
+
+
+def _sgemm_note(row: dict, case) -> dict:
+    """A note beside an f32 path shape: cuBLAS's SGEMM of the product alone
+    (no top-k), full f32 (no TF32); the port never calls it."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    row["sgemm_note_ms"] = kc.cuda_time_ms(
+        lambda: torch.matmul(case.queries, case.docs.T), warmup=1, reps=3)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    bsz, d = case.queries.shape
+    log(f"[kernel] fused_topk f32 B={bsz}: note: torch.matmul [{bsz} x {d}] "
+        f"@ [{d} x {case.docs.shape[0]}] f32 without TF32 (cuBLAS SGEMM, the "
+        f"product alone) {row['sgemm_note_ms']:.3f} ms")
     return row
 
 
@@ -660,7 +724,8 @@ def phase_fused_live(dev) -> dict:
         f"(1,536 and 20,480 rows scanned whole, -inf holes scattered, in a "
         f"run, on one copy of a duplicate and in a free tail; 40 live rows "
         f"under k), through the plan and through the wgmma scan (bf16, "
-        f"int8, int4 per-doc / per-group), the f32 scan, the first design, "
+        f"int8, int4 per-doc / per-group), the f32 scan, the small-batch f32 "
+        f"scan, the first design, "
         f"the deep fold and the deep launch: indices and scores equal")
     # the live index's pubmed shard: its capacity scanned whole, the
     # reserve free and deleted rows as -inf holes
@@ -727,24 +792,30 @@ def phase_fused(dev) -> dict:
         f"k {', '.join(map(str, kc.WGMMA_KS))}; B=150 over two query blocks, "
         f"845 docs off the tile, d 64 / 80 / 192, -inf tail, valid_docs < N, "
         f"splits of several tiles): indices and scores equal")
+    t0 = time.perf_counter()
     f32 = []
-    for case in kc.f32_exact_cases(dev):
-        ps, pi = kc.run_plain(case)
-        for kernel in (None, "f32"):
-            ks, ki = kc.run_kernel(case, kernel)
-            torch.cuda.synchronize()
-            if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
-                raise AssertionError(f"the f32 scan ({kernel or 'plan'}) != "
-                                     f"plain on exact case {case.name}")
-        if kc.fused_plan_of(case) != "f32":
-            raise AssertionError(f"fused_topk plans {case.name} to "
-                                 f"{kc.fused_plan_of(case)}")
-        f32.append(case.name)
-    log(f"[kernel] fused_topk {len(f32)} exact cases of the f32 scan (k "
-        f"{', '.join(map(str, kc.F32_KS))}; B=200 over two query tiles, 845 "
-        f"docs off the tile, d 64 / 80 / 96, dot / l2 / cos, -inf tail, "
-        f"valid_docs < N, per-doc scales, 20,000 docs in splits), through the "
-        f"plan and by name: indices and scores equal")
+    for bsz in (200,) + kc.F32_SMALL_BATCHES:
+        route = "f32" if bsz > 64 else "f32_small"
+        for case in kc.f32_exact_cases(dev, bsz=bsz):
+            ps, pi = kc.run_plain(case)
+            for kernel in (None, route):
+                ks, ki = kc.run_kernel(case, kernel)
+                torch.cuda.synchronize()
+                if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+                    raise AssertionError(f"the {route} scan ({kernel or 'plan'}"
+                                         f") != plain on exact case "
+                                         f"{case.name} at B={bsz}")
+            if kc.fused_plan_of(case) != route:
+                raise AssertionError(f"fused_topk plans {case.name} at "
+                                     f"B={bsz} to {kc.fused_plan_of(case)}")
+            f32.append(case.name)
+    log(f"[kernel] fused_topk {len(f32)} exact cases of the f32 scan at B=200 "
+        f"(two query tiles) and of the small-batch f32 scan at B="
+        f"{', '.join(map(str, kc.F32_SMALL_BATCHES))} (k "
+        f"{', '.join(map(str, kc.F32_KS))}; 845 docs off the tile, d 64 / 80 "
+        f"/ 96, dot / l2 / cos, -inf tail, valid_docs < N, per-doc scales, "
+        f"20,000 docs in splits), through the plan and by name: indices and "
+        f"scores equal ({time.perf_counter() - t0:.1f} s)")
     qn = []
     for case in kc.quant_exact_cases(dev):
         (ks, ki), (ps, pi) = kc.run_kernel(case, "wgmma"), kc.run_plain(case)
@@ -782,22 +853,22 @@ def phase_fused(dev) -> dict:
     modes["f32_k32"] = _check_fused_path(
         f32, "B=512 N=734003 d=768 f32 dot k=32", reps=3, device=True,
         old="shallow")
-    # a note: cuBLAS's SGEMM of the product alone (no top-k), full f32; the
-    # port never calls it
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    modes["f32_k32"]["sgemm_note_ms"] = kc.cuda_time_ms(
-        lambda: torch.matmul(f32.queries, f32.docs.T), warmup=1, reps=3)
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    log(f"[kernel] fused_topk f32 path shape: note: torch.matmul [512 x 768] "
-        f"@ [768 x 734003] f32 without TF32 (cuBLAS SGEMM, the product "
-        f"alone) {modes['f32_k32']['sgemm_note_ms']:.3f} ms")
-    # the f32 run's batches of 64 query rows or fewer: the plan keeps PR 1's
-    # partial_topk_kernel there (fused_topk.f32_scan_pays)
-    small = dataclasses.replace(f32, queries=f32.queries[:64].contiguous())
-    modes["f32_b64_k32"] = _check_fused_path(
-        small, "B=64 N=734003 d=768 f32 dot k=32 (partial_topk_kernel)",
-        reps=5, device=True)
+    _sgemm_note(modes["f32_k32"], f32)
+    # the f32 run's batches of 64 query rows or fewer (the batcher's buckets
+    # 1, 8 and 32, and 64): the small-batch f32 scan, the first design
+    # (partial_topk_kernel) timed beside it
+    t0 = time.perf_counter()
+    for bsz in kc.F32_SMALL_BATCHES:
+        small = dataclasses.replace(
+            f32, queries=f32.queries[:bsz].contiguous())
+        row = _check_fused_path(
+            small, f"B={bsz} N=734003 d=768 f32 dot k=32", reps=5,
+            device=True, old="shallow", old_device=True)
+        modes[f"f32_b{bsz}_k32"] = _sgemm_note(row, small)
+        if row["kernel"] != "f32_small":
+            raise AssertionError(f"f32 at B={bsz} planned to {row['kernel']}")
+    log(f"[time] the small-batch f32 path shapes took "
+        f"{time.perf_counter() - t0:.1f} s")
     del f32, small
     torch.cuda.empty_cache()
     # the low-rank coarse scan's lists past 64 take the deep fold; the deep
@@ -850,7 +921,8 @@ def phase_stream(dev) -> dict:
         n += 1
     log(f"[kernel] stream_topk {n} exact cases (ties across groups, splits "
         f"and k; -inf entries and rows; M < 2k and M % 4 != 0; sorted runs; "
-        f"both paths, runs merged across splits; k 1..160; deep lists k 161 "
+        f"the select path and the collect (k 1, 32, 64 over rows off the "
+        f"16-byte grid), runs merged across splits; k 1..160; deep lists k 161 "
         f"to M over one run and over runs merged): positions and gains "
         f"equal")
     # the deep launch in slices of 4 rows
@@ -872,6 +944,9 @@ def phase_stream(dev) -> dict:
         raise AssertionError(f"stream_topk disagrees with its plain version "
                              f"on the path shape (max err {err})")
     del kg, ki, pg, pi
+    if kc.stream_plan_of(gains, k) != "collect":
+        raise AssertionError(f"stream_topk plans the ivf collect to "
+                             f"{kc.stream_plan_of(gains, k)}")
     row = _time_stream(gains, k, "path shape B=512 M=131072 k=32 (20% -inf)")
     del gains
     torch.cuda.empty_cache()
@@ -891,12 +966,13 @@ def _time_stream(gains, k: int, label: str) -> dict:
     (the same lists, no order promised among ties), the kernel's device time
     from the profiler, and its bound."""
     ms = kc.cuda_time_ms(lambda: stream_topk(gains, k), reps=20)
-    dev_ms = dc.device_ms(lambda: stream_topk(gains, k), stream_topk)
+    bound = kc.k2_bound(gains, k)
+    dev_ms = bounded_device_ms(lambda: stream_topk(gains, k), stream_topk,
+                               bound["bound_ms"], f"stream_topk {label}")
     plain_ms = kc.cuda_time_ms(lambda: kc.stream_topk_reference(gains, k),
                                warmup=1, reps=5)
     library_ms = kc.cuda_time_ms(lambda: torch.topk(gains, k, dim=1),
                                  reps=20)
-    bound = kc.k2_bound(gains, k)
     log(f"[kernel] stream_topk {label}: equal; kernel {ms:.4f} ms (device "
         f"{dev_ms:.4f}, {bound['bound_ms'] / dev_ms:.3f} of its bound), plain "
         f"{plain_ms:.4f} ms, torch.topk {library_ms:.4f} ms, bound "
@@ -942,14 +1018,17 @@ def _check_grouped_path(case, label: str) -> dict:
     del out, plain
     torch.cuda.empty_cache()
     ms = kc.cuda_time_ms(lambda: kc.run_grouped_kernel(case))
-    dev_ms = dc.device_ms(lambda: kc.run_grouped_kernel(case), grouped_gains,
-                          warmup=1, reps=10)
+    bound = kc.k3_bound(case)
+    dev_ms = bounded_device_ms(lambda: kc.run_grouped_kernel(case),
+                               grouped_gains, bound["bound_ms"],
+                               f"grouped_gains {label}", warmup=1, reps=10)
     old_ms = kc.cuda_time_ms(lambda: kc.run_grouped_kernel(case, "first"))
-    old_dev = dc.device_ms(lambda: kc.run_grouped_kernel(case, "first"),
-                           grouped_gains, warmup=1, reps=10)
+    old_dev = bounded_device_ms(lambda: kc.run_grouped_kernel(case, "first"),
+                                grouped_gains, bound["bound_ms"],
+                                f"grouped_gains {label} (first)", warmup=1,
+                                reps=10)
     plain_ms = kc.cuda_time_ms(lambda: kc.run_grouped_plain(case, blocks),
                                warmup=1, reps=3)
-    bound = kc.k3_bound(case)
     log(f"[kernel] grouped_gains {label}: kernel {ms:.3f} ms (device "
         f"{dev_ms:.3f}, {bound['bound_ms'] / dev_ms:.2f} of the bound), the "
         f"first design {old_ms:.3f} ms (device {old_dev:.3f}), plain "
@@ -1079,13 +1158,15 @@ def phase_pair(dev) -> dict:
     torch.cuda.empty_cache()
     plan = kc.pair_plan_of(case)
     ms = kc.cuda_time_ms(lambda: kc.run_pair_kernel(case))
-    dev_ms = dc.device_ms(lambda: kc.run_pair_kernel(case), grouped_pair_topk,
-                          warmup=1, reps=5)
+    bound = kc.k4_bound(case)
+    dev_ms = bounded_device_ms(lambda: kc.run_pair_kernel(case),
+                               grouped_pair_topk, bound["bound_ms"],
+                               "grouped_pair_topk path shape", warmup=1,
+                               reps=5)
     # the first design, which took this shape before the wgmma kernel
     old_ms = kc.cuda_time_ms(lambda: kc.run_pair_kernel(case, "shallow"))
     plain_ms = kc.cuda_time_ms(lambda: kc.run_pair_plain(case, blocks),
                                warmup=1, reps=2)
-    bound = kc.k4_bound(case)
     # no single PyTorch call computes this; for a note, torch.bmm over the
     # gathered slabs as bf16 (64 blocks at a time) and torch.topk of kw per
     # row over the whole slab: no scale, no bias, no tiles, no rank cap
@@ -1136,12 +1217,14 @@ def _check_pair_path(case, reps: int) -> dict:
                              f"version on {label}: {res}")
     del out, plain
     ms = kc.cuda_time_ms(lambda: kc.run_pair_kernel(case), reps=reps)
-    dev_ms = dc.device_ms(lambda: kc.run_pair_kernel(case),
-                          grouped_pair_topk, warmup=1, reps=reps)
+    bound = kc.k4_bound(case)
+    dev_ms = bounded_device_ms(lambda: kc.run_pair_kernel(case),
+                               grouped_pair_topk, bound["bound_ms"],
+                               f"grouped_pair_topk {label}", warmup=1,
+                               reps=reps)
     plain_ms = kc.cuda_time_ms(
         lambda: kc.run_pair_plain(case, real // kc.PAIR_ROWS), warmup=1,
         reps=2)
-    bound = kc.k4_bound(case)
     log(f"[kernel] grouped_pair_topk {label}: max_abs_err "
         f"{res['max_abs_err']:.3e}, {res['slots_differ']} of "
         f"{res['slots_compared']} clearly ordered slots differ, "
@@ -1201,14 +1284,17 @@ def phase_int4(dev) -> dict:
         # the first kernel, which the plan took at these shapes before the
         # prefill and the decode kernels took them
         old_ms = kc.cuda_time_ms(lambda: dc.run_int4(case, "mma"), reps=reps)
-        old_dev_ms = dc.device_ms(lambda: dc.run_int4(case, "mma"),
-                                  int4_matmul)
-        dev_ms = dc.device_ms(lambda: dc.run_int4(case), int4_matmul)
+        bound = dc.k5_bound(case)
+        old_dev_ms = bounded_device_ms(lambda: dc.run_int4(case, "mma"),
+                                       int4_matmul, bound["bound_ms"],
+                                       f"int4_matmul {case.name} (mma)")
+        dev_ms = bounded_device_ms(lambda: dc.run_int4(case), int4_matmul,
+                                   bound["bound_ms"],
+                                   f"int4_matmul {case.name}")
         plain_ms = kc.cuda_time_ms(lambda: dc.run_int4_plain(case), warmup=1,
                                    reps=3)
         note_ms = kc.cuda_time_ms(lambda: dc.dequant_matmul_note(case),
                                   warmup=1, reps=5)
-        bound = dc.k5_bound(case)
         m, i = case.x.shape
         o = case.w.shape[1]
         log(f"[kernel] int4_matmul {case.name} [{m} x {i}] @ [{i} x {o}]: "
@@ -1260,12 +1346,14 @@ def phase_decode_attention(dev) -> dict:
             raise AssertionError(f"decode_attention disagrees on "
                                  f"{case.name}: {res} {res_att}")
         ms = kc.cuda_time_ms(lambda: dc.run_attn(case), reps=20)
-        dev_ms = dc.device_ms(lambda: dc.run_attn(case), decode_attention)
+        bound = dc.k6_bound(case)
+        dev_ms = bounded_device_ms(lambda: dc.run_attn(case),
+                                   decode_attention, bound["bound_ms"],
+                                   f"decode_attention {case.name}")
         plain_ms = kc.cuda_time_ms(lambda: dc.run_attn_plain(case), reps=10)
         attend_ms = kc.cuda_time_ms(lambda: dc.run_attend(case), reps=10)
         library_ms = (None if case.ks is not None else
                       kc.cuda_time_ms(lambda: dc.sdpa_note(case), reps=10))
-        bound = dc.k6_bound(case)
         lib = ("none (int8 scales)" if library_ms is None
                else f"{library_ms:.4f} ms")
         log(f"[kernel] decode_attention {case.name}: max_abs_err "
@@ -2251,7 +2339,7 @@ def phase_reduced(dev) -> None:
     full = search(eng)
     exact = search(FederatedSearchEngine(eng.shard_set, router, bank))
     # the f32 ivf run through K3's f32 kernel (K1 at these 64 queries takes
-    # its first design: fused_topk.f32_scan_pays)
+    # its small-batch f32 scan: fused_topk.f32_scan_pays)
     if grouped_gains.f32_launches < 4:
         raise AssertionError(f"the f32 ivf run did not take K3's f32 "
                              f"kernel: {read_counts()}")
@@ -4823,7 +4911,7 @@ def report(smi: str, kres: dict, paths: dict) -> None:
             "launches": sum(by_path[p] for p, ks in PATH_KERNELS.items()
                             if name in ks and p in by_path),
             "launches_by_path": by_path, **kres[name]}
-        for extra in ("deep", "wgmma", "fold", "f32"):
+        for extra in COUNTERS:
             if hasattr(KERNELS[name][0], f"{extra}_launches"):
                 row[f"{extra}_launches_by_path"] = {
                     p: r["launches"][extra][name] for p, r in paths.items()

@@ -36,6 +36,8 @@
 //     deep k: the wrapper then asks for fewer, longer splits.
 //   * merge_splits_kernel (topk_merge.cuh): one block per query row merges
 //     the per-split sorted lists into [B, k] under the same order.
+//     It now takes f32 lists of 65 to 160 and int4 rows off the 16-byte
+//     grid; the redesigned routes below take every other shape.
 //   * Deeper lists (any k, as the TPU kernel takes; fused_topk_deep_launch,
 //     now for f32 docs, int4 rows off the 16-byte grid and lists past the
 //     deep fold's FOLD_MAX_K; the fold below takes the rest):
@@ -131,11 +133,26 @@
 // consumer warps wait on the ring's barriers, not on each other, so one
 // warp's fold runs beside the others' products. What bounds it is f32 FMA
 // at 67 TFLOP/s (8.6 ms at B = 512 over 734,003 x 768; it runs at about 60%
-// of that, PERF.md). Its 128-row query tile costs more than one of the
-// first design's 64-row tiles and less than two, so the plan keeps batches
-// of 64 rows or fewer there (ops/fused_topk.py::f32_scan_pays). f32 lists
-// past KSHALLOW keep partial_topk_kernel to KMAX and the deep launch past
-// it.
+// of that, PERF.md). f32 lists past KSHALLOW keep partial_topk_kernel to
+// KMAX and the deep launch past it.
+//
+// f32 docs at small batch (ops/fused_topk.py's "f32_small": up to 64 query
+// rows, k <= KSHALLOW; f32_scan_pays sets the crossover) take
+// f32_small_kernel (fused_topk_f32_small_launch). There the docs are read
+// once for little arithmetic (4 FLOP a byte at B = 8), so what bounds it is
+// the bytes: 2.255 GB over 734,003 x 768, 0.673 ms at 3.35 TB/s, and from
+// about 40 rows the f32 FMA (1.077 ms at B = 64). Its design: a query tile
+// sized to the batch (a template argument, TQ = 8, 32 or 64, so the
+// batcher's buckets 1, 8 and 32 compute no padded row past their tile);
+// [256 docs x 32] boxes and the [TQ x 32] query box by a producer warp's
+// TMA into a ring of 4 to 6 stages (128 to 192 KB of docs in flight an SM);
+// every consumer warp holds all TQ rows for its docs, so a doc value read
+// from shared memory feeds every row; the fold keeps each row's k-th best
+// in registers and sends the few passing gains to the row's buffer, merged
+// by rank only when a buffer fills (two reducing barriers a tile among the
+// consumers: no gain tile in shared memory). One template serves 1 to 64
+// rows only at the cost of a 64-row tile's arithmetic at B = 1 and of its
+// 8 x 8 register tile, so three instantiations exist (8, 32, 64 rows).
 //
 // Lists past KSHALLOW over the docs the scan takes go to the same kernel
 // with its deep fold (DEEP; fused_topk_fold_launch, ops/fused_topk.py's
@@ -183,7 +200,9 @@ namespace {
 
 using namespace nvcuda;
 using topk::FULL;
+using topk::merge_buffer;
 using topk::neg_inf;
+using topk::precedes;
 
 constexpr int TQ = 64;        // query rows per block
 constexpr int TD = 64;        // docs per tile
@@ -486,58 +505,6 @@ __host__ __device__ constexpr int w_smem_bytes(int nwg, int stages, int K,
          (deep ? 64 * nwg * 12 + nwg * 4 * (W_HIST * 4 + W_CUT_WORDS * 8)
                : 64 * nwg * ((K + W_CAP) * 8 + 4)) +
          nwg * 4 * WTD * 4 + (2 * stages + raw) * 8 + 1024;
-}
-
-// (a, ia) comes before (b, ib): the lists' order, gain desc then index asc
-__device__ __forceinline__ bool precedes(float a, int ia, float b, int ib) {
-  return a > b || (a == b && ia < ib);
-}
-
-// One warp merges a row's candidate buffer (n <= 32 entries, any order) into
-// the row's sorted list of K: each entry's new place is its rank in the
-// union under the lists' order, found by counting, so no entry is inserted
-// one at a time; places past K fall off. A list entry's rank counts the
-// candidates before it (a pass over the candidates, shuffled to every lane);
-// a candidate's counts the candidates before it in the same pass and the
-// list entries before it by a binary search of the sorted list. An unfilled
-// list slot is (-inf, 0) and comes after every candidate.
-template <int SLOTS>
-__device__ __forceinline__ void merge_buffer(float* rg, int* ri,
-                                             const float* bg, const int* bi,
-                                             int K, int n, int lane) {
-  float e[SLOTS];
-  int ix[SLOTS], rl[SLOTS];
-#pragma unroll
-  for (int s = 0; s < SLOTS; ++s) {
-    const int at = lane + 32 * s;
-    e[s] = at < K ? rg[at] : neg_inf();
-    ix[s] = at < K ? ri[at] : 0;
-    rl[s] = 0;
-  }
-  const bool mine = lane < n;
-  const float bx = mine ? bg[lane] : neg_inf();
-  const int bid = mine ? bi[lane] : 0;
-  int rb = 0;
-  for (int j = 0; j < n; ++j) {
-    const float xj = __shfl_sync(FULL, bx, j);
-    const int ij = __shfl_sync(FULL, bid, j);
-#pragma unroll
-    for (int s = 0; s < SLOTS; ++s) rl[s] += precedes(xj, ij, e[s], ix[s]);
-    rb += precedes(xj, ij, bx, bid);
-  }
-  int lo = 0, hi = K;  // list entries before my candidate: a prefix
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (precedes(rg[mid], ri[mid], bx, bid)) lo = mid + 1; else hi = mid;
-  }
-  __syncwarp();
-#pragma unroll
-  for (int s = 0; s < SLOTS; ++s) {
-    const int at = lane + 32 * s, to = at + rl[s];
-    if (at < K && to < K) { rg[to] = e[s]; ri[to] = ix[s]; }
-  }
-  if (mine && rb + lo < K) { rg[rb + lo] = bx; ri[rb + lo] = bid; }
-  __syncwarp();
 }
 
 // Fold step S of a doc tile: the gains x[8] of accumulators 8 S .. + 8
@@ -1508,6 +1475,235 @@ __global__ void __launch_bounds__(288, 1) f32_topk_kernel(
   }
 }
 
+// ---- f32 docs at <= 64 query rows: a small-batch scan (f32_small_kernel) ---
+
+constexpr int S_TD = 256;                    // docs a tile (the doc box's rows)
+constexpr int S_DOC_BOX = S_TD * F_BK * 4;   // a [256 x 32] f32 box, 32 KB
+constexpr int S_CAP = 64;                    // a row's candidate buffer
+constexpr int S_MAX_STAGES = 6;
+constexpr int S_CONSUMERS = 256;             // 8 consumer warps
+
+// A stage: the doc box, then the [TQ x 32] query box (both 1024-aligned).
+__host__ __device__ constexpr int s_stage_bytes(int tq) {
+  return S_DOC_BOX + tq * F_BK * 4;
+}
+
+// Shared memory at TQ query rows, depth K and `stages` ring stages: the
+// ring, the rows' lists, candidate buffers and buffer counts, the barriers,
+// 1024 bytes to align the ring.
+__host__ __device__ constexpr int s_smem_bytes(int tq, int stages, int K) {
+  return stages * s_stage_bytes(tq) + tq * ((K + S_CAP) * 8 + 4) +
+         2 * stages * 8 + 1024;
+}
+
+// Grid (query tiles of TQ = 8, 32 or 64, doc splits). A producer warp (the
+// ninth) brings each contraction chunk of 32 by TMA into a ring of `stages`:
+// a [256 docs x 32] box and the [TQ x 32] query box, 128-byte rows in the
+// 128-byte swizzle, zeros past B, N and D. Thread (ty, tx) = (lane % 8,
+// 4 warp + lane / 8) of the 8 consumer warps keeps the TM x 8 gains of rows
+// ty + 8 i (i < TM = TQ / 8) and docs tx + 32 j (f32tile::fma_nt): every
+// warp holds all TQ rows, so a doc value read from shared memory (one
+// address a quad of lanes, a broadcast) feeds every query row of the tile,
+// and the doc box crosses shared memory once a block. After a tile each
+// gain is formed as the plain version forms it (x scale, + bias, -inf past
+// N) and held against its row's threshold in a register (its k-th best, at
+// least the lowest finite gain; +inf on rows past B) with no branch; one
+// barrier that also reduces tells whether the block has any candidate. Only
+// then a step a doc slot j: the passing gains go to their row's buffer
+// (shared atomics: a row takes at most 32 a step, one from each thread of
+// its ty), and a second reducing barrier asks whether a buffer might not
+// take another step's; if so, warp w merges rows w, w + 8, .. by rank
+// (merge_buffer) and, after a barrier, every thread reads its rows' new
+// thresholds. The ring is not waited on by the fold: the producer keeps
+// `stages` chunks in flight through it.
+template <int TQ, int SLOTS>
+__global__ void __launch_bounds__(288, 1) f32_small_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap dmap, const float* __restrict__ bias,
+    const float* __restrict__ scale, float* __restrict__ part_g,
+    int* __restrict__ part_i, int B, int N, int D, int K, int splits,
+    int tiles_per_split, int stages) {
+  constexpr int TM = TQ / 8;
+  constexpr int STAGE = s_stage_bytes(TQ);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  float* run_g = reinterpret_cast<float*>(smem + stages * STAGE);
+  int* run_i = reinterpret_cast<int*>(run_g + TQ * K);
+  float* buf_g = reinterpret_cast<float*>(run_i + TQ * K);
+  int* buf_i = reinterpret_cast<int*>(buf_g + TQ * S_CAP);
+  int* buf_n = buf_i + TQ * S_CAP;
+  uint64_t* full = reinterpret_cast<uint64_t*>(buf_n + TQ);
+  uint64_t* empty = full + stages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * TQ, split = blockIdx.y;
+  const int n_tiles = (N + S_TD - 1) / S_TD;
+  const int tile_begin = split * tiles_per_split;
+  const int tile_end = min(tile_begin + tiles_per_split, n_tiles);
+  const int chunks = (D + F_BK - 1) / F_BK;
+  const int total = max(0, tile_end - tile_begin) * chunks;
+
+  for (int e = tid; e < TQ * K; e += blockDim.x) {
+    run_g[e] = neg_inf();
+    run_i[e] = 0;
+  }
+  for (int e = tid; e < TQ; e += blockDim.x) buf_n[e] = 0;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&full[s], 1);    // the TMA's arrival
+      hopper::mbar_init(&empty[s], 8);   // one arrival a consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // ---- producer ----
+    if (lane == 0) {
+      hopper::prefetch_tmap(&qmap);
+      hopper::prefetch_tmap(&dmap);
+      for (int i = 0; i < total; ++i) {
+        const int s = i % stages;
+        unsigned char* st = smem + s * STAGE;
+        hopper::mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], STAGE);
+        const int k0 = (i % chunks) * F_BK;
+        hopper::tma_load_2d(st, &dmap, &full[s], k0,
+                            (tile_begin + i / chunks) * S_TD);
+        hopper::tma_load_2d(st + S_DOC_BOX, &qmap, &full[s], k0, q0);
+      }
+    }
+    return;
+  }
+
+  const int ty = lane & 7, tx = 4 * warp + (lane >> 3);
+  const float pinf = __int_as_float(0x7f800000), low = -FLT_MAX;
+  float thr[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) thr[i] = q0 + ty + 8 * i < B ? low : pinf;
+  auto refresh = [&] {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = ty + 8 * i;
+      if (q0 + row < B) thr[i] = fmaxf(run_g[row * K + K - 1], low);
+    }
+  };
+  // every non-empty buffer into its row's list, warp w taking rows w + 8 r
+  auto merge_rows = [&] {
+    for (int r = warp; r < TQ; r += 8) {
+      const int n = buf_n[r];
+      for (int o = 0; o < n; o += 32)
+        merge_buffer<SLOTS>(run_g + r * K, run_i + r * K,
+                            buf_g + r * S_CAP + o, buf_i + r * S_CAP + o, K,
+                            min(32, n - o), lane);
+      if (lane == 0) buf_n[r] = 0;
+    }
+  };
+  float acc[TM][8];
+
+  for (int t = tile_begin, i = 0; t < tile_end; ++t) {
+    const int j0 = t * S_TD;
+    // the tile's bias and scale of this thread's docs, loaded under the
+    // products
+    float bs[8], sc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int doc = j0 + tx + 32 * j;
+      bs[j] = doc >= N ? neg_inf() : bias ? __ldg(bias + doc) : 0.0f;
+      sc[j] = scale && doc < N ? __ldg(scale + doc) : 1.0f;
+    }
+#pragma unroll
+    for (int a = 0; a < TM; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[a][b] = 0.0f;
+    for (int c = 0; c < chunks; ++c, ++i) {
+      const int s = i % stages;
+      const unsigned char* st = smem + s * STAGE;
+      hopper::mbar_wait(&full[s], (i / stages) & 1);
+      f32tile::fma_nt<TM, 8, 32>(acc,
+                                 reinterpret_cast<const float*>(st + S_DOC_BOX),
+                                 reinterpret_cast<const float*>(st), ty, tx);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+    // the gains, formed with separate roundings as the plain version forms
+    // them, and whether any reaches its row's threshold
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float g = acc[r][j];
+        if (scale) g = __fmul_rn(g, sc[j]);
+        g = __fadd_rn(g, bs[j]);
+        acc[r][j] = g;
+        any |= g >= thr[r];
+      }
+    if (!hopper::named_barrier_any(1, S_CONSUMERS, any)) continue;
+    // doc slot j of every thread a step (a loop, not unrolled: the rarer
+    // merges below are one copy of code)
+#pragma unroll 1
+    for (int j = 0; j < 8; ++j) {
+      float x[TM];
+      unsigned m = 0;
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+        // picked by a select chain, not a runtime index, to stay in
+        // registers
+        float g = acc[r][0];
+#pragma unroll
+        for (int w = 1; w < 8; ++w) g = j == w ? acc[r][w] : g;
+        x[r] = g;
+        m |= g >= thr[r] ? 1u << r : 0u;
+      }
+      const int doc = j0 + tx + 32 * j;
+      bool over = false;
+      for (; m; m &= m - 1) {
+        const int u = __ffs(m) - 1;
+        float g = x[0];
+#pragma unroll
+        for (int w = 1; w < TM; ++w) g = u == w ? x[w] : g;
+        const int row = ty + 8 * u;
+        const int at = atomicAdd(&buf_n[row], 1);
+        buf_g[row * S_CAP + at] = g;
+        buf_i[row * S_CAP + at] = doc;
+        over |= at >= S_CAP - 32;
+      }
+      if (!hopper::named_barrier_any(1, S_CONSUMERS, over)) continue;
+      merge_rows();
+      hopper::named_barrier(1, S_CONSUMERS);
+      refresh();
+    }
+  }
+  hopper::named_barrier(1, S_CONSUMERS);
+  merge_rows();
+  hopper::named_barrier(1, S_CONSUMERS);
+  for (int e = tid; e < TQ * K; e += S_CONSUMERS) {
+    const int r = e / K, c = e - r * K, row = q0 + r;
+    if (row < B) {
+      const size_t o = ((size_t)row * splits + split) * K + c;
+      part_g[o] = run_g[e];
+      part_i[o] = run_i[e];
+    }
+  }
+}
+
+template <int TQ>
+cudaError_t launch_f32_small(const CUtensorMap& qmap, const CUtensorMap& dmap,
+                             const float* bias, const float* scale,
+                             float* part_g, int* part_i, int B, int N, int D,
+                             int K, int splits, int tiles_per_split,
+                             int stages, int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      f32_small_kernel<TQ, topk::SLOTS_SHALLOW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  f32_small_kernel<TQ, topk::SLOTS_SHALLOW>
+      <<<dim3((B + TQ - 1) / TQ, splits), 288, smem, stream>>>(
+          qmap, dmap, bias, scale, part_g, part_i, B, N, D, K, splits,
+          tiles_per_split, stages);
+  return cudaGetLastError();
+}
+
 // ---- deep lists (k > KMAX): a doc chunk's gains in device memory ------------
 
 // One block a (query tile, doc tile) of the chunk [c0, c_end): the [TQ x TD]
@@ -1851,6 +2047,65 @@ extern "C" int fused_topk_f32_launch(const void* q, const void* docs,
           static_cast<const float*>(scale), pg, pi, B, N, D, K, splits,
           tiles_per_split, stages);
   err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  topk::merge_splits_kernel<long long>
+      <<<B, topk::MERGE_THREADS, splits * (int)sizeof(int), st>>>(
+          pg, pi, static_cast<float*>(out_g), static_cast<long long*>(out_i),
+          splits, K);
+  return (int)cudaGetLastError();
+}
+
+// f32 docs (doc_type kF32) and f32 queries [B, D] (16-byte aligned bases), k
+// <= KSHALLOW, through f32_small_kernel (query tiles of tq = 8, 32 or 64,
+// doc tiles of 256, a ring of `stages`: ops/fused_topk.py::f32_small_stages),
+// then merge_splits_kernel. Arguments otherwise as fused_topk_launch.
+extern "C" int fused_topk_f32_small_launch(const void* q, const void* docs,
+                                           const void* bias, const void* scale,
+                                           void* part_g, void* part_i,
+                                           void* out_g, void* out_i, int B,
+                                           int N, int D, int K, int tq,
+                                           int splits, int tiles_per_split,
+                                           int stages, void* stream) {
+  if (B < 1 || N < 1 || D < 16 || D % 16 != 0 || K < 1 ||
+      K > topk::KSHALLOW || (tq != 8 && tq != 32 && tq != 64) || splits < 1 ||
+      splits > 65535 || tiles_per_split < 1 || stages < 2 ||
+      stages > S_MAX_STAGES || reinterpret_cast<uintptr_t>(q) % 16 ||
+      reinterpret_cast<uintptr_t>(docs) % 16)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return (int)err;
+  const int smem = s_smem_bytes(tq, stages, K);
+  if (smem > optin) return (int)cudaErrorInvalidValue;
+  CUtensorMap qmap, dmap;
+  err = hopper_host::make_tmap_2d(&qmap, q, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                                  B, D, D, tq, F_BK);
+  if (err != cudaSuccess) return (int)err;
+  err = hopper_host::make_tmap_2d(&dmap, docs, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                  4, N, D, D, S_TD, F_BK);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* b = static_cast<const float*>(bias);
+  const float* s = static_cast<const float*>(scale);
+  float* pg = static_cast<float*>(part_g);
+  int* pi = static_cast<int*>(part_i);
+  switch (tq) {
+    case 8:
+      err = launch_f32_small<8>(qmap, dmap, b, s, pg, pi, B, N, D, K, splits,
+                                tiles_per_split, stages, smem, st);
+      break;
+    case 32:
+      err = launch_f32_small<32>(qmap, dmap, b, s, pg, pi, B, N, D, K, splits,
+                                 tiles_per_split, stages, smem, st);
+      break;
+    default:
+      err = launch_f32_small<64>(qmap, dmap, b, s, pg, pi, B, N, D, K, splits,
+                                 tiles_per_split, stages, smem, st);
+      break;
+  }
   if (err != cudaSuccess) return (int)err;
   topk::merge_splits_kernel<long long>
       <<<B, topk::MERGE_THREADS, splits * (int)sizeof(int), st>>>(

@@ -85,6 +85,22 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// the same barrier, which also returns whether `pred` held in any of the
+// `threads` threads
+__device__ __forceinline__ bool named_barrier_any(int id, int threads,
+                                                  bool pred) {
+  uint32_t out;
+  asm volatile(
+      "{\n.reg .pred p, q;\n"
+      "setp.ne.u32 p, %1, 0;\n"
+      "bar.red.or.pred q, %2, %3, p;\n"
+      "selp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(out)
+      : "r"((uint32_t)pred), "r"(id), "r"(threads)
+      : "memory");
+  return out != 0;
+}
+
 // Orders this thread's generic-proxy writes to shared memory before later
 // async-proxy reads of them (a wgmma operand that threads wrote, not TMA):
 // each writer fences, then arrives on the barrier the readers wait on.

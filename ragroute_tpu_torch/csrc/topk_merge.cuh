@@ -1,6 +1,7 @@
-// Running sorted top-k lists and the merge of per-split lists, shared by the
-// fused scoring kernel (fused_topk.cu) and the streaming kernel over stored
-// gains (stream_topk.cu).
+// Running sorted top-k lists, the rank merge of a warp's candidate buffer
+// into its list (merge_buffer: arrival order does not matter) and the merge
+// of per-split lists, shared by the fused scoring kernel (fused_topk.cu) and
+// the streaming kernel over stored gains (stream_topk.cu).
 //
 // Order everywhere: gain descending, then index ascending. A candidate is
 // inserted only when it is strictly greater than the list's last entry, and
@@ -69,6 +70,58 @@ __device__ __forceinline__ void warp_fold(float* rg, int* ri, int K, float v,
       thr = rg[K - 1];
     }
   }
+}
+
+// (a, ia) comes before (b, ib): the lists' order, gain desc then index asc
+__device__ __forceinline__ bool precedes(float a, int ia, float b, int ib) {
+  return a > b || (a == b && ia < ib);
+}
+
+// One warp merges a row's candidate buffer (n <= 32 entries, any order) into
+// the row's sorted list of K: each entry's new place is its rank in the
+// union under the lists' order, found by counting, so no entry is inserted
+// one at a time; places past K fall off. A list entry's rank counts the
+// candidates before it (a pass over the candidates, shuffled to every lane);
+// a candidate's counts the candidates before it in the same pass and the
+// list entries before it by a binary search of the sorted list. An unfilled
+// list slot is (-inf, 0) and comes after every candidate.
+template <int SLOTS>
+__device__ __forceinline__ void merge_buffer(float* rg, int* ri,
+                                             const float* bg, const int* bi,
+                                             int K, int n, int lane) {
+  float e[SLOTS];
+  int ix[SLOTS], rl[SLOTS];
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int at = lane + 32 * s;
+    e[s] = at < K ? rg[at] : neg_inf();
+    ix[s] = at < K ? ri[at] : 0;
+    rl[s] = 0;
+  }
+  const bool mine = lane < n;
+  const float bx = mine ? bg[lane] : neg_inf();
+  const int bid = mine ? bi[lane] : 0;
+  int rb = 0;
+  for (int j = 0; j < n; ++j) {
+    const float xj = __shfl_sync(FULL, bx, j);
+    const int ij = __shfl_sync(FULL, bid, j);
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) rl[s] += precedes(xj, ij, e[s], ix[s]);
+    rb += precedes(xj, ij, bx, bid);
+  }
+  int lo = 0, hi = K;  // list entries before my candidate: a prefix
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (precedes(rg[mid], ri[mid], bx, bid)) lo = mid + 1; else hi = mid;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int at = lane + 32 * s, to = at + rl[s];
+    if (at < K && to < K) { rg[to] = e[s]; ri[to] = ix[s]; }
+  }
+  if (mine && rb + lo < K) { rg[rb + lo] = bx; ri[rb + lo] = bid; }
+  __syncwarp();
 }
 
 // (g, i, s) beats (bg, bi, bs): higher gain, then lower index, then lower

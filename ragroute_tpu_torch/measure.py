@@ -30,9 +30,12 @@ The int8 and int4 shapes of K1 and K4's path shape in turns (``--kernels
 (k = 32) and hostrefine's flat coarse slab (2,936,320 x 128 int8, k' =
 128), K4 at the probed scan's serving shape (512 queries x 512 probes of
 4,096 slabs of 128 x 1,584), K3 at its path shape over bf16, int8 and
-int4 slabs (512 queries x 512 probes of 4,096 slabs of 768 x 256) and K1
-over the 734,003 x 768 shard in f32 (k = 32); CUDA events (median of 5)
-and the profiler's device time, each tree's own plan.
+int4 slabs (512 queries x 512 probes of 4,096 slabs of 768 x 256), K1
+over the 734,003 x 768 shard in f32 (k = 32) at B = 512 and at the small
+batches 1, 8, 32 and 64, and K2's collect at [512, 131,072] and at the
+shapes ``--impl hybrid`` hands it, [8 and 16, 131,072] (k = 32); CUDA
+events (median of 5, 50 for K2) and the profiler's device time, each
+tree's own plan.
 
 ``--kernels`` times the streaming top-k (K2) and decode attention (K6) at
 the main path's shapes instead: K2 over [512, 131,072] (k = 32, the ivf
@@ -59,9 +62,10 @@ at the gate/up shape (the first kernel against the decode kernel below
 the deep launch over k (65 to 256) and the docs' width (128, 512, 768) for
 bf16 over 734,003 docs and at k' = 128 over 83,886 to 262,144, and for int8
 (hostrefine's flat coarse slab, the 768-wide shard) and int4 (per-doc
-scales, widths 128 and 768), K1's f32 scan against its first design over
-B (8 to 512: the reading behind ``fused_topk.f32_scan_pays``) and N
-(104,857 and 734,003), K3's wgmma kernel against its
+scales, widths 128 and 768), K1's small-batch f32 scan against the f32
+scan at B = 64, 65, 96 and 128 (the reading behind
+``fused_topk.f32_scan_pays``; the first design beside both at B = 8 and 64)
+over N (104,857 and 734,003), K3's wgmma kernel against its
 first design at the small sources' slabs (1,024 clusters, S 104 and 160)
 and at B = 8, the readings behind ``int4_matmul.M_SWITCH``,
 ``fused_topk.FOLD_MIN_DOCS`` and the fold's range; with ``--parent DIR`` K5 at the two prefill shapes, K5 at
@@ -79,8 +83,9 @@ over the world ``chip_smoke.py`` serves, half of ``--tiers``' under half
 its budget), the low-rank engine step at B = 512, one Qwen3-8B decode
 step (host clock, device time, K5's share and launches), and the ivf step
 over the topical world and the exact step over the world in f32 (B = 512,
-routing ``all``; host clock, device time a step, K3's and K1's share), each
-in a process of its own.
+routing ``all``; host clock, device time a step, K3's and K1's share), and
+the exact step over the world in f32 at B = 1, 8 and 32 (routing
+``ragroute`` and ``all``; host clock), each in a process of its own.
 
 ``--tiers`` measures the host-RAM capacity tiers instead: the synthetic
 medrag world at eight times that size (8,388,600 docs x 768, 64 topics per
@@ -302,6 +307,69 @@ print(json.dumps(rows))
 """
 
 
+# K1 over the 734,003 x 768 f32 shard at the small batches (B = 1, 8, 32
+# and 64, k = 32) and K2 at the ivf collect [512, 131,072] and at the
+# shapes --impl hybrid hands it ([8 and 16, 131,072]), k = 32, each tree's
+# own plan; uses only functions that every tree since the decode-attention
+# kernel's port has
+SMALL_F32_COLLECT_TIMER = """
+import json, torch
+from ragroute_tpu_torch.ops import decoder_checks as dc, kernel_checks as kc
+from ragroute_tpu_torch.ops.fused_topk import fused_topk
+from ragroute_tpu_torch.ops.stream_topk import stream_topk
+dev, rows = torch.device("cuda"), []
+def row(name, f, wrapper, reps, library=None):
+    f()
+    rows.append({"name": name, "ms": kc.cuda_time_ms(f, reps=reps),
+                 "device_ms": dc.device_ms(f, wrapper, warmup=1, reps=reps),
+                 "library_ms": None if library is None
+                 else kc.cuda_time_ms(library, reps=reps)})
+    torch.cuda.empty_cache()
+f32 = kc.path_case(dev, dtype=torch.float32)
+base = f32.queries
+for bsz in (1, 8, 32, 64):
+    f32.queries = base[:bsz].contiguous()
+    row(f"k1 B={bsz} 734003 x 768 f32 k=32", lambda: kc.run_kernel(f32),
+        fused_topk, 5)
+del f32, base
+torch.cuda.empty_cache()
+for bsz in (512, 8, 16):
+    gains = kc.stream_path_case(dev, bsz=bsz, m=131072, pad_share=0.2,
+                                seed=2)
+    row(f"k2 ivf collect [{bsz}, 131072] k=32",
+        lambda: stream_topk(gains, 32), stream_topk, 50,
+        library=lambda: torch.topk(gains, 32, dim=1))
+    del gains
+print(json.dumps(rows))
+"""
+
+
+# this tree only: K1's small-batch f32 scan against the f32 scan at the
+# batches around their crossover (B = 64, 65, 96, 128; the reading behind
+# fused_topk.f32_scan_pays) and the first design beside both at B = 8 and
+# 64, over pubmed's 734,003 and statpearls' 104,857 f32 rows
+SMALL_SWITCH_TIMER = """
+import json, torch
+from ragroute_tpu_torch.ops import decoder_checks as dc, kernel_checks as kc
+from ragroute_tpu_torch.ops.fused_topk import fused_topk
+dev, rows = torch.device("cuda"), []
+for n in (734_003, 104_857):
+    for bsz in (8, 64, 65, 96, 128):
+        case = kc.path_case(dev, bsz=bsz, n=n, dtype=torch.float32, seed=1)
+        kernels = ("f32_small", "f32") + (("shallow",) if bsz in (8, 64)
+                                          else ())
+        for kernel in kernels:
+            f = lambda: kc.run_kernel(case, kernel)
+            rows.append({"name": f"k1 B={bsz} N={n} d=768 f32 k=32",
+                         "kernel": kernel, "ms": kc.cuda_time_ms(f, reps=5),
+                         "device_ms": dc.device_ms(f, fused_topk, warmup=1,
+                                                   reps=5)})
+        del case
+        torch.cuda.empty_cache()
+print(json.dumps(rows))
+"""
+
+
 # this tree only: K5's kernels over M at the gate/up shape (the first
 # kernel against the decode kernel below M_SWITCH and the prefill kernel
 # from it), and K1's deep fold against the deep launch over k (past 64),
@@ -344,22 +412,6 @@ for n in (83_886, 104_857, 125_829, 262_144):
     for d in (128, 768):
         scan_against_deep(f"N={n} d={d} bf16", kc.path_case(dev, n=n, d=d,
                                                             seed=0), (128,))
-# the f32 scan against the first design over the batch and the shard's size
-# (the plan sends f32 lists up to 64 to the scan)
-for n in (104_857, 734_003):
-    for bsz in (8, 64, 128, 192, 512):
-        case = kc.path_case(dev, bsz=bsz, n=n, dtype=torch.float32, seed=1)
-        for k in (32, 64) if bsz == 512 else (32,):
-            case.k = k
-            for kernel in ("f32", "shallow"):
-                f = lambda: kc.run_kernel(case, kernel)
-                rows.append({"name": f"k1 B={bsz} N={n} d=768 f32 k={k}",
-                             "kernel": kernel,
-                             "ms": kc.cuda_time_ms(f, reps=3),
-                             "device_ms": dc.device_ms(f, fused_topk,
-                                                       warmup=1, reps=3)})
-        del case
-        torch.cuda.empty_cache()
 # K3's wgmma kernel against the first design at the small sources' shapes
 # (C = 1,024 clusters, S 104 to 160, 128 probes) and at B = 8 over pubmed's
 from ragroute_tpu_torch.ops.grouped_gains import grouped_gains
@@ -430,6 +482,39 @@ case = kc.pair_path_case(dev, bsz=64, c=64, s=568, nprobe=64, kappa=256,
 row("k4 reduced world nprobe == C = 64, S = 568, kappa 256 (ranks 256)",
     lambda: kc.run_pair_kernel(case), grouped_pair_topk, kc.k4_bound(case),
     reps=20)
+print(json.dumps(rows))
+"""
+
+
+# the exact engine step over the 1,048,575-doc world in f32 at the
+# batcher's small buckets (B = 1, 8 and 32, routing ragroute and all; host
+# clock around engine.search, median of 20 after 2 warm-ups); uses only
+# functions that every tree since the approximate modes has
+F32_STEP_TIMER = """
+import json, time, numpy as np, torch
+from ragroute_tpu_torch.engine import FederatedSearchEngine
+from ragroute_tpu_torch.index import ShardSet, make_synthetic_world
+from ragroute_tpu_torch.router import CorpusRouter, RouterBank
+dev, rows = torch.device("cuda"), []
+syn = make_synthetic_world("medrag", docs_per_source_map={
+    "pubmed": 734_003, "statpearls": 104_857, "textbooks": 83_886,
+    "wikipedia": 125_829}, num_queries=64, seed=0, with_payloads=False)
+ss = ShardSet.build(syn.world, syn.embeddings, dtype=torch.float32,
+                    device=dev)
+eng = FederatedSearchEngine(
+    ss, CorpusRouter.from_seed(syn.world.router_input_dim, 0, dev),
+    RouterBank.create(syn.world, syn.centroids, device=dev), impl="auto")
+for strategy in ("ragroute", "all"):
+    for bsz in (1, 8, 32):
+        q = {enc: e[:bsz] for enc, e in syn.query_embs.items()}
+        times = []
+        for i in range(22):
+            t0 = time.perf_counter()
+            eng.search(q, strategy=strategy, staged=False,
+                       fetch_candidates=False)
+            times.append(1e3 * (time.perf_counter() - t0))
+        rows.append({"name": f"f32 exact step {strategy} B={bsz}",
+                     "ms": float(np.median(times[2:]))})
 print(json.dumps(rows))
 """
 
@@ -657,7 +742,8 @@ def served_in_turns(parent: str, card: str, timers=None):
     for label, tree in (("parent", parent), ("change", here),
                         ("change", here), ("parent", parent)):
         for timer in timers or (STEP_TIMER, LOCKSTEP_TIMER, TIER_TIMER,
-                                LOWRANK_DECODE_TIMER, IVF_F32_TIMER):
+                                LOWRANK_DECODE_TIMER, IVF_F32_TIMER,
+                                F32_STEP_TIMER):
             proc = subprocess.run([sys.executable, "-c", timer], cwd=tree,
                                   capture_output=True, text=True,
                                   timeout=1200)
@@ -769,8 +855,13 @@ def parent_vs_change(parent: str, card: str):
     return out
 
 
+TURN_TIMERS = (QUANT_TIMER, TURNS_TIMER, DECODE_DEEP_TIMER,
+               GROUPED_F32_TIMER, SMALL_F32_COLLECT_TIMER)
+SWITCH_TIMERS = (SMALL_SWITCH_TIMER, SWITCH_TIMER)
+
+
 def kernels_in_turns(parent: Optional[str], card: str):
-    """K2 and K6, K1 at its int8 and int4 shapes and K4 timed from this
+    """K2 and K6, K1 at its int8, int4 and f32 shapes and K4 timed from this
     tree, or from ``parent`` and this tree in turns (parent, this, this,
     parent), K1 at the serving shape too; then the crossover readings and
     the deep lists from this tree."""
@@ -782,8 +873,7 @@ def kernels_in_turns(parent: Optional[str], card: str):
     turns = ((("parent", parent), ("change", here), ("change", here),
               ("parent", parent)) if parent else (("change", here),))
     for label, tree in turns:
-        for timer in (QUANT_TIMER, TURNS_TIMER, DECODE_DEEP_TIMER,
-                      GROUPED_F32_TIMER):
+        for timer in TURN_TIMERS:
             proc = subprocess.run([sys.executable, "-c", timer], cwd=tree,
                                   capture_output=True, text=True, timeout=900)
             if proc.returncode != 0:
@@ -796,14 +886,15 @@ def kernels_in_turns(parent: Optional[str], card: str):
                       f"(device {row['device_ms']:.4f}){lib} ({card})",
                       flush=True)
                 out.append(dict(row, tree=label))
-    proc = subprocess.run([sys.executable, "-c", SWITCH_TIMER], cwd=here,
-                          capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(f"switch timer failed:\n{proc.stderr}")
-    for row in json.loads(proc.stdout.strip().splitlines()[-1]):
-        print(f"[switch] {row['name']} {row['kernel']}: {row['ms']:.4f} ms "
-              f"(device {row['device_ms']:.4f}) ({card})", flush=True)
-        out.append(dict(row, tree="change"))
+    for timer in SWITCH_TIMERS:
+        proc = subprocess.run([sys.executable, "-c", timer], cwd=here,
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"switch timer failed:\n{proc.stderr}")
+        for row in json.loads(proc.stdout.strip().splitlines()[-1]):
+            print(f"[switch] {row['name']} {row['kernel']}: {row['ms']:.4f} "
+                  f"ms (device {row['device_ms']:.4f}) ({card})", flush=True)
+            out.append(dict(row, tree="change"))
     proc = subprocess.run([sys.executable, "-c", DEEP_TIMER], cwd=here,
                           capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:

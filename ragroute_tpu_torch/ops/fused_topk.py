@@ -28,15 +28,19 @@ shards of :data:`FOLD_MIN_DOCS` docs or more, the same scan with its deep
 fold (each row a lower bound on its k-th best in a register, candidates
 staged in shared memory and kept in device memory, cut by a warp's radix
 select; :func:`fold_takes`: up to ``deep_topk.FOLD_MAX_K``, its workspace
-under the cap); f32 docs up to :data:`SHALLOW_K` take the f32 scan from
-65 query rows (:func:`f32_scan_pays`; ``f32_topk_kernel``: full f32 FMA on
+under the cap); f32 docs up to :data:`SHALLOW_K` take, past the crossover
+:func:`f32_scan_pays`, the f32 scan (``f32_topk_kernel``: full f32 FMA on
 the CUDA cores, ``csrc/f32_tile.cuh``'s product over 128 query rows and 128
-docs a tile, operands by TMA into a ring, the wgmma scan's fold); smaller
-f32 batches, deeper f32 lists up to :data:`MAX_SHALLOW_K`, and int4 docs
-whose packed rows are not a whole number of 16 bytes (d % 32, the TMA's
-row stride), take the first
-design (``partial_topk_kernel``, 64 query rows a block, doc tiles of 64),
-whose lists stop at :data:`MAX_SHALLOW_K`;
+docs a tile, operands by TMA into a ring, the wgmma scan's fold) and below
+it the small-batch f32 scan (``f32_small_kernel``: a query tile of 8, 32 or
+64 rows sized to the batch, :func:`f32_small_rows`; doc tiles of 256 by
+TMA into a ring of up to 6 stages; every warp holds all the tile's rows,
+so a doc value read from shared memory feeds every row; the same
+branch-free fold); deeper f32 lists up to :data:`MAX_SHALLOW_K`, and int4
+docs whose packed rows are not a whole number of 16 bytes (d % 32, the
+TMA's row stride), take the first design (``partial_topk_kernel``, 64
+query rows a block, doc tiles of 64), whose lists stop at
+:data:`MAX_SHALLOW_K`;
 a list the fold does not take past that, any ``k`` as the TPU kernel takes,
 runs the deep launch: the same product and epilogue write a chunk of docs'
 gains to a workspace in device memory, every run of 8,192 docs is cut to
@@ -105,16 +109,52 @@ F32_TILE_D = 128
 F32_MAX_STAGES = 6
 F32_STAGE_BYTES = 2 * 128 * 32 * 4
 F32_CAP = 32                      # a row's candidate buffer (W_CAP)
+# the small-batch f32 scan (csrc/fused_topk.cu S_*): query tiles of 8, 32 or
+# 64 rows (a template argument each), doc tiles of 256 (a [256 x 32] f32 doc
+# box a stage beside the [rows x 32] query box), up to 6 stages, each row's
+# candidate buffer of 64 (a step adds at most 32)
+F32S_ROWS = (8, 32, 64)
+F32S_TILE_D = 256
+F32S_MAX_STAGES = 6
+F32S_CAP = 64
+
+
 def f32_scan_pays(bsz: int) -> bool:
-    """Whether the f32 scan beats the first design at ``bsz`` query rows:
-    past one first-design tile of 64 rows. A scan tile of 128 rows cost
-    about 1.36 first-design tiles on the card, so one half-empty scan tile
-    loses to one first-design tile, and from 65 rows the scan's tiles cost
-    less (device ms over 734,003 x 768 f32, k = 32, scan / first design:
-    B = 8 3.47 / 2.67, 64 3.65 / 3.24, 128 3.80 / 5.69, 192 7.19 / 8.21, 512
-    13.98 / 20.59; over 104,857 docs 64 rows already pay, 0.69 / 0.86;
-    ``measure.py --kernels``, PERF.md)."""
-    return bsz > TILE_Q
+    """Whether the f32 scan (128-row tiles) beats the small-batch scan at
+    ``bsz`` query rows: past one small-batch tile of 64 rows. Up to 64 rows
+    the small-batch scan reads the docs once for its one query tile; from
+    65 it takes two tiles, and each tile re-reads the docs (device ms over
+    734,003 x 768 f32, k = 32, small-batch / f32 scan: B = 8 0.77 / 3.45,
+    64 2.01 / 3.61, 65 3.82 / 3.62, 96 3.83 / 3.68, 128 3.82 / 3.77; over
+    104,857 docs 64 0.47 / 0.68, 65 0.73 / 0.69, 96 0.73 / 0.73, 128 0.73 /
+    0.77; H100 80GB HBM3 at 700 W, ``measure.py --kernels``, PERF.md)."""
+    return bsz > F32S_ROWS[-1]
+
+
+def f32_small_rows(bsz: int) -> int:
+    """The small-batch scan's query tile at ``bsz`` rows: the least of
+    :data:`F32S_ROWS` that holds them (8 for the batcher's buckets 1 and 8,
+    32 for 32), and 64 rows a tile past 64."""
+    return next((t for t in F32S_ROWS if bsz <= t), F32S_ROWS[-1])
+
+
+def f32_small_smem_bytes(rows: int, stages: int, k: int) -> int:
+    """Shared memory of the small-batch scan (``s_smem_bytes`` in the
+    source): the ring (a 32 KB doc box and a [rows x 32] query box a
+    stage), the rows' lists of ``k``, their buffers and counts, the
+    barriers, 1024 bytes to align the ring."""
+    return (stages * (F32S_TILE_D + rows) * 32 * 4
+            + rows * ((k + F32S_CAP) * 8 + 4) + 2 * stages * 8 + 1024)
+
+
+def f32_small_stages(rows: int, k: int) -> int:
+    """The small-batch scan's ring at ``rows`` a tile and depth ``k``: as
+    many stages as fit, at most :data:`F32S_MAX_STAGES` (6 at 8 rows, 5 at
+    32, 4 at 64)."""
+    return max(n for n in range(2, F32S_MAX_STAGES + 1)
+               if f32_small_smem_bytes(rows, n, k) <= SMEM_OPTIN)
+
+
 SMEM_OPTIN = 232_448              # shared memory a block of an H100 may take
 _F32, _BF16, _I8 = 0, 1, 2
 _DOC_TYPES = {torch.float32: _F32, torch.bfloat16: _BF16, torch.int8: _I8}
@@ -215,6 +255,8 @@ def _lib():
         lib.fused_topk_fold_launch.restype = ci
         lib.fused_topk_f32_launch.argtypes = [vp] * 8 + [ci] * 7 + [vp]
         lib.fused_topk_f32_launch.restype = ci
+        lib.fused_topk_f32_small_launch.argtypes = [vp] * 8 + [ci] * 8 + [vp]
+        lib.fused_topk_f32_small_launch.restype = ci
         lib._argtypes_set = True
     return lib
 
@@ -222,11 +264,12 @@ def _lib():
 class Plan(NamedTuple):
     """How one call runs: ``kernel`` is ``"wgmma"`` (the scan),
     ``"fold"`` (the scan with the deep fold), ``"f32"`` (the f32 scan),
-    ``"shallow"`` (the first design) or ``"deep"`` (the gains' round trip
-    through device memory);
+    ``"f32_small"`` (the small-batch f32 scan), ``"shallow"`` (the first
+    design) or ``"deep"`` (the gains' round trip through device memory);
     ``splits`` doc splits of ``tiles_per_split`` tiles of ``tile_d`` docs
     (unused by the deep launch); the fold's ``cap`` candidate slots a
-    (row, split)."""
+    (row, split). The small-batch scan's query tile is
+    :func:`f32_small_rows` of the batch."""
     kernel: str
     splits: int
     tiles_per_split: int
@@ -277,13 +320,12 @@ def _plan(bsz: int, n_rows: int, d: int, k: int, doc_type: int, sms: int,
     fit raises. Lists past :data:`SHALLOW_K` take the deep fold where it
     takes them (:func:`fold_takes`) over :data:`FOLD_MIN_DOCS` docs or
     more, else the deep launch; shallower lists
-    take the wgmma scan where it takes the docs, f32 docs the f32 scan up to
-    :data:`SHALLOW_K` from 65 query rows (:func:`f32_scan_pays`), else the
-    first
-    design. The
-    doc splits fill the card at small and large batch alike: the first
+    take the wgmma scan where it takes the docs; f32 docs up to
+    :data:`SHALLOW_K` the f32 scan where it pays (:func:`f32_scan_pays`)
+    and the small-batch f32 scan below it; else the first design. The doc
+    splits fill the card at small and large batch alike: the first
     design's blocks are small (several an SM); the wgmma launches' and the
-    f32 scan's take a whole SM (:func:`_wave_splits`), the fold's also no
+    f32 scans' take a whole SM (:func:`_wave_splits`), the fold's also no
     more than its workspace allows."""
     if kernel is None:
         if (k > SHALLOW_K and n_rows >= FOLD_MIN_DOCS
@@ -291,8 +333,8 @@ def _plan(bsz: int, n_rows: int, d: int, k: int, doc_type: int, sms: int,
             kernel = "fold"
         elif k > MAX_SHALLOW_K:
             kernel = "deep"
-        elif doc_type == _F32 and k <= SHALLOW_K and f32_scan_pays(bsz):
-            kernel = "f32"
+        elif doc_type == _F32 and k <= SHALLOW_K:
+            kernel = "f32" if f32_scan_pays(bsz) else "f32_small"
         elif not scan_takes(d, doc_type):
             kernel = "shallow"
         elif k > SHALLOW_K:     # a small shard, or the fold's workspace
@@ -302,7 +344,8 @@ def _plan(bsz: int, n_rows: int, d: int, k: int, doc_type: int, sms: int,
     elif kernel == "wgmma" and (k > SHALLOW_K or not scan_takes(d, doc_type)):
         raise ValueError(f"fused_topk: the wgmma scan does not take k={k} "
                          f"over doc type {doc_type} at d={d}")
-    elif kernel == "f32" and (k > SHALLOW_K or doc_type != _F32):
+    elif kernel in ("f32", "f32_small") and (k > SHALLOW_K
+                                             or doc_type != _F32):
         raise ValueError(f"fused_topk: the f32 scan does not take k={k} "
                          f"over doc type {doc_type}")
     elif kernel == "fold" and not fold_takes(bsz, d, k, doc_type, cap):
@@ -325,6 +368,11 @@ def _plan(bsz: int, n_rows: int, d: int, k: int, doc_type: int, sms: int,
         n_tiles = -(-n_rows // F32_TILE_D)
         splits, per = _wave_splits(n_tiles, -(-bsz // F32_TILE_Q), sms)
         return Plan("f32", splits, per, F32_TILE_D)
+    if kernel == "f32_small":
+        rows = f32_small_rows(bsz)
+        n_tiles = -(-n_rows // F32S_TILE_D)
+        splits, per = _wave_splits(n_tiles, -(-bsz // rows), sms)
+        return Plan("f32_small", splits, per, F32S_TILE_D)
     n_qtiles = -(-bsz // TILE_Q)
     n_tiles = -(-n_rows // TILE_D)
     per_sm = BLOCKS_PER_SM if k <= SHALLOW_K else DEEP_BLOCKS_PER_SM
@@ -413,6 +461,11 @@ def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
     elif plan.kernel == "f32":
         err = _lib().fused_topk_f32_launch(*ptrs, bsz, n_rows, d, k, splits,
                                            per, f32_stages(k), stream)
+    elif plan.kernel == "f32_small":
+        rows = f32_small_rows(bsz)
+        err = _lib().fused_topk_f32_small_launch(
+            *ptrs, bsz, n_rows, d, k, rows, splits, per,
+            f32_small_stages(rows, k), stream)
     else:
         err = _lib().fused_topk_launch(*ptrs, bsz, n_rows, d, k, n_groups,
                                        splits, per, doc_type, stream)
@@ -424,6 +477,7 @@ def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
     fused_topk.launches += 1
     fused_topk.wgmma_launches += plan.kernel == "wgmma"
     fused_topk.f32_launches += plan.kernel == "f32"
+    fused_topk.f32_small_launches += plan.kernel == "f32_small"
     return out_g, out_i
 
 
@@ -544,3 +598,4 @@ fused_topk.deep_launches = 0   # of which deep launches
 fused_topk.wgmma_launches = 0  # of which the wgmma scan
 fused_topk.fold_launches = 0   # of which the scan with the deep fold
 fused_topk.f32_launches = 0    # of which the f32 scan
+fused_topk.f32_small_launches = 0   # of which the small-batch f32 scan

@@ -20,9 +20,10 @@ Fused top-k (:func:`fused_topk` against :func:`fused_topk_reference`):
   docs and int4 docs with no, per-doc and per-group scales (a packed row
   of 32, 48 and 96 bytes: raw boxes past the row, and its two halves).
 * :func:`f32_exact_cases`: the same kind of data through the f32 scan (f32
-  docs, k 1 to 64): a partial query tile, partial doc tiles, contraction
-  chunks past d, dot / l2 / cos, a -inf bias tail, ``valid_docs < N``,
-  per-doc scales and splits of several tiles.
+  docs, k 1 to 64; B = 200) or the small-batch f32 scan (B in
+  :data:`F32_SMALL_BATCHES`): a partial query tile, partial doc tiles,
+  contraction chunks past d, dot / l2 / cos, a -inf bias tail,
+  ``valid_docs < N``, per-doc scales and splits of several tiles.
 * :func:`deep_exact_cases`: the same kind of data past the shallow depth
   (k 161 to 1,100 over 20,000 docs, three select runs), through the deep
   launch, with chunks of docs and slices of query rows forced by a small
@@ -47,8 +48,9 @@ Fused top-k (:func:`fused_topk` against :func:`fused_topk_reference`):
 Streaming top-k (:func:`stream_topk` against :func:`stream_topk_reference`):
 :func:`stream_exact_cases` (ties across group, split and k boundaries,
 ``-inf`` entries and rows, rows shorter than 2k or off the 16-byte grid,
-sorted runs, long rows cut into splits, deep lists from 161 to ``k = M``
-over one run and over runs merged), :func:`stream_runs_case` (the
+sorted runs, long rows cut into splits: the select path's runs and the
+collect's, whose rows sit off the 16-byte grid; deep lists from 161 to ``k =
+M`` over one run and over runs merged), :func:`stream_runs_case` (the
 probed collect's sorted runs) and :func:`stream_path_case`; the kernel does no
 arithmetic, so both must come out equal.
 
@@ -101,6 +103,7 @@ from ragroute_tpu_torch.ops.grouped_topk import (PAIR_ROWS, ClusteredCoarse,
                                                  grouped_pair_topk,
                                                  grouped_pair_topk_reference,
                                                  probe_dispatch, tiling)
+from ragroute_tpu_torch.ops import stream_topk as _stream
 from ragroute_tpu_torch.ops.stream_topk import (stream_topk,
                                                 stream_topk_reference)
 from ragroute_tpu_torch.ops.topk import NEG_INF, gain_to_natural
@@ -183,21 +186,27 @@ def fold_exact_cases(device, *, bsz: int = 150, seed: int = 7
 
 DEEP_KS = (161, 256, 600, 1100)
 F32_KS = (1, 10, 32, 64)
+# the small-batch f32 scan's batches: the batcher's buckets 1, 8 and 32, and
+# its largest tile
+F32_SMALL_BATCHES = (1, 8, 32, 64)
 
 
 def f32_exact_cases(device, *, bsz: int = 200, seed: int = 9
                     ) -> Iterator[Case]:
-    """Exact-arithmetic cases of the f32 scan (f32 docs, k in
+    """Exact-arithmetic cases of the f32 scans (f32 docs, k in
     :data:`F32_KS`): integer data in [-4, 4] (cos queries of norm 4,
     power-of-two per-doc scales), so every sum is exact in any order; 200
-    query rows (a second, partial query tile of 128; the plan takes the scan
-    there); 845 docs (a partial
-    doc tile) at d 64, 80 (a contraction chunk past the columns) and 96;
-    duplicate rows on both sides of the tile boundaries; at every k: dot,
-    l2, cos, a -inf bias tail, ``valid_docs < N`` and a per-doc scale; and
-    20,000 docs at d = 64, where splits span several tiles."""
+    query rows (a second, partial query tile of 128; the plan takes the f32
+    scan there), or ``bsz`` of :data:`F32_SMALL_BATCHES` (the small-batch
+    scan's tiles of 8, 32 and 64 rows, partial at B = 1); 845 docs (a
+    partial doc tile) at d 64, 80 (a contraction chunk past the columns)
+    and 96; duplicate rows on both sides of the tile boundaries; at every k:
+    dot, l2, cos, a -inf bias tail, ``valid_docs < N`` and a per-doc scale;
+    and many docs at d = 64, where splits span several tiles (20,000 at B =
+    200; 100,000 for the small-batch scan's tiles of 256)."""
     rng = np.random.default_rng(seed)
-    for d, rows in ((64, 845), (80, 845), (96, 845), (64, 20_000)):
+    many = 20_000 if bsz > F32_SMALL_BATCHES[-1] else 100_000
+    for d, rows in ((64, 845), (80, 845), (96, 845), (64, many)):
         docs = rng.integers(-4, 5, (rows, d)).astype(np.float32)
         for src, dsts in ((7, (127, 128, 255, 256, 383, 384, rows - 1)),
                           (11, (511, 512, 639, 640, 767, 768))):
@@ -433,8 +442,9 @@ def mutable_exact_cases(device, *, bsz: int = 150, seed: int = 11
     carried by ``-inf`` bias holes (:func:`live_bias`), duplicate rows with
     one copy dead; each yielded with the launch it runs on
     (``run_kernel``'s names): the wgmma scan over bf16 / int8 / int4
-    (per-doc and per-group), l2 holes over bf16, the f32 scan, the first
-    design, the deep fold and the deep launch, over 1,536 and 20,480 rows,
+    (per-doc and per-group), l2 holes over bf16, the f32 scan, the
+    small-batch f32 scan (8 query rows), the first design, the deep fold
+    and the deep launch, over 1,536 and 20,480 rows,
     and a shard of 1,536 rows with 40 live at k past 40 (the -inf entries
     carry index 0)."""
     rng = np.random.default_rng(seed)
@@ -476,6 +486,8 @@ def mutable_exact_cases(device, *, bsz: int = 150, seed: int = 11
             for k in (32, 64):
                 yield Case(f"{name}-f32-k{k}", q, f32, k, "dot",
                            bias=bias), "f32"
+                yield Case(f"{name}-f32-b8-k{k}", q[:8], f32, k, "dot",
+                           bias=bias), "f32_small"
             yield Case(f"{name}-f32-k32", q, f32, 32, "dot",
                        bias=bias), "shallow"
             yield Case(f"{name}-bf16-k128", q, bf16, 128, "dot",
@@ -485,10 +497,11 @@ def mutable_exact_cases(device, *, bsz: int = 150, seed: int = 11
             few = torch.full_like(bias, NEG_INF)
             few[torch.randperm(n, generator=torch.Generator().manual_seed(
                 seed))[:40].to(device)] = 0.0
-            for route, k in (("wgmma", 64), ("f32", 64), ("shallow", 100),
-                             ("fold", 128), ("deep", 200)):
-                docs_k = f32 if route == "f32" else bf16
-                yield Case(f"{name}-40-live-{route}-k{k}", q, docs_k, k,
+            for route, k in (("wgmma", 64), ("f32", 64), ("f32_small", 64),
+                             ("shallow", 100), ("fold", 128), ("deep", 200)):
+                docs_k = f32 if route.startswith("f32") else bf16
+                yield Case(f"{name}-40-live-{route}-k{k}",
+                           q[:8] if route == "f32_small" else q, docs_k, k,
                            "dot", bias=few), route
         else:
             for k in (128, 256):
@@ -507,8 +520,8 @@ def mutable_exact_cases(device, *, bsz: int = 150, seed: int = 11
 def run_kernel(case: Case, kernel: Optional[str] = None
                ) -> Tuple[Tensor, Tensor]:
     """The wrapper on CUDA tensors: launches the kernel. ``kernel`` names
-    the launch (``"wgmma"``, ``"fold"``, ``"f32"``, ``"shallow"``,
-    ``"deep"``) in place of the
+    the launch (``"wgmma"``, ``"fold"``, ``"f32"``, ``"f32_small"``,
+    ``"shallow"``, ``"deep"``) in place of the
     wrapper's plan, to time the launches against each other at one
     shape."""
     if kernel is None:
@@ -716,14 +729,26 @@ def stream_exact_cases(device, *, bsz: int = 37, m: int = 5000,
     yield "stream-runs-k128", stream_runs_case(device, bsz=bsz, runs=64,
                                                seed=seed + 1), 128
     # long rows cut into runs: selects merged across splits (deep list)
-    # and the warp-streaming path (shallow list), ties across the splits
+    # and the collect (shallow lists: 10 splits a row at k = 1, 7 at k = 32
+    # and 64, merged in the launch; rows of 20,003 positions, so every row
+    # but the first starts off the 16-byte grid), ties across the splits,
+    # rows of -inf and all tied
     wide = torch.from_numpy(np.ascontiguousarray(
         np.tile(g, (1, 5))[:9, :20_003])).to(device)
     yield "stream-split-select-k160", wide, 160
-    yield "stream-split-warp-k32", wide, 32
+    for k in (1, 32, 64):
+        yield f"stream-split-collect-k{k}", wide, k
     # deep lists over three runs merged, to k = M
     for k in (161, 1100, wide.shape[1]):
         yield f"stream-split-deep-k{k}", wide, k
+
+
+def stream_plan_of(gains: Tensor, k: int) -> str:
+    """The path the wrapper's plan takes for ``gains`` (on the card) at
+    depth ``k``: ``"select"`` or ``"collect"``."""
+    bsz, m = gains.shape
+    path = _stream.plan(bsz, m, k, _stream._sm_count(gains.device)).path
+    return "collect" if path == _stream.COLLECT else "select"
 
 
 def stream_runs_case(device, *, bsz: int = 512, runs: int = 512, kw: int = 8,

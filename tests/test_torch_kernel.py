@@ -1,6 +1,7 @@
 """Card-only tests: the hand-written kernels (csrc/fused_topk.cu with its
-wgmma scan over bf16, int8 and int4 docs, its deep fold and its f32 scan,
-csrc/stream_topk.cu, csrc/grouped_gains.cu with its wgmma and f32 kernels,
+wgmma scan over bf16, int8 and int4 docs, its deep fold, its f32 scan and
+its small-batch f32 scan, csrc/stream_topk.cu with its select path and its
+collect, csrc/grouped_gains.cu with its wgmma and f32 kernels,
 csrc/grouped_pair_topk.cu with its wgmma kernel,
 csrc/int4_matmul.cu with its prefill and decode kernels,
 csrc/decode_attention.cu) against their plain PyTorch versions, at test
@@ -300,19 +301,28 @@ def test_stream_kernel_equals_plain(cuda):
     assert not failed, failed
     gains = kc.stream_path_case(cuda, bsz=9, m=70_001)
     before = stream_topk.launches
+    collects = stream_topk.collect_launches
     kg, ki = stream_topk(gains, 32)
     assert stream_topk.launches == before + 1
+    assert stream_topk.collect_launches == collects + 1
     pg, pi = stream_topk_reference(gains, 32)
     assert torch.equal(ki, pi) and torch.equal(kg, pg)
+    # the collect again: its row counters were left at zero by the first
+    # call (rows all -inf and ties across the splits are in the exact cases
+    # above)
+    for _ in range(2):
+        kg, ki = stream_topk(gains, 32)
+        assert torch.equal(ki, pi) and torch.equal(kg, pg)
+    before = stream_topk.launches
     # past the shallow depth: the deep launch (runs merged), to k = M
     for k in (161, 1100, gains.shape[1]):
         kg, ki = stream_topk(gains, k)
         pg, pi = stream_topk_reference(gains, k)
         assert torch.equal(ki, pi) and torch.equal(kg, pg), k
-    assert stream_topk.launches == before + 4
+    assert stream_topk.launches == before + 3
     with pytest.raises(ValueError):
         stream_topk(gains, gains.shape[1] + 1)          # k > M
-    assert stream_topk.launches == before + 4
+    assert stream_topk.launches == before + 3
 
 
 def test_stream_kernel_probed_collect_equals_plain(cuda):
@@ -332,7 +342,7 @@ def test_stream_kernel_probed_collect_equals_plain(cuda):
         assert torch.equal(ki, pi) and torch.equal(kg, pg)
     paths = {st.plan(g.shape[0], g.shape[1], k, 132).path
              for _, g, k in kc.stream_exact_cases(cuda)}
-    assert paths == {st.SELECT, st.WARP}
+    assert paths == {st.SELECT, st.COLLECT}
 
 
 def test_grouped_kernel_equals_plain(cuda):
@@ -404,36 +414,45 @@ def test_grouped_wgmma_matches_plain_within_tolerance(cuda, slab):
         kc.run_grouped_kernel(case, "f32")
 
 
-@pytest.mark.parametrize("kernel", [None, "f32"])
-def test_f32_scan_exact_cases_equal_plain(cuda, kernel):
-    """f32 docs through the f32 scan (k 1 to 64; the plan takes it there):
-    a partial query tile, partial doc tiles, chunks past d, dot / l2 / cos,
-    a -inf tail, valid_docs < N, per-doc scales, splits of several tiles;
-    indices and scores equal the plain version."""
+@pytest.mark.parametrize("bsz", (200,) + kc.F32_SMALL_BATCHES)
+@pytest.mark.parametrize("kernel", [None, "named"])
+def test_f32_scan_exact_cases_equal_plain(cuda, kernel, bsz):
+    """f32 docs through the f32 scan at B = 200 and the small-batch f32
+    scan at B = 1, 8, 32 and 64 (k 1 to 64; the plan takes each there, and
+    each is named): a partial query tile, partial doc tiles, chunks past
+    d, dot / l2 / cos, a -inf tail, valid_docs < N, per-doc scales, splits
+    of several tiles; indices and scores equal the plain version."""
+    route = "f32" if bsz > kc.F32_SMALL_BATCHES[-1] else "f32_small"
+    counter = f"{route}_launches"
     failed = []
-    for case in kc.f32_exact_cases(cuda):
-        assert kc.fused_plan_of(case) == "f32"
-        before = fused_topk.f32_launches
-        got = kc.run_kernel(case, kernel)
-        assert fused_topk.f32_launches == before + 1
+    for case in kc.f32_exact_cases(cuda, bsz=bsz):
+        assert kc.fused_plan_of(case) == route
+        before = getattr(fused_topk, counter)
+        got = kc.run_kernel(case, kernel and route)
+        assert getattr(fused_topk, counter) == before + 1
         want = kc.run_plain(case)
         if not (torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])):
             failed.append(case.name)
     assert not failed, failed
 
 
-@pytest.mark.parametrize("bsz,n,k", [(300, 60_000, 32), (8, 100_003, 64),
-                                     (512, 20_000, 10)])
-def test_f32_scan_matches_plain_within_tolerance(cuda, bsz, n, k):
+@pytest.mark.parametrize("bsz,n,k,route", [
+    (300, 60_000, 32, "f32"), (8, 100_003, 64, "f32"), (512, 20_000, 10, "f32"),
+    (1, 100_003, 32, "f32_small"), (8, 100_003, 64, "f32_small"),
+    (32, 60_000, 32, "f32_small"), (64, 250_001, 10, "f32_small")])
+def test_f32_scan_matches_plain_within_tolerance(cuda, bsz, n, k, route):
+    """Random f32 rows, different summation order: scores within 1e-5 x
+    max|score|, only near-ties swapped at the k boundary; the f32 scan and
+    the small-batch scan, each by name."""
     case = kc.path_case(cuda, bsz=bsz, n=n, d=768, k=k, seed=bsz + k,
                         dtype=torch.float32)
-    kernel = kc.run_kernel(case, "f32")
+    kernel = kc.run_kernel(case, route)
     res = kc.compare_tolerant(kernel, kc.run_plain(case), rel=1e-5)
     assert res["ok"], res
     assert res["recall"] >= 0.999, res
     with pytest.raises(ValueError, match="f32 scan does not take"):
         case.k = 65
-        kc.run_kernel(case, "f32")
+        kc.run_kernel(case, route)
 
 
 @pytest.mark.parametrize("impl,dtype,build", [

@@ -314,20 +314,23 @@ def test_fused_f32_scan_refuses_other_docs(doc_type):
         ft._plan(512, 734_003, 768, 32, doc_type, SMS, "f32")
 
 
-@pytest.mark.parametrize("bsz,want", [(1, "shallow"), (8, "shallow"),
-                                      (64, "shallow"), (65, "f32"),
+@pytest.mark.parametrize("bsz,want", [(1, "f32_small"), (8, "f32_small"),
+                                      (32, "f32_small"), (64, "f32_small"),
+                                      (65, "f32"), (96, "f32"),
                                       (128, "f32"), (129, "f32"),
                                       (192, "f32"), (193, "f32"),
                                       (320, "f32"), (512, "f32"),
                                       (2048, "f32")])
-def test_f32_plan_keeps_the_first_design_where_it_was_faster(bsz, want):
-    """The f32 scan's 128-row tile cost more than one of the first design's
-    64-row tiles and less than two on the card (PERF.md): batches of at
-    most 64 rows (one half-empty scan tile against one first-design tile)
-    keep the first design; the scan takes them by name."""
+def test_f32_plan_takes_the_small_batch_scan_below_the_crossover(bsz, want):
+    """f32 lists up to 64 take the small-batch scan up to the crossover
+    that ``f32_scan_pays`` sets from the card's readings (PERF.md) and the
+    f32 scan past it; each of the two, and the first design, by name at
+    any batch."""
     assert ft._plan(bsz, 734_003, 768, 32, F32, SMS).kernel == want
     assert ft.f32_scan_pays(bsz) == (want == "f32")
-    assert ft._plan(bsz, 734_003, 768, 32, F32, SMS, "f32").kernel == "f32"
+    for kernel in ("f32", "f32_small", "shallow"):
+        assert ft._plan(bsz, 734_003, 768, 32, F32, SMS,
+                        kernel).kernel == kernel
 
 
 @pytest.mark.parametrize("bsz", [1, 8, 130, 512, 2048])
@@ -388,6 +391,250 @@ def test_f32_scan_threads_cover_the_tile_once():
                 seen[ty + 8 * i, 4 * tx + e] += 1
                 seen[ty + 8 * i, 64 + 4 * tx + e] += 1
     assert (seen == 1).all()
+
+
+# ---- K1 over f32 docs at small batch: the small-batch scan ------------------
+
+@pytest.mark.parametrize("bsz,rows", [(1, 8), (8, 8), (9, 32), (16, 32),
+                                      (32, 32), (33, 64), (64, 64),
+                                      (65, 64), (200, 64)])
+def test_f32_small_plan_sizes_the_query_tile_to_the_batch(bsz, rows):
+    """The batcher's buckets 1 and 8 take the 8-row tile, 32 the 32-row
+    one, up to 64 rows the 64-row one (past it, named, 64-row tiles); doc
+    tiles of 256 in splits that cover the shard once and fill the card: at
+    B <= 64 over 734,003 docs, 131 splits of 22 tiles, one wave."""
+    assert ft.f32_small_rows(bsz) == rows
+    plan = ft._plan(bsz, 734_003, 768, 32, F32, SMS, "f32_small")
+    assert plan.kernel == "f32_small" and plan.tile_d == ft.F32S_TILE_D
+    n_tiles = -(-734_003 // plan.tile_d)
+    assert (plan.splits - 1) * plan.tiles_per_split < n_tiles
+    assert plan.splits * plan.tiles_per_split >= n_tiles
+    blocks = -(-bsz // rows) * plan.splits
+    waves = -(-blocks // SMS)
+    assert waves <= ft.W_MAX_WAVES
+    assert blocks >= waves * SMS * 5 // 6, (blocks, waves)
+    if bsz <= 64:
+        assert plan[:3] == ("f32_small", 131, 22)
+    with pytest.raises(ValueError, match="f32 scan does not take"):
+        ft._plan(bsz, 734_003, 768, 65, F32, SMS, "f32_small")
+    with pytest.raises(ValueError, match="f32 scan does not take"):
+        ft._plan(bsz, 734_003, 768, 32, BF16, SMS, "f32_small")
+
+
+@pytest.mark.parametrize("k", [1, 32, 64])
+@pytest.mark.parametrize("rows", ft.F32S_ROWS)
+def test_f32_small_ring_fits_shared_memory(rows, k):
+    """Stages of a [256 x 32] f32 doc box and the [rows x 32] query box
+    (TMA boxes of 128-byte rows in the 128-byte swizzle, each on a 1024-byte
+    boundary) beside the rows' lists and buffers of 64: under an H100's 227
+    KB, with at least 4 stages (128 KB of docs in flight an SM)."""
+    stages = ft.f32_small_stages(rows, k)
+    assert stages == {8: 6, 32: 5, 64: 4}[rows]
+    assert ft.f32_small_smem_bytes(rows, stages, k) <= ft.SMEM_OPTIN == 232_448
+    assert ft.f32_small_smem_bytes(rows, stages + 1, k) > ft.SMEM_OPTIN or \
+        stages == ft.F32S_MAX_STAGES
+    assert (ft.F32S_TILE_D * 32 * 4) % 1024 == 0 and (rows * 32 * 4) % 1024 == 0
+    assert stages * ft.F32S_TILE_D * 32 * 4 >= 128 * 1024
+
+
+@pytest.mark.parametrize("rows", ft.F32S_ROWS)
+def test_f32_small_threads_cover_the_tile_once(rows):
+    """Thread (ty, tx) = (lane % 8, 4 warp + lane / 8) of the 8 consumer
+    warps keeps rows ty + 8 i (i < rows / 8) and docs tx + 32 j (j < 8):
+    every (row, doc) of the rows x 256 tile once and no row past the
+    template's tile; every warp holds all the tile's rows, so the lanes
+    reading one doc (a quad: ty 0 to 7) serve every row from one address;
+    in a step (one j) a row takes one doc from each of 32 threads, so a
+    buffer of 64 that holds at most 32 before a step never overflows; the
+    swizzled loads of a warp hit distinct 16-byte bank groups."""
+    tm = rows // 8
+    seen = np.zeros((rows, 256), np.int32)
+    step_takers = np.zeros((8, rows), np.int32)
+    for tid in range(256):
+        warp, lane = tid // 32, tid % 32
+        ty, tx = lane % 8, 4 * warp + lane // 8
+        for i in range(tm):
+            assert ty + 8 * i < rows
+            for j in range(8):
+                seen[ty + 8 * i, tx + 32 * j] += 1
+            step_takers[:, ty + 8 * i] += 1
+    assert (seen == 1).all()
+    assert (step_takers == 32).all() and ft.F32S_CAP - 32 + 32 == 64
+    for warp in range(8):
+        lanes = range(32)
+        warp_rows = {lane % 8 + 8 * i for lane in lanes for i in range(tm)}
+        assert warp_rows == set(range(rows))
+        for kq in range(8):      # 16-byte chunk kq of a 128-byte row
+            q_rows = {lane % 8 for lane in lanes}
+            d_rows = {4 * warp + lane // 8 for lane in lanes}
+            for group in (q_rows, d_rows):
+                banks = {(kq ^ (r % 8)) for r in group}
+                assert len(banks) == len(group)
+
+
+# ---- K2's collect: the plan's walk and the merge in the launch ---------------
+
+@pytest.mark.parametrize("bsz,m,k", [(512, 131_072, 32), (8, 131_072, 32),
+                                     (16, 131_072, 32), (9, 20_003, 64),
+                                     (3, 8_193, 1), (2048, 131_072, 64)])
+def test_collect_plan_walks_every_position_once_in_whole_waves(bsz, m, k):
+    """Persistent warps take items gw, gw + warps, ..: every (row, split)
+    once, every position of a row in one split; the grid is at most the
+    card's resident blocks, and the waves are whole: no warp takes an item
+    more than one wave after another; at [512, 131,072] the 4,096 items
+    fill one wave of the 4,224 resident warps to 97%."""
+    from ragroute_tpu_torch.ops import stream_topk as st
+
+    p = st.plan(bsz, m, k, SMS)
+    assert p.path == st.COLLECT
+    items = bsz * p.splits
+    warps = p.grid * st.COLLECT_WARPS
+    assert p.grid <= SMS * st.COLLECT_BLOCKS_PER_SM
+    taken = np.zeros(items, np.int32)
+    per_warp = []
+    for gw in range(warps):
+        mine = list(range(gw, items, warps))
+        taken[mine] += 1
+        per_warp.append(len(mine))
+    assert (taken == 1).all()
+    assert max(per_warp) - min(per_warp) <= 1
+    assert max(per_warp) == -(-items // warps)
+    covered = np.zeros(m, np.int32)
+    for s in range(p.splits):
+        covered[s * p.chunk:min((s + 1) * p.chunk, m)] += 1
+    assert (covered == 1).all()
+    if (bsz, m) == (512, 131_072):
+        assert (p.splits, p.chunk, p.grid) == (8, 16_384, 512)
+        assert items / (SMS * st.COLLECT_BLOCKS_PER_SM * st.COLLECT_WARPS) \
+            > 0.96
+
+
+class _WarpList:
+    """A warp's list and candidate buffer as ``collect_kernel`` keeps them:
+    a value at the threshold (the list's k-th best, at least the lowest
+    finite gain) goes to the buffer in lane order; a buffer that cannot
+    take a ballot's values is merged into the list first, by rank under
+    (gain desc, position asc)."""
+
+    def __init__(self, k):
+        self.k = k
+        self.g = np.full(k, -np.inf, np.float32)
+        self.i = np.zeros(k, np.int64)
+        self.bg, self.bi = [], []
+        self.thr = np.float32(-np.finfo(np.float32).max)
+
+    def flush(self):
+        if not self.bg:
+            return
+        g = np.concatenate([self.g, np.float32(self.bg)])
+        i = np.concatenate([self.i, np.int64(self.bi)])
+        order = np.lexsort((i, -g.astype(np.float64)))[:self.k]
+        self.g, self.i = g[order], i[order]
+        self.i[np.isneginf(self.g)] = 0
+        self.bg, self.bi = [], []
+        self.thr = max(self.g[-1], np.float32(-np.finfo(np.float32).max))
+
+    def offer(self, x, ids):
+        passing = x >= self.thr
+        if not passing.any():
+            return
+        if len(self.bg) + int(passing.sum()) > 32:
+            self.flush()
+        self.bg += list(x[passing])
+        self.bi += list(ids[passing])
+
+
+def _collect_model(g: np.ndarray, k: int, p, offset: int, order):
+    """``collect_kernel`` on ``g`` [B, M] whose first element sits
+    ``offset`` floats past a 16-byte boundary, its items finished in
+    ``order``: each item's head and tail one a lane, its aligned body in
+    rounds of ``COLLECT_ROUND / 128`` float4 a lane, the first round's
+    threshold raised to the
+    k-th largest lane maximum (k <= 32), each lane's passing values
+    offered one a ballot, lowest first; the row's last item merges every
+    split's list into an empty one at the best of their k-th bests."""
+    bsz, m = g.shape
+    lanes = np.arange(32)
+    from ragroute_tpu_torch.ops import stream_topk as st
+    p_round = st.COLLECT_ROUND          # 32 lanes x `unroll` float4
+    unroll = p_round // 128
+    parts, done, out = {}, np.zeros(bsz, np.int32), {}
+    for item in order:
+        row, split = divmod(int(item), p.splits)
+        begin, end = split * p.chunk, min((split + 1) * p.chunk, m)
+        w = _WarpList(k)
+        mis = (offset + row * m + begin) % 4
+        a0 = min(end, begin + (4 - mis) % 4)
+        a1 = a0 + ((end - a0) & ~3)
+        pos = np.where(lanes < a0 - begin, begin + lanes,
+                       np.where((lanes >= 4) & (lanes - 4 < end - a1),
+                                a1 + lanes - 4, -1))
+        w.offer(np.where(pos >= 0, g[row, np.maximum(pos, 0)], -np.inf),
+                pos)
+        for p0 in range(a0, a1, p_round):
+            # lane l's values q = 4 u + c, at p0 + 128 u + 4 l + c
+            at = (p0 + 128 * np.arange(unroll)[None, :, None]
+                  + 4 * lanes[:, None, None]
+                  + np.arange(4)[None, None, :]).reshape(32, 4 * unroll)
+            v = np.where(at < a1, g[row, np.minimum(at, m - 1)], -np.inf)
+            if p0 == a0 and k <= 32:   # the first round's bound
+                w.thr = max(w.thr, np.sort(v.max(axis=1))[::-1][k - 1])
+            pending = v >= w.thr
+            while pending.any():       # each lane's lowest pending value
+                has = pending.any(axis=1)
+                q = np.argmax(pending, axis=1)
+                pending[lanes[has], q[has]] = False
+                w.offer(np.where(has, v[lanes, q], -np.inf), at[lanes, q])
+        w.flush()
+        if p.splits == 1:
+            out[row] = (w.g, w.i)
+            continue
+        parts[row, split] = (w.g, w.i)
+        done[row] += 1
+        if done[row] < p.splits:
+            continue
+        last = _WarpList(k)       # at the best of the splits' k-th bests
+        last.thr = max(last.thr, max(parts[row, s][0][-1]
+                                     for s in range(p.splits)))
+        pg = np.concatenate([parts[row, s][0] for s in range(p.splits)])
+        pi = np.concatenate([parts[row, s][1] for s in range(p.splits)])
+        for e0 in range(0, pg.size, 32 * unroll):
+            for u in range(unroll):
+                e = e0 + 32 * u + lanes
+                last.offer(np.where(e < pg.size, pg[np.minimum(e, pg.size - 1)],
+                                    -np.inf),
+                           np.where(e < pg.size, pi[np.minimum(e, pg.size - 1)],
+                                    0))
+        last.flush()
+        out[row] = (last.g, last.i)
+    return (np.stack([out[r][0] for r in range(bsz)]),
+            np.stack([out[r][1] for r in range(bsz)]))
+
+
+@pytest.mark.parametrize("k", [1, 32, 64])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_collect_merge_in_the_launch_matches_the_plain_version(k, offset):
+    """A model of the collect over tied small integers with -inf entries, a
+    row of nothing but -inf, one with fewer finite values than k and one
+    all tied, rows of 20,003 positions (each row's start off the 16-byte
+    grid) in the plan's splits, the items finished in a shuffled order:
+    the same gains and positions as ``stream_topk_reference``."""
+    from ragroute_tpu_torch.ops import stream_topk as st
+
+    rng = np.random.default_rng(k + offset)
+    g = rng.integers(-3, 4, (6, 20_003)).astype(np.float32)
+    g[rng.random(g.shape) < 0.2] = -np.inf
+    g[1] = -np.inf
+    g[2] = -np.inf
+    g[2, [5, 7_000, 20_002]] = [1.0, 1.0, 2.0]
+    g[3] = 0.0
+    p = st.plan(6, 20_003, k, SMS)
+    assert p.path == st.COLLECT and p.splits > 1
+    order = rng.permutation(6 * p.splits)
+    mg, mi = _collect_model(g, k, p, offset, order)
+    rg, ri = st.stream_topk_reference(torch.from_numpy(g), k)
+    np.testing.assert_array_equal(mg, rg.numpy())
+    np.testing.assert_array_equal(mi, ri.numpy())
 
 
 # ---- K3: the grouped GEMM's plan ---------------------------------------------

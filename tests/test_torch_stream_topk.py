@@ -132,14 +132,17 @@ def test_plan_splits_cover_the_row(bsz, m, k):
     if k > st.SHALLOW_K or m <= st.SELECT_CHUNK:
         assert p.path == st.SELECT and p.chunk <= st.SELECT_CHUNK
     else:
-        assert p.path == st.WARP and p.chunk % 256 == 0
+        assert p.path == st.COLLECT and p.chunk % st.COLLECT_ROUND == 0
         assert p.chunk >= st.MIN_CHUNK or p.splits == 1
+        # persistent blocks: at most the card's resident ones, no idle one
+        assert 1 <= p.grid <= 132 * st.COLLECT_BLOCKS_PER_SM
+        assert (p.grid - 1) * st.COLLECT_WARPS < bsz * p.splits
 
 
 def test_plan_picks_the_select_path_for_the_probed_collect():
     """The probed collect (k' = 128 over 512 runs of 8) is one select run a
-    row, one launch; the ivf collect keeps the warp-streaming path."""
+    row, one launch; the ivf collect takes the collect."""
     from ragroute_tpu_torch.ops import stream_topk as st
 
     assert st.plan(512, 4096, 128, 132) == st.Plan(st.SELECT, 1, 4096)
-    assert st.plan(512, 131_072, 32, 132).path == st.WARP
+    assert st.plan(512, 131_072, 32, 132).path == st.COLLECT

@@ -144,6 +144,26 @@ def test_fused_wrapper_matches_pallas_interpret_on_ties(dtype, mode):
     np.testing.assert_array_equal(s.numpy(), _np(js))
 
 
+@pytest.mark.parametrize("bsz,mode,k", [(1, "dot", 10), (1, "l2", 32),
+                                         (1, "cos", 32), (8, "dot", 32)])
+def test_fused_wrapper_f32_small_batches_match_pallas_interpret_on_ties(
+        bsz, mode, k):
+    """f32 docs at the small batches the small-batch f32 scan takes on the
+    card (the batcher's buckets 1 and 8), integer data with duplicate rows
+    across the 256-doc tiles: the wrapper's plain path equals the TPU
+    kernel in interpret mode, tie order included."""
+    q, docs = _tie_data(17, bsz=bsz, n=600, d=64)
+    docs[[510, 511, 512, 513]] = docs[9]
+    if mode == "cos":
+        q = np.zeros_like(q)
+        q[:, :16] = np.where(np.arange(16) % 3 == 0, -1.0, 1.0)  # |q| = 4
+    js, ji = pallas_topk(jnp.asarray(q), jnp.asarray(docs), k, mode=mode,
+                         valid_docs=590)
+    s, i = fused_topk(_t(q), _t(docs), k, mode=mode, valid_docs=590)
+    np.testing.assert_array_equal(i.numpy(), _np(ji))
+    np.testing.assert_array_equal(s.numpy(), _np(js))
+
+
 def test_fused_wrapper_matches_pallas_interpret_f32_random():
     rng = np.random.default_rng(5)
     q = rng.standard_normal((5, 64)).astype(np.float32)
