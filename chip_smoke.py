@@ -34,7 +34,10 @@ Phases, each of which fails the run when it fails:
      SGEMM note); the
      low-rank coarse scan (734,003 x 128 bf16) at k'=128 and
      k'=256 (--refine-mult 8), through the deep fold with the deep launch's
-     time beside it; the host tiers'
+     time beside it, and the low-rank world's three small coarse shards
+     (83,886 to 125,829 x 128 at k'=128: exact cases with ties through the
+     plan, then path rows with the deep launch's time beside the fold's);
+     the host tiers'
      launches: one int8 slab of the stream tier (346,112 x 768, per-doc
      scale, k=32) and hostrefine's flat coarse scan (734,208 x 128 int8,
      per-doc scale, -inf bias on the padding rows) at k'=128 and 256
@@ -161,7 +164,7 @@ Phases, each of which fails the run when it fails:
    >= 0.95 of the flat engine; the probed coarse scan at ``nprobe == C``,
    ``kappa >= k' = 256`` (256 ranks a tile: the deep launches of the
    grouped pair top-k and of the collect) truly misses nothing of the flat
-   coarse scan. Then at
+   coarse scan (K1's deep fold). Then at
    size: the synthetic medrag world at the earlier size
    (1,048,575 docs x 768, 64 topics per source, int8; an eighth of what
    ``measure.py --tiers`` serves), its rows made block by block from the
@@ -461,6 +464,11 @@ DEEP_PATHS = {"lowrank_deep": ((("fused_topk", "fold"),), "lowrank"),
               "hostrefine_probed_deep": ((("stream_topk", "deep"),),
                                          "hostrefine_probed")}
 
+# the paths whose kernels' lists past 64 all take K1's deep fold (the
+# low-rank coarse scans over the world's three small shards too): their
+# deep launches must number 0
+NO_DEEP_PATHS = {"lowrank": ("fused_topk",), "lowrank_deep": ("fused_topk",)}
+
 # the medrag world at the benchmark's size (bench.py, BENCH_r05.json)
 MEDRAG_DOCS = {"pubmed": 734_003, "statpearls": 104_857,
                "textbooks": 83_886, "wikipedia": 125_829}
@@ -541,9 +549,20 @@ def read_counts() -> dict:
     return out
 
 
+def check_no_deep(label: str, launches: dict) -> None:
+    """The path's kernels that take every list past 64 by the deep fold
+    made no deep launch, and folded."""
+    for name in NO_DEEP_PATHS.get(label, ()):
+        if launches["deep"][name] or launches["fold"][name] <= 0:
+            raise AssertionError(
+                f"the {label} path made {launches['deep'][name]} deep "
+                f"launches and {launches['fold'][name]} folds of {name}")
+
+
 def check_wgmma(label: str, launches: dict) -> None:
     """The path's kernels that must have run their wgmma (or f32, or
-    collect) design did."""
+    collect) design did, and those of NO_DEEP_PATHS no deep launch."""
+    check_no_deep(label, launches)
     for counter, paths in (("wgmma", WGMMA_PATHS), ("f32", F32_PATHS),
                            ("f32_small", F32_SMALL_PATHS),
                            ("collect", COLLECT_PATHS)):
@@ -558,6 +577,7 @@ def check_deep(label: str, launches: dict, recall: float, out: dict) -> None:
     depth (K1's deep fold, K2's deep launch), and its recall is at least the
     default-depth run's on the same queries."""
     kernels, default = DEEP_PATHS[label]
+    check_no_deep(label, launches)
     for name, counter in kernels:
         if launches[counter][name] <= 0:
             raise AssertionError(f"the {label} path never took the {counter} "
@@ -774,6 +794,42 @@ def phase_fused(dev) -> dict:
             raise AssertionError(f"the deep fold != plain on exact case "
                                  f"{case.name}")
         fold.append(case.name)
+    t0 = time.perf_counter()
+    small = []
+    for case in kc.small_shard_exact_cases(dev):
+        ps, pi = kc.run_plain(case)
+        ks, ki = kc.run_kernel(case)
+        torch.cuda.synchronize()
+        if kc.fused_plan_of(case) != "fold":
+            raise AssertionError(f"fused_topk plans {case.name} to "
+                                 f"{kc.fused_plan_of(case)}, not the fold")
+        if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+            raise AssertionError(f"the deep fold != plain on exact case "
+                                 f"{case.name}")
+        small.append(case.name)
+        del case, ps, pi, ks, ki
+    lane = []
+    for case in kc.one_lane_exact_cases(dev):
+        ps, pi = kc.run_plain(case)
+        ks, ki = kc.run_kernel(case)
+        torch.cuda.synchronize()
+        if kc.fused_plan_of(case) != "fold":
+            raise AssertionError(f"fused_topk plans {case.name} to "
+                                 f"{kc.fused_plan_of(case)}, not the fold")
+        if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+            raise AssertionError(f"the deep fold != plain on exact case "
+                                 f"{case.name}")
+        lane.append(case.name)
+        del case, ps, pi, ks, ki
+    torch.cuda.empty_cache()
+    log(f"[kernel] fused_topk {len(small)} exact cases of the deep fold at "
+        f"the low-rank world's small coarse shards (B=512, r=128 over "
+        f"{', '.join(f'{n:,}' for n in kc.SMALL_SHARDS)} docs; integer data "
+        f"tied by the thousand at the k'-th place; bf16 k'=128 / 256, int8 "
+        f"with scales, a -inf tail), and {len(lane)} whose candidates fall "
+        f"to one lane of a row's quad (k'=128 over 300,000 docs, 256 and 600 "
+        f"over 83,886), through the plan: indices and scores equal "
+        f"({time.perf_counter() - t0:.1f} s)")
     log(f"[kernel] fused_topk {len(fold)} exact cases of the deep fold (k "
         f"{', '.join(map(str, kc.FOLD_KS))}; bf16, int8 and int4 docs; B=150 "
         f"over two query blocks, 845 and 20,000 docs, ties by the thousand so "
@@ -883,6 +939,20 @@ def phase_fused(dev) -> dict:
         coarse, "low-rank coarse scan B=512 N=734003 r=128 bf16 k'=256",
         reps=5, device=True, old="deep")
     del coarse
+    # the low-rank world's three small coarse shards: the deep fold, which
+    # took them from the deep launch (timed beside it)
+    t0 = time.perf_counter()
+    for n in kc.SMALL_SHARDS:
+        small = kc.path_case(dev, n=n, d=128, k=128, seed=0)
+        modes[f"small_coarse_{n}_k128"] = _check_fused_path(
+            small, f"low-rank small coarse shard B=512 N={n} r=128 bf16 "
+            f"k'=128", reps=5, device=True, old="deep", old_device=True)
+        if modes[f"small_coarse_{n}_k128"]["kernel"] != "fold":
+            raise AssertionError(f"the small coarse shard of {n} docs "
+                                 f"planned to {modes[f'small_coarse_{n}_k128']}")
+        del small
+    log(f"[time] the small coarse shards' rows took "
+        f"{time.perf_counter() - t0:.1f} s")
     # the host tiers' launches: one uploaded slab of the stream tier, and
     # hostrefine's flat coarse scan over the padded rank-128 slab of the
     # large source (the plain version 64 query rows at a time)
@@ -2507,9 +2577,12 @@ def phase_reduced_tiers(dev) -> None:
         f"(S={cc.capacity}), kappa = k' = {kp} against the flat coarse scan "
         f"over {n} rows: {missed} true misses, {swaps} boundary near-ties "
         f"swapped; launches {launches}")
+    # (the flat coarse scan's list of 256 takes K1's deep fold, the probe's
+    # collect and pair scan their deep launches)
     if missed or launches["grouped_pair_topk"] != 1 \
             or launches["stream_topk"] != 1 or launches["fused_topk"] != 1 \
-            or launches["deep"] != {"fused_topk": 1, "stream_topk": 1,
+            or launches["fold"]["fused_topk"] != 1 \
+            or launches["deep"] != {"fused_topk": 0, "stream_topk": 1,
                                     "grouped_pair_topk": 1}:
         raise AssertionError("the full probe disagrees with the flat scan")
     del flat, sset, hset, cc

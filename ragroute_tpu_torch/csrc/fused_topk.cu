@@ -159,30 +159,48 @@
 // "fold"), which makes no round trip of gains through device memory:
 //   * two consumer groups again (128 query rows a block): no list lives in
 //     shared memory. Each row keeps a lower bound T on its final k-th best
-//     in a register, -inf at first; each gain costs one strict compare
-//     with it (a step's row maxima first: most steps end there);
-//   * a gain above T is staged in shared memory (W_SB slots a row, a
-//     quad's lanes placed by a prefix of their counts: no atomics), and
-//     staging that could not take another step's goes in one coalesced
-//     copy to the row's buffer for its split in device memory (cap words
-//     of order_key(gain) << 32 | ~position, 4k, ops/deep_topk.py::
-//     fold_cap);
-//   * a buffer that could not take another staging's is cut by its row's
-//     warp (fold_cut, in the warp's staging, emptied first: a pass for the
+//     in a register; each gain costs one compare with it, gain >= T (a
+//     step's row maxima first: most steps end there);
+//   * a gain that passes goes to the row's buffer for its split in device
+//     memory (cap words of order_key(gain) << 32 | ~position, 4k or 8k,
+//     ops/deep_topk.py::fold_cap), each lane of the row's quad at places of
+//     its own (lane t's j-th word at 4 j + t: no counting across lanes, no
+//     atomics) by predicated stores, no branch;
+//   * a buffer that could not take another step's is cut by its row's
+//     warp (fold_cut, in the warp's room in shared memory: a pass for the
 //     bytes all words share, then radix passes of a shared-memory
 //     histogram) to its k best and up to k / 2 more, and T rises to the
-//     least word kept. Exact: T never exceeds the k-th best of a subset,
-//     which never exceeds the final k-th best, and within a split the docs
-//     arrive in ascending order, so a later gain equal to T ranks after k
-//     kept ones;
-//   * after the scan every row's buffer is cut to exactly k and sorted by
-//     its warp (a bitonic sort in the ring's shared memory, free by then;
-//     k <= FOLD_MAX_K), and merge_splits_kernel merges the (row, split)
-//     lists.
-// What bounds it (PERF.md): the appends and the cuts, not the products: a
-// cut stalls its consumer group at the next wgmma and, through the shared
-// ring, the other group; the cuts' count falls with the buffer's size, the
-// appends under a stale bound rise with it.
+//     least word kept (a buffer of fewer than k words, one lane near its
+//     quarter, is only packed, its lanes' shares balanced: no T rises);
+//   * T is shared by a row's splits: seed[row] in device memory holds the
+//     largest word any of them has shown to have k words at or above it
+//     (every cut raises it by a 64-bit atomicMax), and each split reads it
+//     at every doc tile. It is seeded before the scan: a block first scans
+//     a strided sample of the shard (FoldState::sample_tiles tiles) for
+//     the rows it owns (r % splits == split: each row has one owner, a
+//     block a few), keeps their finite gains in device memory and publishes
+//     each one's k-th best of the sample. A row with fewer than k finite
+//     gains there publishes nothing, and T stays at the lowest finite
+//     gain. Exact: T never exceeds the k-th best of a subset of the row's
+//     docs, which never exceeds its final k-th best; a T from other
+//     splits' docs may tie a gain of this split at a lower position, so
+//     the compare admits ties (gain >= T), and the lists' order is settled
+//     by the words;
+//   * after the scan every row's words at or above its shared bound are cut
+//     to at most k and sorted by its warp (a bitonic sort in the ring's
+//     shared memory, free by then; k <= FOLD_MAX_K), and merged in the
+//     same launch into the row's running list in device memory (run, k
+//     words): under a lock a row, the entries that beat the running list's
+//     last are placed by rank, and the new last is published as the row's
+//     bound, so that later splits bring fewer words, most of them none
+//     (they take no lock). The split that counts the row last writes it
+//     out and leaves its count, lock and bound at zero for the next
+//     launch. Each warp takes its 16 rows from a place set by its split,
+//     so the splits' merges of one row spread out in time.
+// What bounds it (PERF.md): the seed leaves a (row, split) few candidates
+// and no cut in the scan; a cut would stall its consumer group at the next
+// wgmma and, through the shared ring, the other group. What remains is
+// the sample, each row's final cut and sort, and the merges.
 
 #include <cuda_bf16.h>
 #include <float.h>
@@ -482,12 +500,13 @@ constexpr int W_UNITS = WTD * 4 / W_CONV;
 constexpr int W_HIST = 256;
 constexpr int FOLD_MAX_K = 1024;
 constexpr int FOLD_SLACK = 32;
-// a row's candidates are staged in shared memory, W_SB at a time, and go to
-// its buffer in device memory in one coalesced copy; a consumer warp's 16
-// rows' staging doubles as its room to cut a buffer of up to W_CUT_WORDS
-// (larger ones are cut in place)
-constexpr int W_SB = 64;
-constexpr int W_CUT_WORDS = 16 * W_SB;
+// a consumer warp's room in shared memory to cut a row's buffer of up to
+// W_CUT_WORDS (larger ones are cut in place in device memory), and to hold
+// a row's running list while a split's list merges into it
+constexpr int W_CUT_WORDS = 1024;
+static_assert(FOLD_MAX_K <= W_CUT_WORDS,
+              "a buffer of fewer than K words is packed in the cut room");
+constexpr int W_BATCH = 8;   // words a lane loads at once in the deep fold
 
 __host__ __device__ constexpr int w_stage_bytes(int nwg) {
   return (64 * nwg + WTD) * WK * 2;
@@ -502,9 +521,79 @@ __host__ __device__ constexpr int w_stage_bytes(int nwg) {
 __host__ __device__ constexpr int w_smem_bytes(int nwg, int stages, int K,
                                                int raw, bool deep = false) {
   return stages * w_stage_bytes(nwg) + raw * W_RAW_BYTES +
-         (deep ? 64 * nwg * 12 + nwg * 4 * (W_HIST * 4 + W_CUT_WORDS * 8)
+         (deep ? 64 * nwg * 24 + nwg * 4 * (W_HIST * 4 + W_CUT_WORDS * 8)
                : 64 * nwg * ((K + W_CAP) * 8 + 4)) +
          nwg * 4 * WTD * 4 + (2 * stages + raw) * 8 + 1024;
+}
+
+// The deep fold's device memory (null for the scan at k <= KSHALLOW): each
+// (row, split)'s candidate words cand [B, splits, cap]; each row's sample
+// words samp [B, samp_cap] (its owner's candidates from the sample's
+// tiles); each row's running list run [B, K] words, its shared lower bound
+// seed [B] (a word, 0 for none), its count of finished splits and its lock
+// ([B] each; the three are zero on entry and left zero: the lock is 1 while
+// held, 2 once the running list holds a split's list); the outputs [B, K];
+// the sample's tiles.
+struct FoldState {
+  deep::u64* cand;
+  deep::u64* samp;
+  deep::u64* run;
+  deep::u64* seed;
+  int* count;
+  int* lock;
+  float* out_g;
+  long long* out_i;
+  int cap;
+  int sample_tiles;
+  int samp_cap;
+};
+
+// The gain a shared lower bound admits (gain >= it): the word's, or the
+// lowest finite gain for none (-inf and NaN never pass).
+__device__ __forceinline__ float seed_gain(deep::u64 w) {
+  return w ? deep::key_gain((uint32_t)(w >> 32)) : -FLT_MAX;
+}
+
+// Raise a row's threshold to t; NaN marks a row that takes nothing (past B,
+// or not one the block samples) and stays so.
+__device__ __forceinline__ float raise_thr(float thr, float t) {
+  return thr != thr ? thr : fmaxf(thr, t);
+}
+
+// A row's lock in the deep fold's merge: a compare-and-swap with acquire
+// semantics and a release store (the warp's other lanes are ordered behind
+// lane 0's by the warp barriers around them).
+__device__ __forceinline__ int cas_acquire(int* p, int cmp, int val) {
+  int old;
+  asm volatile("atom.acquire.gpu.global.cas.b32 %0, [%1], %2, %3;"
+               : "=r"(old) : "l"(p), "r"(cmp), "r"(val) : "memory");
+  return old;
+}
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// A store of w to p where `take` holds, as one predicated instruction (a
+// C++ `if` around it compiles to a branch and its convergence barrier).
+__device__ __forceinline__ void store_if(deep::u64* p, deep::u64 w,
+                                         bool take) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.u32 q, %2, 0;\n"
+      "@q st.global.u64 [%0], %1;\n}\n" ::"l"(p),
+      "l"(w), "r"((unsigned)take)
+      : "memory");
+}
+
+// How many of the descending words v[0, n) are larger than x.
+__device__ __forceinline__ int count_above(const deep::u64* v, int n,
+                                           deep::u64 x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (v[mid] > x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
 }
 
 // Fold step S of a doc tile: the gains x[8] of accumulators 8 S .. + 8
@@ -514,13 +603,13 @@ __host__ __device__ constexpr int w_smem_bytes(int nwg, int stages, int K,
 // -inf past N), and the mask of those that reach their row's threshold
 // (its k-th best, at least the lowest finite gain). No branch: the step's
 // eight gains are independent work for the scheduler.
-template <int S, int NACC, bool STRICT>
+template <int S, int NACC, bool EARLY>
 __device__ __forceinline__ unsigned fold_step(const float (&acc)[NACC],
                                               float (&x)[W_STEP],
                                               const float* tb, const float* ts,
                                               bool has_scale, int tig,
                                               float thr0, float thr1) {
-  if constexpr (STRICT) {
+  if constexpr (EARLY) {
     // the deep fold: a step where no lane's row maximum passes (the common
     // case once the bounds have risen) costs the gains, six maxima and two
     // compares; the mask is built only when one does
@@ -529,11 +618,11 @@ __device__ __forceinline__ unsigned fold_step(const float (&acc)[NACC],
                               __int_as_float(0x7f800000));
     const float m0 = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[4], x[5]));
     const float m1 = fmaxf(fmaxf(x[2], x[3]), fmaxf(x[6], x[7]));
-    if (!__any_sync(FULL, m0 > thr0 || m1 > thr1)) return 0u;
+    if (!__any_sync(FULL, m0 >= thr0 || m1 >= thr1)) return 0u;
     unsigned m = 0;
 #pragma unroll
     for (int u = 0; u < W_STEP; ++u)
-      m |= x[u] > (u & 2 ? thr1 : thr0) ? 1u << u : 0u;
+      m |= x[u] >= (u & 2 ? thr1 : thr0) ? 1u << u : 0u;
     return m;
   }
   unsigned m = 0;
@@ -552,7 +641,7 @@ __device__ __forceinline__ unsigned fold_step(const float (&acc)[NACC],
       g = __fadd_rn(g, odd ? bs.y : bs.x);
       x[4 * cc + v] = g;
       const float t = v & 2 ? thr1 : thr0;
-      m |= (STRICT ? g > t : g >= t) ? 1u << (4 * cc + v) : 0u;
+      m |= g >= t ? 1u << (4 * cc + v) : 0u;
     }
   }
   return m;
@@ -573,6 +662,7 @@ __device__ __forceinline__ deep::u64 fold_cut(deep::u64* words, int n, int K,
                                               int slack, int* hist, int lane,
                                               int& kept) {
   deep::u64 lo = ~0ull, hi = 0ull;
+#pragma unroll 4
   for (int e = lane; e < n; e += 32) {
     const deep::u64 w = words[e];
     lo = w < lo ? w : lo;
@@ -593,6 +683,7 @@ __device__ __forceinline__ deep::u64 fold_cut(deep::u64* words, int n, int K,
   for (int shift = 56 - 8 * common; shift >= 0; shift -= 8) {
     for (int b = lane; b < W_HIST; b += 32) hist[b] = 0;
     __syncwarp();
+#pragma unroll 4
     for (int base = 0; base < n; base += 32) {
       const int e = base + lane;
       const deep::u64 w = e < n ? words[e] : 0ull;
@@ -639,6 +730,7 @@ __device__ __forceinline__ deep::u64 fold_cut(deep::u64* words, int n, int K,
   const unsigned lt = (1u << lane) - 1u;
   deep::u64 least = ~0ull;
   int out = 0;
+#pragma unroll 4
   for (int base = 0; base < n; base += 32) {
     const int e = base + lane;
     const deep::u64 w = e < n ? words[e] : 0ull;
@@ -787,9 +879,9 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap dmap, const float* __restrict__ bias,
     const float* __restrict__ scale, const float* __restrict__ gscale,
-    float* __restrict__ part_g, int* __restrict__ part_i,
-    deep::u64* __restrict__ cand, int cap, int B, int N, int D, int K, int G,
-    int splits, int tiles_per_split, int stages, int raw_stages) {
+    float* __restrict__ part_g, int* __restrict__ part_i, FoldState fs,
+    int B, int N, int D, int K, int G, int splits, int tiles_per_split,
+    int stages, int raw_stages) {
   constexpr bool RAW = DT != kBF16;
   constexpr int TQ = 64 * NWG;
   constexpr int QT = TQ * WK * 2;        // query chunk bytes
@@ -812,8 +904,8 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
   int* buf_i = reinterpret_cast<int*>(buf_g + (DEEP ? 0 : TQ * W_CAP));
   int* buf_n = buf_i + (DEEP ? 0 : TQ * W_CAP);
   float* row_t = reinterpret_cast<float*>(buf_n + TQ);
-  int* stg_n = reinterpret_cast<int*>(row_t + (DEEP ? TQ : 0));
-  int* hist = stg_n + (DEEP ? TQ : 0);
+  int* cnt4 = reinterpret_cast<int*>(row_t + (DEEP ? TQ : 0));
+  int* hist = cnt4 + (DEEP ? 4 * TQ : 0);
   deep::u64* cut_words =
       reinterpret_cast<deep::u64*>(hist + (DEEP ? NWG * 4 * W_HIST : 0));
   float* tile_v = reinterpret_cast<float*>(
@@ -829,6 +921,19 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
   // int4: the packed row walked twice, as many chunks as its bytes take
   const int chunks = RAW && DT != kI8 ? 2 * ((D / 2 + WK - 1) / WK)
                                       : (D + WK - 1) / WK;
+  // the deep fold: the rows the block samples for (owned_row: each row has
+  // one owner, r % splits == split); a block that owns one scans the
+  // sample's tiles first (distinct, strided over the shard), then its
+  // split's
+  const int rows_here = min(TQ, B - q0);
+  auto owned_row = [&](int r) { return r < rows_here && r % splits == split; };
+  const int n_samp =
+      DEEP && split < rows_here ? min(fs.sample_tiles, n_tiles) : 0;
+  const int samp_stride = n_samp ? n_tiles / n_samp : 1;
+  auto tile_at = [&](int j) {
+    return j < n_samp ? j * samp_stride : tile_begin + j - n_samp;
+  };
+  const int n_seq = n_samp + max(0, tile_end - tile_begin);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -848,10 +953,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
   }
   for (int e = threadIdx.x; e < TQ; e += blockDim.x) {
     buf_n[e] = 0;
-    if constexpr (DEEP) {
-      row_t[e] = neg_inf();
-      stg_n[e] = 0;
-    }
+    if constexpr (DEEP) row_t[e] = -FLT_MAX;
   }
   __syncthreads();
 
@@ -860,14 +962,14 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
     // the consumers; int8 / int4 keep them, the converters use them
     if constexpr (!RAW) hopper::setmaxnreg_dec<40>();
     const int ptid = threadIdx.x - 128 * NWG;
-    const int total = max(0, tile_end - tile_begin) * chunks;
+    const int total = n_seq * chunks;
     if constexpr (!RAW) {
       if (ptid != 0) return;
       hopper::prefetch_tmap(&qmap);
       hopper::prefetch_tmap(&dmap);
       for (int i = 0; i < total; ++i) {
         const int s = i % stages;
-        const int t = tile_begin + i / chunks, c = i % chunks;
+        const int t = tile_at(i / chunks), c = i % chunks;
         unsigned char* st = smem + s * STAGE;
         hopper::mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(&full[s], STAGE);
@@ -880,7 +982,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
       const int per_box = DT == kI8 ? 1 : 2, boxes = total / per_box;
       auto load_box = [&](int p) {
         const int i = p * per_box, r = p % n_raw;
-        const int t = tile_begin + i / chunks, c = i % chunks;
+        const int t = tile_at(i / chunks), c = i % chunks;
         hopper::mbar_arrive_expect_tx(&raw_full[r], W_RAW_BYTES);
         hopper::tma_load_2d(raw + r * W_RAW_BYTES, &dmap, &raw_full[r],
                             DT == kI8 ? c * WK : (c >> 1) * WK, t * WTD);
@@ -892,14 +994,14 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
       // kI4G: each chunk's group scales are loaded a chunk ahead
       __nv_bfloat16 sc[W_UNITS][2], next[W_UNITS][2];
       if (total > 0)
-        w_group_scales<DT>(sc, 0, ctid, gscale, G, N, D, tile_begin * WTD);
+        w_group_scales<DT>(sc, 0, ctid, gscale, G, N, D, tile_at(0) * WTD);
       for (int i = 0; i < total; ++i) {
         const int s = i % stages;
         const int c = i % chunks;
         const int p = i / per_box, r = p % n_raw;
         if (i + 1 < total)
           w_group_scales<DT>(next, (i + 1) % chunks, ctid, gscale, G, N, D,
-                             (tile_begin + (i + 1) / chunks) * WTD);
+                             tile_at((i + 1) / chunks) * WTD);
         hopper::mbar_wait(&raw_full[r], (p / n_raw) & 1);
         hopper::mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
         w_convert<DT>(raw + r * W_RAW_BYTES, smem + s * STAGE + QT, c, ctid,
@@ -934,55 +1036,97 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
   // a gain passes at its row's threshold: the row's k-th best, and at
   // least the lowest finite gain (-inf never enters); rows past B (zero
   // queries) take nothing
-  // the deep fold: a gain passes above its row's lower bound T, which only
-  // rises (-inf at first: -inf and NaN never pass)
+  // the deep fold: a gain passes at its row's lower bound T, which only
+  // rises (at least the lowest finite gain: -inf and NaN never pass); in
+  // the sample's tiles only the rows the block samples for take gains, the
+  // others (and rows past B) have a NaN bound, which nothing reaches
   const float pinf = __int_as_float(0x7f800000),
-              low = DEEP ? neg_inf() : -FLT_MAX;
-  float thr0 = q0 + r0 < B ? low : pinf;
-  float thr1 = q0 + r0 + 8 < B ? low : pinf;
+              none = __int_as_float(0x7fffffff);
+  auto first_thr = [&](int r) {
+    if (q0 + r >= B) return DEEP ? none : pinf;
+    return DEEP && n_samp && !owned_row(r) ? none : -FLT_MAX;
+  };
+  float thr0 = first_thr(r0);
+  float thr1 = first_thr(r0 + 8);
   int* whist = hist + (wg * 4 + warp) * W_HIST;
   deep::u64* wcut = cut_words + (wg * 4 + warp) * W_CUT_WORDS;
   // a row's candidate words in device memory: [B, splits, cap]
+  const int cap = fs.cap;
   auto row_words = [&](int row) {
-    return cand + ((size_t)(q0 + row) * splits + split) * cap;
+    return fs.cand + ((size_t)(q0 + row) * splits + split) * cap;
   };
-  // a row's staged candidates to the end of its buffer, one coalesced copy
-  auto flush_row = [&](int row) {
-    const int n = stg_n[row], at = buf_n[row];
-    const deep::u64* from = cut_words + row * W_SB;
-    deep::u64* to = row_words(row) + at;
-    for (int e = lane; e < n; e += 32) to[e] = from[e];
-    __syncwarp();
-    if (lane == 0) {
-      buf_n[row] = at + n;
-      stg_n[row] = 0;
+  // a row's words from the sample's tiles (its owner's): [B, samp_cap]
+  auto samp_words = [&](int row) {
+    return fs.samp + (size_t)(q0 + row) * fs.samp_cap;
+  };
+  // a (row, split)'s buffer holds its quad's four lanes' words interleaved
+  // (lane t's j-th at 4 j + t; cnt4[4 row + t] of them): its words, packed
+  // in order into dst (dst may be the buffer itself: a word never moves up)
+  const unsigned lt = (1u << lane) - 1u;
+  // (a lane loads W_BATCH words before it stores any: the stores may alias
+  // the loads, so the compiler would not overlap them otherwise)
+  auto gather = [&](const deep::u64* words, int row, deep::u64* dst,
+                    deep::u64 floor_w) {
+    const int* c = cnt4 + 4 * row;
+    const int span = 4 * max(max(c[0], c[1]), max(c[2], c[3]));
+    const int mine = c[lane & 3];
+    int n = 0;
+    for (int base = 0; base < span; base += 32 * W_BATCH) {
+      deep::u64 w[W_BATCH];
+#pragma unroll
+      for (int u = 0; u < W_BATCH; ++u) {
+        const int e = base + 32 * u + lane;
+        w[u] = e < span ? words[e] : 0ull;
+      }
+#pragma unroll
+      for (int u = 0; u < W_BATCH; ++u) {
+        const int e = base + 32 * u + lane;
+        const bool keep = e < span && (e >> 2) < mine && w[u] >= floor_w;
+        const unsigned b = __ballot_sync(FULL, keep);
+        if (keep) dst[n + __popc(b & lt)] = w[u];
+        n += __popc(b);
+      }
     }
     __syncwarp();
+    return n;
   };
   // cut a row's candidates to its K best and up to `slack` more and raise
-  // its lower bound to the least kept (at or below the K-th best of a
-  // subset, which never exceeds the final K-th best; a later gain equal to
-  // it comes after K earlier ones: exact); a buffer that fits the warp's
-  // staging (empty by then) is read once into it, cut there and written
-  // back
+  // its lower bound, and the row's shared one, to the least kept (at or
+  // below the K-th best of a subset of its docs, which never exceeds the
+  // final K-th best); a buffer that fits the warp's cut room is read once
+  // into it, cut there and written back, a larger one packed and cut in
+  // place. The kept words land at the front, which is the interleaved
+  // layout with (kept - t + 3) / 4 words for lane t. A buffer of fewer
+  // than K words (one lane of the quad near its quarter while the others
+  // hold few: passing gains only at some docs of a step) bounds nothing: it
+  // is only packed so, its lanes' shares balanced, and no bound rises.
   auto cut_row = [&](int row, int slack) {
     deep::u64* words = row_words(row);
-    const int n = buf_n[row];
+    const int* c = cnt4 + 4 * row;
+    const int n = c[0] + c[1] + c[2] + c[3];
     deep::u64 least;
     int kept;
-    if (n <= W_CUT_WORDS) {
+    if (n < K) {   // K <= FOLD_MAX_K = W_CUT_WORDS
+      gather(words, row, wcut, 0ull);
 #pragma unroll 8
-      for (int e = lane; e < n; e += 32) wcut[e] = words[e];
+      for (int e = lane; e < n; e += 32) words[e] = wcut[e];
+      if (lane < 4) cnt4[4 * row + lane] = (n - lane + 3) / 4;
       __syncwarp();
+      return;
+    }
+    if (n <= W_CUT_WORDS) {
+      gather(words, row, wcut, 0ull);
       least = fold_cut(wcut, n, K, slack, whist, lane, kept);
 #pragma unroll 8
       for (int e = lane; e < kept; e += 32) words[e] = wcut[e];
     } else {
+      gather(words, row, words, 0ull);
       least = fold_cut(words, n, K, slack, whist, lane, kept);
     }
+    if (lane < 4) cnt4[4 * row + lane] = (kept - lane + 3) / 4;
     if (lane == 0) {
-      buf_n[row] = kept;
       row_t[row] = deep::key_gain((uint32_t)(least >> 32));
+      atomicMax(fs.seed + q0 + row, least);
     }
     __syncwarp();
   };
@@ -996,10 +1140,11 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
   float acc[NACC];
 #pragma unroll
   for (int e = 0; e < NACC; ++e) acc[e] = 0.0f;
-  int n0 = 0, n1 = 0;   // the deep fold: rows r0's and r0 + 8's staged count
+  int n0 = 0, n1 = 0;   // the deep fold: rows r0's and r0 + 8's buffer count
+
   // int8 / int4: this group's half of query chunk j into its stage, by the
   // group's first thread, once the group is done with the stage
-  const int total = max(0, tile_end - tile_begin) * chunks;
+  const int total = n_seq * chunks;
   const bool q_loader = RAW && warp == 0 && lane == 0;
   auto load_q = [&](int j) {
     if (j >= total) return;
@@ -1013,9 +1158,78 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
     for (int j = 0; j < stages; ++j) load_q(j);
   }
 
+  // the end of the sample: each owned row with K finite gains there or more
+  // publishes its K-th best (its dense sample words, 0 for -inf, cut to
+  // exactly K), and the split's own docs start from empty buffers
+  const int samp_sub = n_samp * (NACC / W_STEP) * 4;   // a lane's words
+  auto end_sample = [&]() {
+    n0 += __shfl_xor_sync(FULL, n0, 1);
+    n0 += __shfl_xor_sync(FULL, n0, 2);
+    n1 += __shfl_xor_sync(FULL, n1, 1);
+    n1 += __shfl_xor_sync(FULL, n1, 2);
+    if (tig == 0) {
+      buf_n[r0] = n0;
+      buf_n[r0 + 8] = n1;
+    }
+    __syncwarp();
+    // the finite words packed into the warp's cut room, cut back to K
+    // whenever the next batch of 32 W_BATCH might not fit (the host plans
+    // no sample past K = W_CUT_WORDS / 2)
+    unsigned rows = __ballot_sync(FULL, lane < 16 && buf_n[wr + lane] >= K);
+    for (; rows; rows &= rows - 1) {
+      const int r = wr + __ffs(rows) - 1;
+      const deep::u64* words = samp_words(r);
+      const int total = 4 * samp_sub;
+      int n = 0, kept;
+      for (int base = 0; base < total; base += 32 * W_BATCH) {
+        deep::u64 w[W_BATCH];
+#pragma unroll
+        for (int u = 0; u < W_BATCH; ++u) {
+          const int e = base + 32 * u + lane;
+          w[u] = e < total ? words[e] : 0ull;
+        }
+        if (n > W_CUT_WORDS - 32 * W_BATCH)
+          fold_cut(wcut, n, K, 0, whist, lane, n);
+#pragma unroll
+        for (int u = 0; u < W_BATCH; ++u) {
+          const unsigned b = __ballot_sync(FULL, w[u] != 0ull);
+          if (w[u]) wcut[n + __popc(b & lt)] = w[u];
+          n += __popc(b);
+        }
+        __syncwarp();
+      }
+      const deep::u64 least = fold_cut(wcut, n, K, 0, whist, lane, kept);
+      if (lane == 0) atomicMax(fs.seed + q0 + r, least);
+    }
+    __syncwarp();
+    n0 = n1 = 0;
+    thr0 = q0 + r0 < B ? -FLT_MAX : none;
+    thr1 = q0 + r0 + 8 < B ? -FLT_MAX : none;
+  };
+  const bool own0 = DEEP && n_samp && owned_row(r0);
+  const bool own1 = DEEP && n_samp && owned_row(r0 + 8);
   const int tid = threadIdx.x & 127;
-  for (int t = tile_begin, i = 0; t < tile_end; ++t) {
+  const bool real0 = q0 + r0 < B, real1 = q0 + r0 + 8 < B;
+  deep::u64 seed0 = 0ull, seed1 = 0ull;
+  for (int jt = 0, i = 0; jt < n_seq; ++jt) {
+    const int t = tile_at(jt);
     const int j0 = t * WTD;
+    if constexpr (DEEP) {
+      if (n_samp && jt == n_samp) end_sample();
+      // the row's shared bound: what its other splits have shown so far,
+      // read a tile ahead (its load's latency under a tile's work), and
+      // at the split's first tile as it stands
+      if (jt >= n_samp) {
+        if (jt == n_samp) {
+          seed0 = real0 ? __ldcg(fs.seed + q0 + r0) : 0ull;
+          seed1 = real1 ? __ldcg(fs.seed + q0 + r0 + 8) : 0ull;
+        }
+        if (real0) thr0 = fmaxf(thr0, seed_gain(seed0));
+        if (real1) thr1 = fmaxf(thr1, seed_gain(seed1));
+        seed0 = real0 ? __ldcg(fs.seed + q0 + r0) : 0ull;
+        seed1 = real1 ? __ldcg(fs.seed + q0 + r0 + 8) : 0ull;
+      }
+    }
     // the tile's bias and scale, loaded under the products, staged below
     float v[4];
 #pragma unroll
@@ -1049,7 +1263,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
     // ---- fold the [64 x 192] gain tile, 8 accumulators a step ----
     // (a loop over a switch: each case is one step's own registers, and
     // the rarer merges below are one copy of code, not one a step)
-    float* tb = tile_v + ((t & 1) * NWG + wg) * 2 * WTD;
+    float* tb = tile_v + ((jt & 1) * NWG + wg) * 2 * WTD;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (tid + 128 * h < WTD) {
@@ -1073,38 +1287,55 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
         RAGROUTE_FOLD(8) RAGROUTE_FOLD(9) RAGROUTE_FOLD(10) RAGROUTE_FOLD(11)
 #undef RAGROUTE_FOLD
       }
+      if constexpr (DEEP) {
+        // the sample's tiles: an owned row's every gain to its dense words
+        // (a lane's 4 a step, 0 for -inf or NaN), counting the finite ones
+        if (jt < n_samp) {
+          const int base = j0 + 16 * step + 2 * tig;
+          const int at = (jt * (NACC / W_STEP) + step) * 4;
+          auto word = [&](float g, int pos) {
+            return g >= -FLT_MAX
+                       ? ((deep::u64)deep::order_key(g) << 32) | (uint32_t)~pos
+                       : 0ull;
+          };
+          deep::u64* v0 = samp_words(r0) + tig * samp_sub + at;
+          deep::u64* v1 = samp_words(r0 + 8) + tig * samp_sub + at;
+          store_if(v0, word(x[0], base), own0);
+          store_if(v0 + 1, word(x[1], base + 1), own0);
+          store_if(v0 + 2, word(x[4], base + 8), own0);
+          store_if(v0 + 3, word(x[5], base + 9), own0);
+          store_if(v1, word(x[2], base), own1);
+          store_if(v1 + 1, word(x[3], base + 1), own1);
+          store_if(v1 + 2, word(x[6], base + 8), own1);
+          store_if(v1 + 3, word(x[7], base + 9), own1);
+          n0 += own0 ? __popc(m & 0x33u) : 0;
+          n1 += own1 ? __popc(m & 0xCCu) : 0;
+          continue;
+        }
+      }
       if (!__any_sync(FULL, m)) continue;
       if constexpr (DEEP) {
-        // a quad (lanes 4 gid .. + 3) shares rows r0 and r0 + 8: a lane's
-        // place in a row's buffer is the count of the quad's lower lanes'
-        // candidates there, so no atomics (the warp owns its rows) and
-        // every candidate has a static register
-        const unsigned m0 = m & 0x33u, m1 = m & 0xCCu;
-        const int c0 = __popc(m0), c1 = __popc(m1);
-        int p0 = c0, p1 = c1;
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          const int t0 = __shfl_up_sync(FULL, p0, off);
-          const int t1 = __shfl_up_sync(FULL, p1, off);
-          if (tig >= off) { p0 += t0; p1 += t1; }
-        }
-        const int at0 = n0 + p0 - c0, at1 = n1 + p1 - c1;
-        deep::u64* w0 = cut_words + r0 * W_SB;
-        deep::u64* w1 = cut_words + (r0 + 8) * W_SB;
+        // each lane's candidates of rows r0 and r0 + 8 go straight to its
+        // own places in the rows' buffers in device memory (interleaved:
+        // no counting across the quad), by predicated stores: no branch
+        deep::u64* w0 = row_words(r0) + tig;
+        deep::u64* w1 = row_words(r0 + 8) + tig;
+        const uint32_t pos0 = ~(uint32_t)(j0 + 16 * step + 2 * tig);
 #pragma unroll
         for (int u = 0; u < W_STEP; ++u) {
-          if (m & (1u << u)) {
-            const int pos = j0 + 16 * step + 8 * (u >> 2) + 2 * tig + (u & 1);
-            const deep::u64 word =
-                ((deep::u64)deep::order_key(x[u]) << 32) | (uint32_t)~pos;
-            if (u & 2)
-              w1[at1 + __popc(m1 & ((1u << u) - 1))] = word;
-            else
-              w0[at0 + __popc(m0 & ((1u << u) - 1))] = word;
+          const bool take = (m >> u) & 1u;
+          // ~(p + o) = ~p - o
+          const deep::u64 word =
+              ((deep::u64)deep::order_key(x[u]) << 32) |
+              (uint32_t)(pos0 - (8 * (u >> 2) + (u & 1)));
+          if (u & 2) {
+            store_if(w1 + 4 * n1, word, take);
+            n1 += take;
+          } else {
+            store_if(w0 + 4 * n0, word, take);
+            n0 += take;
           }
         }
-        n0 += __shfl_sync(FULL, p0, lane | 3);   // the quad's totals
-        n1 += __shfl_sync(FULL, p1, lane | 3);
         m = 0;
       }
       // append this lane's candidates to their rows' buffers (x is picked
@@ -1120,82 +1351,146 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) wgmma_topk_kernel(
         buf_g[at] = g;
         buf_i[at] = pos;
       }
-      __syncwarp();
+      // (the deep fold's words went to device memory at places of their
+      // own: a barrier here would wait for the stores to land, every step)
+      if constexpr (!DEEP) __syncwarp();
       // a row takes at most 16 candidates a step (2 docs x 2 columns from
       // each of its 4 lanes): buffers past their capacity less 16 are
-      // merged (cut, in the deep fold) now
-      // (the deep fold: staging that could not take another step's goes
-      // to device memory; a buffer that could not take another staging's
-      // is cut, the warp's staging emptied first)
+      // merged (cut, in the deep fold; the sample's words have room for
+      // every doc of the sample) now
       if constexpr (DEEP) {
-        if (__any_sync(FULL, n0 > W_SB - 16 || n1 > W_SB - 16)) {
-          if (tig == 0) {
-            stg_n[r0] = n0;
-            stg_n[r0 + 8] = n1;
-          }
+        // a lane adds at most 4 words a step to a row: a row with a lane
+        // near its quarter of the buffer is cut now
+        const int sub = cap / 4;
+        if (__any_sync(FULL, n0 > sub - 4 || n1 > sub - 4)) {
+          cnt4[4 * r0 + tig] = n0;
+          cnt4[4 * (r0 + 8) + tig] = n1;
           __syncwarp();
-          unsigned rows =
-              __ballot_sync(FULL, lane < 16 && stg_n[wr + lane] > W_SB - 16);
-          for (; rows; rows &= rows - 1) flush_row(wr + __ffs(rows) - 1);
-          if (__ballot_sync(FULL, lane < 16 && buf_n[wr + lane] > cap - W_SB)) {
-            rows = __ballot_sync(FULL, lane < 16 && stg_n[wr + lane] > 0);
-            for (; rows; rows &= rows - 1) flush_row(wr + __ffs(rows) - 1);
-            rows = __ballot_sync(FULL, lane < 16 && buf_n[wr + lane] > cap - W_SB);
-            for (; rows; rows &= rows - 1) cut_row(wr + __ffs(rows) - 1, K / 2);
-            if (q0 + r0 < B) thr0 = row_t[r0];
-            if (q0 + r0 + 8 < B) thr1 = row_t[r0 + 8];
-          }
-          n0 = stg_n[r0];
-          n1 = stg_n[r0 + 8];
+          const int* c = cnt4 + 4 * (wr + lane);
+          unsigned rows = __ballot_sync(
+              FULL, lane < 16 && max(max(c[0], c[1]), max(c[2], c[3])) > sub - 4);
+          for (; rows; rows &= rows - 1) cut_row(wr + __ffs(rows) - 1, K / 2);
+          thr0 = raise_thr(thr0, row_t[r0]);
+          thr1 = raise_thr(thr1, row_t[r0 + 8]);
+          n0 = cnt4[4 * r0 + tig];
+          n1 = cnt4[4 * (r0 + 8) + tig];
         }
       } else {
         unsigned rows =
             __ballot_sync(FULL, lane < 16 && buf_n[wr + lane] > W_CAP - 16);
         for (; rows; rows &= rows - 1) merge_row(wr + __ffs(rows) - 1);
-        if (q0 + r0 < B) thr0 = fmaxf(g0[K - 1], low);
-        if (q0 + r0 + 8 < B) thr1 = fmaxf(g1[K - 1], low);
+        if (q0 + r0 < B) thr0 = fmaxf(g0[K - 1], -FLT_MAX);
+        if (q0 + r0 + 8 < B) thr1 = fmaxf(g1[K - 1], -FLT_MAX);
       }
     }
   }
   __syncwarp();
   if constexpr (DEEP) {
-    // every row's candidates cut to its K best and sorted by its warp in
-    // the ring's shared memory, free once both groups are past the scan
-    if (tig == 0) {
-      stg_n[r0] = n0;
-      stg_n[r0 + 8] = n1;
-    }
+    // a split of no docs of its own has only the sample's candidates: gone
+    if (n_samp && n_seq == n_samp) end_sample();
+
+    // every row's candidates at or above the row's shared bound are cut to
+    // its K best and sorted by its warp in the ring's shared memory, free
+    // once both groups are past the scan, then merged into the row's running
+    // list
+    cnt4[4 * r0 + tig] = n0;
+    cnt4[4 * (r0 + 8) + tig] = n1;
     __syncwarp();
-    unsigned staged = __ballot_sync(FULL, lane < 16 && stg_n[wr + lane] > 0);
-    for (; staged; staged &= staged - 1) flush_row(wr + __ffs(staged) - 1);
     hopper::named_barrier(2 + NWG, 128 * NWG);
     // each warp's share of the ring: a row's candidates are read into it
     // once, cut there, and its list sorted there (a buffer larger than the
-    // share is cut in device memory first)
-    const int P = deep::pow2_at_least(K);
+    // share is cut in device memory first); the running list's entries are
+    // read into the warp's cut room
     const int room = stages * STAGE / 8 / (4 * NWG);
     deep::u64* sorted =
         reinterpret_cast<deep::u64*>(smem) + (size_t)(wg * 4 + warp) * room;
-    for (int r = wr; r < wr + 16; ++r) {
+    for (int i = 0; i < 16; ++i) {
+      const int r = wr + ((i + split) & 15);
       const int row = q0 + r;
-      if (row >= B) break;
-      deep::u64* words = row_words(r);
-      if (buf_n[r] > room) cut_row(r, 0);
-      int n = buf_n[r];
-#pragma unroll 8
-      for (int e = lane; e < n; e += 32) sorted[e] = words[e];
-      __syncwarp();
-      if (n > K) fold_cut(sorted, n, K, 0, whist, lane, n);
-      for (int e = n + lane; e < P; e += 32) sorted[e] = 0ull;
-      __syncwarp();
-      warp_bitonic_desc(sorted, P, lane);
-      for (int e = lane; e < K; e += 32) {
-        const deep::u64 w = sorted[e];
-        const uint32_t key = (uint32_t)(w >> 32);
-        const size_t o = ((size_t)row * splits + split) * K + e;
-        part_g[o] = key ? deep::key_gain(key) : neg_inf();
-        part_i[o] = key ? (int)~(uint32_t)w : 0;
+      if (row >= B) continue;
+      const int* c = cnt4 + 4 * r;
+      if (4 * max(max(c[0], c[1]), max(c[2], c[3])) > room) cut_row(r, 0);
+      // below the row's shared bound no word is among its K best
+      int len = gather(row_words(r), r, sorted, __ldcg(fs.seed + row));
+      int* lock = fs.lock + row;
+      if (len > 0) {
+        if (len > K) fold_cut(sorted, len, K, 0, whist, lane, len);
+        const int P = deep::pow2_at_least(len < 2 ? 2 : len);
+        for (int e = len + lane; e < P; e += 32) sorted[e] = 0ull;
+        __syncwarp();
+        warp_bitonic_desc(sorted, P, lane);
       }
+      // the row's lock (0 free with no list yet, 2 free with one), taken by
+      // every split: under it the split counts the row and its entries that
+      // beat the running list's last go in by rank (the words are distinct
+      // but for the 0 pads, which come last), or the first list is the
+      // running list as it is; the writer of its last entry publishes it as
+      // the row's bound; the split that counts last writes the row out and
+      // leaves its state zero
+      int filled = 0;
+      if (lane == 0) {
+        for (;;) {
+          if (cas_acquire(lock, 0, 1) == 0) break;
+          if (cas_acquire(lock, 2, 1) == 2) { filled = 1; break; }
+          __nanosleep(32);
+        }
+      }
+      filled = __shfl_sync(FULL, filled, 0);
+      __syncwarp();
+      deep::u64* run = fs.run + (size_t)row * K;
+      const int counted = __ldcg(fs.count + row);
+      const bool last = counted == splits - 1;
+      if (len > 0 && !filled) {
+        for (int e = lane; e < K; e += 32) {
+          const deep::u64 w = e < len ? sorted[e] : 0ull;
+          run[e] = w;
+          if (e == K - 1 && w && !last) atomicMax(fs.seed + row, w);
+        }
+        filled = 1;
+      } else if (len > 0) {
+        for (int base = 0; base < K; base += 32 * W_BATCH) {
+          deep::u64 w[W_BATCH];
+#pragma unroll
+          for (int u = 0; u < W_BATCH; ++u) {
+            const int e = base + 32 * u + lane;
+            w[u] = e < K ? __ldcg(run + e) : 0ull;
+          }
+#pragma unroll
+          for (int u = 0; u < W_BATCH; ++u)
+            if (base + 32 * u + lane < K) wcut[base + 32 * u + lane] = w[u];
+        }
+        __syncwarp();
+        const int m = count_above(sorted, len, wcut[K - 1]);
+        for (int e = lane; m > 0 && e < K; e += 32) {
+          const deep::u64 w = wcut[e];
+          const int to = e + count_above(sorted, m, w);
+          if (to < K) run[to] = w;
+          if (to == K - 1 && w && !last) atomicMax(fs.seed + row, w);
+        }
+        for (int e = lane; e < m; e += 32) {
+          const deep::u64 w = sorted[e];
+          const int to = e + count_above(wcut, K, w);
+          if (to < K) run[to] = w;
+          if (to == K - 1 && !last) atomicMax(fs.seed + row, w);
+        }
+      }
+      __syncwarp();
+      if (last) {
+        for (int e = lane; e < K; e += 32) {
+          const deep::u64 w = filled ? __ldcg(run + e) : 0ull;
+          const uint32_t key = (uint32_t)(w >> 32);
+          fs.out_g[(size_t)row * K + e] = key ? deep::key_gain(key) : neg_inf();
+          fs.out_i[(size_t)row * K + e] = key ? (long long)~(uint32_t)w : 0;
+        }
+        if (lane == 0) {
+          fs.count[row] = 0;
+          fs.seed[row] = 0ull;
+        }
+      } else if (lane == 0) {
+        fs.count[row] = counted + 1;
+      }
+      __syncwarp();
+      if (lane == 0) store_release(lock, last ? 0 : filled ? 2 : 0);
       __syncwarp();
     }
     return;
@@ -1220,7 +1515,7 @@ cudaError_t launch_wgmma(const void* q, const void* docs, const float* bias,
                          const float* scale, float* part_g, int* part_i,
                          int B, int N, int D, int K, int G, int splits,
                          int tiles_per_split, cudaStream_t stream,
-                         deep::u64* cand = nullptr, int cap = 0) {
+                         FoldState fs = FoldState{}) {
   constexpr bool RAW = DT != kBF16;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1268,8 +1563,8 @@ cudaError_t launch_wgmma(const void* q, const void* docs, const float* bias,
   const float* gscale = DT == kI4G ? scale : nullptr;
   wgmma_topk_kernel<NWG, DT, DEEP>
       <<<grid, 128 * (NWG + 1), smem, stream>>>(
-          qmap, dmap, bias, fold_scale, gscale, part_g, part_i, cand, cap, B,
-          N, D, K, G, splits, tiles_per_split, stages, raw);
+          qmap, dmap, bias, fold_scale, gscale, part_g, part_i, fs, B, N, D,
+          K, G, splits, tiles_per_split, stages, raw);
   return cudaGetLastError();
 }
 
@@ -1954,22 +2249,33 @@ extern "C" int fused_topk_wgmma_launch(const void* q, const void* docs,
 }
 
 // The deep fold: bf16, int8 or int4 docs as fused_topk_wgmma_launch takes
-// them, lists of KSHALLOW < K <= FOLD_MAX_K, through wgmma_topk_kernel with
-// two consumer groups (128 query rows a block) whose rows keep their
-// candidates in cand (u64 [B, splits, cap] words, cap >= K + FOLD_SLACK),
-// cut to the K best whenever a row's fill away from cap could not take
-// another step's; then merge_splits_kernel. part_g / part_i are [B,
-// splits, K]. Returns the CUDA error code (0 on success).
+// them, lists of KSHALLOW < K <= FOLD_MAX_K, in one launch of
+// wgmma_topk_kernel with two consumer groups (128 query rows a block): the
+// blocks that own rows first scan `sample_tiles` tiles of the shard for
+// them (their words in samp, u64 [B, sample_tiles * 192]) and publish each
+// one's K-th best in seed, then every block scans its split with each
+// row's bound read from seed at every tile; its rows keep their candidates
+// in cand (u64 [B, splits, cap] words, cap >= K + FOLD_SLACK), cut to the K
+// best whenever a row's fill away from cap could not take another step's;
+// after the scan each (row, split)'s list merges into run (u64 [B, K]
+// words) and the last split writes out_g / out_i [B, K] f32 / i64. seed
+// (u64 [B]), count and lock (int [B]) are zero on entry and left zero.
+// Returns the CUDA error code (0 on success).
 extern "C" int fused_topk_fold_launch(const void* q, const void* docs,
                                       const void* bias, const void* scale,
-                                      void* cand, void* part_g, void* part_i,
-                                      void* out_g, void* out_i, int B, int N,
-                                      int D, int K, int G, int splits,
-                                      int tiles_per_split, int cap,
-                                      int doc_type, void* stream) {
+                                      void* cand, void* samp, void* run,
+                                      void* seed, void* count, void* lock,
+                                      void* out_g,
+                                      void* out_i, int B, int N, int D, int K,
+                                      int G, int splits, int tiles_per_split,
+                                      int cap, int sample_tiles, int doc_type,
+                                      void* stream) {
   const bool int4 = doc_type == kI4 || doc_type == kI4G;
   if (B < 1 || N < 1 || D < 16 || D % 16 != 0 || K <= topk::KSHALLOW ||
       K > FOLD_MAX_K || cap < K + FOLD_SLACK || cand == nullptr ||
+      run == nullptr || seed == nullptr || count == nullptr ||
+      lock == nullptr || sample_tiles < 0 ||
+      (sample_tiles > 0 && samp == nullptr) ||
       splits < 1 || splits > 65535 || tiles_per_split < 1 ||
       doc_type < kBF16 || doc_type > kI4G || (int4 && D % 32 != 0) ||
       reinterpret_cast<uintptr_t>(q) % 16 ||
@@ -1981,14 +2287,22 @@ extern "C" int fused_topk_fold_launch(const void* q, const void* docs,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
   const float* s = static_cast<const float*>(scale);
-  float* pg = static_cast<float*>(part_g);
-  int* pi = static_cast<int*>(part_i);
-  auto* cw = static_cast<deep::u64*>(cand);
+  FoldState fs;
+  fs.cand = static_cast<deep::u64*>(cand);
+  fs.samp = static_cast<deep::u64*>(samp);
+  fs.run = static_cast<deep::u64*>(run);
+  fs.seed = static_cast<deep::u64*>(seed);
+  fs.count = static_cast<int*>(count);
+  fs.lock = static_cast<int*>(lock);
+  fs.out_g = static_cast<float*>(out_g);
+  fs.out_i = static_cast<long long*>(out_i);
+  fs.cap = cap;
+  fs.sample_tiles = sample_tiles;
+  fs.samp_cap = sample_tiles * WTD;
   cudaError_t err;
 #define RAGROUTE_FOLD_LAUNCH(DT)                                             \
-  err = launch_wgmma<2, DT, true>(                                           \
-      q, docs, b, s, pg, pi, B, N, D, K, G, splits, tiles_per_split, st, cw, \
-      cap)
+  err = launch_wgmma<2, DT, true>(q, docs, b, s, nullptr, nullptr, B, N, D,  \
+                                  K, G, splits, tiles_per_split, st, fs)
   switch (doc_type) {
     case kBF16: RAGROUTE_FOLD_LAUNCH(kBF16); break;
     case kI8: RAGROUTE_FOLD_LAUNCH(kI8); break;
@@ -1996,12 +2310,7 @@ extern "C" int fused_topk_fold_launch(const void* q, const void* docs,
     default: RAGROUTE_FOLD_LAUNCH(kI4G); break;
   }
 #undef RAGROUTE_FOLD_LAUNCH
-  if (err != cudaSuccess) return (int)err;
-  topk::merge_splits_kernel<long long>
-      <<<B, topk::MERGE_THREADS, splits * (int)sizeof(int), st>>>(
-          pg, pi, static_cast<float*>(out_g), static_cast<long long*>(out_i),
-          splits, K);
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 // f32 docs (doc_type kF32) and f32 queries [B, D] (16-byte aligned bases), k

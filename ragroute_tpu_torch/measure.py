@@ -62,16 +62,22 @@ at the gate/up shape (the first kernel against the decode kernel below
 the deep launch over k (65 to 256) and the docs' width (128, 512, 768) for
 bf16 over 734,003 docs and at k' = 128 over 83,886 to 262,144, and for int8
 (hostrefine's flat coarse slab, the 768-wide shard) and int4 (per-doc
-scales, widths 128 and 768), K1's small-batch f32 scan against the f32
+scales, widths 128 and 768; ``kernel="deep"`` names the deep launch, which
+the plan no longer takes there), K1's small-batch f32 scan against the f32
 scan at B = 64, 65, 96 and 128 (the reading behind
 ``fused_topk.f32_scan_pays``; the first design beside both at B = 8 and 64)
 over N (104,857 and 734,003), K3's wgmma kernel against its
 first design at the small sources' slabs (1,024 clusters, S 104 and 160)
-and at B = 8, the readings behind ``int4_matmul.M_SWITCH``,
-``fused_topk.FOLD_MIN_DOCS`` and the fold's range; with ``--parent DIR`` K5 at the two prefill shapes, K5 at
+and at B = 8, the readings behind ``int4_matmul.M_SWITCH`` and the fold's
+range; with ``--parent DIR`` K5 at the two prefill shapes, K5 at
 Qwen3-8B's five decode shapes and K1's deep lists (the low-rank coarse
-scan at k' = 128 and 256, hostrefine's at k' = 256) join the turns, each
-tree its own plan.
+scan at k' = 128 and 256, hostrefine's at k' = 256, the low-rank world's
+three small shards at k' = 128 and 256 and two shards at d = 768) join the
+turns, each tree its own plan (one timer alone in turns:
+``served_in_turns(parent, card, timers=(DECODE_DEEP_TIMER,))`` from
+``python -c``, its rows' device ms in what it returns). ``--kernels``
+also runs ``FOLD_SWEEP_TIMER``: the fold's buffer and sample sweep, the
+readings behind ``deep_topk.fold_cap`` and ``FOLD_SAMPLE_PER_K``.
 
 ``--turns DIR`` times, from DIR (an unpacked earlier tree) and this tree in
 turns, the exact engine step (B = 512 and 2,048, routing ``ragroute`` and
@@ -235,8 +241,10 @@ print(json.dumps(rows))
 
 
 # K5 at Qwen3-8B's five decode shapes and K1's deep lists at the low-rank
-# (k' = 128 and 256) and hostrefine (k' = 256) coarse scans, each tree's
-# own plan; uses only functions that every tree since the deep lists has
+# (k' = 128 and 256) and hostrefine (k' = 256) coarse scans, over the
+# low-rank world's three small coarse shards (k' = 128 and 256) and at d =
+# 768 over 125,829 and 262,144 docs (k' = 128), each tree's own plan; uses
+# only functions that every tree since the deep lists has
 DECODE_DEEP_TIMER = """
 import json, torch
 from ragroute_tpu_torch.ops import decoder_checks as dc, kernel_checks as kc
@@ -263,6 +271,15 @@ for label, case, ks in (
     for k in ks:
         case.k = k
         row(f"{label} k'={k}", lambda: kc.run_kernel(case), fused_topk, 3)
+    del case
+for n, d, ks in ((83_886, 128, (128, 256)), (104_857, 128, (128, 256)),
+                 (125_829, 128, (128, 256)), (125_829, 768, (128,)),
+                 (262_144, 768, (128,))):
+    case = kc.path_case(dev, n=n, d=d, k=128, seed=0)
+    for k in ks:
+        case.k = k
+        row(f"k1 small shard {n} x {d} bf16 k'={k}",
+            lambda: kc.run_kernel(case), fused_topk, 5)
     del case
 print(json.dumps(rows))
 """
@@ -406,8 +423,8 @@ for d in (128, 512, 768):
     scan_against_deep(f"N=734003 d={d} bf16",
                       kc.path_case(dev, d=d, seed=4 if d == 128 else 0),
                       (65, 128, 160, 256))
-# the shard sizes below fused_topk.FOLD_MIN_DOCS (the low-rank world's small
-# shards and one between)
+# the low-rank world's small shards and one between them and pubmed's (the
+# deep fold's first design lost to the deep launch there)
 for n in (83_886, 104_857, 125_829, 262_144):
     for d in (128, 768):
         scan_against_deep(f"N={n} d={d} bf16", kc.path_case(dev, n=n, d=d,
@@ -438,6 +455,56 @@ for label, make, ks in (
         ("N=734003 d=768 int4 per-doc", lambda: kc.int4_path_case(
             dev, grouped=False), (128, 256))):
     scan_against_deep(label, make(), ks)
+print(json.dumps(rows))
+"""
+
+
+# K1's deep fold at d = 128 beside the deep launch: at the low-rank
+# world's small shards over its candidate slots a (row, split)
+# (deep_topk.fold_cap, 4 or 8 a list's entry), the sample's docs an entry
+# (deep_topk.FOLD_SAMPLE_PER_K) and the most splits the plan may take
+# (fused_topk.MAX_SPLITS: the card's 33 a row block at B = 512, 16 or 8,
+# longer splits); over shards whose splits run 42 to 116 tiles, at both
+# buffers (the tile length where the wider one stops paying,
+# deep_topk.FOLD_SHORT_TILES): the readings behind those constants, this
+# tree only
+FOLD_SWEEP_TIMER = """
+import json, torch
+from ragroute_tpu_torch.ops import decoder_checks as dc, deep_topk as dt
+from ragroute_tpu_torch.ops import fused_topk as ft, kernel_checks as kc
+dev, rows = torch.device("cuda"), []
+cap0, per0, max0 = dt.fold_cap, dt.FOLD_SAMPLE_PER_K, ft.MAX_SPLITS
+def cap_of(x):
+    return lambda k, tiles=None: max(k + dt.FOLD_SLACK, -(-x * k // 32) * 32)
+def row(name, kernel, f):
+    rows.append({"name": name, "kernel": kernel,
+                 "ms": kc.cuda_time_ms(f, reps=5),
+                 "device_ms": dc.device_ms(f, ft.fused_topk, warmup=1,
+                                           reps=5)})
+small = (83_886, 104_857, 125_829)
+for n in small + (262_144, 400_000, 550_000, 734_003):
+    case = kc.path_case(dev, n=n, d=128, k=128, seed=0)
+    for k in (128, 256) if n in small or n == 734_003 else (128,):
+        case.k = k
+        name = f"k1 B=512 N={n} d=128 bf16 k={k}"
+        row(name, "deep", lambda: kc.run_kernel(case, "deep"))
+        per = ft._plan(512, n, 128, k, 1, ft._sm_count(dev),
+                       "fold").tiles_per_split
+        for x in (4, 8):
+            for s in (6, 8, 12) if n in small and k == 128 else (8,):
+                dt.fold_cap, dt.FOLD_SAMPLE_PER_K = cap_of(x), s
+                row(name, f"fold cap {x}k sample {s}k ({per} tiles a split)",
+                    lambda: kc.run_kernel(case, "fold"))
+        dt.fold_cap, dt.FOLD_SAMPLE_PER_K = cap0, per0
+        for most in (16, 8) if n in small else ():
+            ft.MAX_SPLITS = most
+            plan = ft._plan(512, n, 128, k, 1, ft._sm_count(dev), "fold")
+            row(name, f"fold at most {most} splits ({plan.splits} of "
+                f"{plan.tiles_per_split} tiles, cap {plan.cap})",
+                lambda: kc.run_kernel(case, "fold"))
+            ft.MAX_SPLITS = max0
+    del case
+    torch.cuda.empty_cache()
 print(json.dumps(rows))
 """
 
@@ -651,6 +718,67 @@ rows.append({"name": "qwen3-8b decode step B=16 S=2080 int4, int8 KV",
 print(json.dumps(rows))
 """
 
+# the low-rank engine step over the 1,048,575-doc world (bf16, rank-128
+# coarse scans at k' = 128, B = 512): host clock around engine.search under
+# ragroute and all (median of 10 after 2 warm-ups), then 10 steps under all
+# in torch.profiler: device ms, K1's (its kernels by name: the scan and its
+# fold, the split merge, the deep launch's gains and selection) and K1's
+# over the three small shards (K1's less pubmed's: each step's largest scan
+# launch and the split merges, which only pubmed's fold ran before the
+# fold took every shard); uses only functions that every tree since the
+# deep fold has
+LOWRANK_STEP_TIMER = """
+import json, time, numpy as np, torch
+from torch.profiler import ProfilerActivity, profile
+from ragroute_tpu_torch.engine import FederatedSearchEngine
+from ragroute_tpu_torch.index import ShardSet, make_synthetic_world
+from ragroute_tpu_torch.router import CorpusRouter, RouterBank
+dev, rows = torch.device("cuda"), []
+syn = make_synthetic_world("medrag", docs_per_source_map={
+    "pubmed": 734_003, "statpearls": 104_857, "textbooks": 83_886,
+    "wikipedia": 125_829}, num_queries=512, seed=0, with_payloads=False)
+ss = ShardSet.build(syn.world, syn.embeddings, dtype=torch.bfloat16,
+                    device=dev, lowrank=-1)
+eng = FederatedSearchEngine(
+    ss, CorpusRouter.from_seed(syn.world.router_input_dim, 0, dev),
+    RouterBank.create(syn.world, syn.centroids, device=dev), impl="lowrank")
+def step(strategy):
+    eng.search(syn.query_embs, strategy=strategy, staged=False,
+               fetch_candidates=False)
+for strategy in ("ragroute", "all"):
+    times = []
+    for i in range(12):
+        t0 = time.perf_counter()
+        step(strategy)
+        times.append(1e3 * (time.perf_counter() - t0))
+    rows.append({"name": f"lowrank step {strategy} B=512",
+                 "ms": float(np.median(times[2:]))})
+K1 = ("wgmma_topk_kernel", "merge_splits_kernel", "chunk_gains_kernel",
+      "select_sort_kernel", "deep::merge_kernel", "emit_kernel")
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step("all")
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+ev = [e for e in prof.events()
+      if e.device_type == torch.autograd.DeviceType.CUDA]
+dur = lambda e: e.time_range.elapsed_us() / 1e3
+k1 = [e for e in ev if any(n in e.name for n in K1)]
+scans = sorted((e for e in k1 if "wgmma_topk_kernel" in e.name),
+               key=lambda e: e.time_range.start)
+per = len(scans) // 10
+largest = sum(max(dur(e) for e in scans[i * per:(i + 1) * per])
+              for i in range(10))
+k1_ms = sum(dur(e) for e in k1)
+merges = sum(dur(e) for e in k1 if "merge_splits_kernel" in e.name)
+rows.append({"name": "lowrank 10 steps all B=512 (profiled)", "ms": wall,
+             "device_ms": sum(dur(e) for e in ev), "k1_ms": k1_ms,
+             "k1_small_ms": k1_ms - largest - merges})
+print(json.dumps(rows))
+"""
+
 # --turns: the ivf step over the topical world (1,048,575 docs x 768, 64
 # topics a source, bf16 with the balanced-IVF layouts, B = 512, routing all;
 # host clock around engine.search, median of 10 after 2 warm-ups) with the
@@ -757,11 +885,17 @@ def served_in_turns(parent: str, card: str, timers=None):
                               f"{row['k5_ms']:.3f} in "
                               f"{row['k5_launches']:.0f} launches), busy "
                               f"share {row['busy_share']:.3f}")
+                elif "k1_small_ms" in row:
+                    extra += (f", device {row['device_ms']:.3f} ms (K1 "
+                              f"{row['k1_ms']:.3f}, of which the small "
+                              f"shards' {row['k1_small_ms']:.3f})")
                 elif "k3_ms" in row:
                     extra += (f", device {row['device_ms']:.3f} ms a step "
                               f"(K3 {row['k3_ms']:.3f}, K1 "
                               f"{row['k1_ms']:.3f}), busy share "
                               f"{row['busy_share']:.3f}")
+                elif "device_ms" in row:
+                    extra += f", device {row['device_ms']:.4f} ms"
                 print(f"[turns] {label}: {row['name']}: {row['ms']:.3f} ms"
                       f"{extra} ({card})", flush=True)
                 out.append(dict(row, tree=label))
@@ -830,7 +964,20 @@ def profile_steps(eng, syn, bsz: int, steps: int = 10, top: int = 12):
             and e.device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
+    # K1's scan launches (one a scored shard a step, in launch order): the
+    # largest of each step's is the largest shard's, the rest the smaller
+    # shards' (the deep launch's kernels, where a plan takes it, are in
+    # ``kernels`` by name)
+    k1 = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "wgmma_topk_kernel" in e.name),
+                key=lambda e: e.time_range.start)
+    per = len(k1) // steps if steps else 0
+    durs = [e.time_range.elapsed_us() / 1e3 for e in k1]
+    small = sum(sum(sorted(durs[i * per:(i + 1) * per])[:-1])
+                for i in range(steps)) if per > 1 else 0.0
     return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "k1_scan_ms": sum(durs), "k1_scan_small_shards_ms": small,
             "busy_share": device_ms / wall_ms if wall_ms else None,
             "launches_per_step": {n: w.launches / steps
                                   for n, w in counters.items()},
@@ -857,7 +1004,7 @@ def parent_vs_change(parent: str, card: str):
 
 TURN_TIMERS = (QUANT_TIMER, TURNS_TIMER, DECODE_DEEP_TIMER,
                GROUPED_F32_TIMER, SMALL_F32_COLLECT_TIMER)
-SWITCH_TIMERS = (SMALL_SWITCH_TIMER, SWITCH_TIMER)
+SWITCH_TIMERS = (SMALL_SWITCH_TIMER, SWITCH_TIMER, FOLD_SWEEP_TIMER)
 
 
 def kernels_in_turns(parent: Optional[str], card: str):
@@ -1343,6 +1490,9 @@ def main(argv=None) -> int:
               f"share {p['busy_share']:.3f}, launches per step "
               f"{p['launches_per_step']}, peak memory "
               f"{p['peak_memory_gb']:.3f} GB ({card})", flush=True)
+        print(f"[profile]   K1's scan {p['k1_scan_ms']:.3f} ms, of which the "
+              f"smaller shards' {p['k1_scan_small_shards_ms']:.3f} ms",
+              flush=True)
         for k in p["kernels"]:
             print(f"[profile]   {k['ms']:9.3f} ms {k['calls']:5d} calls  "
                   f"{k['name']}", flush=True)

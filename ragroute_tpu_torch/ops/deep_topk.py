@@ -28,6 +28,24 @@ MAX_CHUNK = 1 << 21          # K1: docs a chunk (grid.y of its gain kernel)
 # split) gets past its list, at least
 FOLD_MAX_K = 1024
 FOLD_SLACK = 32
+# the sample each row's owner scans before the split to seed the row's
+# bound: FOLD_SAMPLE_PER_K docs an entry of the list, in the scan's tiles of
+# FOLD_TILE docs, at most FOLD_SAMPLE_MAX_TILES of them, for lists up to
+# FOLD_SAMPLE_MAX_K (its words are cut in a warp's room of 1,024 in shared
+# memory, which must take k and another 256). A larger sample seeds a
+# tighter bound for more tiles of products: device ms at B = 512, k' = 128,
+# d = 128, the 8k buffer, 6 / 8 / 12 docs an entry: 83,886 docs 0.442 /
+# 0.447 / 0.466, 104,857 0.509 / 0.476 / 0.492, 125,829 0.663 / 0.525 /
+# 0.534 (H100 80GB HBM3, 700.00 W, measure.py's FOLD_SWEEP_TIMER)
+FOLD_SAMPLE_PER_K = 8
+FOLD_TILE = 192     # the wgmma scan's doc tile (fused_topk.W_TILE_D)
+FOLD_SAMPLE_MAX_TILES = 16
+FOLD_SAMPLE_MAX_K = 512
+# lists up to FOLD_WIDE_K over splits of at most FOLD_SHORT_TILES tiles get
+# twice the candidate slots (fold_cap): the longest split read where the
+# wider buffer did not lose
+FOLD_WIDE_K = 128
+FOLD_SHORT_TILES = 42
 
 
 def list_levels(splits: int, kr: int, k: int) -> List[Tuple[int, int]]:
@@ -115,20 +133,47 @@ def fused_plan(bsz: int, n_rows: int, k: int,
                      rows * per_row)
 
 
-def fold_cap(k: int) -> int:
+def fold_cap(k: int, tiles_per_split: Optional[int] = None) -> int:
     """Candidate slots a (row, split) of K1's deep fold: four times its
-    list, on the 32-slot grid. A row's bound rises only at a cut, so a
-    larger buffer takes more candidates under a stale bound and a smaller
-    one cuts more often; up to ``k`` = 256 a cut runs in the warp's staging
-    in shared memory (1,024 words)."""
-    return max(k + FOLD_SLACK, -(-4 * k // 32) * 32)
+    list, on the 32-slot grid (a quarter a lane of the row's quad), and
+    twice that for lists up to :data:`FOLD_WIDE_K` over splits of at most
+    :data:`FOLD_SHORT_TILES` tiles. A row's own bound rises only at a cut,
+    and a cut stalls both consumer groups; over a short split the seeded
+    bound leaves few enough candidates that the larger buffer needs no cut.
+    Device ms at B = 512, d = 128 (33 splits), 4x / 8x, k' = 128: splits of
+    14 tiles (83,886 docs) 0.585 / 0.447, 17 0.620 / 0.476, 20 0.665 /
+    0.525, 42 (262,144) 1.099 / 1.080, 64 (400,000) 1.413 / 1.452, 87
+    1.719 / 1.746, 116 (734,003) 1.975 / 2.010; k' = 256: 14 tiles 0.581 /
+    0.609, 20 0.650 / 0.676, 116 2.455 / 4.202, where the cuts raise the
+    bound (H100 80GB HBM3, 700.00 W, ``measure.py``'s
+    ``FOLD_SWEEP_TIMER``; lists between 129 and 255 not read)."""
+    base = max(k + FOLD_SLACK, -(-4 * k // 32) * 32)
+    if (tiles_per_split is not None and k <= FOLD_WIDE_K
+            and tiles_per_split <= FOLD_SHORT_TILES):
+        return 2 * base
+    return base
 
 
-def fold_bytes(bsz: int, splits: int, k: int) -> int:
+def fold_sample_tiles(k: int) -> int:
+    """Doc tiles of the sample a row's owner scans first in K1's deep fold:
+    :data:`FOLD_SAMPLE_PER_K` docs an entry of the list (6 tiles at k =
+    128), at most :data:`FOLD_SAMPLE_MAX_TILES`. Its k-th best is about the
+    shard's ``(k N / sample)``-th, which leaves a (row, split) of ``t``
+    tiles about ``k t / sample tiles`` candidates: no cut in the scan at
+    the low-rank world's small shards. None past
+    :data:`FOLD_SAMPLE_MAX_K`."""
+    if k > FOLD_SAMPLE_MAX_K:
+        return 0
+    return min(FOLD_SAMPLE_MAX_TILES, -(-FOLD_SAMPLE_PER_K * k // FOLD_TILE))
+
+
+def fold_bytes(bsz: int, splits: int, k: int,
+               tiles_per_split: Optional[int] = None) -> int:
     """Device memory of a deep fold's launch: every (row, split)'s
-    candidate words and its list of ``k`` (an f32 gain and an i32 index
-    an entry)."""
-    return bsz * splits * WORD * (fold_cap(k) + k)
+    candidate words, and every row's sample words and running list of
+    ``k`` (a word an entry)."""
+    return bsz * WORD * (splits * fold_cap(k, tiles_per_split)
+                         + fold_sample_tiles(k) * FOLD_TILE + k)
 
 
 class PairPlan(NamedTuple):

@@ -23,12 +23,13 @@ Launches (:func:`_plan`, a pure function of the shape): bf16, int8 and int4
 docs (per-doc or per-group scales) take the wgmma scan
 (``wgmma_topk_kernel``: a TMA ring, doc tiles of 192, 128 query rows a
 block; int8 and int4 codes arrive as raw bytes and the producer's warps
-turn them into bf16 tiles) up to :data:`SHALLOW_K`, and past it, over
-shards of :data:`FOLD_MIN_DOCS` docs or more, the same scan with its deep
-fold (each row a lower bound on its k-th best in a register, candidates
-staged in shared memory and kept in device memory, cut by a warp's radix
-select; :func:`fold_takes`: up to ``deep_topk.FOLD_MAX_K``, its workspace
-under the cap); f32 docs up to :data:`SHALLOW_K` take, past the crossover
+turn them into bf16 tiles) up to :data:`SHALLOW_K`, and past it, at every
+shard size, the same scan with its deep fold (each row a lower bound on its k-th best in a register, seeded from a
+sample of the shard and shared by the row's splits through device memory;
+candidates staged in shared memory and kept in device memory, cut by a
+warp's radix select; the (row, split) lists merged in the same launch;
+:func:`fold_takes`: up to ``deep_topk.FOLD_MAX_K``, its workspace under the
+cap); f32 docs up to :data:`SHALLOW_K` take, past the crossover
 :func:`f32_scan_pays`, the f32 scan (``f32_topk_kernel``: full f32 FMA on
 the CUDA cores, ``csrc/f32_tile.cuh``'s product over 128 query rows and 128
 docs a tile, operands by TMA into a ring, the wgmma scan's fold) and below
@@ -45,8 +46,8 @@ a list the fold does not take past that, any ``k`` as the TPU kernel takes,
 runs the deep launch: the same product and epilogue write a chunk of docs'
 gains to a workspace in device memory, every run of 8,192 docs is cut to
 its best ``k`` and the lists merge (``csrc/deep_topk.cuh``). The
-workspaces (the fold's candidates and lists; the deep launch's gains,
-lists and running lists) stay under ``deep_topk.WORKSPACE_CAP`` = 256 MiB:
+workspaces (the fold's candidates, sample words and running lists; the
+deep launch's gains, lists and running lists) stay under ``deep_topk.WORKSPACE_CAP`` = 256 MiB:
 the fold in fewer splits, the deep launch in chunks of docs and, where even
 one run's chunk for every query row would not fit, query rows in slices
 (:func:`ragroute_tpu_torch.ops.deep_topk.fused_plan`).
@@ -57,7 +58,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -86,19 +87,31 @@ SHALLOW_K = 64       # topk_merge.cuh KSHALLOW
 # the deep launch, at every shard, width and depth read (``measure.py
 # --kernels``, readings in PERF.md: bf16 over 104,857 to 734,003 docs at d =
 # 128, 512 and 768, k' = 65 to 256; int8 over hostrefine's coarse slab), so
-# it was removed. The fold beat the deep launch at every width read over
-# 734,003 docs; a shard's size does matter. The fold pays a fixed cost a (row,
-# split): its first fill (every finite gain enters until the first cut) and
-# the final cut, sort and merge. Over a small shard that cost is most of
-# the launch, and the deep launch is faster: device ms at B = 512, k' =
-# 128, fold against deep, d = 128: 83,886 docs 0.92 / 0.37, 104,857 0.97 /
-# 0.44, 125,829 1.00 / 0.55, 262,144 1.70 / 1.12, 734,003 2.67 / 3.11; d =
-# 768: 125,829 1.24 / 1.05, 262,144 2.01 / 2.17. Lists past SHALLOW_K over
-# fewer docs than FOLD_MIN_DOCS take the deep launch (at the coarse scans'
-# width, 128, the two cross between 262,144 and 734,003 docs).
-FOLD_MIN_DOCS = 400_000
+# it was removed. The fold takes every list past SHALLOW_K it takes
+# (fold_takes), at every shard size. Its first design lost to the deep
+# launch below about 400,000 docs: each (row, split) let every finite gain
+# in until its first cut, a cut stalls both consumer groups, and the split
+# lists merged in a second launch (device ms at B = 512, k' = 128, d = 128,
+# fold / deep launch: 83,886 docs 0.92 / 0.37, 104,857 0.97 / 0.44, 125,829
+# 1.00 / 0.55; measure.py's switch rows before this design). Now a row's
+# owner seeds the row's bound from a sample of the shard
+# (deep_topk.fold_sample_tiles), the bound is shared by the row's splits,
+# and their lists merge in the same launch. Device ms, deep launch / fold,
+# in two rounds of turns (H100 80GB HBM3, 700.00 W; measure.py's
+# DECODE_DEEP_TIMER; each tree's first process, which builds the kernels,
+# set aside, PERF.md): d = 128, k' = 128: 83,886 docs 0.353 to 0.356 /
+# 0.427 to 0.429, 104,857 0.427 to 0.428 / 0.482 to 0.493, 125,829 0.532 to
+# 0.551 / 0.479 to 0.525; k' = 256: 0.388 to 0.389 / 0.553 to 0.560, 0.468
+# to 0.486 / 0.600 to 0.606, 0.595 to 0.603 / 0.647 to 0.663; d = 768, k' =
+# 128: 125,829 1.065 to 1.068 / 0.690 to 0.704, 262,144 2.161 to 2.202 /
+# 1.419 to 1.439. The deep launch stays faster at d = 128 over 83,886 and
+# 104,857 docs at k' = 128 and over all three at k' = 256 (the fold's fixed
+# cost of a launch, about 0.26 ms, and about 13 us a tile of a split,
+# PERF.md); the plan takes the fold there too, one route at every shard
+# size: a regression of about 0.12 ms a low-rank step on the small shards,
+# against 0.93 ms gained on pubmed's (PERF.md section 5).
 W_TILE_Q = 128
-W_TILE_D = 192
+W_TILE_D = deep_topk.FOLD_TILE     # csrc/fused_topk.cu WTD
 W_MAX_WAVES = 8
 # the f32 scan (csrc/fused_topk.cu F_*): 128 query rows and 128 docs a
 # tile, a ring of up to 6 stages of a [128 x 32] f32 query box and doc box
@@ -251,7 +264,7 @@ def _lib():
         lib.fused_topk_deep_launch.restype = ci
         lib.fused_topk_wgmma_launch.argtypes = [vp] * 8 + [ci] * 8 + [vp]
         lib.fused_topk_wgmma_launch.restype = ci
-        lib.fused_topk_fold_launch.argtypes = [vp] * 9 + [ci] * 9 + [vp]
+        lib.fused_topk_fold_launch.argtypes = [vp] * 12 + [ci] * 10 + [vp]
         lib.fused_topk_fold_launch.restype = ci
         lib.fused_topk_f32_launch.argtypes = [vp] * 8 + [ci] * 7 + [vp]
         lib.fused_topk_f32_launch.restype = ci
@@ -318,8 +331,8 @@ def _plan(bsz: int, n_rows: int, d: int, k: int, doc_type: int, sms: int,
     names one to plan for instead of choosing (the measurements time the
     launches against each other at one shape); a launch the shape does not
     fit raises. Lists past :data:`SHALLOW_K` take the deep fold where it
-    takes them (:func:`fold_takes`) over :data:`FOLD_MIN_DOCS` docs or
-    more, else the deep launch; shallower lists
+    takes them (:func:`fold_takes`), at every shard size, else the deep
+    launch; shallower lists
     take the wgmma scan where it takes the docs; f32 docs up to
     :data:`SHALLOW_K` the f32 scan where it pays (:func:`f32_scan_pays`)
     and the small-batch f32 scan below it; else the first design. The doc
@@ -328,8 +341,7 @@ def _plan(bsz: int, n_rows: int, d: int, k: int, doc_type: int, sms: int,
     f32 scans' take a whole SM (:func:`_wave_splits`), the fold's also no
     more than its workspace allows."""
     if kernel is None:
-        if (k > SHALLOW_K and n_rows >= FOLD_MIN_DOCS
-                and fold_takes(bsz, d, k, doc_type, cap)):
+        if k > SHALLOW_K and fold_takes(bsz, d, k, doc_type, cap):
             kernel = "fold"
         elif k > MAX_SHALLOW_K:
             kernel = "deep"
@@ -337,8 +349,8 @@ def _plan(bsz: int, n_rows: int, d: int, k: int, doc_type: int, sms: int,
             kernel = "f32" if f32_scan_pays(bsz) else "f32_small"
         elif not scan_takes(d, doc_type):
             kernel = "shallow"
-        elif k > SHALLOW_K:     # a small shard, or the fold's workspace
-            kernel = "deep"     # over the cap
+        elif k > SHALLOW_K:     # the fold's workspace over the cap
+            kernel = "deep"
         else:
             kernel = "wgmma"
     elif kernel == "wgmma" and (k > SHALLOW_K or not scan_takes(d, doc_type)):
@@ -355,11 +367,15 @@ def _plan(bsz: int, n_rows: int, d: int, k: int, doc_type: int, sms: int,
         return Plan("deep", 1, 1, 0)
     if kernel == "fold":
         n_tiles = -(-n_rows // W_TILE_D)
-        limit = (deep_topk.WORKSPACE_CAP if cap is None else cap) // \
-            deep_topk.fold_bytes(bsz, 1, k)
+        rows = deep_topk.fold_bytes(bsz, 0, k)
+        limit = ((deep_topk.WORKSPACE_CAP if cap is None else cap) - rows) \
+            // (deep_topk.fold_bytes(bsz, 1, k) - rows)
         splits, per = _wave_splits(n_tiles, -(-bsz // W_TILE_Q), sms,
                                    min(MAX_SPLITS, limit))
-        return Plan("fold", splits, per, W_TILE_D, deep_topk.fold_cap(k))
+        wide = deep_topk.fold_bytes(bsz, splits, k, per) <= (
+            deep_topk.WORKSPACE_CAP if cap is None else cap)
+        return Plan("fold", splits, per, W_TILE_D,
+                    deep_topk.fold_cap(k, per if wide else None))
     if kernel == "wgmma":
         n_tiles = -(-n_rows // W_TILE_D)
         splits, per = _wave_splits(n_tiles, -(-bsz // W_TILE_Q), sms)
@@ -481,33 +497,61 @@ def _launch(q: Tensor, docs: Tensor, k: int, n_rows: int,
     return out_g, out_i
 
 
+_FOLD_SCRATCH: Dict[Tuple[torch.device, int], Tuple[Tensor, Tensor,
+                                                      Tensor]] = {}
+
+
+def _fold_scratch(dev: torch.device, stream: int, bsz: int
+                  ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The deep fold's row state for launches on ``stream``: each row's
+    shared bound (int64 words), merged splits and lock (int32), ``bsz``
+    rows or more, zero. The launches of one stream run in order and each
+    leaves the state at zero (a row's last split clears it), so it is made
+    once and grown only for a larger batch, as K2's collect keeps its
+    counters (``stream_topk._collect_scratch``)."""
+    key = (dev, stream)
+    have = _FOLD_SCRATCH.get(key)
+    if have is None or have[0].numel() < bsz:
+        rows = max(bsz, 512, 0 if have is None else have[0].numel())
+        have = (torch.zeros(rows, dtype=torch.int64, device=dev),
+                torch.zeros(rows, dtype=torch.int32, device=dev),
+                torch.zeros(rows, dtype=torch.int32, device=dev))
+        _FOLD_SCRATCH[key] = have
+    return have
+
+
 def _launch_fold(q: Tensor, docs: Tensor, k: int, n_rows: int,
                  bias: Optional[Tensor], scale: Optional[Tensor],
                  n_groups: int, doc_type: int,
                  plan: Plan) -> Tuple[Tensor, Tensor]:
     """The deep fold (lists past :data:`SHALLOW_K` over docs the scan
     takes), operands checked by :func:`_launch`: one scan launch whose rows
-    keep their candidates in ``cand`` (``[B, splits, cap]`` 64-bit words),
-    then the merge of the (row, split) lists."""
+    keep their candidates in ``cand`` (``[B, splits, cap]`` 64-bit words)
+    and merge their (row, split) lists into ``run`` (``[B, k]`` words) in
+    the same launch."""
     bsz, d = q.shape
     dev = docs.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
     cand = torch.empty((bsz, plan.splits, plan.cap), dtype=torch.int64,
                        device=dev)
-    part_g = torch.empty((bsz, plan.splits, k), dtype=torch.float32,
-                         device=dev)
-    part_i = torch.empty((bsz, plan.splits, k), dtype=torch.int32,
-                         device=dev)
+    sample = deep_topk.fold_sample_tiles(k)
+    samp = torch.empty((bsz, sample * W_TILE_D), dtype=torch.int64,
+                       device=dev)
+    run = torch.empty((bsz, k), dtype=torch.int64, device=dev)
+    seed, count, lock = _fold_scratch(dev, stream, bsz)
     out_g = torch.empty((bsz, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((bsz, k), dtype=torch.int64, device=dev)
     err = _lib().fused_topk_fold_launch(
         q.data_ptr(), docs.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if scale is None else scale.data_ptr(), cand.data_ptr(),
-        part_g.data_ptr(), part_i.data_ptr(), out_g.data_ptr(),
-        out_i.data_ptr(), bsz, n_rows, d, k, n_groups, plan.splits,
-        plan.tiles_per_split, plan.cap, doc_type,
-        torch.cuda.current_stream(dev).cuda_stream)
+        samp.data_ptr(), run.data_ptr(), seed.data_ptr(), count.data_ptr(),
+        lock.data_ptr(), out_g.data_ptr(), out_i.data_ptr(), bsz, n_rows, d,
+        k, n_groups, plan.splits, plan.tiles_per_split, plan.cap, sample,
+        doc_type, stream)
     if err != 0:
+        # a launch that did not run to its end may leave the state dirty
+        _FOLD_SCRATCH.pop((dev, stream), None)
         raise RuntimeError(f"fused_topk fold launch failed for queries "
                            f"[{bsz}, {d}] over docs [{n_rows}, "
                            f"{docs.shape[1]}] {docs.dtype} k={k}: CUDA error "

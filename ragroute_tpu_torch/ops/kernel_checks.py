@@ -184,6 +184,64 @@ def fold_exact_cases(device, *, bsz: int = 150, seed: int = 7
                cap=deep_topk.fold_bytes(bsz, 1, 256))
 
 
+# the low-rank world's three small coarse shards (medrag's textbooks,
+# statpearls and wikipedia at rank 128), which the deep fold takes
+SMALL_SHARDS = (83_886, 104_857, 125_829)
+
+
+def small_shard_exact_cases(device, *, bsz: int = 512, d: int = 128,
+                            seed: int = 12) -> Iterator[Case]:
+    """Exact-arithmetic cases of the deep fold at the shapes of
+    :data:`SMALL_SHARDS` (B = 512, rank 128): integer data in [-4, 4], made
+    on the card, so that gains tie by the thousand and the k'-th best ties
+    across splits; bf16 docs at k' = 128 and 256, int8 docs with
+    power-of-two per-doc scales at k' = 128, and bf16 docs with a -inf bias
+    on their last 1,000 rows."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randint(-4, 5, (bsz, d), generator=g, device=device).float()
+    for n in SMALL_SHARDS:
+        codes = torch.randint(-4, 5, (n, d), generator=g, device=device,
+                              dtype=torch.int8)
+        bf16 = codes.to(torch.bfloat16)
+        for k in (128, 256):
+            yield Case(f"small-n{n}-bf16-k{k}", q, bf16, k, "dot")
+        if n == SMALL_SHARDS[1]:
+            scale = 2.0 ** torch.randint(-3, 2, (n,), generator=g,
+                                         device=device).float()
+            yield Case(f"small-n{n}-int8-k128", q, codes, 128, "dot",
+                       scale=scale)
+        if n == SMALL_SHARDS[0]:
+            tail = torch.zeros(n, dtype=torch.float32, device=device)
+            tail[n - 1000:] = NEG_INF
+            yield Case(f"small-n{n}-bf16-inf-tail-k128", q, bf16, 128, "dot",
+                       bias=tail)
+
+
+def one_lane_exact_cases(device, *, bsz: int = 512, d: int = 128,
+                         seed: int = 13) -> Iterator[Case]:
+    """Exact-arithmetic cases of the deep fold whose candidates all fall to
+    one lane of a row's quad: a -inf bias but at positions 0 and 1 mod 8
+    (and there on a random 30% too), so that lane nears its quarter of the
+    buffer while the row holds fewer than k' words, which must be packed
+    and bound nothing. Integer data in [-4, 4] (gains tied by the
+    thousand), B = 512, rank 128: k' = 128 over 300,000 docs (splits of
+    more than ``deep_topk.FOLD_SHORT_TILES`` tiles: the 4k buffer), k' =
+    256 and k' = 600 (no sample, the buffers packed after the scan) over
+    83,886."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randint(-4, 5, (bsz, d), generator=g, device=device).float()
+    for n, ks in ((300_000, (128,)), (SMALL_SHARDS[0], (256, 600))):
+        docs = torch.randint(-4, 5, (n, d), generator=g, device=device,
+                             dtype=torch.int8).to(torch.bfloat16)
+        pos = torch.arange(n, device=device)
+        keep = (pos % 8 < 2) & (torch.rand(n, generator=g, device=device)
+                                > 0.3)
+        bias = torch.where(keep, 0.0, NEG_INF).float()
+        for k in ks:
+            yield Case(f"one-lane-n{n}-bf16-k{k}", q, docs, k, "dot",
+                       bias=bias)
+
+
 DEEP_KS = (161, 256, 600, 1100)
 F32_KS = (1, 10, 32, 64)
 # the small-batch f32 scan's batches: the batcher's buckets 1, 8 and 32, and

@@ -102,11 +102,12 @@ def test_kernel_counts_launches_and_raises_on_what_it_does_not_take(cuda):
     assert fused_topk.launches == before + 1
     fused_topk(q, packed, 8, packed4=True)              # int4 launches
     fused_topk(q, docs, 160)          # the shallow launch's deepest list
-    deep = fused_topk.deep_launches
-    fused_topk(q, docs, 161)          # past it, the deep launch
-    fused_topk(q, packed, 300, packed4=True)
+    deep, fold = fused_topk.deep_launches, fused_topk.fold_launches
+    fused_topk(q, docs, 161)          # past it, f32: the deep launch
+    fused_topk(q, packed, 300, packed4=True)    # int4: the deep fold
     assert fused_topk.launches == before + 5
-    assert fused_topk.deep_launches == deep + 2
+    assert fused_topk.deep_launches == deep + 1
+    assert fused_topk.fold_launches == fold + 1
 
 
 @pytest.mark.parametrize("kernel", [None, "wgmma"])
@@ -142,7 +143,10 @@ def test_wgmma_scan_matches_plain_within_tolerance(cuda, bsz, n, d, k):
 
 @pytest.mark.parametrize("bsz,n,d,k", [(200, 30_000, 768, 160),
                                        (512, 50_000, 128, 128),
-                                       (8, 100_003, 128, 256)])
+                                       (8, 100_003, 128, 256),
+                                       (512, 83_886, 128, 128),
+                                       (512, 104_857, 128, 256),
+                                       (512, 125_829, 768, 128)])
 def test_deep_fold_matches_plain_within_tolerance(cuda, bsz, n, d, k):
     """The wgmma scan's deep fold on random bf16 data (lists past 64, where
     the scan's own lists stop)."""
@@ -250,6 +254,48 @@ def test_kernel_deep_fold_exact_cases_equal_plain(cuda):
             n += kernel == "fold" or kc.fused_plan_of(case) == "fold"
     assert not failed, failed
     assert fused_topk.fold_launches == before + n
+
+
+def test_small_shard_fold_exact_cases_equal_plain(cuda):
+    """The deep fold at the low-rank world's three small coarse shards (B =
+    512, rank 128; the deep launch took them before): integer docs whose
+    gains tie by the thousand, the k'-th best among them across splits;
+    bf16 at k' = 128 and 256, int8 with scales, a -inf tail: the plan takes
+    the fold, and its indices and scores equal the plain version's, one
+    fold launch a call and no deep launch (twice: the launch leaves its
+    rows' shared state as it found it)."""
+    failed = []
+    before = (fused_topk.fold_launches, fused_topk.deep_launches)
+    n = 0
+    for case in kc.small_shard_exact_cases(cuda):
+        assert kc.fused_plan_of(case) == "fold", case.name
+        ps, pi = kc.run_plain(case)
+        for _ in range(2):
+            ks, ki = kc.run_kernel(case)
+            torch.cuda.synchronize()
+            if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+                failed.append(case.name)
+            n += 1
+    assert not failed, failed
+    assert (fused_topk.fold_launches, fused_topk.deep_launches) == (
+        before[0] + n, before[1])
+
+
+def test_one_lane_fold_exact_cases_equal_plain(cuda):
+    """The deep fold on rows whose candidates all fall to one lane of the
+    quad (a -inf bias but at positions 0 and 1 mod 8): a buffer of fewer
+    than k' words is packed, never cut, and raises no bound; k' = 128 over
+    splits of more than 42 tiles, k' = 256 and 600; indices and scores
+    equal the plain version's."""
+    failed = []
+    for case in kc.one_lane_exact_cases(cuda):
+        assert kc.fused_plan_of(case) == "fold", case.name
+        ps, pi = kc.run_plain(case)
+        ks, ki = kc.run_kernel(case)
+        torch.cuda.synchronize()
+        if not (torch.equal(ki, pi) and torch.equal(ks, ps)):
+            failed.append(case.name)
+    assert not failed, failed
 
 
 @pytest.mark.parametrize("grouped", [False, True])
@@ -654,7 +700,8 @@ def test_pair_topk_deep_ranks_match_plain_at_the_reduced_world(cuda):
 def test_lowrank_refine_mult_8_on_the_card_matches_the_cpu_engine(cuda):
     """``--impl lowrank --refine-mult 8`` (k' = 256 at medrag's k = 32) on
     a reduced world: the engine on the card, whose coarse scans take the
-    fused kernel's deep launch, against the same engine on the CPU (plain
+    fused kernel's deep fold (at every shard size; the deep launch took
+    these small ones before), against the same engine on the CPU (plain
     versions) over one layout carried across: same masks, scores within
     1e-3 * max|score|, winners equal up to near-ties."""
     from ragroute_tpu_torch.engine import FederatedSearchEngine
@@ -673,7 +720,7 @@ def test_lowrank_refine_mult_8_on_the_card_matches_the_cpu_engine(cuda):
                           lowrank=-1)
     embs = dict(syn.query_embs)
     outs = []
-    deep = fused_topk.deep_launches
+    deep, fold = fused_topk.deep_launches, fused_topk.fold_launches
     for dev in (cuda, "cpu"):
         eng = FederatedSearchEngine(
             _on(host, dev), CorpusRouter.from_seed(
@@ -681,7 +728,8 @@ def test_lowrank_refine_mult_8_on_the_card_matches_the_cpu_engine(cuda):
             RouterBank.create(syn.world, syn.centroids, device=dev),
             impl="lowrank", k_refine=k_refine)
         outs.append(eng.search(embs, strategy="all", fetch_candidates=False))
-    assert fused_topk.deep_launches >= deep + 4     # one a source
+    assert fused_topk.fold_launches >= fold + 4     # one a source
+    assert fused_topk.deep_launches == deep
     _close_engines(*outs, 48)
 
 

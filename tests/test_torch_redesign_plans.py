@@ -10,8 +10,7 @@ in the launch) cover every packed row once; a torch model of that sum
 version on exact integer cases and stays within tolerance on random ones.
 K1 (``ops/fused_topk.py::_plan``) sends bf16, int8 and int4 docs to the
 wgmma scan up to k = 64 (the scan takes no deeper list, even when named)
-and past it to its deep fold over shards of ``FOLD_MIN_DOCS`` docs or more
-(smaller ones to the deep launch); f32 docs to the f32 scan up to k = 64
+and past it to its deep fold at every shard size; f32 docs to the f32 scan up to k = 64
 from 65 query rows (smaller batches to the first design), to the first
 design from k = 65 to 160 and to the deep launch past it; int4
 rows off the 16-byte grid to the first design, or past k = 160 to the deep
@@ -232,14 +231,14 @@ def test_fused_plan_keeps_the_first_design_off_bf16(doc_type, d, k, want):
 @pytest.mark.parametrize("n,k", [(734_003, 32), (734_003, 128),
                                  (104_857, 64), (845, 10), (20_000, 160)])
 def test_wgmma_splits_cover_the_shard_and_fill_the_card(bsz, n, k):
-    """The scan (k <= 64) and its deep fold (past it, named: the plan sends
-    lists past 64 over shards below ``FOLD_MIN_DOCS`` to the deep launch;
-    128 query rows a block, as the scan at the serving depths)."""
+    """The scan (k <= 64) and its deep fold (past it, named, and the plan's
+    own choice at every shard size: no list the fold takes goes to the deep
+    launch; 128 query rows a block, as the scan at the serving depths)."""
     deep = k > ft.SHALLOW_K
     plan = ft._plan(bsz, n, 768, k, BF16, SMS, "fold" if deep else None)
     assert plan.kernel == ("fold" if deep else "wgmma")
-    if deep and n < ft.FOLD_MIN_DOCS:
-        assert ft._plan(bsz, n, 768, k, BF16, SMS).kernel == "deep"
+    if deep:
+        assert ft._plan(bsz, n, 768, k, BF16, SMS) == plan
     assert plan.tile_d == ft.W_TILE_D
     n_tiles = -(-n // plan.tile_d)
     # every tile in exactly one split, no split empty
